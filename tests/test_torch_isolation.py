@@ -1,0 +1,77 @@
+"""The port stands alone: it imports neither jax nor the JAX package,
+and it never runs on the CPU unless the caller asks for it."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SRC = REPO / "src"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    return env
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.strassen_fused\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+# `repro_torch` starts with `repro`: only `repro` followed by `.`, a space,
+# a comma or the end of the line names the JAX package.
+_BAD_IMPORT = re.compile(
+    r"^\s*(import\s+(jax\b|jaxlib\b|repro\s*(\.|,|$|\s+as\b))"
+    r"|from\s+(jax\b|jaxlib\b|repro\s*(\.|\s+import\b)))")
+
+
+def test_source_scan_finds_no_jax_or_reference_import():
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + \
+        [REPO / "chip_smoke.py"]
+    assert len(files) > 5
+    for path in files:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            assert not _BAD_IMPORT.search(line), f"{path}:{i}: {line}"
+    for good, bad in (("import repro_torch", "import repro"),
+                      ("from repro_torch.core import ata",
+                       "from repro.core import ata"),
+                      ("from repro_torch import core",
+                       "from repro import core")):
+        assert not _BAD_IMPORT.search(good) and _BAD_IMPORT.search(bad)
+
+
+def test_entry_points_refuse_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run there")
+    from repro_torch.core import ata, ata_full
+    from repro_torch.kernels import ops, strassen_fused
+    a = torch.ones(8, 8)
+    for fn in (ata, ata_full, ops.ata_fused, ops.ata_fused_packed,
+               strassen_fused.fused_ata, strassen_fused.fused_ata_packed):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(a)
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         cwd=REPO, env=_env(), capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

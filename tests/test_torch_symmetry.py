@@ -1,0 +1,78 @@
+"""The port's packed-triangle storage against the JAX package's: same
+layout, same values, and stacks written by JAX load as they are."""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro.core import symmetry as jsym
+from repro_torch.core import symmetry as tsym
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These shapes are small: one intra-op thread keeps the test from
+    crowding the suite's other workers on a shared CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _dense(n, seed):
+    return np.random.default_rng(seed).standard_normal((n, n)) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("n,bn", [(40, 8), (64, 8), (64, 16)])
+def test_pack_unpack_blocks_match_jax(n, bn):
+    c = _dense(n, seed=n + bn)
+    want = np.asarray(jsym.pack_tril_blocks(jnp.asarray(c), bn))
+    got = tsym.pack_tril_blocks(torch.from_numpy(c), bn)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for symmetrize in (False, True):
+        want_u = np.asarray(jsym.unpack_tril_blocks(
+            jnp.asarray(want), n, bn, symmetrize=symmetrize))
+        # a stack from the JAX package, handed over as a numpy array
+        got_u = tsym.unpack_tril_blocks(want, n, bn, symmetrize=symmetrize)
+        np.testing.assert_array_equal(got_u.numpy(), want_u)
+
+
+@pytest.mark.parametrize("n,bn", [(40, 8), (64, 16)])
+def test_tril_vector_and_symmetrize_match_jax(n, bn):
+    c = _dense(n, seed=7)
+    stack = np.asarray(jsym.pack_tril_blocks(jnp.asarray(c), bn))
+    for k in (n, n - 3):
+        np.testing.assert_array_equal(
+            tsym.tril_vector_from_blocks(stack, bn, k).numpy(),
+            np.asarray(jsym.tril_vector_from_blocks(jnp.asarray(stack),
+                                                    bn, k)))
+    np.testing.assert_array_equal(
+        tsym.symmetrize_from_lower(torch.from_numpy(c)).numpy(),
+        np.asarray(jsym.symmetrize_from_lower(jnp.asarray(c))))
+
+
+def test_tri_index_coords_and_errors_match_jax():
+    for t in (1, 5, 8):
+        assert tsym.tri_count(t) == jsym.tri_count(t)
+        np.testing.assert_array_equal(tsym.tri_coords(t).numpy(),
+                                      jsym.tri_coords(t))
+        assert tsym.tri_coords(t).dtype == torch.int32
+    assert [tsym.tri_index(i, j) for i in range(6) for j in range(i + 1)] \
+        == [jsym.tri_index(i, j) for i in range(6) for j in range(i + 1)]
+    for mod in (tsym, jsym):
+        with pytest.raises(ValueError):
+            mod.tri_index(1, 2)
+        with pytest.raises(ValueError):
+            mod.pack_tril_blocks(np.zeros((40, 40), np.float32), 16)
+
+
+def test_bf16_stack_from_jax_loads():
+    c = _dense(16, seed=3)
+    stack = np.asarray(jsym.pack_tril_blocks(
+        jnp.asarray(c).astype(jnp.bfloat16), 8))
+    got = tsym.unpack_tril_blocks(stack, 16, 8, symmetrize=False)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jsym.unpack_tril_blocks(
+        jnp.asarray(stack), 16, 8, symmetrize=False).astype(jnp.float32))
+    np.testing.assert_array_equal(got.float().numpy(), want)
