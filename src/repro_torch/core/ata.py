@@ -13,7 +13,8 @@ Two execution modes:
 * ``mode="fused"`` — the hot path.  The recursion is flattened into a
   leaf program (``core/leaf_ir.py``) and run by one hand-written CUDA
   kernel (``kernels/strassen_fused.py``); each packed lower-triangular
-  output tile is written once.
+  output tile is written once.  Differentiable: the backward runs the
+  same kernel as the symm kind (``bwd="fused"``).
 * ``mode="reference"`` — the recursion itself, capped at ``levels``;
   the numerical oracle, differentiable through autograd, and the only
   mode that honours custom ``base_syrk`` / ``base_matmul`` hooks.
@@ -56,6 +57,7 @@ def ata(
     base_syrk: Optional[Callable] = None,
     base_matmul: Optional[Callable] = None,
     mode: str = "auto",
+    bwd: str = "fused",
     out_dtype=None,
     block: Optional[int] = None,
     pipeline_depth: Optional[int] = None,
@@ -83,6 +85,11 @@ def ata(
       base_syrk / base_matmul: leaf hooks of the reference recursion.
         They force reference mode under ``mode="auto"``.
       mode: "auto" | "fused" | "reference".
+      bwd: the backward of the fused path — ``"fused"`` (default: the
+        packed cotangent through the symm kind of the leaf-program
+        kernel) or ``"dense"`` (the classical ``A (S + S^t)`` in torch).
+        Reference mode differentiates through the recursion and ignores
+        it, as does ``gram_of="rows"``.
       out_dtype: result dtype; defaults to
         ``torch.promote_types(a.dtype, torch.float32)``.
       block: tile edge of the fused path (bk = bn = block; None = 256).
@@ -133,7 +140,7 @@ def ata(
     elif mode == "fused":
         return ops.ata_fused(a, levels=levels, variant=variant, gram=gram,
                              bk=block, bn=block, out_dtype=out_dtype,
-                             pipeline_depth=pipeline_depth,
+                             bwd=bwd, pipeline_depth=pipeline_depth,
                              operand_dtype=operand_dtype,
                              acc_dtype=acc_dtype, sr_seed=sr_seed,
                              device=a.device)
@@ -171,10 +178,10 @@ def _ata_rec(a, levels, leaf, variant, syrk, base_matmul):
     # C21: two generalized-Strassen rectangular products (lines 11-12).
     c21 = strassen_matmul(
         a12.T, a11, levels=levels - 1, leaf=leaf, variant=variant,
-        base_matmul=base_matmul, mode="reference",
+        base_matmul=base_matmul, mode="reference", device=a.device,
     ) + strassen_matmul(
         a22.T, a21, levels=levels - 1, leaf=leaf, variant=variant,
-        base_matmul=base_matmul, mode="reference",
+        base_matmul=base_matmul, mode="reference", device=a.device,
     )
 
     top = torch.cat([c11, c11.new_zeros((n2, np_ - n2))], dim=1)

@@ -7,9 +7,11 @@ recursion runs eagerly over the operands' quadrants, capped at
 least fp32) takes over, as the JAX package leaves its leaves to XLA.
 Odd dimensions are zero-padded to even (exact) and sliced away.
 
-On a CUDA tensor ``mode="auto"`` resolves to ``"fused"``, on a CPU
-tensor to ``"reference"``.  The fused matmul program is not ported yet
-(ROADMAP Queue 1 #5), so ``strassen_matmul`` on the fused path raises.
+``resolve_mode`` gives ``"fused"`` for a CUDA tensor and
+``"reference"`` for a CPU tensor (``ata`` uses it).  The fused matmul
+program is not ported yet (ROADMAP Queue 1 #5): ``strassen_matmul``
+resolves ``mode="auto"`` to ``"reference"`` on either device, and
+``mode="fused"`` raises.
 """
 from __future__ import annotations
 
@@ -114,10 +116,10 @@ def strassen_matmul(
     trans_a: bool = False,
     trans_b: bool = False,
     out_dtype=None,
+    device=None,
 ) -> torch.Tensor:
     """Compute ``op(a) @ op(b)`` via (level-capped) Strassen recursion,
-    ``op`` = transpose where the flag is set.  Runs on the device its
-    operands lie on.
+    ``op`` = transpose where the flag is set.
 
     Args:
       a: (m, k) tensor — or (k, m) with ``trans_a``.
@@ -128,9 +130,15 @@ def strassen_matmul(
       variant: "strassen" | "winograd" | "classical".
       base_matmul: leaf matmul; defaults to ``torch.matmul`` in >= fp32.
         Forces reference mode under ``mode="auto"``.
-      mode: "auto" | "fused" | "reference".
+      mode: "auto" | "fused" | "reference".  Until the matmul program
+        is ported (ROADMAP Queue 1 #5), "auto" is "reference" on either
+        device — the recursion, a mode the JAX package has too — and
+        "fused" raises ``NotImplementedError``.
       out_dtype: result dtype; defaults to the promoted accumulation
         dtype (fp32 for bf16/fp32 inputs).
+      device: where to run; None means ``"cuda"``.  CPU tensors are
+        moved to the card unless ``device="cpu"``.  Without a card and
+        without ``device="cpu"`` this raises ``RuntimeError``.
 
     Returns (m, n) tensor in ``out_dtype``.
     """
@@ -147,11 +155,15 @@ def strassen_matmul(
         levels = min(strassen_levels_for(m, k_a, n, leaf), AUTO_MAX_LEVELS)
     out_dtype = _acc_dtype(a.dtype, b.dtype) if out_dtype is None \
         else out_dtype
-    mode = resolve_mode(mode, base_matmul, device=a.device)
+    # the matmul program has no kernel yet: "auto" is the recursion
+    mode = "reference" if mode == "auto" \
+        else resolve_mode(mode, base_matmul, device=a.device)
     if mode == "fused":
         raise NotImplementedError(
             "strassen_matmul(mode='fused'): the fused matmul program is "
             "not ported yet (ROADMAP Queue 1 #5); use mode='reference'")
+    from ..kernels.ops import _place
+    a, b = _place(a, device), _place(b, device)
     base = base_matmul or _default_base_matmul
     with ieee_fp32():
         res = _strassen_rec(a.T if trans_a else a, b.T if trans_b else b,

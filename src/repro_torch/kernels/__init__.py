@@ -1,10 +1,11 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
 - strassen_fused: the leaf-program executor (``csrc/leaf_program.cu``,
-                  ata kind) behind ``ops.ata_fused[_packed]``
+                  ata and symm kinds) behind ``ops.ata_fused[_packed]``
+                  and ``ops.symm_matmul``
 - ref:            plain torch oracles
 """
 from . import ops, ref
-from .ops import ata_fused, ata_fused_packed
+from .ops import ata_fused, ata_fused_packed, symm_matmul
 
-__all__ = ["ops", "ref", "ata_fused", "ata_fused_packed"]
+__all__ = ["ops", "ref", "ata_fused", "ata_fused_packed", "symm_matmul"]

@@ -1,4 +1,4 @@
-"""The fused leaf-program executor of the PyTorch port, ata kind.
+"""The fused leaf-program executor of the PyTorch port: ata and symm kinds.
 
 The port of the host side of ``repro/kernels/strassen_fused.py``.  A
 ``LeafProgram`` (``core/leaf_ir.py``) is bound to tile sizes
@@ -6,23 +6,29 @@ The port of the host side of ``repro/kernels/strassen_fused.py``.  A
 run by :func:`leaf_program`:
 
 * on a CUDA tensor, the hand-written kernel ``csrc/leaf_program.cu``
-  (one thread block per (packed output tile, 64 x 64 sub-tile); the
+  (one thread block per (output tile, 64 x 64 sub-tile); the
   contribution x K sweep loops inside the block behind a
   ``pipeline_depth``-slot ``cp.async`` ring);
 * on a CPU tensor, :func:`_leaf_program_plain`, a torch walk over the
   same tables — the counterpart of Pallas interpret mode, and the plain
   version the kernel is held against on the card.
 
-Each packed lower-triangular output tile is written once.  The analytic
-traffic model (:func:`ata_traffic_model`) shares the executor's
-geometry, so it cannot drift from the padding and clamping it runs.
-Only the ``ata`` kind is ported; aat, symm, rank_k and matmul are
-ROADMAP Queue 2.
+Two program kinds run: ``ata`` (the forward, ``tril(A^t A)`` into the
+packed lower-triangular tile stack, each tile written once) and
+``symm`` (``X @ Sym`` with Sym given only as a packed stack — the
+engine of the backward ``dA = A (S + S^t)``, :func:`fused_symm_matmul`).
+``fused_ata`` / ``fused_ata_packed`` are differentiable through
+``torch.autograd.Function``s whose backward runs the symm kind.  The
+analytic traffic models (:func:`ata_traffic_model`,
+:func:`ata_bwd_traffic_model`) share the executor's geometry, so they
+cannot drift from the padding and clamping it runs.  The aat, rank_k
+and matmul kinds are ROADMAP Queue 2.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import warnings
 from dataclasses import dataclass
 
@@ -38,9 +44,9 @@ from ..core.symmetry import tri_coords, unpack_tril_blocks
 from . import _build
 from .ops import _place
 
-__all__ = ["fused_ata", "fused_ata_packed", "ata_traffic_model",
-           "leaf_program", "KERNEL_LAUNCHES", "MAX_OPERAND_TERMS",
-           "MAX_PIPELINE_DEPTH"]
+__all__ = ["fused_ata", "fused_ata_packed", "fused_symm_matmul",
+           "ata_traffic_model", "ata_bwd_traffic_model", "leaf_program",
+           "KERNEL_LAUNCHES", "MAX_OPERAND_TERMS", "MAX_PIPELINE_DEPTH"]
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -51,7 +57,8 @@ def _round_up(x: int, mult: int) -> int:
 # chunks per step into shared memory, so deep programs are clamped.
 MAX_OPERAND_TERMS = 8
 
-# Ring depth cap: each slot holds another 2 * max_terms raw chunks.
+# Ring depth cap: each slot holds another 2 * max_terms raw chunks (ata)
+# or 3 * max_terms (symm: a right term may need its tile and the mirror).
 MAX_PIPELINE_DEPTH = 4
 
 # Shared memory one thread block may use on Hopper (227 KB).
@@ -63,12 +70,14 @@ _SUPPORTED_OPERAND_DTYPES = ("float8_e4m3fn", "float8_e5m2", "bfloat16",
                              "float16", "float32", "float64")
 _PORTED_OPERAND_DTYPES = ("bfloat16", "float32")
 
-# dtype codes of the C interface
+# dtype and program-kind codes of the C interface
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KIND_CODES = {"ata": 0, "symm": 1}
 
-#: Launches of each CUDA kernel, bumped where the kernel is launched and
-#: nowhere else — a run reads it to show the main path went through it.
-KERNEL_LAUNCHES = {"leaf_program": 0}
+#: Launches of each CUDA kernel, one count per program kind, bumped where
+#: the kernel is launched and nowhere else — a run reads it to show the
+#: main path went through it.
+KERNEL_LAUNCHES = {f"leaf_program/{kind}": 0 for kind in _KIND_CODES}
 
 # (kind, variant, gram, requested, clamped) combinations already warned
 # about: the clamp warns exactly once per distinct clamp.
@@ -134,11 +143,10 @@ def _resolve_pipeline_depth(pipeline_depth, device: torch.device) -> int:
     return depth
 
 
-def _refuse_grad(a: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and a.requires_grad:
-        raise NotImplementedError(
-            "gradients through the fused path are not ported yet (ROADMAP "
-            "Queue 1 #4); use mode='reference' or torch.no_grad()")
+def _resolve_bwd(bwd: str) -> str:
+    if bwd not in ("fused", "dense"):
+        raise ValueError(f"bwd must be 'fused' or 'dense', got {bwd!r}")
+    return bwd
 
 
 def _warn_fan_in_clamp(kind: str, variant: str, gram: str, requested: int,
@@ -199,6 +207,23 @@ def _ata_geometry(m: int, n: int, levels: int, variant: str,
         "n_k": mb // bk, "nbt": nb // bn,
         "n_tri": t_blocks * (t_blocks + 1) // 2,
     }
+
+
+def _symm_geometry(m: int, T: int, levels: int, variant: str, bm: int):
+    """Level clamp + padded-row geometry for the symm executor (shared
+    with ``ata_bwd_traffic_model``).  ``T`` is the packed stack's tile
+    count per side; the column side cannot be padded (the stack layout is
+    fixed), so levels clamp to divisors of T.  Rectangular variants pad
+    rows to their own ``blocks_m`` grid while T divides ``blocks_n``."""
+    dn = leaf_ir.algebra_dims(variant)[2]
+    while levels > 0 and T % (dn ** levels):
+        levels -= 1
+    levels = _fan_in_clamp("symm", levels, variant)
+    plan = compile_program("symm", levels, variant)
+    bm_blocks = plan.blocks_m
+    mb = _round_up(max(m, 1), bm_blocks * bm) // bm_blocks
+    return {"plan": plan, "levels": levels, "M": bm_blocks * mb,
+            "nbm": mb // bm, "q": T // plan.blocks_n}
 
 
 # ---------------------------------------------------------------------------
@@ -271,8 +296,8 @@ def _bind(prog: LeafProgram, *, n_out, n_tj, q_i, q_j, n_k, bi, bj, bc,
 # contribution slot[, term slot]) — int32 index tables, float32
 # coefficient tables (dps's +-1/2, +-1/4 must survive lowering).  Empty
 # slots carry coefficient 0 (the kernel skips them) and index block
-# (0, 0).  rtrn (per-term mirrors of a tri-stored right operand) is
-# lowered for every kind and read by none that the port runs yet.
+# (0, 0).  rtrn marks the per-term mirrors of a tri-stored right operand
+# (the symm kind); it is lowered for every kind.
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -323,50 +348,110 @@ leaf_ir.on_algebra_change(_device_tables.cache_clear)
 # ---------------------------------------------------------------------------
 
 def _out_tiles(spec: _Spec, device):
-    """Per output tile: leaf destination ``ld`` and the within-leaf tile
-    offsets ``(iq, jq)`` — the kernel's tri-decode, for all tiles."""
-    t_blocks = spec.q_i * spec.blocks_j
-    ij = tri_coords(t_blocks).long().to(device)
-    gi, gj = ij[:, 0], ij[:, 1]
+    """Per output tile: leaf destination ``ld`` and global tile coords
+    ``(gi, gj)`` — the kernel's tri-decode (packed outputs) or row-major
+    ``divmod(t, n_tj)`` (dense outputs), for all tiles."""
+    if spec.out_tri:
+        ij = tri_coords(spec.q_i * spec.blocks_j).long().to(device)
+        gi, gj = ij[:, 0], ij[:, 1]
+    else:
+        t = torch.arange(spec.n_out, device=device)
+        gi, gj = t // spec.n_tj, t % spec.n_tj
     di, dj = gi // spec.q_i, gj // spec.q_j
-    return di * (di + 1) // 2 + dj, gi % spec.q_i, gj % spec.q_j
+    ld = di * (di + 1) // 2 + dj if spec.out_tri \
+        else di * spec.blocks_j + dj
+    return ld, gi, gj
 
 
-def _leaf_program_plain(spec: _Spec, tables, a: torch.Tensor,
-                        out_dtype) -> torch.Tensor:
+def _operand_shapes(spec: _Spec):
+    """Stored tile shapes of the left and right operands of the ported
+    kinds (a transposed dense right side comes with the aat kind)."""
+    l_shape = (spec.bc, spec.bi) if spec.left_trans else (spec.bi, spec.bc)
+    r_shape = (spec.bj, spec.bj) if spec.right_tri else (spec.bc, spec.bj)
+    return l_shape, r_shape
+
+
+def _out_shape(spec: _Spec):
+    """The raw output buffer: the packed tri stack, or the dense grid."""
+    if spec.out_tri:
+        return spec.n_out * spec.bi, spec.bj
+    return (spec.n_out // spec.n_tj) * spec.bi, spec.n_tj * spec.bj
+
+
+def _tiles(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
+    """(rows // r, cols // c, r, c) view of the (r, c) tiles of ``x``."""
+    return x.reshape(x.shape[0] // r, r, x.shape[1] // c, c) \
+        .permute(0, 2, 1, 3)
+
+
+def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
+                        right: torch.Tensor, out_dtype) -> torch.Tensor:
     """The plain torch version of the kernel: the same tables, the same
     walk (contributions, then K blocks), over every output tile at once.
 
-    Per (contribution, K block) step it gathers each term's (bc, bi)
-    tile of A for all tiles, forms the signed sums in fp32 in term order,
-    and adds ``sign * Lsum^t Rsum`` where the sign is not 0.
+    Per (contribution, K block) step it gathers each term's tile for all
+    output tiles and forms the signed sums in fp32, term by term in
+    table order: the tile upcast, mirrored where the tables say so,
+    ``tile + tile^t`` on a diagonal tile under ``diag_sym``, times its
+    coefficient, added to the running sum.  Then it adds
+    ``sign * (L @ R)`` where the sign is not 0.
     """
-    sign, lrow, lcol, lsgn, rrow, rcol, rsgn, _rtrn = tables
-    ld, iq, jq = _out_tiles(spec, a.device)
-    M, N = a.shape
-    tiles = a.reshape(M // spec.bc, spec.bc, N // spec.bi, spec.bi) \
-        .permute(0, 2, 1, 3)
+    sign, lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn = tables
+    ld, gi, gj = _out_tiles(spec, left.device)
+    iq, jq = gi % spec.q_i, gj % spec.q_j
+    l_shape, r_shape = _operand_shapes(spec)
+    ltiles = _tiles(left, *l_shape)
+    rtiles = right.reshape(-1, *r_shape) if spec.right_tri \
+        else _tiles(right, *r_shape)
 
-    def signed_sum(rows, cols, coefs, c, k, q, within):
+    def add(acc, term):
+        return term if acc is None else acc + term
+
+    def left_sum(c, k):
         acc = None
         for p in range(spec.tmax):
-            tile = tiles[rows[ld, c, p].long() * spec.n_k + k,
-                         cols[ld, c, p].long() * q + within]
-            term = tile.float() * coefs[ld, c, p][:, None, None]
-            acc = term if acc is None else acc + term
+            r, col = lrow[ld, c, p].long(), lcol[ld, c, p].long()
+            tile = ltiles[r * spec.n_k + k, col * spec.q_i + iq] \
+                if spec.left_trans \
+                else ltiles[r * spec.q_i + iq, col * spec.n_k + k]
+            acc = add(acc, tile.float() * lsgn[ld, c, p][:, None, None])
+        return acc.transpose(1, 2) if spec.left_trans else acc
+
+    def right_sum(c, k):
+        acc = None
+        for p in range(spec.tmax):
+            r, col = rrow[ld, c, p].long(), rcol[ld, c, p].long()
+            if spec.right_tri:
+                # conceptual tile coords as _tri_term_coords; the stored
+                # tile is (max, min), mirrored when the read lies above
+                # the diagonal or the term itself is mirrored
+                trn = rtrn[ld, c, p] != 0
+                gr = r * spec.q_j + torch.where(trn, jq, k)
+                gc = col * spec.q_j + torch.where(trn, k, jq)
+                fr, fc = torch.maximum(gr, gc), torch.minimum(gr, gc)
+                tile = rtiles[fr * (fr + 1) // 2 + fc].float()
+                mirrored = (trn | (gr < gc))[:, None, None]
+                tile = torch.where(mirrored, tile.transpose(1, 2), tile)
+                if spec.diag_sym:
+                    tile = torch.where((gr == gc)[:, None, None],
+                                       tile + tile.transpose(1, 2), tile)
+            else:
+                tile = rtiles[r * spec.n_k + k, col * spec.q_j + jq].float()
+            acc = add(acc, tile * rsgn[ld, c, p][:, None, None])
         return acc
 
     acc = torch.zeros((spec.n_out, spec.bi, spec.bj), dtype=torch.float32,
-                      device=a.device)
+                      device=left.device)
     with ieee_fp32():
         for c in range(spec.n_c):
             sgn = sign[ld, c][:, None, None]
             for k in range(spec.n_k):
-                left = signed_sum(lrow, lcol, lsgn, c, k, spec.q_i, iq)
-                right = signed_sum(rrow, rcol, rsgn, c, k, spec.q_j, jq)
-                contrib = sgn * torch.bmm(left.transpose(1, 2), right)
+                contrib = sgn * torch.bmm(left_sum(c, k), right_sum(c, k))
                 acc += torch.where(sgn != 0, contrib, 0.0)
-    return acc.reshape(spec.n_out * spec.bi, spec.bj).to(out_dtype)
+    if not spec.out_tri:
+        acc = acc.reshape(spec.n_out // spec.n_tj, spec.n_tj, spec.bi,
+                          spec.bj).permute(0, 2, 1, 3)
+    return acc.reshape(_out_shape(spec)).to(out_dtype)
 
 
 @functools.cache
@@ -376,7 +461,10 @@ def _lib() -> ctypes.CDLL:
     lib.leaf_program_ata.argtypes = [ptr] * 9 + [ctypes.c_longlong] \
         + [i32] * 10 + [ptr]
     lib.leaf_program_ata.restype = i32
-    lib.leaf_program_smem_bytes.argtypes = [i32, i32, i32]
+    lib.leaf_program_symm.argtypes = [ptr] * 11 + [ctypes.c_longlong] \
+        + [i32] * 16 + [ptr]
+    lib.leaf_program_symm.restype = i32
+    lib.leaf_program_smem_bytes.argtypes = [i32] * 5
     lib.leaf_program_smem_bytes.restype = ctypes.c_size_t
     lib.leaf_program_max_contributions.argtypes = []
     lib.leaf_program_max_contributions.restype = i32
@@ -385,78 +473,161 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_args(spec: _Spec, a: torch.Tensor, out_dtype) -> None:
-    if spec.kind != "ata":
-        raise NotImplementedError(
-            f"the {spec.kind!r} program kind has no CUDA kernel yet "
-            "(ROADMAP Queue 2 #1)")
-    if a.dtype not in _DTYPE_CODES:
-        raise TypeError(f"leaf_program takes float32 or bfloat16 operands, "
-                        f"got {a.dtype}")
+def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
+    """Dynamic shared memory one launch of ``spec`` needs, as the kernel
+    lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``)."""
+    return _lib().leaf_program_smem_bytes(
+        _KIND_CODES[spec.kind], spec.tmax, left_bytes, right_bytes,
+        spec.pipeline_depth)
+
+
+def _operand_extents(spec: _Spec):
+    """The padded (rows, cols) each operand must have for ``spec``."""
+    prog = compile_program(spec.kind, spec.levels, spec.variant,
+                           gram=spec.gram)
+    rows_i = prog.blocks_m * spec.q_i * spec.bi
+    k_len = prog.blocks_k * spec.n_k * spec.bc
+    left = (k_len, rows_i) if spec.left_trans else (rows_i, k_len)
+    if spec.kind == "ata":
+        return left, left
+    T = spec.n_tj
+    return left, (T * (T + 1) // 2 * spec.bj, spec.bj)
+
+
+def _check_kernel_args(spec: _Spec, left: torch.Tensor,
+                       right: torch.Tensor, out_dtype) -> None:
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"leaf_program writes float32 or bfloat16, got "
                         f"{out_dtype}")
-    B = 2 ** spec.levels
-    want = (B * spec.n_k * spec.bc, B * spec.q_i * spec.bi)
-    if a.ndim != 2 or tuple(a.shape) != want:
-        raise ValueError(f"operand of shape {tuple(a.shape)} does not fit "
-                         f"the bound program (want {want})")
-    if not a.is_contiguous() or a.data_ptr() % 16:
-        raise ValueError("leaf_program needs a contiguous, 16-byte aligned "
-                         "operand")
-    if spec.bi != spec.bj or spec.q_i != spec.q_j:
-        raise ValueError("the ata kernel takes square output tiles")
-    if spec.bi < 8 or spec.bi % 8 or spec.bc < 8:
-        raise ValueError(f"leaf_program needs bn >= 8 with bn % 8 == 0 "
-                         f"and bk >= 8, got bn={spec.bi}, bk={spec.bc}")
+    for side, x, want in zip(("left", "right"), (left, right),
+                             _operand_extents(spec)):
+        if x.dtype not in _DTYPE_CODES:
+            raise TypeError(f"leaf_program takes float32 or bfloat16 "
+                            f"operands, got {x.dtype} on the {side}")
+        if x.ndim != 2 or tuple(x.shape) != want:
+            raise ValueError(f"{side} operand of shape {tuple(x.shape)} "
+                             f"does not fit the bound program (want "
+                             f"{want})")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"leaf_program needs a contiguous, 16-byte "
+                             f"aligned {side} operand")
+    if spec.kind == "ata":
+        if right.data_ptr() != left.data_ptr():
+            raise ValueError("the ata kernel reads one operand: pass the "
+                             "same tensor as left and right")
+        if spec.bi != spec.bj or spec.q_i != spec.q_j:
+            raise ValueError("the ata kernel takes square output tiles")
+        if spec.bi < 8 or spec.bi % 8 or spec.bc < 8:
+            raise ValueError(f"leaf_program needs bn >= 8 with bn % 8 == 0 "
+                             f"and bk >= 8, got bn={spec.bi}, bk={spec.bc}")
+    elif spec.bj % 8 or min(spec.bi, spec.bj) < 8:
+        raise ValueError(f"the symm kernel needs bm >= 8 and a stack tile "
+                         f"bs >= 8 with bs % 8 == 0, got bm={spec.bi}, "
+                         f"bs={spec.bj}")
 
 
-def leaf_program(spec: _Spec, a: torch.Tensor, out_dtype) -> torch.Tensor:
-    """Run a bound ata program on the padded operand ``a``.
+def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
+                 out_dtype) -> torch.Tensor:
+    """Run a bound program on its padded operands.
 
-    A CUDA tensor launches ``csrc/leaf_program.cu`` on the current
-    stream (no synchronisation) or raises; a CPU tensor runs
-    :func:`_leaf_program_plain`.  Returns the packed stack
-    ``(n_out * bn, bn)`` in ``out_dtype``.
+    ``ata``: ``left`` and ``right`` are the same padded A.  ``symm``:
+    ``left`` is the padded X, ``right`` the packed lower-triangular
+    (bs, bs) tile stack.  A CUDA tensor launches ``csrc/leaf_program.cu``
+    on the current stream (no synchronisation) or raises; a CPU tensor
+    runs :func:`_leaf_program_plain`.  Returns the raw output buffer in
+    ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for ata, the
+    dense padded grid for symm.
     """
+    if spec.kind not in _KIND_CODES:
+        raise NotImplementedError(
+            f"the {spec.kind!r} program kind is not ported yet (ROADMAP "
+            "Queue 2 #1)")
+    if left.device != right.device:
+        raise ValueError(f"operands on {left.device} and {right.device}")
     tables = _device_tables(spec.kind, spec.levels, spec.variant, spec.gram,
-                            str(a.device))
-    if a.device.type == "cpu":
-        return _leaf_program_plain(spec, tables, a, out_dtype)
-    if a.device.type != "cuda":
+                            str(left.device))
+    if left.device.type == "cpu":
+        return _leaf_program_plain(spec, tables, left, right, out_dtype)
+    if left.device.type != "cuda":
         raise ValueError(f"leaf_program runs on cuda or cpu, not "
-                         f"{a.device}")
-    _check_kernel_args(spec, a, out_dtype)
+                         f"{left.device}")
+    _check_kernel_args(spec, left, right, out_dtype)
     lib = _lib()
     if spec.n_c > lib.leaf_program_max_contributions():
         raise ValueError(f"{spec.n_c} contribution slots exceed the "
                          f"kernel's {lib.leaf_program_max_contributions()}")
-    smem = lib.leaf_program_smem_bytes(spec.tmax, a.element_size(),
-                                       spec.pipeline_depth)
+    smem = smem_bytes(spec, left.element_size(), right.element_size())
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"pipeline_depth={spec.pipeline_depth} with {spec.tmax} operand "
             f"terms needs {smem} bytes of shared memory, over the "
             f"{SMEM_LIMIT_BYTES} a Hopper block can use; lower "
             "pipeline_depth")
-    out = torch.empty((spec.n_out * spec.bi, spec.bj), dtype=out_dtype,
-                      device=a.device)
-    with torch.cuda.device(a.device):
-        err = lib.leaf_program_ata(
-            a.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables[:7]),
-            a.shape[1], spec.n_out, spec.n_c, spec.n_k, spec.tmax, spec.q_i,
-            spec.bi, spec.bc, _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype],
-            spec.pipeline_depth, torch.cuda.current_stream().cuda_stream)
+    out = torch.empty(_out_shape(spec), dtype=out_dtype, device=left.device)
+    with torch.cuda.device(left.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if spec.kind == "ata":
+            err = lib.leaf_program_ata(
+                left.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() for t in tables[:7]), left.shape[1],
+                spec.n_out, spec.n_c, spec.n_k, spec.tmax, spec.q_i, spec.bi,
+                spec.bc, _DTYPE_CODES[left.dtype], _DTYPE_CODES[out_dtype],
+                spec.pipeline_depth, stream)
+        else:
+            err = lib.leaf_program_symm(
+                left.data_ptr(), right.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() for t in tables), left.shape[1], spec.n_out,
+                spec.n_c, spec.n_k, spec.tmax, spec.q_i, spec.q_j,
+                spec.n_tj, spec.blocks_j, spec.bi, spec.bj, spec.bc,
+                int(spec.diag_sym), _DTYPE_CODES[left.dtype],
+                _DTYPE_CODES[right.dtype], _DTYPE_CODES[out_dtype],
+                spec.pipeline_depth, stream)
     if err:
         raise RuntimeError(f"leaf_program launch failed: CUDA error {err} "
                            f"({lib.leaf_program_error_string(err).decode()})")
-    KERNEL_LAUNCHES["leaf_program"] += 1
+    KERNEL_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# Fused ATA: C = tril(A^t A) into the packed triangular block stack.
+# Fused ATA: C = tril(A^t A) into the packed triangular block stack, and
+# its backward dA = A (S + S^t) through the symm kind.
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class _AtaConfig:
+    """The resolved knobs of one fused ata call (the counterpart of the
+    JAX custom VJPs' nondiff arguments)."""
+    levels: int
+    variant: str
+    gram: str
+    bk: int
+    bn: int
+    out_dtype: torch.dtype
+    bwd: str
+    pipeline_depth: int
+    operand_dtype: torch.dtype | None
+    acc_dtype: str
+
+
+def _ata_config(a, device, *, levels, variant, gram, bk, bn, out_dtype, bwd,
+                pipeline_depth, operand_dtype, acc_dtype, sr_seed):
+    """Place ``a`` and resolve the knobs; returns ``(a, config)``."""
+    a = _place(a, device)
+    if a.ndim != 2:
+        raise ValueError(f"fused ata expects a matrix, got shape "
+                         f"{tuple(a.shape)}")
+    _resolve_sr_seed(sr_seed)
+    cfg = _AtaConfig(
+        levels=levels, variant=variant, gram=gram, bk=bk, bn=bn,
+        out_dtype=(torch.promote_types(a.dtype, torch.float32)
+                   if out_dtype is None else out_dtype),
+        bwd=_resolve_bwd(bwd),
+        pipeline_depth=_resolve_pipeline_depth(pipeline_depth, a.device),
+        operand_dtype=_resolve_operand_dtype(operand_dtype),
+        acc_dtype=_resolve_acc_dtype(acc_dtype))
+    return a, cfg
+
 
 def fused_ata_packed(
     a: torch.Tensor,
@@ -467,6 +638,7 @@ def fused_ata_packed(
     bk: int = 256,
     bn: int = 256,
     out_dtype=None,
+    bwd: str = "fused",
     pipeline_depth=None,
     operand_dtype=None,
     acc_dtype=None,
@@ -485,23 +657,25 @@ def fused_ata_packed(
     ``(T(T+1)/2 * bn, bn)``, ``T = n_padded // bn``, in the ordering of
     ``symmetry.pack_tril_blocks``.
 
+    Differentiable: the backward takes the *packed* cotangent straight
+    into :func:`fused_symm_matmul` (``bwd="fused"``) — ``dA = A (S +
+    S^t)`` with S the block-lower matrix the stack represents, no dense
+    n^2 buffer.  ``bwd="dense"`` is the classical baseline (unpack, then
+    ``A @ (S + S^t)`` in torch).
+
     ``device=None`` runs on the card; a CPU tensor is moved there unless
     ``device="cpu"``, which runs the plain executor.  ``pipeline_depth``
     is the kernel's ring depth (None = 2 on the card, 1 on the CPU);
-    ``operand_dtype`` (None, fp32 or bf16) the stored operand tiles.
-    ``acc_dtype`` other than fp32 and ``sr_seed`` are ROADMAP Queue 1 #6;
-    gradients are Queue 1 #4.
+    ``operand_dtype`` (None, fp32 or bf16) the stored operand tiles of
+    the forward.  ``acc_dtype`` other than fp32 and ``sr_seed`` are
+    ROADMAP Queue 1 #6.
     """
-    a = _place(a, device)
-    _refuse_grad(a)
-    depth = _resolve_pipeline_depth(pipeline_depth, a.device)
-    op_dt = _resolve_operand_dtype(operand_dtype)
-    acc_dt = _resolve_acc_dtype(acc_dtype)
-    _resolve_sr_seed(sr_seed)
-    out_dtype = (torch.promote_types(a.dtype, torch.float32)
-                 if out_dtype is None else out_dtype)
-    return _fused_ata_packed_exec(a, levels, variant, gram, bk, bn,
-                                  out_dtype, depth, op_dt, acc_dt)
+    a, cfg = _ata_config(
+        a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bn,
+        out_dtype=out_dtype, bwd=bwd, pipeline_depth=pipeline_depth,
+        operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed)
+    n_pad = _ata_geometry(*a.shape, levels, variant, bk, bn, gram=gram)["N"]
+    return _FusedAtaPacked.apply(a, cfg), n_pad
 
 
 def _prepare_ata(a, levels, variant, gram, bk, bn, pipeline_depth=1,
@@ -526,13 +700,110 @@ def _prepare_ata(a, levels, variant, gram, bk, bn, pipeline_depth=1,
     return spec, a.contiguous()
 
 
-def _fused_ata_packed_exec(a, levels, variant, gram, bk, bn, out_dtype,
-                           pipeline_depth=1, operand_dtype=None,
-                           acc_dtype="float32"):
+def _fused_ata_packed_exec(a, cfg: _AtaConfig):
     """Pad, quantize, bind and run; returns ``(packed, n_padded)``."""
-    spec, a = _prepare_ata(a, levels, variant, gram, bk, bn, pipeline_depth,
-                           operand_dtype, acc_dtype)
-    return leaf_program(spec, a, out_dtype), a.shape[1]
+    spec, a = _prepare_ata(a, cfg.levels, cfg.variant, cfg.gram, cfg.bk,
+                           cfg.bn, cfg.pipeline_depth, cfg.operand_dtype,
+                           cfg.acc_dtype)
+    return leaf_program(spec, a, a, cfg.out_dtype), a.shape[1]
+
+
+def _symm_bwd(a: torch.Tensor, s_packed: torch.Tensor,
+              cfg: _AtaConfig) -> torch.Tensor:
+    """``dA = A (S + S^t)`` from the packed block-lower stack of S, run
+    by the symm kind at the forward's clamped levels; fp32 or wider."""
+    m, n = a.shape
+    geo = _ata_geometry(m, n, cfg.levels, cfg.variant, cfg.bk, cfg.bn,
+                        gram=cfg.gram)
+    return fused_symm_matmul(
+        a, s_packed, levels=geo["levels"], variant=cfg.variant, bm=cfg.bk,
+        diag_sym=True, out_dtype=torch.promote_types(a.dtype, torch.float32),
+        pipeline_depth=cfg.pipeline_depth, device=a.device)[:, :n]
+
+
+class _FusedAtaPacked(torch.autograd.Function):
+    """The packed stack of ``tril(A^t A)``; its backward feeds the packed
+    cotangent to the symm kind as it is (``_fused_ata_packed_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, a, cfg):
+        ctx.save_for_backward(a)
+        ctx.cfg = cfg
+        return _fused_ata_packed_exec(a, cfg)[0]
+
+    @staticmethod
+    def backward(ctx, gp):
+        # vdot(gp, packed(A)) has S = the block-lower cotangent (diagonal
+        # tiles full, as the forward computes them), so dA = A (S + S^t)
+        (a,), cfg = ctx.saved_tensors, ctx.cfg
+        acc = torch.promote_types(a.dtype, torch.float32)
+        if cfg.bwd == "fused":
+            return _symm_bwd(a, gp.to(acc), cfg).to(a.dtype), None
+        m, n = a.shape
+        geo = _ata_geometry(m, n, cfg.levels, cfg.variant, cfg.bk, cfg.bn,
+                            gram=cfg.gram)
+        M, N = geo["M"], geo["N"]
+        s = unpack_tril_blocks(gp.to(acc), N, cfg.bn, symmetrize=False)
+        ap = F.pad(a.to(acc), (0, N - n, 0, M - m))
+        with ieee_fp32():
+            da = (ap @ (s + s.T))[:m, :n]
+        return da.to(a.dtype), None
+
+
+class _FusedAtaDense(torch.autograd.Function):
+    """Dense ``tril(A^t A)``; its backward packs ``tril(g)`` per tile and
+    runs the symm kind (``_fused_ata_dense_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, a, cfg):
+        ctx.save_for_backward(a)
+        ctx.cfg = cfg
+        n = a.shape[1]
+        packed, n_pad = _fused_ata_packed_exec(a, cfg)
+        dense = unpack_tril_blocks(packed, n_pad, cfg.bn, symmetrize=False)
+        # diagonal blocks are computed full — drop their upper halves
+        return torch.tril(dense)[:n, :n]
+
+    @staticmethod
+    def backward(ctx, g):
+        # C = tril(A^t A) => dL/dA = A (S + S^t), S = tril(dL/dC); the
+        # factor 2 on the diagonal of S + S^t is the quadratic term's
+        (a,), cfg = ctx.saved_tensors, ctx.cfg
+        acc = torch.promote_types(a.dtype, torch.float32)
+        if cfg.bwd == "dense":
+            s = torch.tril(g).to(acc)
+            with ieee_fp32():
+                da = a.to(acc) @ (s + s.T)
+            return da.to(a.dtype), None
+        m, n = a.shape
+        n_pad = _ata_geometry(m, n, cfg.levels, cfg.variant, cfg.bk, cfg.bn,
+                              gram=cfg.gram)["N"]
+        s_packed = _pack_cotangent(g.to(acc), n, n_pad, cfg.bn)
+        return _symm_bwd(a, s_packed, cfg).to(a.dtype), None
+
+
+def _pack_cotangent(g: torch.Tensor, n: int, n_pad: int,
+                    bn: int) -> torch.Tensor:
+    """Packed lower-triangular (bn, bn) tile stack of ``S = tril(g)``,
+    zero-padded to ``n_pad`` — copied block-row by block-row from slices
+    of ``g``, so the padded dense S (and a fortiori S + S^t) never exists;
+    the stack is the only n(n+1)/2-sized temporary."""
+    t = n_pad // bn
+    out = g.new_zeros((t * (t + 1) // 2, bn, bn))
+    for i in range(t):
+        r0 = i * bn
+        if r0 >= n:
+            break
+        rows = min(bn, n - r0)
+        blk = g[r0:r0 + rows, :min(r0 + bn, n)]     # tiles (i, 0..i)
+        full, rest = divmod(blk.shape[1], bn)
+        base = i * (i + 1) // 2
+        out[base:base + full, :rows] = \
+            blk[:, :full * bn].reshape(rows, full, bn).transpose(0, 1)
+        if rest:
+            out[base + full, :rows, :rest] = blk[:, full * bn:]
+        out[base + i].tril_()
+    return out.reshape(-1, bn)
 
 
 def fused_ata(
@@ -544,6 +815,7 @@ def fused_ata(
     bk: int = 256,
     bn: int = 256,
     out_dtype=None,
+    bwd: str = "fused",
     pipeline_depth=None,
     operand_dtype=None,
     acc_dtype=None,
@@ -551,16 +823,101 @@ def fused_ata(
     device=None,
 ) -> torch.Tensor:
     """Dense ``tril(a.T @ a)`` at the original size via the fused
-    executor; the knobs are :func:`fused_ata_packed`'s."""
-    n = a.shape[-1]
-    packed, n_pad = fused_ata_packed(
-        a, levels=levels, variant=variant, gram=gram, bk=bk, bn=bn,
-        out_dtype=out_dtype, pipeline_depth=pipeline_depth,
-        operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
-        device=device)
-    dense = unpack_tril_blocks(packed, n_pad, bn, symmetrize=False)
-    # diagonal blocks are computed full — drop their upper halves
-    return torch.tril(dense)[:n, :n]
+    executor; the knobs are :func:`fused_ata_packed`'s.
+
+    Differentiable: ``dA = A (S + S^t)`` with ``S = tril(cotangent)``.
+    ``bwd="fused"`` gathers the cotangent per tile into the packed stack
+    (:func:`_pack_cotangent`) and runs the symm kind; ``bwd="dense"`` is
+    the classical ``a @ (s + s.T)``.
+    """
+    a, cfg = _ata_config(
+        a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bn,
+        out_dtype=out_dtype, bwd=bwd, pipeline_depth=pipeline_depth,
+        operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed)
+    return _FusedAtaDense.apply(a, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Fused symm matmul: D = X @ Sym where Sym is given only as the packed
+# lower-triangular (bs, bs) tile stack of S — the engine of the backward.
+# ---------------------------------------------------------------------------
+
+def fused_symm_matmul(
+    x: torch.Tensor,
+    s_packed: torch.Tensor,
+    *,
+    levels: int = 2,
+    variant: str = "strassen",
+    bm: int = 256,
+    diag_sym: bool = False,
+    out_dtype=None,
+    pipeline_depth=None,
+    operand_dtype=None,
+    acc_dtype=None,
+    device=None,
+) -> torch.Tensor:
+    """``x @ Sym`` via the flattened symm program, one kernel launch.
+
+    ``s_packed`` is the packed lower-triangular tile stack of S — shape
+    (T(T+1)/2 * bs, bs) in ``symmetry.pack_tril_blocks`` order (the tile
+    edge ``bs`` is read off the stack's trailing dim).
+
+    * ``diag_sym=False``: Sym is the symmetric completion of the stack
+      (diagonal tiles stored full); computes ``x @ Sym``.
+    * ``diag_sym=True``: Sym = S + S^t with S the block-lower matrix the
+      stack represents — the Gram-VJP operand.  The same mirrored reads;
+      diagonal tiles contribute ``tile + tile^t``.
+
+    ``x`` is zero-padded on the right to the stack's T*bs columns and on
+    the bottom to leaf multiples.  Returns ``(x.shape[0], T*bs)``.  No
+    dense Sym (or S + S^t) is ever built.  ``levels`` is a cap, clamped
+    to divisors of T and to the fan-in.  ``device`` as in
+    :func:`fused_ata_packed`; ``operand_dtype`` quantizes both ``x`` and
+    the stack.
+    """
+    x, s_packed = _place(x, device), _place(s_packed, device)
+    out_dtype = (torch.promote_types(torch.promote_types(x.dtype,
+                                                         s_packed.dtype),
+                                     torch.float32)
+                 if out_dtype is None else out_dtype)
+    spec, xp, sp = _prepare_symm(
+        x, s_packed, levels, variant, bm, diag_sym,
+        _resolve_pipeline_depth(pipeline_depth, x.device),
+        _resolve_operand_dtype(operand_dtype), _resolve_acc_dtype(acc_dtype))
+    return leaf_program(spec, xp, sp, out_dtype)[:x.shape[0]]
+
+
+def _prepare_symm(x, s_packed, levels, variant, bm, diag_sym,
+                  pipeline_depth=1, operand_dtype=None, acc_dtype="float32"):
+    """Check the stack, pad and quantize ``x`` and bind the symm program
+    to its tiles; returns ``(spec, padded x, stack)``, what
+    :func:`leaf_program` takes."""
+    if x.ndim != 2 or s_packed.ndim != 2:
+        raise ValueError(f"bad ranks: {tuple(x.shape)} x packed "
+                         f"{tuple(s_packed.shape)}")
+    bs = s_packed.shape[1]
+    if bs == 0 or s_packed.shape[0] % bs:
+        raise ValueError(f"packed stack {tuple(s_packed.shape)} not a "
+                         "(bs, bs) tile stack")
+    n_tri = s_packed.shape[0] // bs
+    T = (math.isqrt(8 * n_tri + 1) - 1) // 2
+    if T * (T + 1) // 2 != n_tri:
+        raise ValueError(f"stack of {n_tri} tiles is not triangular")
+    N = T * bs
+    m, nx = x.shape
+    if nx > N:
+        raise ValueError(f"x has {nx} cols but the stack spans {N}")
+    geo = _symm_geometry(m, T, levels, variant, bm)
+    M = geo["M"]
+    if (M, N) != (m, nx):
+        x = F.pad(x, (0, N - nx, 0, M - m))
+    if operand_dtype is not None:
+        x, s_packed = x.to(operand_dtype), s_packed.to(operand_dtype)
+    spec = _bind(geo["plan"], n_out=(M // bm) * T, n_tj=T, q_i=geo["nbm"],
+                 q_j=geo["q"], n_k=geo["q"], bi=bm, bj=bs, bc=bs,
+                 diag_sym=diag_sym, pipeline_depth=pipeline_depth,
+                 acc_dtype=acc_dtype)
+    return spec, x.contiguous(), s_packed.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -606,6 +963,54 @@ def ata_traffic_model(
                  out_bytes=out_bytes)
     t["intermediate_bytes"] = M * N * in_bytes if (M, N) != (m, n) else 0
     t["padded_shape"] = (M, N)
+    return t
+
+
+def ata_bwd_traffic_model(
+    m: int, n: int, *, levels: int = 2, variant: str = "strassen",
+    gram: str = "strassen",
+    bk: int = 256, bn: int = 256, in_bytes: int = 4, cot_bytes: int = 4,
+    cotangent: str = "packed",
+) -> dict:
+    """HBM bytes of the Gram backward ``dA = A (S + S^t)`` on an (m, n)
+    forward problem: the fused symm-kind kernel against the dense-dot
+    baseline.  Shares ``_ata_geometry`` / ``_symm_geometry`` with the
+    executors, so it cannot drift from their clamping.
+
+    ``cotangent="packed"``: the cotangent arrives as the packed stack
+    (``fused_ata_packed``'s backward) and feeds the kernel directly.
+    ``cotangent="dense"``: the dense entry first gathers tril(g) into
+    the packed stack, the only temporary.  The baseline counts what the
+    dense-dot backward builds: ``tril(g)``, ``S^t`` and ``S + S^t``,
+    three dense N^2 buffers.
+    """
+    geo = _ata_geometry(m, n, levels, variant, bk, bn, gram=gram)
+    M, N = geo["M"], geo["N"]
+    T = N // bn
+    sgeo = _symm_geometry(M, T, geo["levels"], variant, bk)
+    plan, q = sgeo["plan"], sgeo["q"]
+    assert sgeo["M"] == M, (sgeo["M"], M)   # bwd reuses the forward padding
+    spec = _bind(plan, n_out=(M // bk) * T, n_tj=T, q_i=sgeo["nbm"],
+                 q_j=q, n_k=q, bi=bk, bj=bn, bc=bn, diag_sym=True)
+    t = _traffic(spec, left_bytes=in_bytes, right_bytes=cot_bytes,
+                 out_bytes=4)            # dA in the fp32 accumulation dtype
+    stack_bytes = T * (T + 1) // 2 * bn * bn * cot_bytes
+    pad_copy = M * N * in_bytes if (M, N) != (m, n) else 0
+    fused_inter = pad_copy + (stack_bytes if cotangent == "dense" else 0)
+    dense_inter = 3 * N * N * cot_bytes
+    t.update({
+        "intermediate_bytes": fused_inter,
+        "packed_stack_bytes": stack_bytes,
+        "padded_shape": (M, N),
+        "levels": sgeo["levels"],
+        "dense_baseline": {
+            "read_bytes": M * N * in_bytes + N * N * cot_bytes,
+            "write_bytes": M * N * 4,
+            "intermediate_bytes": dense_inter,
+        },
+        "intermediate_ratio_dense_over_fused": (
+            dense_inter / fused_inter if fused_inter else None),
+    })
     return t
 
 

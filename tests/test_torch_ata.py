@@ -100,8 +100,10 @@ def test_errors():
         for mode in ("reference", "fused"):
             with pytest.raises(NotImplementedError, match="Queue 1 #6"):
                 ata(a, mode=mode, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        ata(a.clone().requires_grad_(), mode="fused", device="cpu")
+    # the fused path differentiates through the symm kind
+    x = a.clone().requires_grad_()
+    ata(x, mode="fused", device="cpu").sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
     # the reference path differentiates through autograd
     x = a.clone().requires_grad_()
     ata(x, levels=1, leaf=4, mode="reference", device="cpu").sum().backward()
@@ -120,3 +122,22 @@ def test_leaf_hooks_force_reference():
     assert calls
     assert _rel(got.numpy(), np.tril(a.double().numpy().T
                                      @ a.double().numpy())) <= 1e-5
+
+
+def test_strassen_matmul_runs_on_cpu_only_when_asked():
+    """``device="cpu"`` runs the reference recursion on the CPU and gives
+    the JAX package's product; ``mode="auto"`` is the reference there
+    (the fused matmul program is ROADMAP Queue 1 #5)."""
+    from repro.core import strassen_matmul as jax_strassen_matmul
+    a, b = _rand((40, 33), seed=7), _rand((33, 50), seed=8)
+    want = jax_strassen_matmul(jnp.asarray(a), jnp.asarray(b), levels=2,
+                               leaf=8, mode="reference")
+    for mode in ("auto", "reference"):
+        got = strassen_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                              levels=2, leaf=8, mode=mode, device="cpu")
+        assert got.device.type == "cpu" and tuple(got.shape) == (40, 50)
+        assert _rel(got.numpy(), want) <= 1e-5
+    got_t = strassen_matmul(torch.from_numpy(a.T.copy()),
+                            torch.from_numpy(b), trans_a=True, levels=1,
+                            leaf=8, device="cpu")
+    assert _rel(got_t.numpy(), a.astype(np.float64) @ b) <= 1e-5

@@ -166,7 +166,9 @@ def test_unported_knobs_raise():
         sf.fused_ata(a, acc_dtype=torch.bfloat16, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #6"):
         sf.fused_ata(a, sr_seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        sf.fused_ata(a.clone().requires_grad_(), device="cpu")
+    # the gradient flows through the fused path (the symm kind)
+    x = a.clone().requires_grad_()
+    (g,) = torch.autograd.grad(sf.fused_ata(x, device="cpu").sum(), x)
+    assert g.shape == x.shape and bool(torch.isfinite(g).all())
     with torch.no_grad():
         sf.fused_ata(a.clone().requires_grad_(), bk=8, bn=8, device="cpu")

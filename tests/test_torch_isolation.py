@@ -24,6 +24,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.strassen_fused\n"
+        "import repro_torch.core.schedule\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -58,13 +59,18 @@ def test_source_scan_finds_no_jax_or_reference_import():
 def test_entry_points_refuse_to_run_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run there")
-    from repro_torch.core import ata, ata_full
+    from repro_torch.core import ata, ata_full, strassen_matmul
     from repro_torch.kernels import ops, strassen_fused
     a = torch.ones(8, 8)
     for fn in (ata, ata_full, ops.ata_fused, ops.ata_fused_packed,
                strassen_fused.fused_ata, strassen_fused.fused_ata_packed):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(a)
+    stack = torch.ones(24, 8)
+    for fn, args in ((strassen_matmul, (a, a)), (ops.symm_matmul, (a, stack)),
+                     (strassen_fused.fused_symm_matmul, (a, stack))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(*args)
 
 
 def test_chip_smoke_fails_without_cuda():
