@@ -10,43 +10,53 @@ failure exits non-zero):
 1. device: the card's name and power limit, torch/CUDA versions, and
    both TF32 flags, set off;
 2. build: every kernel of ``src/repro_torch/kernels/csrc`` from source;
-3. the ``leaf_program`` kernel's ata kind against its plain torch
-   version on the card, over algebra x gram x levels at 1000x777 (fp32,
-   bk = bn = 64), bf16 input, a bf16 output and a tile-aligned 1024^2 at
-   128: kernel vs plain <= 1e-5 of max|C| (fp32 sums in another order),
-   kernel vs float64 tril(A^t A) <= 1e-4 (the JAX suite's bar for the
-   deeper algebras), ring depths 2-4 bit-equal to depth 1, and a depth
-   whose shared memory would exceed 227 KB refused;
-3b. its symm kind, ``X @ Sym`` and ``X @ (S + S^t)`` from a packed
-   stack, over algebra x levels 0-3 x diag_sym at X 1000x777 fp32
-   against a 16-tile stack (bs = bm = 64), bf16 X with an fp32 stack at
-   bm = 64, bs = 128, and a tile-aligned 1024^2 at 128: the same bars
-   and depth checks;
-4. the main path, ``repro_torch.core.ata(a)`` and ``ata_full(a,
-   levels="auto")`` at n x n fp32 from ``--seed`` (the paper's
-   n = 10000), with launch counts zeroed just before and read just after,
-   checked against float64 on the card (<= 1e-4 of max|C|), then
-   ``ata`` on bf16 A; then each of those three kernel configurations
-   (levels, dtype, ring depth at the main-path shape) against its plain
-   version on the same operand, <= 1e-5 of max|C|;
-4b. the main path's backward: ``torch.autograd.grad`` of
-   ``(W * ata(a)).sum()``, of the same through ``ata_full(a,
-   levels="auto")`` and ``ata(bf16 a)``, and of ``(Wp * packed).sum()``
-   through ``ops.ata_fused_packed`` with ``Wp = pack_tril_blocks(tril(W))``,
-   counts zeroed just before and read just after; dA against float64
-   ``A (S + S^t)`` on the card (<= 1e-4 of max|dA|; bf16 dA, which is
-   stored in bf16, <= 2^-8); each symm configuration the backward
-   launched against its plain version (<= 1e-5); and the peak memory of
-   one backward with ``bwd="fused"`` below that with ``bwd="dense"``;
+3. the ``leaf_program`` kernel against its plain torch version on the
+   card, one sub-phase per program kind, each over its sweep at ragged
+   shapes (tiles of 64), with bf16 operands, a bf16 output and a
+   tile-aligned 1024^2 at 128: kernel vs plain <= 1e-5 of max|out| (fp32
+   sums in another order; 2^-8 for a bf16 output), kernel vs float64
+   <= 1e-4 (the JAX suite's bar for the deeper algebras), ring depths
+   2-4 bit-equal to depth 1, and a depth whose shared memory would
+   exceed 227 KB refused:
+   3. ata, tril(A^t A), algebra x gram x levels 0-3 at 1000x777;
+   3b. symm, X @ Sym and X @ (S + S^t) from a packed stack, algebra x
+       levels 0-3 x diag_sym at X 1000x777 against a 16-tile stack;
+   3c. aat, tril(A A^t), algebra x gram x levels 0-3 at 1000x777;
+   3d. rank_k, C + tril(A^t A) seeded from a packed 16-tile stack,
+       algebra x gram x levels 0-3 at a 1000x777 chunk, and the update
+       written over its own seed;
+   3e. matmul, op(A) op(B), levels 0-3 x the four (trans_a, trans_b)
+       cases x {strassen, winograd, classical, bb322, bb422} at
+       1000x777 @ 777x555;
+4. the main paths at n x n fp32 from ``--seed`` (the paper's n = 10000),
+   each with the launch counts zeroed just before it and read just
+   after, checked against float64 on the card (<= 1e-4 of max|out|;
+   outputs stored in bf16 <= 2^-8), then each kernel configuration the
+   path ran held against the plain version on the same operands
+   (<= 1e-5):
+   4. ``ata(a)``, ``ata_full(a, levels="auto")``, ``ata(bf16 a)``;
+   4b. their backward, ``torch.autograd.grad`` through ``ata``,
+       ``ata_full``, ``ata(bf16 a)`` and ``ops.ata_fused_packed``, dA
+       against float64 ``A (S + S^t)``, and the peak memory of one
+       backward with ``bwd="fused"`` below that with ``bwd="dense"``;
+   4c. ``ata(a, gram_of="rows")`` at n x n and at n x 777, and on bf16 A;
+   4d. ``ops.rank_k_update``: A streamed in 4 row chunks into a zero
+       packed stack (bn 256), against the one-shot ``ops.ata_fused_packed``
+       (<= 1e-5 of max|C|) and float64; then one gradient through a chunk
+       update, the stack's cotangent passed through exactly and dA against
+       float64 ``A (S + S^t)``;
+   4e. ``strassen_matmul(a, b)``, ``strassen_matmul(a, b, trans_a=True)``
+       (the distributed block task's form) and on bf16 operands, then
+       ``torch.autograd.grad`` through the first two (``bwd="fused"``),
+       da and db against float64;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
-   the main-path shape (depths 2 and 1), the library yardsticks
-   ``torch.tril(a.T @ a)`` and ``a @ (s + s.T)``, ``ata(a)`` and its
-   backward end to end, the plain versions once, and each kind's bound:
-   the least flops of its function (each leaf product once, or
-   classical, whichever is less) at the fp32 CUDA-core peak against its
-   inputs and outputs at HBM rate.  The kernels' live-step flops, which
-   include the per-destination recomputation, are printed beside the
-   bounds and kept out of them.
+   its main-path shape (depths 2 and 1), its library yardstick (timed
+   only, never called by the port), the end-to-end calls, the plain
+   versions once, and each kind's bound: the least flops of its function
+   (each leaf product once, or classical, whichever is less) at the fp32
+   CUDA-core peak against its inputs and outputs once at HBM rate.  The
+   kernels' live-step flops, which include the per-destination
+   recomputation, are printed beside the bounds and kept out of them.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
@@ -97,11 +107,12 @@ def _time_ms(fn, reps=5, warmup=2):
 
 
 def _ptxas_summary(report: str) -> list:
-    """Registers and spills per program kind from ``nvcc -Xptxas -v``."""
-    kinds = {"0": "ata", "1": "symm"}
+    """Registers and spills per right-side layout from ``nvcc -Xptxas -v``
+    (the kernel's first template argument: a packed tri right side)."""
+    kinds = {"0": "dense right side", "1": "tri right side"}
     stats, kind = {}, None
     for line in report.splitlines():
-        found = re.search(r"leaf_program_kernelILi(\d)E", line)
+        found = re.search(r"leaf_program_kernelILb(\d)E", line)
         if found:
             kind = kinds[found.group(1)]
         regs = re.search(r"Used (\d+) registers", line)
@@ -131,7 +142,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
-    from repro_torch.core import ata, ata_full, ata_levels_for
+    from repro_torch.core import ata, ata_full, ata_levels_for, strassen_matmul
     from repro_torch.core.leaf_ir import compile_program
     from repro_torch.core.strassen import (
         AUTO_MAX_LEVELS, DEFAULT_LEAF, DEFAULT_LEVELS)
@@ -157,7 +168,9 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    ATA, SYMM = "leaf_program/ata", "leaf_program/symm"
+    ATA, SYMM, AAT, RANK_K, MATMUL = (
+        f"leaf_program/{k}" for k in ("ata", "symm", "aat", "rank_k",
+                                      "matmul"))
 
     # -- 2. build -------------------------------------------------------------
     print("== 2. build")
@@ -168,70 +181,109 @@ def main() -> int:
     for line in _ptxas_summary(report or ""):
         print(f"  {line}")
 
-    def plain(spec, left, right, out_dtype):
-        tables = sf._device_tables(spec.kind, spec.levels, spec.variant,
-                                   spec.gram, str(left.device))
-        return sf._leaf_program_plain(spec, tables, left, right, out_dtype)
+    def plain(spec, left, right, out_dtype, seed=None):
+        return sf._leaf_program_plain(spec, sf._spec_tables(spec, left.device),
+                                      left, right, out_dtype, seed)
 
-    def depths_bit_equal(spec, left, right, out_dtype, k1, label):
+    def reset_counts():
+        for key in sf.KERNEL_LAUNCHES:
+            sf.KERNEL_LAUNCHES[key] = 0
+
+    def read_counts(label):
+        torch.cuda.synchronize()
+        counts = dict(sf.KERNEL_LAUNCHES)
+        print(f"launches on {label}: {counts}")
+        return counts
+
+    refused = dict.fromkeys(("ata", "symm", "aat", "rank_k", "matmul"), 0)
+
+    def depths_bit_equal(spec, left, right, out_dtype, k1, label, seed=None):
         """Depths 2-4 give depth 1's bits; an over-budget depth raises."""
         for depth in (2, 3, 4):
             deep = dataclasses.replace(spec, pipeline_depth=depth)
             if sf.smem_bytes(deep, left.element_size(),
                              right.element_size()) > sf.SMEM_LIMIT_BYTES:
                 try:
-                    sf.leaf_program(deep, left, right, out_dtype)
+                    sf.leaf_program(deep, left, right, out_dtype, seed=seed)
                 except ValueError:
+                    refused[spec.kind] += 1
                     continue
                 raise AssertionError(f"{label}: depth {depth} over budget ran")
-            kd = sf.leaf_program(deep, left, right, out_dtype)
+            kd = sf.leaf_program(deep, left, right, out_dtype, seed=seed)
             torch.cuda.synchronize()
             assert torch.equal(kd, k1), (label, depth)
 
-    # -- 3. kernel against its plain version ------------------------------------
-    print("== 3. leaf_program (ata kind) against its plain version")
+    def check(spec, left, right, out_dtype, to_dense, want, label,
+              seed=None):
+        """One counted launch against its plain version and float64, and
+        the ring depths against it."""
+        key = f"leaf_program/{spec.kind}"
+        before = sf.KERNEL_LAUNCHES[key]
+        k1 = sf.leaf_program(spec, left, right, out_dtype, seed=seed)
+        assert sf.KERNEL_LAUNCHES[key] == before + 1
+        depths_bit_equal(spec, left, right, out_dtype, k1, label, seed)
+        ref = plain(spec, left, right, f32, seed)
+        e_plain = _rel(k1, ref.double())
+        e64 = _rel(to_dense(k1), want)
+        bar = 1e-5 if out_dtype == f32 else 2.0 ** -8
+        print(f"  {label} {tuple(left.shape)} {left.dtype} x "
+              f"{tuple(right.shape)} {right.dtype} -> {out_dtype} L"
+              f"{spec.levels} tmax={spec.tmax} n_c={spec.n_c}: vs plain "
+              f"{e_plain:.2e} (<= {bar:.0e}), vs float64 {e64:.2e}")
+        assert e_plain <= bar, (label, e_plain)
+        assert e64 <= max(1e-4, bar), (label, e64)
+        return k1
+
+    def main_vs_plain(label, spec, left, right, seed=None):
+        """A main-path configuration against its plain version, uncounted;
+        returns max|kernel - plain|."""
+        got = sf.leaf_program(spec, left, right, f32, seed=seed)
+        ref = plain(spec, left, right, f32, seed)
+        err = float((got - ref).abs().max())
+        rel = _rel(got, ref.double())
+        print(f"  {label}: {spec.kind} L{spec.levels} {tuple(left.shape)} "
+              f"{left.dtype} x {tuple(right.shape)} {right.dtype}, depth "
+              f"{spec.pipeline_depth} tmax={spec.tmax} n_c={spec.n_c} "
+              f"n_k={spec.n_k}: kernel vs plain max|d| {err:.3e}, relative "
+              f"{rel:.3e} (<= 1e-5)")
+        assert rel <= 1e-5, (label, rel)
+        return err
+
+    def tril_dense(n, n_pad, bn):
+        """The leading n x n of the lower triangle a packed stack holds."""
+        return lambda k: torch.tril(unpack_tril_blocks(
+            k, n_pad, bn, symmetrize=False))[:n, :n]
+
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
-    def check(a, levels, variant, gram, block, out_dtype=f32):
-        spec, ap = sf._prepare_ata(a, levels, variant, gram, block, block)
-        before = sf.KERNEL_LAUNCHES[ATA]
-        k1 = sf.leaf_program(spec, ap, ap, out_dtype)
-        assert sf.KERNEL_LAUNCHES[ATA] == before + 1
-        depths_bit_equal(spec, ap, ap, out_dtype, k1,
-                         (variant, gram, levels))
-        ref = plain(spec, ap, ap, f32)
-        n, N = a.shape[1], ap.shape[1]
-        a64 = a.double()
-        want = torch.tril(a64.T @ a64)
-        dense = torch.tril(unpack_tril_blocks(k1, N, spec.bi,
-                                              symmetrize=False))[:n, :n]
-        e_plain = _rel(k1, ref.double())
-        e64 = _rel(dense, want)
-        bar = 1e-5 if out_dtype == f32 else 2.0 ** -8
-        print(f"  {variant:9s} {gram:8s} L{levels}->{spec.levels} "
-              f"{tuple(a.shape)} {a.dtype} -> {out_dtype} tmax={spec.tmax} "
-              f"n_c={spec.n_c}: vs plain {e_plain:.2e} (<= {bar:.0e}), vs "
-              f"float64 {e64:.2e}")
-        assert e_plain <= bar, e_plain
-        assert e64 <= max(1e-4, bar), e64
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    a = torch.randn(1000, 777, generator=gen, device=dev)
+    # -- 3. each kind against its plain version ----------------------------------
+    print("== 3. leaf_program (ata kind) against its plain version")
+
+    def check_ata(a, levels, variant, gram, block, out_dtype=f32):
+        spec, ap = sf._prepare_ata(a, levels, variant, gram, block, block)
+        a64 = a.double()
+        check(spec, ap, ap, out_dtype,
+              tril_dense(a.shape[1], ap.shape[1], block),
+              torch.tril(a64.T @ a64), f"{variant:9s} {gram:8s} L{levels}")
+
+    a = randn(1000, 777)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")          # the fan-in clamp's notice
         for variant in ("strassen", "winograd", "classical"):
             for gram in ("strassen", "dps"):
                 for levels in range(4):
-                    check(a, levels, variant, gram, 64)
-    check(a.to(bf16), 2, "strassen", "strassen", 64)
-    check(a, 2, "strassen", "dps", 64, out_dtype=bf16)
-    check(torch.randn(1024, 1024, generator=gen, device=dev), 2,
-          "strassen", "strassen", 128)
+                    check_ata(a, levels, variant, gram, 64)
+    check_ata(a.to(bf16), 2, "strassen", "strassen", 64)
+    check_ata(a, 2, "strassen", "dps", 64, out_dtype=bf16)
+    check_ata(randn(1024, 1024), 2, "strassen", "strassen", 128)
 
-    # -- 3b. the symm kind against its plain version ------------------------------
     print("== 3b. leaf_program (symm kind) against its plain version")
 
     def check_symm(x, T, bs, bm, levels, variant, diag_sym):
-        s = torch.randn(T * bs, T * bs, generator=gen, device=dev)
+        s = randn(T * bs, T * bs)
         low = torch.tril(s)
         sym = low + torch.tril(s, -1).T
         # diag_sym reads the stack as block-lower S (diagonal tiles full);
@@ -239,23 +291,12 @@ def main() -> int:
         stack = pack_tril_blocks(low if diag_sym else sym, bs)
         spec, xp, sp = sf._prepare_symm(x, stack, levels, variant, bm,
                                         diag_sym)
-        before = sf.KERNEL_LAUNCHES[SYMM]
-        k1 = sf.leaf_program(spec, xp, sp, f32)
-        assert sf.KERNEL_LAUNCHES[SYMM] == before + 1
-        label = (variant, levels, diag_sym, str(x.dtype))
-        depths_bit_equal(spec, xp, sp, f32, k1, label)
-        ref = plain(spec, xp, sp, f32)
-        m = x.shape[0]
         op = (low + low.T) if diag_sym else sym
         want = F.pad(x.double(), (0, T * bs - x.shape[1])) @ op.double()
-        e_plain = _rel(k1, ref.double())
-        e64 = _rel(k1[:m], want)
-        print(f"  {variant:9s} L{levels}->{spec.levels} diag_sym="
-              f"{int(diag_sym)} X {tuple(x.shape)} {x.dtype}, stack T={T} "
-              f"bs={bs}, bm={bm} tmax={spec.tmax} n_c={spec.n_c}: vs plain "
-              f"{e_plain:.2e} (<= 1e-5), vs float64 {e64:.2e} (<= 1e-4)")
-        assert e_plain <= 1e-5, e_plain
-        assert e64 <= 1e-4, e64
+        m = x.shape[0]
+        check(spec, xp, sp, f32, lambda k: k[:m], want,
+              f"{variant:9s} L{levels} diag_sym={int(diag_sym)} T={T} "
+              f"bs={bs} bm={bm}")
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -264,24 +305,107 @@ def main() -> int:
                 for diag_sym in (False, True):
                     check_symm(a, 16, 64, 64, levels, variant, diag_sym)
     check_symm(a.to(bf16), 8, 128, 64, 2, "strassen", True)
-    check_symm(torch.randn(1024, 1024, generator=gen, device=dev), 8, 128,
-               128, 2, "strassen", True)
+    check_symm(randn(1024, 1024), 8, 128, 128, 2, "strassen", True)
 
-    # -- 4. main path ---------------------------------------------------------
-    print(f"== 4. main path: ata / ata_full at {args.n} x {args.n}")
-    a = torch.randn(args.n, args.n, generator=gen, device=dev)
+    print("== 3c. leaf_program (aat kind) against its plain version")
+
+    def check_aat(a, levels, variant, gram, block, out_dtype=f32):
+        spec, ap = sf._prepare_aat(a, levels, variant, gram, block, block)
+        a64 = a.double()
+        check(spec, ap, ap, out_dtype,
+              tril_dense(a.shape[0], ap.shape[0], block),
+              torch.tril(a64 @ a64.T), f"{variant:9s} {gram:8s} L{levels}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for variant in ("strassen", "winograd", "classical"):
+            for gram in ("strassen", "dps"):
+                for levels in range(4):
+                    check_aat(a, levels, variant, gram, 64)
+    check_aat(a.to(bf16), 2, "strassen", "strassen", 64)
+    check_aat(a, 2, "strassen", "dps", 64, out_dtype=bf16)
+    check_aat(randn(1024, 1024), 2, "strassen", "strassen", 128)
+
+    print("== 3d. leaf_program (rank_k kind) against its plain version")
+
+    def check_rank_k(x, T, bn, levels, variant, gram, bk, out_dtype=f32,
+                     stack_dtype=f32):
+        low = torch.tril(randn(T * bn, T * bn)).to(stack_dtype)
+        stack = pack_tril_blocks(low, bn)
+        spec, xp = sf._prepare_rank_k(stack, x, levels, variant, gram, bk)
+        x64 = F.pad(x.double(), (0, T * bn - x.shape[1]))
+        want = low.double() + torch.tril(x64.T @ x64)
+        k1 = check(spec, xp, xp, out_dtype, tril_dense(T * bn, T * bn, bn),
+                   want,
+                   f"{variant:9s} {gram:8s} L{levels} T={T} bn={bn} "
+                   f"stack {stack_dtype}", seed=stack)
+        return spec, xp, stack, k1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for variant in ("strassen", "winograd", "classical"):
+            for gram in ("strassen", "dps"):
+                for levels in range(4):
+                    check_rank_k(a, 16, 64, levels, variant, gram, 64)
+    check_rank_k(a.to(bf16), 16, 64, 2, "strassen", "strassen", 64)
+    check_rank_k(a, 16, 64, 2, "strassen", "dps", 64, out_dtype=bf16,
+                 stack_dtype=bf16)
+    spec, xp, stack, k1 = check_rank_k(randn(1024, 1024), 8, 128, 2,
+                                       "strassen", "strassen", 128)
+    # the donated update: the kernel writes over its own seed
+    inplace = stack.clone()
+    sf.leaf_program(spec, xp, xp, f32, seed=inplace, out=inplace)
+    torch.cuda.synchronize()
+    assert torch.equal(inplace, k1)
+    print("  the update written over its own seed equals the fresh one")
+
+    print("== 3e. leaf_program (matmul kind) against its plain version")
+
+    def check_matmul(m, k, n, levels, variant, trans_a, trans_b, block,
+                     dtype=f32, out_dtype=f32):
+        x, y = randn(m, k, dtype=dtype), randn(k, n, dtype=dtype)
+        xs = x.T.contiguous() if trans_a else x
+        ys = y.T.contiguous() if trans_b else y
+        spec, ap, bp = sf._prepare_matmul(xs, ys, levels, variant, block,
+                                          block, block, trans_a, trans_b)
+        check(spec, ap, bp, out_dtype, lambda c: c[:m, :n],
+              x.double() @ y.double(),
+              f"{variant:9s} L{levels} trans_a={int(trans_a)} "
+              f"trans_b={int(trans_b)}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for variant in ("strassen", "winograd", "classical", "bb322",
+                        "bb422"):
+            for trans_a in (False, True):
+                for trans_b in (False, True):
+                    for levels in range(4):
+                        check_matmul(1000, 777, 555, levels, variant,
+                                     trans_a, trans_b, 64)
+    check_matmul(1000, 777, 555, 2, "strassen", True, False, 64, dtype=bf16)
+    check_matmul(1000, 777, 555, 2, "bb322", False, True, 64,
+                 out_dtype=bf16)
+    check_matmul(1024, 1024, 1024, 2, "strassen", False, False, 128)
+    del a
+    print(f"depths over {sf.SMEM_LIMIT_BYTES} B of shared memory refused "
+          f"with ValueError, per kind: {refused}")
+    assert all(refused.values()), refused
+
+    # -- 4. main paths ----------------------------------------------------------
+    n = args.n
+    depth = sf._resolve_pipeline_depth(None, dev)
+    auto = min(ata_levels_for(n, n, DEFAULT_LEAF), AUTO_MAX_LEVELS)
+    print(f"== 4. main path: ata / ata_full at {n} x {n}")
+    a = randn(n, n)
     ab = a.to(bf16)
-    for key in sf.KERNEL_LAUNCHES:
-        sf.KERNEL_LAUNCHES[key] = 0
+    reset_counts()
     c = ata(a)
     full = ata_full(a, levels="auto")
     cb = ata(ab)
-    torch.cuda.synchronize()
-    launches = dict(sf.KERNEL_LAUNCHES)
-    print(f"launches on the main path: {launches}")
+    launches = read_counts("the main path")
     assert launches[ATA] >= 3, launches
     for out in (c, full, cb):
-        assert out.shape == (args.n, args.n) and out.dtype == f32
+        assert out.shape == (n, n) and out.dtype == f32
         assert bool(torch.isfinite(out).all())
     a64 = a.double()
     want = a64.T @ a64
@@ -296,11 +420,9 @@ def main() -> int:
           f"(each <= 1e-4 of max|C|)")
     assert max(e_c, e_full, e_b) <= 1e-4
 
-    # The main path's three kernel configurations, each held against the
-    # plain version on the same padded operand.  These launches come after
-    # the counts were read, so they are not counted.
-    depth = sf._resolve_pipeline_depth(None, dev)
-    auto = min(ata_levels_for(args.n, args.n, DEFAULT_LEAF), AUTO_MAX_LEVELS)
+    # The main path's kernel configurations, each held against the plain
+    # version on the same padded operand.  These launches come after the
+    # counts were read, so they are not counted.
     max_abs_err = 0.0
     for label, x, levels in (("ata(a)", a, DEFAULT_LEVELS),
                              ("ata_full(a, levels='auto')", a, auto),
@@ -308,23 +430,13 @@ def main() -> int:
         spec, ap = sf._prepare_ata(x, levels, "strassen", "strassen",
                                    DEFAULT_BLOCK, DEFAULT_BLOCK,
                                    pipeline_depth=depth)
-        got = sf.leaf_program(spec, ap, ap, f32)
-        ref = plain(spec, ap, ap, f32)
-        err = float((got - ref).abs().max())
-        rel = _rel(got, ref.double())
-        print(f"  {label}: L{spec.levels} {tuple(ap.shape)} {ap.dtype} "
-              f"depth {depth} tmax={spec.tmax} n_c={spec.n_c} n_k={spec.n_k}"
-              f": kernel vs plain max|d| {err:.3e}, relative {rel:.3e} "
-              f"(<= 1e-5)")
-        assert rel <= 1e-5, (label, rel)
-        max_abs_err = max(max_abs_err, err)
-        del got, ref, ap
+        max_abs_err = max(max_abs_err, main_vs_plain(label, spec, ap, ap))
+        del ap
 
     # -- 4b. the main path's backward --------------------------------------------
     print(f"== 4b. main path backward: dA of ata / ata_full / ata(bf16) / "
-          f"ata_fused_packed at {args.n} x {args.n}")
-    n = args.n
-    w = torch.randn(n, n, generator=gen, device=dev)
+          f"ata_fused_packed at {n} x {n}")
+    w = randn(n, n)
     n_pad = sf._ata_geometry(n, n, DEFAULT_LEVELS, "strassen", DEFAULT_BLOCK,
                              DEFAULT_BLOCK)["N"]
     wp = pack_tril_blocks(F.pad(torch.tril(w), (0, n_pad - n, 0, n_pad - n)),
@@ -335,16 +447,12 @@ def main() -> int:
         (g,) = torch.autograd.grad(loss(x), x)
         return g
 
-    for key in sf.KERNEL_LAUNCHES:
-        sf.KERNEL_LAUNCHES[key] = 0
+    reset_counts()
     da = grad_of(a, lambda x: (w * ata(x)).sum())
     da_full = grad_of(a, lambda x: (w * ata_full(x, levels="auto")).sum())
     da_b = grad_of(ab, lambda x: (w * ata(x)).sum())
     da_p = grad_of(a, lambda x: (wp * ops.ata_fused_packed(x)).sum())
-    torch.cuda.synchronize()
-    bwd_launches = dict(sf.KERNEL_LAUNCHES)
-    print(f"launches on the main path's backward (forwards included): "
-          f"{bwd_launches}")
+    bwd_launches = read_counts("the main path's backward (forwards included)")
     assert bwd_launches[SYMM] >= 4 and bwd_launches[ATA] >= 4, bwd_launches
     for g, dt in ((da, f32), (da_full, f32), (da_b, bf16), (da_p, f32)):
         assert g.shape == (n, n) and g.dtype == dt
@@ -381,28 +489,20 @@ def main() -> int:
         spec, xp, sp = sf._prepare_symm(x, s_main, lv, "strassen",
                                         DEFAULT_BLOCK, True,
                                         pipeline_depth=depth)
-        got = sf.leaf_program(spec, xp, sp, f32)
-        ref = plain(spec, xp, sp, f32)
-        err = float((got - ref).abs().max())
-        rel = _rel(got, ref.double())
         if label == "ata(bf16 a)":
             # the fp32 product behind the bf16 dA, against float64
+            got = sf.leaf_program(spec, xp, sp, f32)
             lw = torch.tril(w).double()
             want = F.pad(x.double(), (0, n_pad - n)) @ F.pad(
                 lw + lw.T, (0, n_pad - n, 0, n_pad - n))
             e64 = _rel(got[:n], want)
-            del want, lw
+            del want, lw, got
             print(f"  {label}: fp32 product behind dA vs float64 {e64:.3e} "
                   f"(<= 1e-4)")
             assert e64 <= 1e-4
-        print(f"  {label}: symm L{spec.levels} X {tuple(xp.shape)} {xp.dtype}"
-              f", stack {tuple(sp.shape)} {sp.dtype}, depth {depth} tmax="
-              f"{spec.tmax} n_c={spec.n_c} n_k={spec.n_k}: kernel vs plain "
-              f"max|d| {err:.3e}, relative {rel:.3e} (<= 1e-5)")
-        assert rel <= 1e-5, (label, rel)
-        symm_err = max(symm_err, err)
+        symm_err = max(symm_err, main_vs_plain(label, spec, xp, sp))
         symm_cfgs.append((spec.levels, str(xp.dtype), depth))
-        del got, ref, xp, sp
+        del xp, sp
 
     # Peak memory of one backward (forward done) with each engine.
     peaks = {}
@@ -420,125 +520,328 @@ def main() -> int:
           f"{peaks['fused']} B, dense {peaks['dense']} B")
     assert peaks["fused"] < peaks["dense"], peaks
 
+    # -- 4c. the row gram ----------------------------------------------------------
+    wide = 777
+    print(f"== 4c. main path: ata(a, gram_of='rows') at {n} x {n}, "
+          f"{n} x {wide} and bf16")
+    aw = randn(n, wide)
+    reset_counts()
+    r = ata(a, gram_of="rows")
+    rw = ata(aw, gram_of="rows")
+    rb = ata(ab, gram_of="rows")
+    aat_launches = read_counts("the row-gram path")
+    assert aat_launches[AAT] >= 3, aat_launches
+    errs = []
+    for out, x in ((r, a), (rw, aw), (rb, ab)):
+        assert out.shape == (n, n) and out.dtype == f32
+        assert bool(torch.isfinite(out).all())
+        x64 = x.double()
+        errs.append(_rel(out, torch.tril(x64 @ x64.T)))
+        del x64
+    del r, rw, rb
+    print(f"row gram vs float64: {n} x {n} {errs[0]:.3e}, {n} x {wide} "
+          f"{errs[1]:.3e}, bf16 {errs[2]:.3e} (each <= 1e-4 of max|C|)")
+    assert max(errs) <= 1e-4
+    aat_err = 0.0
+    for label, x in (("ata(a, rows)", a), ("ata(a_wide, rows)", aw),
+                     ("ata(bf16 a, rows)", ab)):
+        spec, xp = sf._prepare_aat(x, DEFAULT_LEVELS, "strassen", "strassen",
+                                   DEFAULT_BLOCK, DEFAULT_BLOCK,
+                                   pipeline_depth=depth)
+        aat_err = max(aat_err, main_vs_plain(label, spec, xp, xp))
+        del xp
+    del aw
+
+    # -- 4d. the streamed update -----------------------------------------------------
+    chunks = 4
+    rows = n // chunks
+    T = n_pad // DEFAULT_BLOCK
+    print(f"== 4d. main path: ops.rank_k_update, {chunks} chunks of {rows} "
+          f"rows into a zero stack of T = {T} (bn {DEFAULT_BLOCK})")
+    stack = torch.zeros(T * (T + 1) // 2 * DEFAULT_BLOCK, DEFAULT_BLOCK,
+                        device=dev)
+    print(f"  stack {tuple(stack.shape)}, "
+          f"{stack.numel() * stack.element_size()} B")
+    reset_counts()
+    for i in range(chunks):
+        stack = ops.rank_k_update(stack, a[i * rows:(i + 1) * rows])
+    rk_launches = read_counts("the streamed update")
+    assert rk_launches[RANK_K] >= chunks, rk_launches
+    assert bool(torch.isfinite(stack).all())
+    one = ops.ata_fused_packed(a)
+    e_one = _rel(stack, one.double())
+    del one
+    a64 = a.double()
+    dense = torch.tril(unpack_tril_blocks(stack, n_pad, DEFAULT_BLOCK,
+                                          symmetrize=False))[:n, :n]
+    e64 = _rel(dense, torch.tril(a64.T @ a64))
+    del dense
+    print(f"streamed stack vs one-shot ata_fused_packed: {e_one:.3e} "
+          f"(<= 1e-5 of max|C|); vs float64: {e64:.3e} (<= 1e-4)")
+    assert e_one <= 1e-5 and e64 <= 1e-4
+    # One gradient through a chunk update: the stack's cotangent passes
+    # through, dA = A (S + S^t) with S the block-lower cotangent stack.
+    chunk = a[:rows]
+    s0 = stack.clone().requires_grad_()
+    x = chunk.clone().requires_grad_()
+    reset_counts()
+    out = ops.rank_k_update(s0, x, donate=False)
+    g_stack, g_chunk = torch.autograd.grad((wp * out).sum(), (s0, x))
+    rkg_launches = read_counts("a gradient through a chunk update")
+    assert rkg_launches[RANK_K] >= 1 and rkg_launches[SYMM] >= 1
+    assert torch.equal(g_stack, wp)
+    sw = unpack_tril_blocks(wp, n_pad, DEFAULT_BLOCK,
+                            symmetrize=False).double()
+    want = (F.pad(chunk.double(), (0, n_pad - n)) @ (sw + sw.T))[:, :n]
+    e_dx = _rel(g_chunk, want)
+    del want, sw, out, s0, x, g_stack, g_chunk, a64
+    print(f"chunk dA vs float64 A (S + S^t): {e_dx:.3e} (<= 1e-4); the "
+          f"stack's cotangent passed through exactly")
+    assert e_dx <= 1e-4
+    rk_spec, rk_x = sf._prepare_rank_k(stack, chunk, DEFAULT_LEVELS,
+                                       "strassen", "strassen", DEFAULT_BLOCK,
+                                       pipeline_depth=depth)
+    rank_k_err = main_vs_plain("rank_k_update(stack, chunk)", rk_spec, rk_x,
+                               rk_x, seed=stack)
+    lv = sf._rank_k_geometry(rows, T, DEFAULT_LEVELS, "strassen",
+                             DEFAULT_BLOCK)["levels"]
+    spec, xp, sp = sf._prepare_symm(chunk, wp, lv, "strassen", DEFAULT_BLOCK,
+                                    True, pipeline_depth=depth)
+    symm_err = max(symm_err, main_vs_plain("its backward", spec, xp, sp))
+    del xp, sp
+
+    # -- 4e. the Strassen product --------------------------------------------------
+    print(f"== 4e. main path: strassen_matmul at {n} x {n}, plain and "
+          f"trans_a, bf16, and their backward")
+    b = randn(n, n)
+    bb = b.to(bf16)
+    reset_counts()
+    m0 = strassen_matmul(a, b)
+    m1 = strassen_matmul(a, b, trans_a=True)
+    mb = strassen_matmul(ab, bb)
+    mm_launches = read_counts("the matmul path")
+    assert mm_launches[MATMUL] >= 3, mm_launches
+    a64, b64 = a.double(), b.double()
+    errs = []
+    for out, want in ((m0, lambda: a64 @ b64), (m1, lambda: a64.T @ b64),
+                      (mb, lambda: ab.double() @ bb.double())):
+        assert out.shape == (n, n) and out.dtype == f32
+        assert bool(torch.isfinite(out).all())
+        errs.append(_rel(out, want()))
+    del m0, m1, mb
+    print(f"matmul vs float64: a @ b {errs[0]:.3e}, a^t @ b {errs[1]:.3e}, "
+          f"bf16 {errs[2]:.3e} (each <= 1e-4 of max|C|)")
+    assert max(errs) <= 1e-4
+    xa, xb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    reset_counts()
+    g0 = torch.autograd.grad((w * strassen_matmul(xa, xb)).sum(), (xa, xb))
+    g1 = torch.autograd.grad(
+        (w * strassen_matmul(xa, xb, trans_a=True)).sum(), (xa, xb))
+    mmg_launches = read_counts("the matmul backward (forwards included)")
+    assert mmg_launches[MATMUL] >= 6, mmg_launches
+    w64 = w.double()
+    errs = []
+    # C = a b: da = W b^t, db = a^t W; C = a^t b: da = b W^t, db = a W
+    for g, want in ((g0[0], lambda: w64 @ b64.T), (g0[1], lambda: a64.T @ w64),
+                    (g1[0], lambda: b64 @ w64.T), (g1[1], lambda: a64 @ w64)):
+        assert g.shape == (n, n) and g.dtype == f32
+        errs.append(_rel(g, want()))
+    del g0, g1, xa, xb, a64, b64, w64
+    print(f"matmul grads vs float64: a @ b da {errs[0]:.3e} db {errs[1]:.3e};"
+          f" a^t @ b da {errs[2]:.3e} db {errs[3]:.3e} (each <= 1e-4)")
+    assert max(errs) <= 1e-4
+    # The forward and backward configurations, against the plain version.
+    matmul_err = 0.0
+    for label, x, y, ta, tb in (
+            ("a @ b", a, b, False, False), ("a^t @ b", a, b, True, False),
+            ("bf16 a @ b", ab, bb, False, False),
+            ("its da = W b^t", w, b, False, True),
+            ("its db = a^t W", a, w, True, False),
+            ("a^t @ b's da = b W^t", b, w, False, True),
+            ("a^t @ b's db = a W", a, w, False, False)):
+        spec, xp, yp = sf._prepare_matmul(
+            x, y, DEFAULT_LEVELS, "strassen", DEFAULT_BLOCK, DEFAULT_BLOCK,
+            DEFAULT_BLOCK, ta, tb, pipeline_depth=depth)
+        matmul_err = max(matmul_err, main_vs_plain(label, spec, xp, yp))
+        del xp, yp
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
-    m = n
+    print(f"card: {smi}")
+
+    def time_kind(spec, left, right, seed=None):
+        spec1 = dataclasses.replace(spec, pipeline_depth=1)
+        ms, runs = _time_ms(lambda: sf.leaf_program(spec, left, right, f32,
+                                                    seed=seed))
+        ms1, runs1 = _time_ms(lambda: sf.leaf_program(spec1, left, right, f32,
+                                                      seed=seed))
+        plain_ms, _ = _time_ms(lambda: plain(spec, left, right, f32, seed),
+                               reps=1, warmup=0)
+        print(f"{spec.kind} kind L{spec.levels} {tuple(left.shape)} x "
+              f"{tuple(right.shape)} depth {spec.pipeline_depth}: {ms:.3f} ms "
+              f"(runs {runs}); depth 1: {ms1:.3f} ms (runs {runs1}); plain "
+              f"executor, once: {plain_ms:.3f} ms")
+        return ms, ms1, plain_ms
+
+    def bound(kind, flops_leaf, flops_classical, io_bytes, spec):
+        flops = min(flops_leaf, flops_classical)
+        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = io_bytes / PEAK_HBM_BYTES * 1e3
+        live = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
+        print(f"{kind} bound: min(leaf products once {flops_leaf:.4e}, "
+              f"classical {flops_classical:.4e}) = {flops:.4e} flops at "
+              f"{PEAK_FP32_FLOPS:.3g} FLOP/s -> {ops_ms:.3f} ms; "
+              f"inputs+outputs once {io_bytes:.4e} B at {PEAK_HBM_BYTES:.3g} "
+              f"B/s -> {bytes_ms:.3f} ms; bound_ms {max(ops_ms, bytes_ms):.3f}")
+        print(f"{kind}, not in the bound: the kernel's live-step flops (with "
+              f"the per-destination recomputation) {live:.4e} -> "
+              f"{live / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+        return max(ops_ms, bytes_ms), \
+            "operations" if ops_ms >= bytes_ms else "bytes"
+
+    def entry(kind, launches, err, ms, plain_ms, bound_ms, bound_by,
+              library_ms, **extra):
+        return {"name": "leaf_program", "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES.format(kind), "kind": kind,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, **extra,
+                "card": smi}
+
+    kernels = []
+
+    # ata at the main path: tril(A^t A), levels 2
     spec, ap = sf._prepare_ata(a, DEFAULT_LEVELS, "strassen", "strassen",
                                DEFAULT_BLOCK, DEFAULT_BLOCK,
                                pipeline_depth=depth)
-    spec1 = dataclasses.replace(spec, pipeline_depth=1)
-    ms, runs = _time_ms(lambda: sf.leaf_program(spec, ap, ap, f32))
-    ms1, runs1 = _time_ms(lambda: sf.leaf_program(spec1, ap, ap, f32))
+    ms, ms1, plain_ms = time_kind(spec, ap, ap)
     lib_ms, lib_runs = _time_ms(lambda: torch.tril(a.T @ a))
     e2e_ms, e2e_runs = _time_ms(lambda: ata(a))
-    plain_ms, _ = _time_ms(lambda: plain(spec, ap, ap, f32), reps=1,
-                           warmup=0)
-
-    # The bound: the least work that computes tril(A^t A), each leaf
-    # product once (SYRK leaves half) at the padded size or the classical
-    # m n (n + 1), whichever is less.  The kernel's live steps, which
-    # recompute a leaf product for each destination it feeds, are shown
-    # beside it and do not enter the bound.
-    prog = compile_program("ata", spec.levels, spec.variant, gram=spec.gram)
-    leaf_flops = 2 * prog.mult_count(spec.n_k * spec.bc, spec.q_i * spec.bi)
-    classical_flops = m * n * (n + 1)
-    flops = min(leaf_flops, classical_flops)
-    live_flops = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
-    io_bytes = ap.numel() * ap.element_size() \
-        + spec.n_out * spec.bi * spec.bj * 4
-    model = sf.ata_traffic_model(m, n, levels=spec.levels, bk=spec.bc,
-                                 bn=spec.bi)
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = io_bytes / PEAK_HBM_BYTES * 1e3
-    live_ms = live_flops / PEAK_FP32_FLOPS * 1e3
-    model_ms = (model["read_bytes"] + model["write_bytes"]) \
-        / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    print(f"card: {smi}")
-    print(f"ata kind depth {depth}: {ms:.3f} ms (runs {runs}); depth 1: "
-          f"{ms1:.3f} ms (runs {runs1})")
-    print(f"torch.tril(a.T @ a) fp32: {lib_ms:.3f} ms (runs {lib_runs})")
-    print(f"ata(a) end to end (pad, kernel, unpack to dense): {e2e_ms:.3f} "
+    print(f"torch.tril(a.T @ a) fp32: {lib_ms:.3f} ms (runs {lib_runs}); "
+          f"ata(a) end to end (pad, kernel, unpack to dense): {e2e_ms:.3f} "
           f"ms (runs {e2e_runs})")
-    print(f"ata plain executor, once: {plain_ms:.3f} ms")
-    print(f"ata bound: min(leaf products once {leaf_flops:.4e}, classical "
-          f"{classical_flops:.4e}) = {flops:.4e} flops at "
-          f"{PEAK_FP32_FLOPS:.3g} FLOP/s -> {ops_ms:.3f} ms; inputs+outputs "
-          f"once {io_bytes:.4e} B at {PEAK_HBM_BYTES:.3g} B/s -> "
-          f"{bytes_ms:.3f} ms; bound_ms {bound_ms:.3f}")
-    print(f"ata, not in the bound: the kernel's live-step flops (with the "
-          f"per-destination recomputation) {live_flops:.4e} -> {live_ms:.3f}"
-          f" ms; ata_traffic_model {model['read_bytes']:.4e} + "
-          f"{model['write_bytes']:.4e} B -> {model_ms:.3f} ms")
+    prog = compile_program("ata", spec.levels, spec.variant, gram=spec.gram)
+    bound_ms, bound_by = bound(
+        "ata", 2 * prog.mult_count(spec.n_k * spec.bc, spec.q_i * spec.bi),
+        n * n * (n + 1),
+        ap.numel() * ap.element_size() + spec.n_out * spec.bi * spec.bj * 4,
+        spec)
+    kernels.append(entry("ata", launches[ATA], max_abs_err, ms, plain_ms,
+                         bound_ms, bound_by, lib_ms, ms_depth1=ms1,
+                         ata_e2e_ms=e2e_ms, shape=[n, n]))
     del ap
 
-    # The symm kind at the main path's backward: dA = A (S + S^t), S the
-    # packed tril(W), levels 2.
+    # symm at the main path's backward: dA = A (S + S^t), levels 2
     sspec, xp, sp = sf._prepare_symm(a, s_main, DEFAULT_LEVELS, "strassen",
                                      DEFAULT_BLOCK, True,
                                      pipeline_depth=depth)
-    sspec1 = dataclasses.replace(sspec, pipeline_depth=1)
-    s_ms, s_runs = _time_ms(lambda: sf.leaf_program(sspec, xp, sp, f32))
-    s_ms1, s_runs1 = _time_ms(lambda: sf.leaf_program(sspec1, xp, sp, f32))
+    ms, ms1, plain_ms = time_kind(sspec, xp, sp)
     s_dense = torch.tril(w)
 
     def library_symm():
         with torch.no_grad():
             return a @ (s_dense + s_dense.T)
-    s_lib_ms, s_lib_runs = _time_ms(library_symm)
+    lib_ms, lib_runs = _time_ms(library_symm)
     x = a.clone().requires_grad_()
     loss = (w * ata(x)).sum()
     bwd_ms, bwd_runs = _time_ms(
         lambda: torch.autograd.grad(loss, x, retain_graph=True))
-    del x, loss
-    s_plain_ms, _ = _time_ms(lambda: plain(sspec, xp, sp, f32), reps=1,
-                             warmup=0)
+    del x, loss, s_dense
+    print(f"a @ (s + s.T) fp32, the add included: {lib_ms:.3f} ms (runs "
+          f"{lib_runs}); backward of ata(a) end to end (pack, pad, kernel; "
+          f"forward done): {bwd_ms:.3f} ms (runs {bwd_runs})")
     sprog = compile_program("symm", sspec.levels, sspec.variant)
     M, N = xp.shape
-    s_leaf_flops = 2 * sprog.mult_count(M // sprog.blocks_m,
-                                        N // sprog.blocks_n)
-    s_classical = 2 * m * n * n
-    s_flops = min(s_leaf_flops, s_classical)
-    s_live = sf.live_steps(sspec) * 2 * sspec.bi * sspec.bj * sspec.bc
-    s_io = xp.numel() * xp.element_size() + sp.numel() * sp.element_size() \
-        + M * N * 4
-    s_ops_ms = s_flops / PEAK_FP32_FLOPS * 1e3
-    s_bytes_ms = s_io / PEAK_HBM_BYTES * 1e3
-    s_bound = max(s_ops_ms, s_bytes_ms)
-    print(f"symm kind (L{sspec.levels}, X {tuple(xp.shape)}, stack "
-          f"{tuple(sp.shape)}, diag_sym) depth {depth}: {s_ms:.3f} ms (runs "
-          f"{s_runs}); depth 1: {s_ms1:.3f} ms (runs {s_runs1})")
-    print(f"a @ (s + s.T) fp32, the add included: {s_lib_ms:.3f} ms (runs "
-          f"{s_lib_runs})")
-    print(f"backward of ata(a) end to end (pack, pad, kernel; forward done):"
-          f" {bwd_ms:.3f} ms (runs {bwd_runs})")
-    print(f"symm plain executor, once: {s_plain_ms:.3f} ms")
-    print(f"symm bound: min(leaf products once {s_leaf_flops:.4e}, classical"
-          f" {s_classical:.4e}) = {s_flops:.4e} flops -> {s_ops_ms:.3f} ms; "
-          f"inputs+outputs once {s_io:.4e} B -> {s_bytes_ms:.3f} ms; "
-          f"bound_ms {s_bound:.3f}")
-    print(f"symm, not in the bound: live-step flops {s_live:.4e} -> "
-          f"{s_live / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+    bound_ms, bound_by = bound(
+        "symm", 2 * sprog.mult_count(M // sprog.blocks_m, N // sprog.blocks_n),
+        2 * n * n * n,
+        xp.numel() * xp.element_size() + sp.numel() * sp.element_size()
+        + M * N * 4, sspec)
     print(f"symm configurations checked on the backward: {symm_cfgs}")
+    kernels.append(entry("symm", bwd_launches[SYMM], symm_err, ms, plain_ms,
+                         bound_ms, bound_by, lib_ms, ms_depth1=ms1,
+                         bwd_e2e_ms=bwd_ms, peak_bwd_bytes=peaks,
+                         shape=[M, N]))
+    del xp, sp
+
+    # aat at the main path: tril(A A^t), levels 2
+    spec, ap = sf._prepare_aat(a, DEFAULT_LEVELS, "strassen", "strassen",
+                               DEFAULT_BLOCK, DEFAULT_BLOCK,
+                               pipeline_depth=depth)
+    ms, ms1, plain_ms = time_kind(spec, ap, ap)
+    lib_ms, lib_runs = _time_ms(lambda: torch.tril(a @ a.T))
+    e2e_ms, e2e_runs = _time_ms(lambda: ata(a, gram_of="rows"))
+    print(f"torch.tril(a @ a.T) fp32: {lib_ms:.3f} ms (runs {lib_runs}); "
+          f"ata(a, gram_of='rows') end to end: {e2e_ms:.3f} ms (runs "
+          f"{e2e_runs})")
+    prog = compile_program("aat", spec.levels, spec.variant, gram=spec.gram)
+    bound_ms, bound_by = bound(
+        "aat", 2 * prog.mult_count(spec.q_i * spec.bi, spec.n_k * spec.bc),
+        n * (n + 1) * n,
+        ap.numel() * ap.element_size() + spec.n_out * spec.bi * spec.bj * 4,
+        spec)
+    kernels.append(entry("aat", aat_launches[AAT], aat_err, ms, plain_ms,
+                         bound_ms, bound_by, lib_ms, ms_depth1=ms1,
+                         e2e_ms=e2e_ms, shape=[n, n]))
+    del ap
+
+    # rank_k: one chunk of the streamed update into the T-tile stack
+    ms, ms1, plain_ms = time_kind(rk_spec, rk_x, rk_x, seed=stack)
+    chunk_pad = n_pad - n
+
+    def library_rank_k():
+        g = torch.tril(chunk.T @ chunk)
+        return stack + pack_tril_blocks(F.pad(g, (0, chunk_pad, 0, chunk_pad)),
+                                        DEFAULT_BLOCK)
+    lib_ms, lib_runs = _time_ms(library_rank_k)
+    print(f"torch.tril(c.T @ c) plus the packed add fp32: {lib_ms:.3f} ms "
+          f"(runs {lib_runs})")
+    prog = compile_program("rank_k", rk_spec.levels, rk_spec.variant,
+                           gram=rk_spec.gram)
+    stack_bytes = stack.numel() * stack.element_size()
+    bound_ms, bound_by = bound(
+        "rank_k",
+        2 * prog.mult_count(rk_spec.n_k * rk_spec.bc,
+                            rk_spec.q_i * rk_spec.bi),
+        rows * n * (n + 1),
+        rk_x.numel() * rk_x.element_size() + 2 * stack_bytes, rk_spec)
+    kernels.append(entry("rank_k", rk_launches[RANK_K], rank_k_err, ms,
+                         plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
+                         shape=[rows, n], stack_tiles=T))
+    del rk_x, stack
+
+    # matmul at the main path: a @ b and a^t @ b, levels 2
+    spec, ap, bp = sf._prepare_matmul(a, b, DEFAULT_LEVELS, "strassen",
+                                      DEFAULT_BLOCK, DEFAULT_BLOCK,
+                                      DEFAULT_BLOCK, pipeline_depth=depth)
+    ms, ms1, plain_ms = time_kind(spec, ap, bp)
+    tspec, tap, tbp = sf._prepare_matmul(a, b, DEFAULT_LEVELS, "strassen",
+                                         DEFAULT_BLOCK, DEFAULT_BLOCK,
+                                         DEFAULT_BLOCK, True, False,
+                                         pipeline_depth=depth)
+    t_ms, _ = _time_ms(lambda: sf.leaf_program(tspec, tap, tbp, f32))
+    lib_ms, lib_runs = _time_ms(lambda: a @ b)
+    t_lib_ms, t_lib_runs = _time_ms(lambda: a.T @ b)
+    e2e_ms, e2e_runs = _time_ms(lambda: strassen_matmul(a, b, trans_a=True))
+    print(f"matmul kind trans_a depth {depth}: {t_ms:.3f} ms; a @ b fp32: "
+          f"{lib_ms:.3f} ms (runs {lib_runs}); a.T @ b fp32: {t_lib_ms:.3f} "
+          f"ms (runs {t_lib_runs}); strassen_matmul(a, b, trans_a=True) end "
+          f"to end: {e2e_ms:.3f} ms (runs {e2e_runs})")
+    prog = compile_program("matmul", spec.levels, spec.variant)
+    M, K = ap.shape
+    N = bp.shape[1]
+    bound_ms, bound_by = bound(
+        "matmul",
+        2 * prog.mult_count(M // prog.blocks_m, N // prog.blocks_n,
+                            K // prog.blocks_k),
+        2 * n * n * n,
+        (ap.numel() + bp.numel()) * ap.element_size() + M * N * 4, spec)
+    kernels.append(entry("matmul", mm_launches[MATMUL], matmul_err, ms,
+                         plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
+                         ms_trans_a=t_ms, library_ms_trans_a=t_lib_ms,
+                         trans_a_e2e_ms=e2e_ms, shape=[n, n, n]))
 
     # -- 6. summary -------------------------------------------------------------
-    kernels = [{
-        "name": "leaf_program", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES.format("ata"), "kind": "ata",
-        "launches": launches[ATA], "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": lib_ms, "ms_depth1": ms1, "ata_e2e_ms": e2e_ms,
-        "shape": [m, n], "card": smi,
-    }, {
-        "name": "leaf_program", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES.format("symm"), "kind": "symm",
-        "launches": bwd_launches[SYMM], "max_abs_err": symm_err,
-        "ms": s_ms, "plain_ms": s_plain_ms, "bound_ms": s_bound,
-        "bound_by": "operations" if s_ops_ms >= s_bytes_ms else "bytes",
-        "library_ms": s_lib_ms, "ms_depth1": s_ms1, "bwd_e2e_ms": bwd_ms,
-        "peak_bwd_bytes": peaks, "shape": [M, N], "card": smi,
-    }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

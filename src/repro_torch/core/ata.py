@@ -71,9 +71,9 @@ def ata(
     Args:
       a: (m, n) tensor, fp32 or bf16.
       gram_of: ``"cols"`` (default, ``tril(a.T @ a)``, (n, n)) or
-        ``"rows"`` (``tril(a @ a.T)``, (m, m)).  The row gram runs on the
-        reference path as ``ATA(a.T)``; its fused program is ROADMAP
-        Queue 1 #5.
+        ``"rows"`` (``tril(a @ a.T)``, (m, m)).  The row gram runs the aat
+        kind of the kernel on the fused path (bm = bk = ``block``) and
+        ``ATA(a.T)`` on the reference path.
       levels: recursion depth cap (0 => classical SYRK), or ``"auto"``
         to recurse until a dimension reaches ``leaf`` (capped at
         ``AUTO_MAX_LEVELS``).
@@ -89,7 +89,8 @@ def ata(
         packed cotangent through the symm kind of the leaf-program
         kernel) or ``"dense"`` (the classical ``A (S + S^t)`` in torch).
         Reference mode differentiates through the recursion and ignores
-        it, as does ``gram_of="rows"``.
+        it, as does ``gram_of="rows"``, whose fused backward is the dense
+        ``(S + S^t) A``.
       out_dtype: result dtype; defaults to
         ``torch.promote_types(a.dtype, torch.float32)``.
       block: tile edge of the fused path (bk = bn = block; None = 256).
@@ -106,7 +107,8 @@ def ata(
         without ``device="cpu"`` this raises ``RuntimeError``.
 
     Returns:
-      (n, n) tensor, strictly upper triangle zeroed, dtype ``out_dtype``.
+      (n, n) tensor — (m, m) for ``gram_of="rows"`` — strictly upper
+      triangle zeroed, dtype ``out_dtype``.
     """
     from ..kernels import ops, strassen_fused as sf
 
@@ -132,9 +134,13 @@ def ata(
         a = a.to(op_dt).to(torch.promote_types(a.dtype, torch.float32))
     if gram_of == "rows":
         if mode == "fused":
-            raise NotImplementedError(
-                "ata(gram_of='rows') on the fused path: the aat program is "
-                "not ported yet (ROADMAP Queue 1 #5); use mode='reference'")
+            return ops.aat_fused(a, levels=levels, variant=variant,
+                                 gram=gram, bm=block, bk=block,
+                                 out_dtype=out_dtype,
+                                 pipeline_depth=pipeline_depth,
+                                 operand_dtype=operand_dtype,
+                                 acc_dtype=acc_dtype, sr_seed=sr_seed,
+                                 device=a.device)
         # reference oracle: AAT(A) = ATA(A^t) — the 2021 paper's identity
         a = a.T
     elif mode == "fused":

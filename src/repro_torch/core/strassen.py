@@ -8,10 +8,9 @@ least fp32) takes over, as the JAX package leaves its leaves to XLA.
 Odd dimensions are zero-padded to even (exact) and sliced away.
 
 ``resolve_mode`` gives ``"fused"`` for a CUDA tensor and
-``"reference"`` for a CPU tensor (``ata`` uses it).  The fused matmul
-program is not ported yet (ROADMAP Queue 1 #5): ``strassen_matmul``
-resolves ``mode="auto"`` to ``"reference"`` on either device, and
-``mode="fused"`` raises.
+``"reference"`` for a CPU tensor: ``strassen_matmul(mode="auto")`` runs
+the matmul kind of the leaf-program kernel (``ops.matmul_fused``) on the
+card and this recursion on the CPU, as the JAX package does on its TPU.
 """
 from __future__ import annotations
 
@@ -113,9 +112,11 @@ def strassen_matmul(
     variant: str = "strassen",
     base_matmul: Optional[Callable] = None,
     mode: str = "auto",
+    bwd: str = "fused",
     trans_a: bool = False,
     trans_b: bool = False,
     out_dtype=None,
+    block: Optional[int] = None,
     device=None,
 ) -> torch.Tensor:
     """Compute ``op(a) @ op(b)`` via (level-capped) Strassen recursion,
@@ -130,12 +131,17 @@ def strassen_matmul(
       variant: "strassen" | "winograd" | "classical".
       base_matmul: leaf matmul; defaults to ``torch.matmul`` in >= fp32.
         Forces reference mode under ``mode="auto"``.
-      mode: "auto" | "fused" | "reference".  Until the matmul program
-        is ported (ROADMAP Queue 1 #5), "auto" is "reference" on either
-        device — the recursion, a mode the JAX package has too — and
-        "fused" raises ``NotImplementedError``.
+      mode: "auto" | "fused" | "reference".  "auto" is "fused" (the
+        matmul kind of the leaf-program kernel) for operands placed on
+        the card and "reference" (the recursion) on the CPU.
+      bwd: the backward of the fused path — ``"fused"`` (both VJP
+        products through the matmul kind, the transposes folded) or
+        ``"dense"`` (the classical products in torch).  Reference mode
+        differentiates through the recursion and ignores it.
       out_dtype: result dtype; defaults to the promoted accumulation
         dtype (fp32 for bf16/fp32 inputs).
+      block: tile edge of the fused path (bm = bk = bn = block; None =
+        256).
       device: where to run; None means ``"cuda"``.  CPU tensors are
         moved to the card unless ``device="cpu"``.  Without a card and
         without ``device="cpu"`` this raises ``RuntimeError``.
@@ -155,15 +161,15 @@ def strassen_matmul(
         levels = min(strassen_levels_for(m, k_a, n, leaf), AUTO_MAX_LEVELS)
     out_dtype = _acc_dtype(a.dtype, b.dtype) if out_dtype is None \
         else out_dtype
-    # the matmul program has no kernel yet: "auto" is the recursion
-    mode = "reference" if mode == "auto" \
-        else resolve_mode(mode, base_matmul, device=a.device)
+    from ..kernels import ops
+    a, b = ops._place(a, device), ops._place(b, device)
+    mode = resolve_mode(mode, base_matmul, device=a.device)
     if mode == "fused":
-        raise NotImplementedError(
-            "strassen_matmul(mode='fused'): the fused matmul program is "
-            "not ported yet (ROADMAP Queue 1 #5); use mode='reference'")
-    from ..kernels.ops import _place
-    a, b = _place(a, device), _place(b, device)
+        return ops.matmul_fused(a, b, levels=levels, variant=variant,
+                                bm=block, bk=block, bn=block,
+                                trans_a=trans_a, trans_b=trans_b,
+                                out_dtype=out_dtype, bwd=bwd,
+                                device=a.device)
     base = base_matmul or _default_base_matmul
     with ieee_fp32():
         res = _strassen_rec(a.T if trans_a else a, b.T if trans_b else b,

@@ -1,47 +1,72 @@
-// leaf_program.cu — the fused leaf-program kernel of the PyTorch port: ata and symm kinds.
+// leaf_program.cu — the fused leaf-program kernel of the PyTorch port, all five program kinds.
 //
-// Replaces, for the ata and symm program kinds, both TPU kernels of the JAX package:
-//   src/repro/kernels/strassen_fused.py:_leaf_kernel       (pipeline_depth 1)
-//   src/repro/kernels/strassen_fused.py:_pipelined_kernel  (pipeline_depth >= 2)
+// Replaces both TPU kernels of the JAX package, for the ata, symm, aat, rank_k and matmul kinds:
+//   src/repro/kernels/strassen_fused.py:474 _leaf_kernel       (pipeline_depth 1)
+//   src/repro/kernels/strassen_fused.py:533 _pipelined_kernel  (pipeline_depth >= 2)
 // It computes what they compute: for every output tile,
-//   acc = sum over contributions c, K blocks k of
-//           sign[ld, c] * (sum_p lsgn[ld,c,p] L_p) (sum_q rsgn[ld,c,q] R_q)
+//   acc = seed + sum over contributions c, K blocks k of
+//           sign[ld, c] * op_L(sum_p lsgn[ld,c,p] L_p) op_R(sum_q rsgn[ld,c,q] R_q)
 // with the signed sums formed in fp32 after upcasting the operands, and the
 // tile stored once.  The eight tables are the host's lowering of the leaf
-// program (strassen_fused._program_tables).
-//   * ata:  C = tril(A^t A).  Both sides are tiles of one operand A, the left
-//     one transposed; the output is the packed lower-triangular tile stack.
-//   * symm: D = X @ Sym, Sym given only as the packed lower-triangular stack of
-//     S; with diag_sym, Sym = S + S^t (the backward of ata, dA = A (S + S^t)).
-//     The left side is X, not transposed; a right term reads the stored tile
-//     (max(gr, gc), min(gr, gc)) of its conceptual coordinates and mirrors it
-//     when rtrn says so or gr < gc; a diagonal tile under diag_sym contributes
-//     tile + tile^t.  The output is the dense (M, T*bs) grid.
+// program (strassen_fused._program_tables).  The kinds differ only in how
+// each side's tiles lie in memory, how an output tile is decoded and stored,
+// and whether a seed starts the sum (the JAX _Spec's left_trans, right_trans,
+// right_tri, out_tri, accumulate), and the kernel takes those per side:
+//
+//   kind    left tile as stored   right tile as stored          output       seed
+//   ata     K x i (A, read A^t)   K x j (A)                     packed tri   -
+//   aat     i x K (A)             j x K (A again, read A^t)     packed tri   -
+//   rank_k  K x i                 K x j                         packed tri   incoming stack
+//   matmul  K x i if trans_a,     j x K if trans_b,             dense        -
+//           else i x K            else K x j
+//   symm    i x K (X)             packed tri stack of S: the    dense        -
+//                                 stored tile (max(gr, gc), min(gr, gc)) of
+//                                 a term's conceptual coordinates, mirrored
+//                                 when rtrn says so or gr < gc; a diagonal tile
+//                                 under diag_sym gives tile + tile^t
+//
+// A tri output is the packed lower-triangular tile stack (tile t decoded to
+// (i, j), i >= j); a dense output the (rows, n_tj * bj) grid.  The rank_k
+// seed is the incoming packed stack: each block reads its own sub-tile before
+// the contribution loop and writes it after, so the seed may be the output
+// (the in-place update of ops.rank_k_update(donate=True)).
 //
 // What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): the
 // non-null (tile, contribution, K) steps do 2*bi*bj*bc flops each on the fp32
 // CUDA cores (67 TFLOP/s).  Each step reads tmax tiles a side, which the 50 MB
-// L2 serves for neighbouring blocks; the function itself needs its inputs and
-// outputs once (about 0.6-0.8 GB at n = 10000), far below the flops.  So the
-// design keeps the re-reads out of HBM and leaves the kernel bound by fp32 FMA:
+// L2 serves for neighbouring blocks; the functions themselves need their
+// inputs and outputs once (0.4-1.2 GB at n = 10000), far below the flops: at
+// n = 10000 the least flops take 14.9 ms (ata, aat), 24.5 ms (symm, matmul)
+// and the bytes 0.1-0.4 ms.  So every kind is bound by fp32 FMA, and the
+// design keeps the re-reads out of HBM:
 //   * blocks of one output tile (its 64 x 64 sub-tiles) and of neighbouring
 //     tiles read the same rows, which L2 serves;
 //   * null contributions (sign 0) and null terms (coefficient 0) fetch
 //     nothing, where the TPU kernel fetches and discards them;
 //   * a STAGES-deep cp.async ring streams the next steps' raw chunks while
-//     the current one is summed and multiplied.
-// Tensor cores (wgmma), TMA and warp specialisation are later work.
+//     the current one is summed and multiplied;
+//   * the dense-right instantiations are held to 80 registers, 3 blocks an
+//     SM, so more warps hide the sum phase's shared-memory latency.
+// The matmul and symm kinds recompute a leaf product for every destination it
+// feeds (144 contributions for 49 products at levels 2), the gram kinds less
+// (48 for 38); computing each product once, tensor cores (wgmma), TMA and warp
+// specialisation are later work.
 //
 // Grid: x = output tile t, y = 64 x 64 sub-tile of the bi x bj tile.  256
 // threads, 4 x 4 fp32 outputs each.  Inside a block the loop runs
 // contributions outermost, then K blocks, then KC-deep chunks of the K
 // block: the TPU walk's order (k fastest).  Every raw chunk is copied as it
-// lies in memory; orientation is decided in the sum phase, which reads each
-// element anyway and writes the signed sums as lsum[kk * TILE + i] and
+// lies in memory (KC x TILE or TILE x KC); orientation is decided in the sum
+// phase, which reads each element anyway, with swapped strides where a chunk
+// lies TILE x KC, and writes the signed sums as lsum[kk * TILE + i] and
 // rsum[kk * TILE + j].  The arithmetic does not depend on STAGES, so every
 // depth gives the same bits.
 //
-// Interface: plain C, loaded with ctypes.  Each launcher returns
+// Orientation is a field of the launch, not a template parameter: only what
+// changes the shared-memory layout (a tri-stored right side rings two chunks a
+// term) or an element type is templated, 64 instantiations in all.
+//
+// Interface: plain C, loaded with ctypes.  The launcher returns
 // cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
@@ -57,11 +82,13 @@ constexpr int THREADS = 256;       // 16 x 16 threads, 4 x 4 outputs each
 constexpr int EPT = CHUNK / THREADS;
 constexpr int MAX_CONTRIB = 128;   // contribution slots a block can list
 
-enum Kind { ATA = 0, SYMM = 1 };
+// How the right side's tiles lie: dense K x j, dense j x K, or the packed
+// lower-triangular stack of the symm kind.
+enum RightLayout { RIGHT_KJ = 0, RIGHT_JK = 1, RIGHT_TRI = 2 };
 
-// Raw chunks each right term holds in a ring slot: a symm term on a diagonal
+// Raw chunks each right term holds in a ring slot: a tri term on a diagonal
 // tile under diag_sym reads the stored chunk and its mirror.
-__host__ __device__ constexpr int right_chunks(int kind) { return kind == SYMM ? 2 : 1; }
+__host__ __device__ constexpr int right_chunks(bool tri) { return tri ? 2 : 1; }
 
 template <typename T> struct VecElems;          // elements per 16-byte copy
 template <> struct VecElems<float> { static constexpr int n = 4; };
@@ -85,8 +112,8 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 // Start the copy of a ROWS x COLS chunk at (row0, col0) of a row-major
 // operand with row stride ld into dst, row-major.  Rows at or past row_lim
 // and columns at or past col_lim (relative to the chunk) are zero-filled;
-// the operand's tile edges are multiples of 8, so a 16-byte vector lies
-// wholly inside or outside.
+// a chunk's column edge and the row stride are multiples of 8, so a 16-byte
+// vector lies wholly inside or outside.
 template <typename T, int ROWS, int COLS>
 __device__ __forceinline__ void copy_chunk(T* dst, const T* base, long long row0, long long col0,
                                            long long ld, int row_lim, int col_lim) {
@@ -111,10 +138,12 @@ __device__ __forceinline__ void tri_decode(long long t, int& i, int& j) {
   j = static_cast<int>(t - r * (r + 1) / 2);
 }
 
-// One bound program: operands, tables and geometry (strassen_fused._Spec).
+// One bound program: operands, tables, geometry and orientation
+// (strassen_fused._Spec).
 struct Program {
-  const void* left;     // ata: the padded A; symm: the padded X
-  const void* right;    // ata: A again; symm: the packed stack of S
+  const void* left;
+  const void* right;
+  const void* seed;     // rank_k: the incoming packed stack (may equal out); else null
   void* out;
   const float* sign;
   const int* lrow;
@@ -123,13 +152,17 @@ struct Program {
   const int* rrow;
   const int* rcol;
   const float* rsgn;
-  const int* rtrn;      // symm only
-  long long ldl;        // row stride of the left operand, in elements
+  const int* rtrn;      // tri right side only
+  long long ldl, ldr;   // row strides of the operands, in elements
   int n_c, n_k, tmax;
   int q_i, q_j;         // output tiles per leaf block along i and j
-  int n_tj, blocks_j;   // symm: output tiles and leaf blocks along j
+  int n_tj, blocks_j;   // dense outputs: output tiles and leaf blocks along j
   int bi, bj, bc;       // output tile edges, contraction tile edge
+  int left_trans;       // left tiles stored K x i (else i x K)
+  int right_layout;     // RightLayout
+  int out_tri;          // packed tri output (else dense)
   int diag_sym;
+  int seed_bf16;        // the seed's element type (else fp32)
 };
 
 // A tri-stored right term at K block k, as _tri_term_coords decides it: the
@@ -150,16 +183,21 @@ __device__ __forceinline__ TriTerm tri_term(const Program& P, int tab, int p, in
   return {(fr * (fr + 1) / 2 + fc) * P.bj, trn || gr < gc, P.diag_sym != 0 && gr == gc};
 }
 
-size_t smem_bytes(int kind, int tmax, int left_bytes, int right_bytes, int stages) {
+size_t smem_bytes(bool right_tri, int tmax, int left_bytes, int right_bytes, int stages) {
   return static_cast<size_t>(stages) * tmax * CHUNK *
-             (left_bytes + right_chunks(kind) * right_bytes)  // raw rings
-         + 2 * CHUNK * sizeof(float)                          // signed sums
-         + MAX_CONTRIB * sizeof(int);                         // live contributions
+             (left_bytes + right_chunks(right_tri) * right_bytes)  // raw rings
+         + 2 * CHUNK * sizeof(float)                               // signed sums
+         + MAX_CONTRIB * sizeof(int);                              // live contributions
 }
 
-template <int KIND, typename Tl, typename Tr, typename Tout, int STAGES>
-__global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) {
-  constexpr int RC = right_chunks(KIND);
+// Registers bound the dense-right kinds: left to itself the compiler takes
+// 121-128 a thread, 2 blocks an SM.  Capped at 3 blocks an SM (80 registers,
+// a few hundred bytes of spills) they ran 6-8 % faster on the H100; the tri
+// right side needs the extra ring and keeps 2 blocks.
+template <bool RIGHT_TRI, typename Tl, typename Tr, typename Tout, int STAGES>
+__global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
+    leaf_program_kernel(const Program P) {
+  constexpr int RC = right_chunks(RIGHT_TRI);
   extern __shared__ __align__(16) unsigned char smem[];
   Tl* lring = reinterpret_cast<Tl*>(smem);
   const size_t lring_bytes = static_cast<size_t>(STAGES) * P.tmax * CHUNK * sizeof(Tl);
@@ -174,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   int gi, gj, ld;
-  if constexpr (KIND == ATA) {
+  if (P.out_tri) {
     tri_decode(blockIdx.x, gi, gj);
     const int di = gi / P.q_i, dj = gj / P.q_j;
     ld = di * (di + 1) / 2 + dj;
@@ -188,6 +226,14 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
   const int j0 = (blockIdx.y % n_sub_j) * TILE;
   const int iq = gi % P.q_i, jq = gj % P.q_j;
   const int n_c = P.n_c, tmax = P.tmax;
+  const bool right_jk = P.right_layout == RIGHT_JK;
+
+  // Where this thread's outputs lie: a tri tile t at stack rows t*bi.., a
+  // dense tile at grid rows gi*bi.., cols gj*bj...
+  const long long row_base = P.out_tri ? static_cast<long long>(blockIdx.x) * P.bi
+                                       : static_cast<long long>(gi) * P.bi;
+  const long long col_base = P.out_tri ? 0 : static_cast<long long>(gj) * P.bj;
+  const long long ldo = P.out_tri ? P.bj : static_cast<long long>(P.n_tj) * P.bj;
 
   // The live contributions of this tile's leaf destination, in slot order.
   if (tid == 0) {
@@ -203,7 +249,7 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
   const int n_steps = n_live * steps_per_c;
 
   // Start the copies of step s into ring slot s % STAGES, one raw chunk per
-  // live term (two for a diagonal symm term under diag_sym).
+  // live term (two for a diagonal tri term under diag_sym).
   auto start_copies = [&](int s) {
     const int c = live[s / steps_per_c];
     const int rem = s % steps_per_c;
@@ -214,41 +260,69 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
     Tr* rslot = rring + static_cast<size_t>(s % STAGES) * tmax * RC * CHUNK;
     for (int p = 0; p < tmax; ++p) {
       if (P.lsgn[tab + p] == 0.f) continue;
-      if constexpr (KIND == ATA)  // rows (lrow*n_k + k)*bk + kc.., cols (lcol*q + iq)*bn + i0..
-        copy_chunk<Tl, KC, TILE>(lslot + p * CHUNK, left,
-                                 (static_cast<long long>(P.lrow[tab + p]) * P.n_k + k) * P.bc + kc,
-                                 (static_cast<long long>(P.lcol[tab + p]) * P.q_i + iq) * P.bi + i0,
-                                 P.ldl, P.bc - kc, P.bi - i0);
-      else  // X rows (lrow*q_i + iq)*bi + i0.., cols (lcol*n_k + k)*bc + kc..
-        copy_chunk<Tl, TILE, KC>(lslot + p * CHUNK, left,
-                                 (static_cast<long long>(P.lrow[tab + p]) * P.q_i + iq) * P.bi + i0,
-                                 (static_cast<long long>(P.lcol[tab + p]) * P.n_k + k) * P.bc + kc,
-                                 P.ldl, P.bi - i0, P.bc - kc);
+      const long long lr = P.lrow[tab + p], lc = P.lcol[tab + p];
+      if (P.left_trans)  // K x i: rows (lrow*n_k + k)*bc + kc.., cols (lcol*q_i + iq)*bi + i0..
+        copy_chunk<Tl, KC, TILE>(lslot + p * CHUNK, left, (lr * P.n_k + k) * P.bc + kc,
+                                 (lc * P.q_i + iq) * P.bi + i0, P.ldl, P.bc - kc, P.bi - i0);
+      else  // i x K: rows (lrow*q_i + iq)*bi + i0.., cols (lcol*n_k + k)*bc + kc..
+        copy_chunk<Tl, TILE, KC>(lslot + p * CHUNK, left, (lr * P.q_i + iq) * P.bi + i0,
+                                 (lc * P.n_k + k) * P.bc + kc, P.ldl, P.bi - i0, P.bc - kc);
     }
     for (int p = 0; p < tmax; ++p) {
       if (P.rsgn[tab + p] == 0.f) continue;
       Tr* dst = rslot + p * RC * CHUNK;
-      if constexpr (KIND == ATA) {
-        copy_chunk<Tr, KC, TILE>(dst, right,
-                                 (static_cast<long long>(P.rrow[tab + p]) * P.n_k + k) * P.bc + kc,
-                                 (static_cast<long long>(P.rcol[tab + p]) * P.q_j + jq) * P.bj + j0,
-                                 P.ldl, P.bc - kc, P.bj - j0);
-      } else {
+      if constexpr (RIGHT_TRI) {
         const TriTerm t = tri_term(P, tab, p, k, jq);
         if (!t.mirrored || t.diag)  // stored rows kc.., cols j0..
           copy_chunk<Tr, KC, TILE>(dst, right, t.row + kc, j0, P.bj, P.bc - kc, P.bj - j0);
         if (t.mirrored || t.diag)   // stored rows j0.., cols kc..
           copy_chunk<Tr, TILE, KC>(dst + CHUNK, right, t.row + j0, kc, P.bj, P.bj - j0,
                                    P.bc - kc);
+      } else {
+        const long long rr = P.rrow[tab + p], rc = P.rcol[tab + p];
+        if (right_jk)  // j x K: rows (rrow*q_j + jq)*bj + j0.., cols (rcol*n_k + k)*bc + kc..
+          copy_chunk<Tr, TILE, KC>(dst, right, (rr * P.q_j + jq) * P.bj + j0,
+                                   (rc * P.n_k + k) * P.bc + kc, P.ldr, P.bj - j0, P.bc - kc);
+        else  // K x j: rows (rrow*n_k + k)*bc + kc.., cols (rcol*q_j + jq)*bj + j0..
+          copy_chunk<Tr, KC, TILE>(dst, right, (rr * P.n_k + k) * P.bc + kc,
+                                   (rc * P.q_j + jq) * P.bj + j0, P.ldr, P.bc - kc, P.bj - j0);
       }
     }
   };
 
+  // Each thread owns EPT elements (kk, x) of the KC x TILE sums, laid out so
+  // that a warp's 32 lanes hit 32 banks both where a chunk is read as it lies
+  // KC x TILE ([kk][x], x = lane + 32 * (u & 1)) and where it lies TILE x KC
+  // ([x][kk], kk skewed by lane / 2).  Ownership is fixed for the whole
+  // kernel, so each element sums its terms in table order.
+  int at[EPT], mirror_at[EPT], lat[EPT], rat[EPT];
+  {
+    const int lane = tid % 32, warp = tid / 32;
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const int x = lane + 32 * (u & 1);
+      const int kk = (warp * 2 + (u >> 1) + (lane >> 1)) % KC;
+      at[u] = kk * TILE + x;
+      mirror_at[u] = x * KC + kk;
+      lat[u] = P.left_trans ? at[u] : mirror_at[u];
+      rat[u] = right_jk ? mirror_at[u] : at[u];
+    }
+  }
+
+  // The seed: this thread's outputs of the incoming tile, upcast to fp32.
   float acc[4][4], part[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = part[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) {
+      acc[i][j] = part[i][j] = 0.f;
+      const int oi = i0 + ty * 4 + i, oj = j0 + tx * 4 + j;
+      if (P.seed != nullptr && oi < P.bi && oj < P.bj) {
+        const long long at_out = (row_base + oi) * ldo + col_base + oj;
+        acc[i][j] = P.seed_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(P.seed)[at_out])
+                                : static_cast<const float*>(P.seed)[at_out];
+      }
+    }
 
   // Prologue: STAGES - 1 steps in flight.  Every thread commits one group
   // per step, empty or not, so wait_group counts steps.
@@ -271,48 +345,20 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
     const Tr* rslot = rring + static_cast<size_t>(s % STAGES) * tmax * RC * CHUNK;
     // Signed sums in fp32, terms in table order; no FMA contraction, so the
     // sums round as term = coef * x; sum += term do.
-    if constexpr (KIND == ATA) {
-      for (int e = tid; e < CHUNK; e += THREADS) {
-        float l = 0.f, r = 0.f;
-        for (int p = 0; p < tmax; ++p) {
-          const float cl = P.lsgn[tab + p];
-          if (cl != 0.f) l = __fadd_rn(l, __fmul_rn(cl, to_f32(lslot[p * CHUNK + e])));
-          const float cr = P.rsgn[tab + p];
-          if (cr != 0.f) r = __fadd_rn(r, __fmul_rn(cr, to_f32(rslot[p * CHUNK + e])));
-        }
-        lsum[e] = l;
-        rsum[e] = r;
-      }
-    } else {
-      const int k = (s % steps_per_c) / n_kc;
-      // Each thread owns EPT elements (kk, j) of the KC x TILE sums, laid
-      // out so that a warp's 32 lanes hit 32 banks both where a chunk is
-      // read as stored ([kk][j], j = lane + 32 * (u & 1)) and where it is
-      // read mirrored ([j][kk], kk skewed by lane / 2).  Ownership is fixed
-      // for the whole step, so each element still sums its terms in order.
-      const int lane = tid % 32, warp = tid / 32;
-      int at[EPT], mirror_at[EPT];
+    float l[EPT], r[EPT];
 #pragma unroll
-      for (int u = 0; u < EPT; ++u) {
-        const int j = lane + 32 * (u & 1);
-        const int kk = (warp * 2 + (u >> 1) + (lane >> 1)) % KC;
-        at[u] = kk * TILE + j;
-        mirror_at[u] = j * KC + kk;
-      }
-      float l[EPT], r[EPT];
+    for (int u = 0; u < EPT; ++u) l[u] = r[u] = 0.f;
+    for (int p = 0; p < tmax; ++p) {
+      const float cl = P.lsgn[tab + p];
+      if (cl == 0.f) continue;
+      const Tl* src = lslot + p * CHUNK;
 #pragma unroll
-      for (int u = 0; u < EPT; ++u) l[u] = r[u] = 0.f;
-      // X chunks are TILE x KC as stored: element (kk, i) sits at [i][kk].
-      for (int p = 0; p < tmax; ++p) {
-        const float cl = P.lsgn[tab + p];
-        if (cl == 0.f) continue;
-        const Tl* src = lslot + p * CHUNK;
-#pragma unroll
-        for (int u = 0; u < EPT; ++u)
-          l[u] = __fadd_rn(l[u], __fmul_rn(cl, to_f32(src[mirror_at[u]])));
-      }
+      for (int u = 0; u < EPT; ++u) l[u] = __fadd_rn(l[u], __fmul_rn(cl, to_f32(src[lat[u]])));
+    }
+    if constexpr (RIGHT_TRI) {
       // Right element (kk, j): stored[kk][j] in the stored chunk,
       // stored[j][kk] in the mirrored one.
+      const int k = (s % steps_per_c) / n_kc;
       for (int p = 0; p < tmax; ++p) {
         const float cr = P.rsgn[tab + p];
         if (cr == 0.f) continue;
@@ -328,11 +374,19 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
           r[u] = __fadd_rn(r[u], __fmul_rn(cr, v));
         }
       }
+    } else {
+      for (int p = 0; p < tmax; ++p) {
+        const float cr = P.rsgn[tab + p];
+        if (cr == 0.f) continue;
+        const Tr* src = rslot + p * CHUNK;
 #pragma unroll
-      for (int u = 0; u < EPT; ++u) {
-        lsum[at[u]] = l[u];
-        rsum[at[u]] = r[u];
+        for (int u = 0; u < EPT; ++u) r[u] = __fadd_rn(r[u], __fmul_rn(cr, to_f32(src[rat[u]])));
       }
+    }
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      lsum[at[u]] = l[u];
+      rsum[at[u]] = r[u];
     }
     __syncthreads();
 
@@ -363,13 +417,8 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
   }
   cp_async_wait<0>();
 
-  // One store per output element: ata writes the packed stack row t*bn + i,
-  // col j; symm the dense grid row gi*bi + i, col gj*bj + j.
+  // One store per output element, where its seed was read.
   Tout* out = static_cast<Tout*>(P.out);
-  const long long row_base = KIND == ATA ? static_cast<long long>(blockIdx.x) * P.bi
-                                         : static_cast<long long>(gi) * P.bi;
-  const long long col_base = KIND == ATA ? 0 : static_cast<long long>(gj) * P.bj;
-  const long long ldo = KIND == ATA ? P.bj : static_cast<long long>(P.n_tj) * P.bj;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int oi = i0 + ty * 4 + i;
@@ -382,10 +431,10 @@ __global__ void __launch_bounds__(THREADS) leaf_program_kernel(const Program P) 
   }
 }
 
-template <int KIND, typename Tl, typename Tr, typename Tout, int S>
+template <bool RIGHT_TRI, typename Tl, typename Tr, typename Tout, int S>
 cudaError_t launch(const Program& P, int n_out, cudaStream_t stream) {
-  auto kernel = leaf_program_kernel<KIND, Tl, Tr, Tout, S>;
-  const size_t smem = smem_bytes(KIND, P.tmax, sizeof(Tl), sizeof(Tr), S);
+  auto kernel = leaf_program_kernel<RIGHT_TRI, Tl, Tr, Tout, S>;
+  const size_t smem = smem_bytes(RIGHT_TRI, P.tmax, sizeof(Tl), sizeof(Tr), S);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -395,30 +444,36 @@ cudaError_t launch(const Program& P, int n_out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int KIND, typename Tl, typename Tr, typename Tout>
+template <bool RIGHT_TRI, typename Tl, typename Tr, typename Tout>
 cudaError_t by_stages(int stages, const Program& P, int n_out, cudaStream_t s) {
   switch (stages) {
-    case 1: return launch<KIND, Tl, Tr, Tout, 1>(P, n_out, s);
-    case 2: return launch<KIND, Tl, Tr, Tout, 2>(P, n_out, s);
-    case 3: return launch<KIND, Tl, Tr, Tout, 3>(P, n_out, s);
-    case 4: return launch<KIND, Tl, Tr, Tout, 4>(P, n_out, s);
+    case 1: return launch<RIGHT_TRI, Tl, Tr, Tout, 1>(P, n_out, s);
+    case 2: return launch<RIGHT_TRI, Tl, Tr, Tout, 2>(P, n_out, s);
+    case 3: return launch<RIGHT_TRI, Tl, Tr, Tout, 3>(P, n_out, s);
+    case 4: return launch<RIGHT_TRI, Tl, Tr, Tout, 4>(P, n_out, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16.
-template <int KIND, typename Tl, typename Tr>
+template <bool RIGHT_TRI, typename Tl, typename Tr>
 cudaError_t by_out(int out_dtype, int stages, const Program& P, int n_out, cudaStream_t s) {
-  if (out_dtype == 0) return by_stages<KIND, Tl, Tr, float>(stages, P, n_out, s);
-  if (out_dtype == 1) return by_stages<KIND, Tl, Tr, __nv_bfloat16>(stages, P, n_out, s);
+  if (out_dtype == 0) return by_stages<RIGHT_TRI, Tl, Tr, float>(stages, P, n_out, s);
+  if (out_dtype == 1) return by_stages<RIGHT_TRI, Tl, Tr, __nv_bfloat16>(stages, P, n_out, s);
   return cudaErrorInvalidValue;
 }
 
+template <typename Tl, typename Tr>
+cudaError_t by_layout(int out_dtype, int stages, const Program& P, int n_out, cudaStream_t s) {
+  if (P.right_layout == RIGHT_TRI) return by_out<true, Tl, Tr>(out_dtype, stages, P, n_out, s);
+  return by_out<false, Tl, Tr>(out_dtype, stages, P, n_out, s);
+}
+
 template <typename Tl>
-cudaError_t symm_by_right(int r_dtype, int out_dtype, int stages, const Program& P, int n_out,
-                          cudaStream_t s) {
-  if (r_dtype == 0) return by_out<SYMM, Tl, float>(out_dtype, stages, P, n_out, s);
-  if (r_dtype == 1) return by_out<SYMM, Tl, __nv_bfloat16>(out_dtype, stages, P, n_out, s);
+cudaError_t by_right(int r_dtype, int out_dtype, int stages, const Program& P, int n_out,
+                     cudaStream_t s) {
+  if (r_dtype == 0) return by_layout<Tl, float>(out_dtype, stages, P, n_out, s);
+  if (r_dtype == 1) return by_layout<Tl, __nv_bfloat16>(out_dtype, stages, P, n_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -427,9 +482,11 @@ cudaError_t symm_by_right(int r_dtype, int out_dtype, int stages, const Program&
 extern "C" {
 
 // Dynamic shared memory one launch needs (the wrapper refuses > 227 KB).
-// kind: 0 = ata, 1 = symm; left_bytes / right_bytes: operand element sizes.
-size_t leaf_program_smem_bytes(int kind, int tmax, int left_bytes, int right_bytes, int stages) {
-  return smem_bytes(kind, tmax, left_bytes, right_bytes, stages);
+// right_tri: the right side is a packed tri stack; left_bytes / right_bytes:
+// operand element sizes.
+size_t leaf_program_smem_bytes(int right_tri, int tmax, int left_bytes, int right_bytes,
+                               int stages) {
+  return smem_bytes(right_tri != 0, tmax, left_bytes, right_bytes, stages);
 }
 
 int leaf_program_max_contributions() { return MAX_CONTRIB - 1; }
@@ -438,50 +495,38 @@ const char* leaf_program_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The ata kind.  `a` is the padded (M, lda) operand, `out` the (n_tri*bn, bn)
-// packed stack.
-int leaf_program_ata(const void* a, void* out, const void* sign, const void* lrow,
-                     const void* lcol, const void* lsgn, const void* rrow, const void* rcol,
-                     const void* rsgn, long long lda, int n_tri, int n_c, int n_k, int tmax,
-                     int q, int bn, int bk, int in_dtype, int out_dtype, int stages,
-                     void* stream) {
-  if (n_c > MAX_CONTRIB - 1 || bn % 8 != 0 || bn < 8 || bk < 1 || tmax < 1)
+// One bound program of any kind.  `left` / `right` are the padded operands
+// (row strides ldl / ldr), `seed` the incoming packed stack or null, `out` the
+// packed (n_out*bi, bj) stack (out_tri) or the dense ((n_out/n_tj)*bi, n_tj*bj)
+// grid.  left_trans: left tiles stored K x i.  right_layout: 0 K x j, 1 j x K,
+// 2 packed tri stack of (bj, bj) tiles (then bc == bj).  dtype codes: 0 fp32,
+// 1 bf16.  A chunk's column edge (bi or bc on the left, bj or bc on the right)
+// must be a multiple of 8.
+int leaf_program_launch(const void* left, const void* right, const void* seed, void* out,
+                        const void* sign, const void* lrow, const void* lcol, const void* lsgn,
+                        const void* rrow, const void* rcol, const void* rsgn, const void* rtrn,
+                        long long ldl, long long ldr, int n_out, int n_c, int n_k, int tmax,
+                        int q_i, int q_j, int n_tj, int blocks_j, int bi, int bj, int bc,
+                        int left_trans, int right_layout, int out_tri, int diag_sym,
+                        int l_dtype, int r_dtype, int seed_dtype, int out_dtype, int stages,
+                        void* stream) {
+  const int l_cols = left_trans ? bi : bc;
+  const int r_cols = right_layout == RIGHT_JK ? bc : bj;
+  if (n_c > MAX_CONTRIB - 1 || tmax < 1 || n_out < 1 || bi < 8 || bj < 8 || bc < 8 ||
+      l_cols % 8 != 0 || r_cols % 8 != 0 || right_layout < RIGHT_KJ ||
+      right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
+      (!out_tri && n_tj < 1) || (seed != nullptr && seed_dtype != 0 && seed_dtype != 1))
     return cudaErrorInvalidValue;
-  Program P{a, a, out,
-            static_cast<const float*>(sign), static_cast<const int*>(lrow),
-            static_cast<const int*>(lcol), static_cast<const float*>(lsgn),
-            static_cast<const int*>(rrow), static_cast<const int*>(rcol),
-            static_cast<const float*>(rsgn), nullptr,
-            lda, n_c, n_k, tmax, q, q, 0, 0, bn, bn, bk, 0};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0) return by_out<ATA, float, float>(out_dtype, stages, P, n_tri, s);
-  if (in_dtype == 1)
-    return by_out<ATA, __nv_bfloat16, __nv_bfloat16>(out_dtype, stages, P, n_tri, s);
-  return cudaErrorInvalidValue;
-}
-
-// The symm kind.  `x` is the padded (M, ldx) left operand, `s` the packed
-// (T(T+1)/2 * bj, bj) stack, `out` the dense ((n_out / n_tj) * bi, n_tj * bj)
-// grid.  bc must equal bj (the stack's tile edge).
-int leaf_program_symm(const void* x, const void* s_packed, void* out, const void* sign,
-                      const void* lrow, const void* lcol, const void* lsgn, const void* rrow,
-                      const void* rcol, const void* rsgn, const void* rtrn, long long ldx,
-                      int n_out, int n_c, int n_k, int tmax, int q_i, int q_j, int n_tj,
-                      int blocks_j, int bi, int bj, int bc, int diag_sym, int l_dtype,
-                      int r_dtype, int out_dtype, int stages, void* stream) {
-  if (n_c > MAX_CONTRIB - 1 || bj % 8 != 0 || bj < 8 || bc != bj || bi < 1 || tmax < 1 ||
-      n_tj < 1)
-    return cudaErrorInvalidValue;
-  Program P{x, s_packed, out,
+  Program P{left, right, seed, out,
             static_cast<const float*>(sign), static_cast<const int*>(lrow),
             static_cast<const int*>(lcol), static_cast<const float*>(lsgn),
             static_cast<const int*>(rrow), static_cast<const int*>(rcol),
             static_cast<const float*>(rsgn), static_cast<const int*>(rtrn),
-            ldx, n_c, n_k, tmax, q_i, q_j, n_tj, blocks_j, bi, bj, bc, diag_sym};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (l_dtype == 0) return symm_by_right<float>(r_dtype, out_dtype, stages, P, n_out, st);
-  if (l_dtype == 1)
-    return symm_by_right<__nv_bfloat16>(r_dtype, out_dtype, stages, P, n_out, st);
+            ldl, ldr, n_c, n_k, tmax, q_i, q_j, n_tj, blocks_j, bi, bj, bc,
+            left_trans, right_layout, out_tri, diag_sym, seed_dtype == 1};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (l_dtype == 0) return by_right<float>(r_dtype, out_dtype, stages, P, n_out, s);
+  if (l_dtype == 1) return by_right<__nv_bfloat16>(r_dtype, out_dtype, stages, P, n_out, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,9 @@
 """Public entry points of the port's kernels, and where they run.
 
-The port of the ata and symm parts of ``repro/kernels/ops.py``.  Where
+The port of the leaf-program parts of ``repro/kernels/ops.py``: the
+column gram (``ata_fused[_packed]``), its backward's ``symm_matmul``, the
+row gram (``aat_fused[_packed]``), the streamed update
+(``rank_k_update``) and the Strassen product (``matmul_fused``).  Where
 the JAX package decides per backend whether a Pallas kernel runs
 compiled or in interpret mode (``_auto_interpret``), the port decides by
 device: the entry points run on the card unless the caller passes
@@ -14,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ata_fused", "ata_fused_packed", "symm_matmul"]
+__all__ = ["ata_fused", "ata_fused_packed", "symm_matmul", "aat_fused",
+           "aat_fused_packed", "rank_k_update", "matmul_fused"]
 
 DEFAULT_BLOCK = 256
 
@@ -32,6 +36,10 @@ def _place(a, device) -> torch.Tensor:
     return torch.as_tensor(a).to(dev)
 
 
+def _block(b):
+    return DEFAULT_BLOCK if b is None else b
+
+
 def ata_fused(a, *, levels=2, variant="strassen", gram="strassen", bk=None,
               bn=None, out_dtype=None, bwd="fused", pipeline_depth=None,
               operand_dtype=None, acc_dtype=None, sr_seed=None, device=None):
@@ -42,10 +50,9 @@ def ata_fused(a, *, levels=2, variant="strassen", gram="strassen", bk=None,
     ``strassen_fused.fused_ata_packed``'s."""
     from . import strassen_fused as _sf
     return _sf.fused_ata(
-        a, levels=levels, variant=variant, gram=gram,
-        bk=DEFAULT_BLOCK if bk is None else bk,
-        bn=DEFAULT_BLOCK if bn is None else bn, out_dtype=out_dtype,
-        bwd=bwd, pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
+        a, levels=levels, variant=variant, gram=gram, bk=_block(bk),
+        bn=_block(bn), out_dtype=out_dtype, bwd=bwd,
+        pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
         acc_dtype=acc_dtype, sr_seed=sr_seed, device=device)
 
 
@@ -59,10 +66,9 @@ def ata_fused_packed(a, *, levels=2, variant="strassen", gram="strassen",
     (``bwd="fused"``) — no dense n^2 buffer in the backward."""
     from . import strassen_fused as _sf
     packed, _ = _sf.fused_ata_packed(
-        a, levels=levels, variant=variant, gram=gram,
-        bk=DEFAULT_BLOCK if bk is None else bk,
-        bn=DEFAULT_BLOCK if bn is None else bn, out_dtype=out_dtype,
-        bwd=bwd, pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
+        a, levels=levels, variant=variant, gram=gram, bk=_block(bk),
+        bn=_block(bn), out_dtype=out_dtype, bwd=bwd,
+        pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
         acc_dtype=acc_dtype, sr_seed=sr_seed, device=device)
     return packed
 
@@ -77,7 +83,73 @@ def symm_matmul(x, s_packed, *, levels=2, variant="strassen", bm=None,
     operand).  The knobs are ``strassen_fused.fused_symm_matmul``'s."""
     from . import strassen_fused as _sf
     return _sf.fused_symm_matmul(
-        x, s_packed, levels=levels, variant=variant,
-        bm=DEFAULT_BLOCK if bm is None else bm, diag_sym=diag_sym,
-        out_dtype=out_dtype, pipeline_depth=pipeline_depth,
+        x, s_packed, levels=levels, variant=variant, bm=_block(bm),
+        diag_sym=diag_sym, out_dtype=out_dtype, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, device=device)
+
+
+def matmul_fused(a, b, *, levels=2, variant="strassen", bm=None, bk=None,
+                 bn=None, trans_a=False, trans_b=False, out_dtype=None,
+                 bwd="fused", pipeline_depth=None, operand_dtype=None,
+                 acc_dtype=None, device=None):
+    """``op(a) @ op(b)`` via the fused Strassen program;
+    ``trans_a``/``trans_b`` transpose an operand through how the kernel
+    reads it — no transposed copy (the distributed ring / 2.5D block
+    tasks route here).  ``bwd="fused"`` (default) runs both VJP products
+    through the same kind with the transposes likewise folded; the knobs
+    are ``strassen_fused.fused_matmul``'s."""
+    from . import strassen_fused as _sf
+    return _sf.fused_matmul(
+        a, b, levels=levels, variant=variant, bm=_block(bm), bk=_block(bk),
+        bn=_block(bn), trans_a=trans_a, trans_b=trans_b, out_dtype=out_dtype,
+        bwd=bwd, pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
+        acc_dtype=acc_dtype, device=device)
+
+
+def aat_fused(a, *, levels=2, variant="strassen", gram="strassen", bm=None,
+              bk=None, out_dtype=None, pipeline_depth=None,
+              operand_dtype=None, acc_dtype=None, sr_seed=None, device=None):
+    """Dense ``tril(a @ a.T)`` — the Arrigoni-Massini row gram
+    (``ata(x, gram_of="rows")``) via the same leaf-program kernel; the
+    transpose of ``a`` never exists.  Differentiable through the dense
+    ``(S + S^t) A``; the knobs are ``strassen_fused.fused_aat``'s."""
+    from . import strassen_fused as _sf
+    return _sf.fused_aat(
+        a, levels=levels, variant=variant, gram=gram, bm=_block(bm),
+        bk=_block(bk), out_dtype=out_dtype, pipeline_depth=pipeline_depth,
+        operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
+        device=device)
+
+
+def aat_fused_packed(a, *, levels=2, variant="strassen", gram="strassen",
+                     bm=None, bk=None, out_dtype=None, pipeline_depth=None,
+                     operand_dtype=None, acc_dtype=None, sr_seed=None,
+                     device=None):
+    """Packed lower-tri block stack of ``a @ a.T`` (the row-gram dual of
+    :func:`ata_fused_packed`)."""
+    from . import strassen_fused as _sf
+    packed, _ = _sf.fused_aat_packed(
+        a, levels=levels, variant=variant, gram=gram, bm=_block(bm),
+        bk=_block(bk), out_dtype=out_dtype, pipeline_depth=pipeline_depth,
+        operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
+        device=device)
+    return packed
+
+
+def rank_k_update(c_stack, a, *, levels=2, variant="strassen",
+                  gram="strassen", bk=None, out_dtype=None, donate=True,
+                  pipeline_depth=None, operand_dtype=None, acc_dtype=None,
+                  device=None):
+    """``C += tril(a.T @ a)`` on a packed tile stack in one kernel — the
+    accumulating (rank-k) program: the stack seeds the kernel's
+    accumulator, so a streamed Gram chunk makes no delta stack.  With
+    ``donate`` (default) the new stack is written over ``c_stack`` in
+    place, the counterpart of the JAX package's buffer donation; a stack
+    that requires grad is refused then (pass ``donate=False``).  The
+    knobs are ``strassen_fused.fused_rank_k_update``'s."""
+    from . import strassen_fused as _sf
+    return _sf.fused_rank_k_update(
+        c_stack, a, levels=levels, variant=variant, gram=gram,
+        bk=_block(bk), out_dtype=out_dtype, pipeline_depth=pipeline_depth,
+        operand_dtype=operand_dtype, acc_dtype=acc_dtype, donate=donate,
+        device=device)

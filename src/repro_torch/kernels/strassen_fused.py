@@ -1,4 +1,4 @@
-"""The fused leaf-program executor of the PyTorch port: ata and symm kinds.
+"""The fused leaf-program executor of the PyTorch port: all five kinds.
 
 The port of the host side of ``repro/kernels/strassen_fused.py``.  A
 ``LeafProgram`` (``core/leaf_ir.py``) is bound to tile sizes
@@ -13,16 +13,25 @@ run by :func:`leaf_program`:
   same tables — the counterpart of Pallas interpret mode, and the plain
   version the kernel is held against on the card.
 
-Two program kinds run: ``ata`` (the forward, ``tril(A^t A)`` into the
-packed lower-triangular tile stack, each tile written once) and
-``symm`` (``X @ Sym`` with Sym given only as a packed stack — the
-engine of the backward ``dA = A (S + S^t)``, :func:`fused_symm_matmul`).
-``fused_ata`` / ``fused_ata_packed`` are differentiable through
-``torch.autograd.Function``s whose backward runs the symm kind.  The
-analytic traffic models (:func:`ata_traffic_model`,
-:func:`ata_bwd_traffic_model`) share the executor's geometry, so they
-cannot drift from the padding and clamping it runs.  The aat, rank_k
-and matmul kinds are ROADMAP Queue 2.
+The program kinds, each with its entry point and its autograd:
+
+* ``ata`` — ``tril(A^t A)`` into the packed lower-triangular tile stack
+  (:func:`fused_ata_packed`, :func:`fused_ata`); backward through symm;
+* ``symm`` — ``X @ Sym`` with Sym given only as a packed stack, the
+  engine of the Gram backward ``dA = A (S + S^t)``
+  (:func:`fused_symm_matmul`);
+* ``aat`` — the row gram ``tril(A A^t)``, the same A read mirrored on
+  the right (:func:`fused_aat_packed`, :func:`fused_aat`); its backward
+  is the dense ``(S + S^t) A``, as in the JAX package;
+* ``rank_k`` — ``C += tril(A^t A)`` on a packed stack, the incoming
+  stack seeding the accumulator (:func:`fused_rank_k_update`); backward
+  through symm;
+* ``matmul`` — ``op(A) op(B)``, the transposes folded into how each side
+  is read (:func:`fused_matmul`); its backward is two more matmul
+  launches.
+
+The analytic traffic models share the executor's geometry, so they
+cannot drift from the padding and clamping it runs.
 """
 from __future__ import annotations
 
@@ -45,7 +54,9 @@ from . import _build
 from .ops import _place
 
 __all__ = ["fused_ata", "fused_ata_packed", "fused_symm_matmul",
-           "ata_traffic_model", "ata_bwd_traffic_model", "leaf_program",
+           "fused_aat", "fused_aat_packed", "fused_rank_k_update",
+           "fused_matmul", "ata_traffic_model", "ata_bwd_traffic_model",
+           "aat_traffic_model", "rank_k_traffic_model", "leaf_program",
            "KERNEL_LAUNCHES", "MAX_OPERAND_TERMS", "MAX_PIPELINE_DEPTH"]
 
 
@@ -57,8 +68,9 @@ def _round_up(x: int, mult: int) -> int:
 # chunks per step into shared memory, so deep programs are clamped.
 MAX_OPERAND_TERMS = 8
 
-# Ring depth cap: each slot holds another 2 * max_terms raw chunks (ata)
-# or 3 * max_terms (symm: a right term may need its tile and the mirror).
+# Ring depth cap: each slot holds another 2 * max_terms raw chunks (a
+# dense right side) or 3 * max_terms (a tri right side: a term may need
+# its tile and the mirror).
 MAX_PIPELINE_DEPTH = 4
 
 # Shared memory one thread block may use on Hopper (227 KB).
@@ -70,14 +82,18 @@ _SUPPORTED_OPERAND_DTYPES = ("float8_e4m3fn", "float8_e5m2", "bfloat16",
                              "float16", "float32", "float64")
 _PORTED_OPERAND_DTYPES = ("bfloat16", "float32")
 
-# dtype and program-kind codes of the C interface
+# dtype codes of the C interface
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KIND_CODES = {"ata": 0, "symm": 1}
+_KINDS = ("ata", "symm", "aat", "rank_k", "matmul")
+
+# right-side layouts of the C interface: dense K x j, dense j x K (a
+# transposed right side), the packed tri stack (symm)
+_RIGHT_KJ, _RIGHT_JK, _RIGHT_TRI = 0, 1, 2
 
 #: Launches of each CUDA kernel, one count per program kind, bumped where
 #: the kernel is launched and nowhere else — a run reads it to show the
 #: main path went through it.
-KERNEL_LAUNCHES = {f"leaf_program/{kind}": 0 for kind in _KIND_CODES}
+KERNEL_LAUNCHES = {f"leaf_program/{kind}": 0 for kind in _KINDS}
 
 # (kind, variant, gram, requested, clamped) combinations already warned
 # about: the clamp warns exactly once per distinct clamp.
@@ -209,6 +225,68 @@ def _ata_geometry(m: int, n: int, levels: int, variant: str,
     }
 
 
+def _aat_geometry(m: int, n: int, levels: int, variant: str,
+                  bm: int, bk: int, gram: str = "strassen"):
+    """Geometry for the row-gram (A A^t) kind — the column-gram geometry
+    with the roles of the two grids swapped: output tiles tile the *row*
+    dimension, the contraction sweeps the columns."""
+    levels = min(levels, ata_levels_for(m, n, max(bm, bk)))
+    levels = _fan_in_clamp("aat", levels, variant, gram)
+    plan = compile_program("aat", levels, variant, gram=gram)
+    B = plan.blocks
+    mb = _round_up(max(m, 1), B * bm) // B     # leaf rows (bm multiple)
+    nb = _round_up(max(n, 1), B * bk) // B     # leaf cols (bk multiple)
+    M, N = B * mb, B * nb
+    t_blocks = M // bm
+    return {
+        "plan": plan, "levels": levels, "mb": mb, "nb": nb, "M": M, "N": N,
+        "n_k": nb // bk, "nbt": mb // bm,
+        "n_tri": t_blocks * (t_blocks + 1) // 2,
+    }
+
+
+def _rank_k_geometry(m: int, T: int, levels: int, variant: str, bk: int,
+                     gram: str = "strassen"):
+    """Geometry for C += A^t A against an existing packed (T-tile) stack:
+    the ata geometry with the column side pinned to the stack layout, so
+    levels clamp to divisors of T (like symm)."""
+    while levels > 0 and T % (1 << levels):
+        levels -= 1
+    levels = min(levels, ata_levels_for(m, T, 1))   # never exceed the grid
+    levels = _fan_in_clamp("rank_k", levels, variant, gram)
+    plan = compile_program("rank_k", levels, variant, gram=gram)
+    B = plan.blocks
+    mb = _round_up(max(m, 1), B * bk) // B
+    return {"plan": plan, "levels": levels, "M": B * mb, "mb": mb,
+            "n_k": mb // bk, "nbt": T // B,
+            "n_tri": T * (T + 1) // 2}
+
+
+def _matmul_geometry(m: int, k: int, n: int, levels: int, variant: str,
+                     bm: int, bk: int, bn: int, trans_a: bool = False,
+                     trans_b: bool = False):
+    """Geometry for C = op(A) op(B), (m, k) x (k, n): the generic
+    per-axis level clamp (``strassen_levels_for`` at (2, 2, 2)) — stop
+    splitting once the smallest leaf axis reaches tile size — then the
+    fan-in clamp, and each axis padded to its own leaf grid (bb322 and
+    bb422 split m three and four ways)."""
+    dm, dk, dn = leaf_ir.algebra_dims(variant)
+    leaf, lv = max(bm, bk, bn), 0
+    cm, ck, cn = m, k, n
+    while min(cm, ck, cn) > leaf:
+        cm, ck, cn = cm // dm, ck // dk, cn // dn
+        lv += 1
+    levels = _fan_in_clamp("matmul", min(levels, lv), variant)
+    plan = compile_program("matmul", levels, variant, trans_a=trans_a,
+                           trans_b=trans_b)
+    Bm, Bk, Bn = plan.blocks_m, plan.blocks_k, plan.blocks_n
+    mb = _round_up(max(m, 1), Bm * bm) // Bm
+    kb = _round_up(max(k, 1), Bk * bk) // Bk
+    nb = _round_up(max(n, 1), Bn * bn) // Bn
+    return {"plan": plan, "levels": levels, "M": Bm * mb, "K": Bk * kb,
+            "N": Bn * nb, "nbm": mb // bm, "nbn": nb // bn, "n_k": kb // bk}
+
+
 def _symm_geometry(m: int, T: int, levels: int, variant: str, bm: int):
     """Level clamp + padded-row geometry for the symm executor (shared
     with ``ata_bwd_traffic_model``).  ``T`` is the packed stack's tile
@@ -331,10 +409,18 @@ def _program_tables(kind: str, levels: int, variant: str,
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(kind: str, levels: int, variant: str, gram: str,
-                   device: str):
+                   device: str, trans_a: bool = False,
+                   trans_b: bool = False):
     """The lowered tables as tensors on ``device``, uploaded once."""
     return tuple(torch.from_numpy(t).to(device)
-                 for t in _program_tables(kind, levels, variant, gram))
+                 for t in _program_tables(kind, levels, variant, gram,
+                                          trans_a, trans_b))
+
+
+def _spec_tables(spec: _Spec, device) -> tuple:
+    """The device tables of the program ``spec`` binds."""
+    return _device_tables(spec.kind, spec.levels, spec.variant, spec.gram,
+                          str(device), spec.trans_a, spec.trans_b)
 
 
 # a re-registered algebra table must invalidate the lowered tables too —
@@ -364,10 +450,16 @@ def _out_tiles(spec: _Spec, device):
 
 
 def _operand_shapes(spec: _Spec):
-    """Stored tile shapes of the left and right operands of the ported
-    kinds (a transposed dense right side comes with the aat kind)."""
+    """Stored tile shapes of the left and right operands: ``K x i`` or
+    ``i x K`` on the left; on the right the stack's ``(bs, bs)`` tiles,
+    ``j x K`` (a transposed dense side) or ``K x j``."""
     l_shape = (spec.bc, spec.bi) if spec.left_trans else (spec.bi, spec.bc)
-    r_shape = (spec.bj, spec.bj) if spec.right_tri else (spec.bc, spec.bj)
+    if spec.right_tri:
+        r_shape = (spec.bj, spec.bj)
+    elif spec.right_trans:
+        r_shape = (spec.bj, spec.bc)
+    else:
+        r_shape = (spec.bc, spec.bj)
     return l_shape, r_shape
 
 
@@ -385,16 +477,19 @@ def _tiles(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
 
 
 def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
-                        right: torch.Tensor, out_dtype) -> torch.Tensor:
+                        right: torch.Tensor, out_dtype,
+                        seed: torch.Tensor | None = None) -> torch.Tensor:
     """The plain torch version of the kernel: the same tables, the same
     walk (contributions, then K blocks), over every output tile at once.
 
-    Per (contribution, K block) step it gathers each term's tile for all
+    The accumulator starts from ``seed`` (the incoming stack of an
+    accumulating program, upcast to fp32) or from zero.  Per
+    (contribution, K block) step it gathers each term's tile for all
     output tiles and forms the signed sums in fp32, term by term in
     table order: the tile upcast, mirrored where the tables say so,
     ``tile + tile^t`` on a diagonal tile under ``diag_sym``, times its
-    coefficient, added to the running sum.  Then it adds
-    ``sign * (L @ R)`` where the sign is not 0.
+    coefficient, added to the running sum; a transposed side flips its
+    sum once.  Then it adds ``sign * (L @ R)`` where the sign is not 0.
     """
     sign, lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn = tables
     ld, gi, gj = _out_tiles(spec, left.device)
@@ -435,13 +530,19 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
                 if spec.diag_sym:
                     tile = torch.where((gr == gc)[:, None, None],
                                        tile + tile.transpose(1, 2), tile)
+            elif spec.right_trans:
+                tile = rtiles[r * spec.q_j + jq, col * spec.n_k + k].float()
             else:
                 tile = rtiles[r * spec.n_k + k, col * spec.q_j + jq].float()
             acc = add(acc, tile * rsgn[ld, c, p][:, None, None])
-        return acc
+        return acc.transpose(1, 2) if spec.right_trans else acc
 
-    acc = torch.zeros((spec.n_out, spec.bi, spec.bj), dtype=torch.float32,
-                      device=left.device)
+    if seed is None:
+        acc = torch.zeros((spec.n_out, spec.bi, spec.bj),
+                          dtype=torch.float32, device=left.device)
+    else:           # the incoming packed stack of rank_k, a tri output
+        acc = seed.reshape(spec.n_out, spec.bi, spec.bj).to(torch.float32,
+                                                            copy=True)
     with ieee_fp32():
         for c in range(spec.n_c):
             sgn = sign[ld, c][:, None, None]
@@ -457,13 +558,10 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("leaf_program")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.leaf_program_ata.argtypes = [ptr] * 9 + [ctypes.c_longlong] \
-        + [i32] * 10 + [ptr]
-    lib.leaf_program_ata.restype = i32
-    lib.leaf_program_symm.argtypes = [ptr] * 11 + [ctypes.c_longlong] \
-        + [i32] * 16 + [ptr]
-    lib.leaf_program_symm.restype = i32
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.leaf_program_launch.argtypes = [ptr] * 12 + [i64] * 2 + [i32] * 20 \
+        + [ptr]
+    lib.leaf_program_launch.restype = i32
     lib.leaf_program_smem_bytes.argtypes = [i32] * 5
     lib.leaf_program_smem_bytes.restype = ctypes.c_size_t
     lib.leaf_program_max_contributions.argtypes = []
@@ -477,81 +575,107 @@ def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
     """Dynamic shared memory one launch of ``spec`` needs, as the kernel
     lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``)."""
     return _lib().leaf_program_smem_bytes(
-        _KIND_CODES[spec.kind], spec.tmax, left_bytes, right_bytes,
+        int(spec.right_tri), spec.tmax, left_bytes, right_bytes,
         spec.pipeline_depth)
 
 
 def _operand_extents(spec: _Spec):
     """The padded (rows, cols) each operand must have for ``spec``."""
     prog = compile_program(spec.kind, spec.levels, spec.variant,
-                           gram=spec.gram)
+                           gram=spec.gram, trans_a=spec.trans_a,
+                           trans_b=spec.trans_b)
     rows_i = prog.blocks_m * spec.q_i * spec.bi
     k_len = prog.blocks_k * spec.n_k * spec.bc
     left = (k_len, rows_i) if spec.left_trans else (rows_i, k_len)
-    if spec.kind == "ata":
-        return left, left
-    T = spec.n_tj
-    return left, (T * (T + 1) // 2 * spec.bj, spec.bj)
+    if spec.right_tri:
+        T = spec.n_tj
+        return left, (T * (T + 1) // 2 * spec.bj, spec.bj)
+    cols_j = prog.blocks_n * spec.q_j * spec.bj
+    return left, (cols_j, k_len) if spec.right_trans else (k_len, cols_j)
 
 
-def _check_kernel_args(spec: _Spec, left: torch.Tensor,
-                       right: torch.Tensor, out_dtype) -> None:
+def _check_buffer(name: str, x: torch.Tensor, want, device) -> None:
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"leaf_program takes float32 or bfloat16 tensors, "
+                        f"got {x.dtype} for the {name}")
+    if x.device != device:
+        raise ValueError(f"the {name} lies on {x.device}, not {device}")
+    if x.ndim != 2 or tuple(x.shape) != tuple(want):
+        raise ValueError(f"{name} of shape {tuple(x.shape)} does not fit "
+                         f"the bound program (want {tuple(want)})")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"leaf_program needs a contiguous, 16-byte "
+                         f"aligned {name}")
+
+
+def _check_kernel_args(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
+                       out_dtype, seed, out) -> None:
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"leaf_program writes float32 or bfloat16, got "
                         f"{out_dtype}")
-    for side, x, want in zip(("left", "right"), (left, right),
-                             _operand_extents(spec)):
-        if x.dtype not in _DTYPE_CODES:
-            raise TypeError(f"leaf_program takes float32 or bfloat16 "
-                            f"operands, got {x.dtype} on the {side}")
-        if x.ndim != 2 or tuple(x.shape) != want:
-            raise ValueError(f"{side} operand of shape {tuple(x.shape)} "
-                             f"does not fit the bound program (want "
-                             f"{want})")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"leaf_program needs a contiguous, 16-byte "
-                             f"aligned {side} operand")
-    if spec.kind == "ata":
+    for name, x, want in zip(("left operand", "right operand"),
+                             (left, right), _operand_extents(spec)):
+        _check_buffer(name, x, want, left.device)
+    if spec.kind in ("ata", "aat", "rank_k"):
         if right.data_ptr() != left.data_ptr():
-            raise ValueError("the ata kernel reads one operand: pass the "
-                             "same tensor as left and right")
+            raise ValueError(f"the {spec.kind} kernel reads one operand: "
+                             "pass the same tensor as left and right")
         if spec.bi != spec.bj or spec.q_i != spec.q_j:
-            raise ValueError("the ata kernel takes square output tiles")
-        if spec.bi < 8 or spec.bi % 8 or spec.bc < 8:
-            raise ValueError(f"leaf_program needs bn >= 8 with bn % 8 == 0 "
-                             f"and bk >= 8, got bn={spec.bi}, bk={spec.bc}")
-    elif spec.bj % 8 or min(spec.bi, spec.bj) < 8:
-        raise ValueError(f"the symm kernel needs bm >= 8 and a stack tile "
-                         f"bs >= 8 with bs % 8 == 0, got bm={spec.bi}, "
-                         f"bs={spec.bj}")
+            raise ValueError(f"the {spec.kind} kernel takes square output "
+                             "tiles")
+    # every raw chunk is copied in 16-byte vectors along its column edge
+    l_shape, r_shape = _operand_shapes(spec)
+    if min(spec.bi, spec.bj, spec.bc) < 8 or l_shape[1] % 8 \
+            or r_shape[1] % 8:
+        raise ValueError(
+            f"leaf_program needs tile edges >= 8 and stored tile widths "
+            f"that are multiples of 8, got bi={spec.bi}, bj={spec.bj}, "
+            f"bc={spec.bc} ({spec.kind} tiles stored {l_shape} x "
+            f"{r_shape})")
+    if spec.accumulate != (seed is not None):
+        raise ValueError(f"the {spec.kind} program "
+                         f"{'needs' if spec.accumulate else 'takes no'} "
+                         "seed stack")
+    if seed is not None:
+        _check_buffer("seed stack", seed, _out_shape(spec), left.device)
+    if out is not None:
+        _check_buffer("output buffer", out, _out_shape(spec), left.device)
+        if out.dtype != out_dtype:
+            raise ValueError(f"output buffer of {out.dtype}, not "
+                             f"{out_dtype}")
 
 
 def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
-                 out_dtype) -> torch.Tensor:
+                 out_dtype, seed: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Run a bound program on its padded operands.
 
-    ``ata``: ``left`` and ``right`` are the same padded A.  ``symm``:
-    ``left`` is the padded X, ``right`` the packed lower-triangular
-    (bs, bs) tile stack.  A CUDA tensor launches ``csrc/leaf_program.cu``
-    on the current stream (no synchronisation) or raises; a CPU tensor
-    runs :func:`_leaf_program_plain`.  Returns the raw output buffer in
-    ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for ata, the
-    dense padded grid for symm.
+    ``ata``, ``aat``, ``rank_k``: ``left`` and ``right`` are the same
+    padded A.  ``symm``: ``left`` is the padded X, ``right`` the packed
+    lower-triangular (bs, bs) tile stack.  ``matmul``: the padded A and
+    B as stored (the transposes are the spec's).  ``seed`` is the
+    incoming packed stack of ``rank_k``, which starts the accumulator.
+    ``out``, where given, is the buffer written (it may be ``seed``: each
+    output element is read before it is written).
+
+    A CUDA tensor launches ``csrc/leaf_program.cu`` on the current
+    stream (no synchronisation) or raises; a CPU tensor runs
+    :func:`_leaf_program_plain`.  Returns the raw output buffer in
+    ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for the gram
+    kinds, the dense padded grid for symm and matmul.
     """
-    if spec.kind not in _KIND_CODES:
-        raise NotImplementedError(
-            f"the {spec.kind!r} program kind is not ported yet (ROADMAP "
-            "Queue 2 #1)")
+    if spec.kind not in _KINDS:
+        raise ValueError(f"unknown program kind {spec.kind!r}")
     if left.device != right.device:
         raise ValueError(f"operands on {left.device} and {right.device}")
-    tables = _device_tables(spec.kind, spec.levels, spec.variant, spec.gram,
-                            str(left.device))
+    tables = _spec_tables(spec, left.device)
     if left.device.type == "cpu":
-        return _leaf_program_plain(spec, tables, left, right, out_dtype)
+        res = _leaf_program_plain(spec, tables, left, right, out_dtype, seed)
+        return res if out is None else out.copy_(res)
     if left.device.type != "cuda":
         raise ValueError(f"leaf_program runs on cuda or cpu, not "
                          f"{left.device}")
-    _check_kernel_args(spec, left, right, out_dtype)
+    _check_kernel_args(spec, left, right, out_dtype, seed, out)
     lib = _lib()
     if spec.n_c > lib.leaf_program_max_contributions():
         raise ValueError(f"{spec.n_c} contribution slots exceed the "
@@ -563,25 +687,24 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
             f"terms needs {smem} bytes of shared memory, over the "
             f"{SMEM_LIMIT_BYTES} a Hopper block can use; lower "
             "pipeline_depth")
-    out = torch.empty(_out_shape(spec), dtype=out_dtype, device=left.device)
+    if out is None:
+        out = torch.empty(_out_shape(spec), dtype=out_dtype,
+                          device=left.device)
+    right_layout = _RIGHT_TRI if spec.right_tri \
+        else _RIGHT_JK if spec.right_trans else _RIGHT_KJ
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if spec.kind == "ata":
-            err = lib.leaf_program_ata(
-                left.data_ptr(), out.data_ptr(),
-                *(t.data_ptr() for t in tables[:7]), left.shape[1],
-                spec.n_out, spec.n_c, spec.n_k, spec.tmax, spec.q_i, spec.bi,
-                spec.bc, _DTYPE_CODES[left.dtype], _DTYPE_CODES[out_dtype],
-                spec.pipeline_depth, stream)
-        else:
-            err = lib.leaf_program_symm(
-                left.data_ptr(), right.data_ptr(), out.data_ptr(),
-                *(t.data_ptr() for t in tables), left.shape[1], spec.n_out,
-                spec.n_c, spec.n_k, spec.tmax, spec.q_i, spec.q_j,
-                spec.n_tj, spec.blocks_j, spec.bi, spec.bj, spec.bc,
-                int(spec.diag_sym), _DTYPE_CODES[left.dtype],
-                _DTYPE_CODES[right.dtype], _DTYPE_CODES[out_dtype],
-                spec.pipeline_depth, stream)
+        err = lib.leaf_program_launch(
+            left.data_ptr(), right.data_ptr(),
+            None if seed is None else seed.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in tables), left.shape[1], right.shape[1],
+            spec.n_out, spec.n_c, spec.n_k, spec.tmax, spec.q_i, spec.q_j,
+            spec.n_tj, spec.blocks_j, spec.bi, spec.bj, spec.bc,
+            int(spec.left_trans), right_layout, int(spec.out_tri),
+            int(spec.diag_sym), _DTYPE_CODES[left.dtype],
+            _DTYPE_CODES[right.dtype],
+            0 if seed is None else _DTYPE_CODES[seed.dtype],
+            _DTYPE_CODES[out_dtype], spec.pipeline_depth, stream)
     if err:
         raise RuntimeError(f"leaf_program launch failed: CUDA error {err} "
                            f"({lib.leaf_program_error_string(err).decode()})")
@@ -611,11 +734,13 @@ class _AtaConfig:
 
 
 def _ata_config(a, device, *, levels, variant, gram, bk, bn, out_dtype, bwd,
-                pipeline_depth, operand_dtype, acc_dtype, sr_seed):
-    """Place ``a`` and resolve the knobs; returns ``(a, config)``."""
+                pipeline_depth, operand_dtype, acc_dtype, sr_seed,
+                kind="ata"):
+    """Place ``a`` and resolve the knobs of the gram kinds (for aat,
+    ``bn`` is the output tile edge bm); returns ``(a, config)``."""
     a = _place(a, device)
     if a.ndim != 2:
-        raise ValueError(f"fused ata expects a matrix, got shape "
+        raise ValueError(f"fused {kind} expects a matrix, got shape "
                          f"{tuple(a.shape)}")
     _resolve_sr_seed(sr_seed)
     cfg = _AtaConfig(
@@ -895,14 +1020,7 @@ def _prepare_symm(x, s_packed, levels, variant, bm, diag_sym,
     if x.ndim != 2 or s_packed.ndim != 2:
         raise ValueError(f"bad ranks: {tuple(x.shape)} x packed "
                          f"{tuple(s_packed.shape)}")
-    bs = s_packed.shape[1]
-    if bs == 0 or s_packed.shape[0] % bs:
-        raise ValueError(f"packed stack {tuple(s_packed.shape)} not a "
-                         "(bs, bs) tile stack")
-    n_tri = s_packed.shape[0] // bs
-    T = (math.isqrt(8 * n_tri + 1) - 1) // 2
-    if T * (T + 1) // 2 != n_tri:
-        raise ValueError(f"stack of {n_tri} tiles is not triangular")
+    bs, T = _stack_tiles(s_packed)
     N = T * bs
     m, nx = x.shape
     if nx > N:
@@ -918,6 +1036,488 @@ def _prepare_symm(x, s_packed, levels, variant, bm, diag_sym,
                  diag_sym=diag_sym, pipeline_depth=pipeline_depth,
                  acc_dtype=acc_dtype)
     return spec, x.contiguous(), s_packed.contiguous()
+
+
+def _stack_tiles(stack: torch.Tensor, edge: str = "bs"):
+    """``(tile edge, T)`` of a packed lower-triangular tile stack of
+    shape ``(T(T+1)/2 * edge, edge)``; ValueError for anything else."""
+    bs = stack.shape[1]
+    if bs == 0 or stack.shape[0] % bs:
+        raise ValueError(f"packed stack {tuple(stack.shape)} not a "
+                         f"({edge}, {edge}) tile stack")
+    n_tri = stack.shape[0] // bs
+    T = (math.isqrt(8 * n_tri + 1) - 1) // 2
+    if T * (T + 1) // 2 != n_tri:
+        raise ValueError(f"stack of {n_tri} tiles is not triangular")
+    return bs, T
+
+
+# ---------------------------------------------------------------------------
+# Fused AAT: C = tril(A A^t), the row gram (Arrigoni-Massini 2021), from
+# the same IR.  The transpose of A never exists: the right side reads the
+# same stored A tiles mirrored.
+# ---------------------------------------------------------------------------
+
+def _prepare_aat(a, levels, variant, gram, bm, bk, pipeline_depth=1,
+                 operand_dtype=None, acc_dtype="float32"):
+    """Pad and quantize ``a`` and bind the aat program to its tiles;
+    returns ``(spec, padded a)``, what :func:`leaf_program` takes (as
+    left and right)."""
+    if a.ndim != 2:
+        raise ValueError(f"fused aat expects a matrix, got shape "
+                         f"{tuple(a.shape)}")
+    m, n = a.shape
+    geo = _aat_geometry(m, n, levels, variant, bm, bk, gram=gram)
+    M, N = geo["M"], geo["N"]
+    if (M, N) != (m, n):
+        a = F.pad(a, (0, N - n, 0, M - m))
+    if operand_dtype is not None:
+        a = a.to(operand_dtype)
+    spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
+                 q_j=geo["nbt"], n_k=geo["n_k"], bi=bm, bj=bm, bc=bk,
+                 pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
+    return spec, a.contiguous()
+
+
+def _fused_aat_packed_exec(a, cfg: _AtaConfig):
+    """Pad, quantize, bind and run (``cfg.bn`` is the output tile edge
+    bm); returns ``(packed, m_padded)``."""
+    spec, a = _prepare_aat(a, cfg.levels, cfg.variant, cfg.gram, cfg.bn,
+                           cfg.bk, cfg.pipeline_depth, cfg.operand_dtype,
+                           cfg.acc_dtype)
+    return leaf_program(spec, a, a, cfg.out_dtype), a.shape[0]
+
+
+def _sym_left_product(s: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``(S + S^t) A`` for ``S`` of ``M >= rows(A)`` rows, in full fp32:
+    the row gram's backward, a dense product outside any kernel as in
+    the JAX package (``jnp.dot``)."""
+    acc = torch.promote_types(a.dtype, torch.float32)
+    ap = F.pad(a.to(acc), (0, 0, 0, s.shape[0] - a.shape[0]))
+    with ieee_fp32():
+        return ((s + s.T) @ ap)[:a.shape[0]]
+
+
+class _FusedAatPacked(torch.autograd.Function):
+    """The packed stack of ``tril(A A^t)``; its backward is the dense
+    ``(S + S^t) A`` with S the block-lower cotangent."""
+
+    @staticmethod
+    def forward(ctx, a, cfg):
+        ctx.save_for_backward(a)
+        ctx.cfg = cfg
+        return _fused_aat_packed_exec(a, cfg)[0]
+
+    @staticmethod
+    def backward(ctx, gp):
+        (a,), cfg = ctx.saved_tensors, ctx.cfg
+        acc = torch.promote_types(a.dtype, torch.float32)
+        m_pad = _aat_geometry(*a.shape, cfg.levels, cfg.variant, cfg.bn,
+                              cfg.bk, gram=cfg.gram)["M"]
+        s = unpack_tril_blocks(gp.to(acc), m_pad, cfg.bn, symmetrize=False)
+        return _sym_left_product(s, a).to(a.dtype), None
+
+
+class _FusedAatDense(torch.autograd.Function):
+    """Dense ``tril(A A^t)``; its backward is the JAX package's dense
+    ``dA = (S + S^t) A`` with ``S = tril(g)``."""
+
+    @staticmethod
+    def forward(ctx, a, cfg):
+        ctx.save_for_backward(a)
+        ctx.cfg = cfg
+        m = a.shape[0]
+        packed, m_pad = _fused_aat_packed_exec(a, cfg)
+        dense = unpack_tril_blocks(packed, m_pad, cfg.bn, symmetrize=False)
+        # diagonal blocks are computed full — drop their upper halves
+        return torch.tril(dense)[:m, :m]
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,), cfg = ctx.saved_tensors, ctx.cfg
+        acc = torch.promote_types(a.dtype, torch.float32)
+        return _sym_left_product(torch.tril(g).to(acc), a).to(a.dtype), None
+
+
+def fused_aat_packed(
+    a: torch.Tensor,
+    *,
+    levels: int = 2,
+    variant: str = "strassen",
+    gram: str = "strassen",
+    bm: int = 256,
+    bk: int = 256,
+    out_dtype=None,
+    pipeline_depth=None,
+    operand_dtype=None,
+    acc_dtype=None,
+    sr_seed=None,
+    device=None,
+):
+    """Packed lower-triangular block stack of ``tril(a @ a.T)``.
+
+    Returns ``(packed, m_padded)`` with packed of shape
+    ``(T(T+1)/2 * bm, bm)``, ``T = m_padded // bm``.  Zero-padding is
+    exact: zero columns add nothing to A A^t, zero rows add zero
+    rows/columns to C that the dense wrapper slices away.  The knobs are
+    :func:`fused_ata_packed`'s (``bm`` the output tile edge, ``bk`` the
+    contraction tile edge).  Differentiable: ``dA = (S + S^t) A`` with S
+    the block-lower cotangent, a dense product in torch.
+    """
+    a, cfg = _ata_config(
+        a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bm,
+        out_dtype=out_dtype, bwd="dense", pipeline_depth=pipeline_depth,
+        operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
+        kind="aat")
+    m_pad = _aat_geometry(*a.shape, levels, variant, bm, bk, gram=gram)["M"]
+    return _FusedAatPacked.apply(a, cfg), m_pad
+
+
+def fused_aat(
+    a: torch.Tensor,
+    *,
+    levels: int = 2,
+    variant: str = "strassen",
+    gram: str = "strassen",
+    bm: int = 256,
+    bk: int = 256,
+    out_dtype=None,
+    pipeline_depth=None,
+    operand_dtype=None,
+    acc_dtype=None,
+    sr_seed=None,
+    device=None,
+) -> torch.Tensor:
+    """Dense ``tril(a @ a.T)`` at the original size via the fused
+    executor — ``ata(x, gram_of="rows")``; the knobs are
+    :func:`fused_aat_packed`'s.
+
+    Differentiable: ``dA = (S + S^t) A`` with ``S = tril(cotangent)``, the
+    dense product of the JAX package (the row gram's backward is
+    symmetric on the left, which the symm program does not express).
+    """
+    a, cfg = _ata_config(
+        a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bm,
+        out_dtype=out_dtype, bwd="dense", pipeline_depth=pipeline_depth,
+        operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
+        kind="aat")
+    return _FusedAatDense.apply(a, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Fused rank-k update: C += tril(A^t A) on an existing packed stack, the
+# accumulating ata program.  The incoming stack seeds the accumulator tile
+# by tile, so a streamed Gram chunk is one kernel with no delta stack.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class _RankKConfig:
+    """The resolved knobs of one rank-k update."""
+    levels: int
+    variant: str
+    gram: str
+    bk: int
+    T: int
+    out_dtype: torch.dtype
+    stack_dtype: torch.dtype
+    pipeline_depth: int
+    operand_dtype: torch.dtype | None
+    acc_dtype: str
+    donate: bool
+
+
+def _check_rank_k(c_stack, a):
+    """The JAX package's shape errors; returns the stack's ``(bn, T)``."""
+    if c_stack.ndim != 2 or a.ndim != 2:
+        raise ValueError(f"bad ranks: stack {tuple(c_stack.shape)} x "
+                         f"{tuple(a.shape)}")
+    bn, T = _stack_tiles(c_stack, "bn")
+    if a.shape[1] > T * bn:
+        raise ValueError(f"chunk has {a.shape[1]} cols but the stack "
+                         f"spans {T * bn}")
+    return bn, T
+
+
+def _prepare_rank_k(c_stack, a, levels, variant, gram, bk, pipeline_depth=1,
+                    operand_dtype=None, acc_dtype="float32"):
+    """Check the stack and the chunk, pad and quantize the chunk (only
+    the chunk: the stack seeds the accumulator at its own precision) and
+    bind the rank_k program; returns ``(spec, padded chunk)``."""
+    bn, T = _check_rank_k(c_stack, a)
+    m, n = a.shape
+    geo = _rank_k_geometry(m, T, levels, variant, bk, gram=gram)
+    M, N = geo["M"], T * bn
+    if (M, N) != (m, n):
+        a = F.pad(a, (0, N - n, 0, M - m))
+    if operand_dtype is not None:
+        a = a.to(operand_dtype)
+    spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
+                 q_j=geo["nbt"], n_k=geo["n_k"], bi=bn, bj=bn, bc=bk,
+                 pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
+    return spec, a.contiguous()
+
+
+class _FusedRankK(torch.autograd.Function):
+    """``C_in + tril(A^t A)`` on the packed stack, in place when donated;
+    the stack's cotangent passes through packed and dA runs the symm
+    kind on it."""
+
+    @staticmethod
+    def forward(ctx, c_stack, a, cfg):
+        ctx.save_for_backward(a)
+        ctx.cfg = cfg
+        spec, ap = _prepare_rank_k(c_stack, a, cfg.levels, cfg.variant,
+                                   cfg.gram, cfg.bk, cfg.pipeline_depth,
+                                   cfg.operand_dtype, cfg.acc_dtype)
+        out = leaf_program(spec, ap, ap, cfg.out_dtype, seed=c_stack,
+                           out=c_stack if cfg.donate else None)
+        if cfg.donate:
+            ctx.mark_dirty(c_stack)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # dC_in = g, cast back to the stack's dtype; dA = A (S + S^t) with
+        # S the block-lower cotangent stack, at the forward's levels
+        (a,), cfg = ctx.saved_tensors, ctx.cfg
+        lv = _rank_k_geometry(a.shape[0], cfg.T, cfg.levels, cfg.variant,
+                              cfg.bk, gram=cfg.gram)["levels"]
+        da = fused_symm_matmul(
+            a, g, levels=lv, variant=cfg.variant, bm=cfg.bk, diag_sym=True,
+            out_dtype=torch.promote_types(a.dtype, torch.float32),
+            pipeline_depth=cfg.pipeline_depth, device=a.device)
+        return g.to(cfg.stack_dtype), da[:, :a.shape[1]].to(a.dtype), None
+
+
+def fused_rank_k_update(
+    c_stack: torch.Tensor,
+    a: torch.Tensor,
+    *,
+    levels: int = 2,
+    variant: str = "strassen",
+    gram: str = "strassen",
+    bk: int = 256,
+    out_dtype=None,
+    pipeline_depth=None,
+    operand_dtype=None,
+    acc_dtype=None,
+    donate: bool = False,
+    device=None,
+) -> torch.Tensor:
+    """``C += tril(a.T @ a)`` on a packed lower-triangular tile stack.
+
+    ``c_stack`` is a ``(T(T+1)/2 * bn, bn)`` stack (``fused_ata_packed``
+    ordering; the tile edge is read off the stack's trailing dim); ``a``
+    is an (m, n) chunk with ``n <= T * bn`` (columns zero-padded to the
+    stack span, exact for the Gram).  Returns the updated stack in
+    ``out_dtype`` (default: the stack's dtype).
+
+    ``levels`` is clamped to depths dividing the stack's T, like
+    :func:`fused_symm_matmul`.  ``operand_dtype`` quantizes only the
+    chunk: the stack seeds the accumulator at its own precision.
+    ``donate=True`` writes the result over ``c_stack`` in place (when
+    ``out_dtype`` is its dtype and it is contiguous; otherwise a new
+    stack), the counterpart of the JAX buffer donation; it refuses a
+    stack that requires grad, whose old value autograd may need.
+
+    Differentiable in both arguments: the stack cotangent passes through
+    packed, and ``dA`` runs the symm kind on it — no dense n^2 buffer in
+    either direction.
+    """
+    c_stack, a = _place(c_stack, device), _place(a, device)
+    _bn, T = _check_rank_k(c_stack, a)
+    out_dtype = c_stack.dtype if out_dtype is None else out_dtype
+    donate = donate and out_dtype == c_stack.dtype \
+        and c_stack.is_contiguous()
+    if donate and torch.is_grad_enabled() and c_stack.requires_grad:
+        raise ValueError(
+            "rank_k_update(donate=True) writes the new stack over the "
+            "incoming one, but autograd tracks that stack and may need its "
+            "old value; pass donate=False to differentiate through it")
+    cfg = _RankKConfig(
+        levels=levels, variant=variant, gram=gram, bk=bk, T=T,
+        out_dtype=out_dtype, stack_dtype=c_stack.dtype,
+        pipeline_depth=_resolve_pipeline_depth(pipeline_depth, a.device),
+        operand_dtype=_resolve_operand_dtype(operand_dtype),
+        acc_dtype=_resolve_acc_dtype(acc_dtype), donate=donate)
+    return _FusedRankK.apply(c_stack, a, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Fused Strassen matmul: C = op(A) @ op(B), dense output.  The transposes
+# are folded into how each side's tiles are read: no transposed copy of an
+# operand exists.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class _MatmulConfig:
+    """The resolved knobs of one fused matmul."""
+    levels: int
+    variant: str
+    bm: int
+    bk: int
+    bn: int
+    trans_a: bool
+    trans_b: bool
+    out_dtype: torch.dtype
+    bwd: str
+    pipeline_depth: int
+    operand_dtype: torch.dtype | None
+    acc_dtype: str
+
+
+def _pad_to(x: torch.Tensor, shape) -> torch.Tensor:
+    if tuple(x.shape) == tuple(shape):
+        return x
+    return F.pad(x, (0, shape[1] - x.shape[1], 0, shape[0] - x.shape[0]))
+
+
+def _prepare_matmul(a, b, levels, variant, bm, bk, bn, trans_a=False,
+                    trans_b=False, pipeline_depth=1, operand_dtype=None,
+                    acc_dtype="float32"):
+    """Pad (each axis to its leaf grid) and quantize both operands as
+    stored and bind the matmul program; returns ``(spec, padded a,
+    padded b)``, what :func:`leaf_program` takes."""
+    m, k = a.shape[::-1] if trans_a else a.shape
+    n = b.shape[0] if trans_b else b.shape[1]
+    geo = _matmul_geometry(m, k, n, levels, variant, bm, bk, bn, trans_a,
+                           trans_b)
+    M, K, N = geo["M"], geo["K"], geo["N"]
+    a = _pad_to(a, (K, M) if trans_a else (M, K))
+    b = _pad_to(b, (N, K) if trans_b else (K, N))
+    if operand_dtype is not None:
+        a, b = a.to(operand_dtype), b.to(operand_dtype)
+    spec = _bind(geo["plan"], n_out=(M // bm) * (N // bn), n_tj=N // bn,
+                 q_i=geo["nbm"], q_j=geo["nbn"], n_k=geo["n_k"], bi=bm,
+                 bj=bn, bc=bk, pipeline_depth=pipeline_depth,
+                 acc_dtype=acc_dtype)
+    return spec, a.contiguous(), b.contiguous()
+
+
+def _fused_matmul_exec(a, b, *, levels, variant, bm, bk, bn, out_dtype,
+                       trans_a=False, trans_b=False, pipeline_depth=1,
+                       operand_dtype=None, acc_dtype="float32"):
+    """One matmul-kind launch: ``op(a) @ op(b)`` at the original size."""
+    m = a.shape[1] if trans_a else a.shape[0]
+    n = b.shape[0] if trans_b else b.shape[1]
+    spec, ap, bp = _prepare_matmul(a, b, levels, variant, bm, bk, bn,
+                                   trans_a, trans_b, pipeline_depth,
+                                   operand_dtype, acc_dtype)
+    return leaf_program(spec, ap, bp, out_dtype)[:m, :n]
+
+
+class _FusedMatmul(torch.autograd.Function):
+    """``op(A) @ op(B)``; with ``bwd="fused"`` both VJP products are
+    matmul-kind launches with the transposes folded into the operand
+    orientation (the kernel upcasts tile-wise, so a bf16 residual feeds
+    the backward without an fp32 copy)."""
+
+    @staticmethod
+    def forward(ctx, a, b, cfg):
+        ctx.save_for_backward(a, b)
+        ctx.cfg = cfg
+        return _fused_matmul_exec(
+            a, b, levels=cfg.levels, variant=cfg.variant, bm=cfg.bm,
+            bk=cfg.bk, bn=cfg.bn, out_dtype=cfg.out_dtype,
+            trans_a=cfg.trans_a, trans_b=cfg.trans_b,
+            pipeline_depth=cfg.pipeline_depth,
+            operand_dtype=cfg.operand_dtype, acc_dtype=cfg.acc_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a, b), cfg = ctx.saved_tensors, ctx.cfg
+        acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                                  torch.float32)
+        gf = g.to(acc)
+        bm, bk, bn = cfg.bm, cfg.bk, cfg.bn
+        if cfg.bwd == "dense":
+            ca = (a.T if cfg.trans_a else a).to(acc)
+            cb = (b.T if cfg.trans_b else b).to(acc)
+            with ieee_fp32():
+                da, db = gf @ cb.T, ca.T @ gf
+            if cfg.trans_a:
+                da = da.T
+            if cfg.trans_b:
+                db = db.T
+        else:
+            ex = functools.partial(_fused_matmul_exec, levels=cfg.levels,
+                                   variant=cfg.variant, out_dtype=acc,
+                                   pipeline_depth=cfg.pipeline_depth)
+            if not cfg.trans_a and not cfg.trans_b:
+                # C = a b: da = g b^t; db = a^t g
+                da = ex(gf, b, bm=bm, bk=bn, bn=bk, trans_b=True)
+                db = ex(a, gf, bm=bk, bk=bm, bn=bn, trans_a=True)
+            elif cfg.trans_a and cfg.trans_b:
+                # C = a^t b^t: da = b^t g^t (stored (k, m));
+                #              db = g^t a^t (stored (n, k))
+                da = ex(b, gf, bm=bk, bk=bn, bn=bm, trans_a=True,
+                        trans_b=True)
+                db = ex(gf, a, bm=bn, bk=bm, bn=bk, trans_a=True,
+                        trans_b=True)
+            elif cfg.trans_a:
+                # C = a^t b: da = b g^t (stored (k, m)); db = a g
+                da = ex(b, gf, bm=bk, bk=bn, bn=bm, trans_b=True)
+                db = ex(a, gf, bm=bk, bk=bm, bn=bn)
+            else:
+                # C = a b^t: da = g b (b stored (n, k)); db = g^t a
+                da = ex(gf, b, bm=bm, bk=bn, bn=bk)
+                db = ex(gf, a, bm=bn, bk=bm, bn=bk, trans_a=True)
+        return da.to(a.dtype), db.to(b.dtype), None
+
+
+def fused_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    levels: int = 2,
+    variant: str = "strassen",
+    bm: int = 256,
+    bk: int = 256,
+    bn: int = 256,
+    trans_a: bool = False,
+    trans_b: bool = False,
+    out_dtype=None,
+    bwd: str = "fused",
+    pipeline_depth=None,
+    operand_dtype=None,
+    acc_dtype=None,
+    device=None,
+) -> torch.Tensor:
+    """``op(a) @ op(b)`` via the flattened Strassen program, one kernel
+    launch; ``op`` transposes where the flag is set, folded into how the
+    kernel reads that side, so no transposed copy of an operand exists.
+    The engine of the distributed ring / 2.5D block tasks, which are
+    ``A_loc^t @ A_perm`` products.
+
+    ``levels`` is a cap, clamped per axis so every leaf keeps at least
+    one tile (``variant`` may be rectangular: bb322, bb422) and to the
+    operand fan-in.  Differentiable: ``bwd="fused"`` (default) runs both
+    VJP products as matmul-kind launches with the transposes folded;
+    ``bwd="dense"`` is the classical product in torch.  ``device``,
+    ``pipeline_depth`` and ``operand_dtype`` as in
+    :func:`fused_ata_packed`.
+    """
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"bad shapes for matmul: {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    k_a = a.shape[0] if trans_a else a.shape[1]
+    k_b = b.shape[1] if trans_b else b.shape[0]
+    if k_a != k_b:
+        raise ValueError(
+            f"bad shapes for matmul: {tuple(a.shape)} x {tuple(b.shape)} "
+            f"(trans_a={trans_a}, trans_b={trans_b})")
+    a, b = _place(a, device), _place(b, device)
+    cfg = _MatmulConfig(
+        levels=levels, variant=variant, bm=bm, bk=bk, bn=bn,
+        trans_a=bool(trans_a), trans_b=bool(trans_b),
+        out_dtype=(torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                                       torch.float32)
+                   if out_dtype is None else out_dtype),
+        bwd=_resolve_bwd(bwd),
+        pipeline_depth=_resolve_pipeline_depth(pipeline_depth, a.device),
+        operand_dtype=_resolve_operand_dtype(operand_dtype),
+        acc_dtype=_resolve_acc_dtype(acc_dtype))
+    return _FusedMatmul.apply(a, b, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -963,6 +1563,52 @@ def ata_traffic_model(
                  out_bytes=out_bytes)
     t["intermediate_bytes"] = M * N * in_bytes if (M, N) != (m, n) else 0
     t["padded_shape"] = (M, N)
+    return t
+
+
+def aat_traffic_model(
+    m: int, n: int, *, levels: int = 2, variant: str = "strassen",
+    gram: str = "strassen",
+    bm: int = 256, bk: int = 256, in_bytes: int = 4, out_bytes: int = 4,
+) -> dict:
+    """HBM bytes of ``fused_aat_packed`` (row gram) — same core model,
+    the row-gram geometry."""
+    geo = _aat_geometry(m, n, levels, variant, bm, bk, gram=gram)
+    M, N = geo["M"], geo["N"]
+    spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
+                 q_j=geo["nbt"], n_k=geo["n_k"], bi=bm, bj=bm, bc=bk)
+    t = _traffic(spec, left_bytes=in_bytes, right_bytes=in_bytes,
+                 out_bytes=out_bytes)
+    t["intermediate_bytes"] = M * N * in_bytes if (M, N) != (m, n) else 0
+    t["padded_shape"] = (M, N)
+    return t
+
+
+def rank_k_traffic_model(
+    m: int, n: int, *, levels: int = 2, variant: str = "strassen",
+    gram: str = "strassen",
+    bk: int = 256, bn: int = 256, state_bytes: int = 4, in_bytes: int = 4,
+) -> dict:
+    """HBM bytes of one ``fused_rank_k_update`` chunk against the
+    streamed update it replaces (ata kernel, delta stack, gather-add: the
+    delta stack is written and re-read, the state read and rewritten)."""
+    T = _round_up(max(n, 1), bn) // bn
+    # the stack layout fixes T; mirror the executor's divisibility clamp
+    geo = _rank_k_geometry(m, T, levels, variant, bk, gram=gram)
+    M, N = geo["M"], T * bn
+    spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
+                 q_j=geo["nbt"], n_k=geo["n_k"], bi=bn, bj=bn, bc=bk)
+    t = _traffic(spec, left_bytes=in_bytes, right_bytes=in_bytes,
+                 out_bytes=state_bytes, cin_bytes=state_bytes)
+    stack_bytes = geo["n_tri"] * bn * bn * state_bytes
+    t["intermediate_bytes"] = (M * N * in_bytes if (M, N) != (m, n) else 0)
+    t["padded_shape"] = (M, N)
+    t["state_bytes"] = stack_bytes
+    t["baseline"] = {
+        "read_bytes": (t["read_bytes"] - stack_bytes) + 2 * stack_bytes,
+        "write_bytes": 2 * stack_bytes,
+        "intermediate_bytes": t["intermediate_bytes"] + stack_bytes,
+    }
     return t
 
 
@@ -1018,7 +1664,7 @@ def live_steps(spec: _Spec) -> int:
     """(tile, contribution, K block) steps with a nonzero sign — the
     steps the kernel runs; ``2 * bi * bj * bc`` flops each."""
     sign = _program_tables(spec.kind, spec.levels, spec.variant,
-                           spec.gram)[0]
+                           spec.gram, spec.trans_a, spec.trans_b)[0]
     ld, _, _ = _out_tiles(spec, "cpu")
     live_per_dest = torch.from_numpy((sign != 0).sum(axis=1))
     return int(live_per_dest[ld].sum()) * spec.n_k

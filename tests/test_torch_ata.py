@@ -91,10 +91,17 @@ def test_errors():
         ata(a, mode="bogus", device="cpu")
     with pytest.raises(ValueError):
         ata(a, mode="fused", base_syrk=lambda x: x, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        ata(a, gram_of="rows", mode="fused", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        strassen_matmul(a, a, mode="fused")
+    # the row gram and the matmul run their fused kinds now (the plain
+    # versions on the CPU); without a card, only device="cpu" runs
+    rows = ata(a, gram_of="rows", mode="fused", block=8, device="cpu")
+    assert _rel(rows.numpy(), np.tril(a.double().numpy()
+                                      @ a.double().numpy().T)) <= 1e-5
+    prod = strassen_matmul(a, a, mode="fused", block=8, device="cpu")
+    assert _rel(prod.numpy(), a.double().numpy() @ a.double().numpy()) \
+        <= 1e-5
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            strassen_matmul(a, a, mode="fused")
     for kw in (dict(operand_dtype=torch.float16), dict(acc_dtype="float64"),
                dict(sr_seed=3)):
         for mode in ("reference", "fused"):
@@ -126,8 +133,9 @@ def test_leaf_hooks_force_reference():
 
 def test_strassen_matmul_runs_on_cpu_only_when_asked():
     """``device="cpu"`` runs the reference recursion on the CPU and gives
-    the JAX package's product; ``mode="auto"`` is the reference there
-    (the fused matmul program is ROADMAP Queue 1 #5)."""
+    the JAX package's product; ``mode="auto"`` is the reference there,
+    as ``resolve_mode`` gives for a CPU tensor (on the card it is the
+    fused matmul kind)."""
     from repro.core import strassen_matmul as jax_strassen_matmul
     a, b = _rand((40, 33), seed=7), _rand((33, 50), seed=8)
     want = jax_strassen_matmul(jnp.asarray(a), jnp.asarray(b), levels=2,

@@ -27,7 +27,7 @@ from repro.core import schedule as jax_schedule
 from repro.core.symmetry import pack_tril_blocks as jax_pack
 from repro.kernels import strassen_fused as jax_sf
 from repro_torch.core import ata, ata_full, schedule
-from repro_torch.core.symmetry import pack_tril_blocks
+from repro_torch.core.symmetry import pack_tril_blocks, unpack_tril_blocks
 from repro_torch.kernels import ops, strassen_fused as sf
 
 
@@ -370,11 +370,29 @@ def test_symm_levels_clamp_like_jax():
 
 
 def test_unported_kinds_refuse_on_every_device():
-    """The aat, rank_k and matmul kinds have neither kernel nor plain
-    version yet: the executor refuses them instead of guessing."""
+    """Every program kind of the leaf program is ported now: the aat
+    spec the executor once refused runs (the plain version here) and
+    gives tril(A A^t).  What still refuses, on every device, are the
+    unported knobs of the new kinds (ROADMAP Queue 1 #6)."""
     prog = sf.leaf_ir.compile_program("aat", 1)
     spec = sf._bind(prog, n_out=3, n_tj=0, q_i=1, q_j=1, n_k=1, bi=8, bj=8,
                     bc=8)
-    x = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="Queue 2 #1"):
-        sf.leaf_program(spec, x, x, torch.float32)
+    x = torch.from_numpy(np.random.RandomState(3).randn(16, 16)
+                         .astype(np.float32))
+    packed = sf.leaf_program(spec, x, x, torch.float32)
+    got = torch.tril(unpack_tril_blocks(packed, 16, 8, symmetrize=False))
+    want = np.tril(_np(x) @ _np(x).T)
+    assert _rel(_np(got), want) <= 1e-5
+    stack = torch.zeros(24, 8)
+    for device in ("cpu", "cuda"):
+        for kw in (dict(operand_dtype="float8_e4m3fn"),
+                   dict(acc_dtype="float64")):
+            for fn, args in ((sf.fused_aat, (x,)),
+                             (sf.fused_rank_k_update, (stack, x)),
+                             (sf.fused_matmul, (x, x))):
+                with pytest.raises((NotImplementedError, RuntimeError),
+                                   match="Queue 1 #6|no CUDA device"):
+                    fn(*args, device=device, **kw)
+        with pytest.raises((NotImplementedError, RuntimeError),
+                           match="Queue 1 #6|no CUDA device"):
+            sf.fused_aat(x, sr_seed=0, device=device)

@@ -25,6 +25,11 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.strassen_fused\n"
         "import repro_torch.core.schedule\n"
+        "from repro_torch.kernels.ops import (aat_fused, aat_fused_packed,\n"
+        "    rank_k_update, matmul_fused)\n"
+        "from repro_torch.kernels.strassen_fused import (fused_aat,\n"
+        "    fused_aat_packed, fused_rank_k_update, fused_matmul)\n"
+        "from repro_torch.core import strassen_matmul\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -63,14 +68,24 @@ def test_entry_points_refuse_to_run_without_cuda():
     from repro_torch.kernels import ops, strassen_fused
     a = torch.ones(8, 8)
     for fn in (ata, ata_full, ops.ata_fused, ops.ata_fused_packed,
-               strassen_fused.fused_ata, strassen_fused.fused_ata_packed):
+               strassen_fused.fused_ata, strassen_fused.fused_ata_packed,
+               ops.aat_fused, ops.aat_fused_packed, strassen_fused.fused_aat,
+               strassen_fused.fused_aat_packed):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ata(a, gram_of="rows")
     stack = torch.ones(24, 8)
     for fn, args in ((strassen_matmul, (a, a)), (ops.symm_matmul, (a, stack)),
-                     (strassen_fused.fused_symm_matmul, (a, stack))):
+                     (strassen_fused.fused_symm_matmul, (a, stack)),
+                     (ops.rank_k_update, (stack, a)),
+                     (strassen_fused.fused_rank_k_update, (stack, a)),
+                     (ops.matmul_fused, (a, a)),
+                     (strassen_fused.fused_matmul, (a, a))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        strassen_matmul(a, a, trans_a=True, mode="auto")
 
 
 def test_chip_smoke_fails_without_cuda():
