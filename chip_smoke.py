@@ -9,7 +9,8 @@ failure exits non-zero):
 
 1. device: the card's name and power limit, torch/CUDA versions, and
    both TF32 flags, set off;
-2. build: every kernel of ``src/repro_torch/kernels/csrc`` from source;
+2. build: every kernel library of ``src/repro_torch/kernels/csrc`` from
+   source, one ``nvcc`` each, all started together;
 3. the ``leaf_program`` kernel against its plain torch version on the
    card, one sub-phase per program kind, each over its sweep at ragged
    shapes (tiles of 64), with bf16 operands, a bf16 output and a
@@ -28,6 +29,13 @@ failure exits non-zero):
    3e. matmul, op(A) op(B), levels 0-3 x the four (trans_a, trans_b)
        cases x {strassen, winograd, classical, bb322, bb422} at
        1000x777 @ 777x555;
+   3f-3i. the syrk, matmul, combine and transpose kernels against their
+       plain versions over ragged shapes (tests/test_kernels.py's and
+       1000x777[x555]) x blocks 8, 32, 40, 128, 256 x fp32 and bf16
+       (transpose also int32): syrk and matmul <= 1e-5 of max|out| of
+       the plain version (2^-8 for a bf16 output) and <= 1e-4 against
+       float64; combine and transpose ``torch.equal``; what the wrappers
+       refuse on the card;
 4. the main paths at n x n fp32 from ``--seed`` (the paper's n = 10000),
    each with the launch counts zeroed just before it and read just
    after, checked against float64 on the card (<= 1e-4 of max|out|;
@@ -49,6 +57,14 @@ failure exits non-zero):
        (the distributed block task's form) and on bf16 operands, then
        ``torch.autograd.grad`` through the first two (``bwd="fused"``),
        da and db against float64;
+   4f. the reference recursion with kernel leaves, ``ata(a, base_syrk=
+       ops.kernel_base_syrk(), base_matmul=ops.kernel_base_matmul())`` at
+       n x n and n x 777 with its syrk and matmul launches asserted (16
+       and 22 at n = 10000), ``strassen_matmul(a, b, base_matmul=...)``
+       (49), ``ops.syrk``, ``ops.matmul``, ``ops.strassen_combine`` on the
+       seven products of one Strassen level (C against float64 A B),
+       ``ops.transpose``, and the refusal of an A that requires grad;
+       then each leaf configuration against its plain version;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -57,6 +73,10 @@ failure exits non-zero):
    CUDA-core peak against its inputs and outputs once at HBM rate.  The
    kernels' live-step flops, which include the per-destination
    recomputation, are printed beside the bounds and kept out of them.
+   The syrk, matmul, combine and transpose kernels are timed on the
+   padded operands of the main path's ``ops`` calls, with ``ata`` and
+   ``strassen_matmul`` end to end on kernel leaves beside their
+   ``torch.matmul`` leaves and the fused path.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
@@ -65,7 +85,9 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
+import importlib
 import json
 import pathlib
 import re
@@ -84,6 +106,32 @@ SOURCE = "src/repro_torch/kernels/csrc/leaf_program.cu"
 REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
             "src/repro/kernels/strassen_fused.py:533 (_pipelined_kernel), "
             "{} kind")
+LIBRARIES = ("leaf_program", "syrk", "matmul", "combine", "transpose")
+# the single-purpose kernels: their sources and the TPU kernels they replace
+KERNELS = {
+    "syrk": ("src/repro_torch/kernels/csrc/syrk.cu",
+             "src/repro/kernels/syrk.py:37 (_syrk_kernel, launched by "
+             "syrk_packed :54)"),
+    "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+               "src/repro/kernels/matmul.py:21 (_matmul_kernel, launched by "
+               "matmul_padded :37)"),
+    "combine": ("src/repro_torch/kernels/csrc/combine.cu",
+                "src/repro/kernels/combine.py:17 (_combine_kernel, launched "
+                "by strassen_combine :25)"),
+    "transpose": ("src/repro_torch/kernels/csrc/transpose.cu",
+                  "src/repro/kernels/transpose.py:17 (_transpose_kernel, "
+                  "launched by transpose_padded :21)"),
+}
+# tests/test_kernels.py's shapes, and the phase-3 ragged shape
+SHAPES_MM = [(32, 32, 32), (64, 128, 32), (100, 70, 50), (256, 256, 256),
+             (257, 129, 65), (16, 512, 16), (1000, 777, 555)]
+SHAPES_SYRK = [(64, 64), (128, 32), (96, 96), (100, 40), (33, 65),
+               (256, 128), (1000, 777)]
+SHAPES_2D = [(64, 64), (32, 96), (100, 50), (256, 256), (257, 65),
+             (1000, 777)]
+# the JAX suite's 32, the main path's 256, and edges that are not
+# multiples of the kernels' 64 x 64 sub-tile or 16-deep chunk
+BLOCKS = (8, 32, 40, 128, 256)
 
 
 def _rel(got, want) -> float:
@@ -128,6 +176,33 @@ def _ptxas_summary(report: str) -> list:
             f"{max(v['spill'])} B" for k, v in stats.items()]
 
 
+def _ptxas_registers(report: str) -> str:
+    """Instantiations, registers and spills of a library from ``nvcc
+    -Xptxas -v``."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    spill = [int(b) for b in re.findall(r"(\d+) bytes spill stores", report)]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} instantiations, {min(regs)}-{max(regs)} registers, "
+            f"spill stores up to {max(spill, default=0)} B")
+
+
+def hooked_leaves(m: int, n: int, levels: int, leaf: int):
+    """(syrk, matmul) leaves of the reference ATA recursion on an m x n A,
+    as ``core/ata._ata_rec`` and ``core/strassen._strassen_rec`` split."""
+    def strassen(m, k, n, levels):
+        if levels <= 0 or min(m, k, n) <= leaf:
+            return 1
+        return 7 * strassen((m + 1) // 2, (k + 1) // 2, (n + 1) // 2,
+                            levels - 1)
+
+    if levels <= 0 or m <= leaf or n <= leaf:
+        return 1, 0
+    m2, n2 = (m + 1) // 2, (n + 1) // 2
+    syrk, mm = hooked_leaves(m2, n2, levels - 1, leaf)
+    return 4 * syrk, 4 * mm + 2 * strassen(n2, m2, n2, levels - 1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -147,9 +222,14 @@ def main() -> int:
     from repro_torch.core.strassen import (
         AUTO_MAX_LEVELS, DEFAULT_LEAF, DEFAULT_LEVELS)
     from repro_torch.core.symmetry import pack_tril_blocks, unpack_tril_blocks
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, _launch, ops
+    from repro_torch.core.symmetry import tri_count
     from repro_torch.kernels import strassen_fused as sf
     from repro_torch.kernels.ops import DEFAULT_BLOCK
+    # the package exports the ops functions under the modules' names
+    k_syrk, k_matmul, k_combine, k_transpose = (
+        importlib.import_module(f"repro_torch.kernels.{name}")
+        for name in ("syrk", "matmul", "combine", "transpose"))
 
     # -- 1. device ------------------------------------------------------------
     print("== 1. device")
@@ -175,23 +255,28 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     print("== 2. build")
     t0 = time.perf_counter()
-    report = _build.build("leaf_program")
-    print(f"leaf_program: {'built' if report else 'cached'} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for line in _ptxas_summary(report or ""):
-        print(f"  {line}")
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        reports = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
+    print(f"{len(LIBRARIES)} libraries, one nvcc each in parallel: "
+          f"{sum(r is not None for r in reports.values())} built, the rest "
+          f"cached, in {time.perf_counter() - t0:.1f} s")
+    for line in _ptxas_summary(reports["leaf_program"] or ""):
+        print(f"  leaf_program {line}")
+    for name in LIBRARIES[1:]:
+        print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
 
     def plain(spec, left, right, out_dtype, seed=None):
         return sf._leaf_program_plain(spec, sf._spec_tables(spec, left.device),
                                       left, right, out_dtype, seed)
 
     def reset_counts():
-        for key in sf.KERNEL_LAUNCHES:
-            sf.KERNEL_LAUNCHES[key] = 0
+        for counts in (sf.KERNEL_LAUNCHES, _launch.KERNEL_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
 
     def read_counts(label):
         torch.cuda.synchronize()
-        counts = dict(sf.KERNEL_LAUNCHES)
+        counts = {**sf.KERNEL_LAUNCHES, **_launch.KERNEL_LAUNCHES}
         print(f"launches on {label}: {counts}")
         return counts
 
@@ -390,6 +475,115 @@ def main() -> int:
     print(f"depths over {sf.SMEM_LIMIT_BYTES} B of shared memory refused "
           f"with ValueError, per kind: {refused}")
     assert all(refused.values()), refused
+
+    # -- 3f-3i. the single-purpose kernels ------------------------------------
+    def counted_launch(name, fn):
+        before = _launch.KERNEL_LAUNCHES[name]
+        out = fn()
+        torch.cuda.synchronize()
+        assert _launch.KERNEL_LAUNCHES[name] == before + 1, name
+        return out
+
+    def product_errors(errs, got, plain_out, want64):
+        """Add (vs plain, vs float64) of a product, each of max|out|, to
+        ``errs`` under its output dtype; held to 1e-5 and 1e-4 (2^-8 for a
+        bf16 output)."""
+        bar = 1e-5 if got.dtype == f32 else 2.0 ** -8
+        e_plain, e64 = _rel(got, plain_out.double()), _rel(got, want64)
+        assert e_plain <= bar and e64 <= max(1e-4, bar), (e_plain, e64)
+        errs.setdefault(got.dtype, []).append((e_plain, e64))
+
+    def error_summary(errs):
+        return "; ".join(
+            f"{str(dt).removeprefix('torch.')} out: vs plain "
+            f"{max(e for e, _ in v):.2e}, vs float64 "
+            f"{max(e for _, e in v):.2e}"
+            for dt, v in errs.items())
+
+    print("== 3f. syrk against its plain version")
+    for m, k in SHAPES_SYRK:
+        errs = {}
+        for blk in BLOCKS:
+            for dt, out_dt in ((f32, f32), (bf16, bf16), (bf16, f32),
+                               (f32, bf16)):
+                xp = ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
+                got = counted_launch("syrk", lambda: k_syrk.syrk_packed(
+                    xp, bk=blk, bn=blk, out_dtype=out_dt))
+                x64 = xp.double()
+                product_errors(errs, got,
+                               k_syrk._syrk_packed_plain(xp, blk, f32),
+                               pack_tril_blocks(x64.T @ x64, blk))
+        print(f"  {m} x {k}, blocks {BLOCKS}, fp32 and bf16 in: "
+              f"{error_summary(errs)}")
+
+    print("== 3g. matmul against its plain version")
+    for m, k, n_ in SHAPES_MM:
+        errs = {}
+        for blk in BLOCKS:
+            for dta, dtb, out_dt in ((f32, f32, None), (bf16, bf16, None),
+                                     (bf16, f32, None), (bf16, bf16, f32),
+                                     (f32, f32, bf16)):
+                xp = ops._pad_to(randn(m, k, dtype=dta), (blk, blk))
+                yp = ops._pad_to(randn(k, n_, dtype=dtb), (blk, blk))
+                got = counted_launch("matmul", lambda: k_matmul.matmul_padded(
+                    xp, yp, bm=blk, bk=blk, bn=blk, out_dtype=out_dt))
+                assert got.dtype == (out_dt or torch.promote_types(dta, dtb))
+                product_errors(errs, got,
+                               k_matmul._matmul_padded_plain(xp, yp, f32),
+                               xp.double() @ yp.double())
+        print(f"  {m} x {k} x {n_}, blocks {BLOCKS}, fp32, bf16 and mixed "
+              f"in: {error_summary(errs)}")
+
+    print("== 3h. combine against its plain version (torch.equal)")
+    for m, k in SHAPES_2D:
+        for blk in BLOCKS:
+            for dt in (f32, bf16):
+                mp = [ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
+                      for _ in range(7)]
+                got = counted_launch("combine", lambda: k_combine
+                                     .strassen_combine(*mp, bm=blk, bn=blk))
+                want = k_combine._strassen_combine_plain(*mp)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                    (m, k, blk, dt)
+        print(f"  {m} x {k}, blocks {BLOCKS}, fp32 and bf16: bit-equal")
+
+    print("== 3i. transpose against its plain version (torch.equal)")
+    for m, k in SHAPES_2D:
+        for blk in BLOCKS:
+            for dt in (f32, bf16, torch.int32):
+                x = randn(m, k) if dt != torch.int32 else torch.randint(
+                    -2 ** 31, 2 ** 31 - 1, (m, k), generator=gen, device=dev,
+                    dtype=dt)
+                xp = ops._pad_to(x.to(dt), (blk, blk))
+                got = counted_launch("transpose", lambda: k_transpose
+                                     .transpose_padded(xp, bm=blk, bn=blk))
+                assert torch.equal(got, k_transpose._transpose_padded_plain(
+                    xp)), (m, k, blk, dt)
+        print(f"  {m} x {k}, blocks {BLOCKS}, fp32, bf16 and int32: "
+              f"bit-equal")
+    # what the wrappers refuse on the card, before any launch
+    x = randn(64, 64)
+    refusals = (
+        (ValueError, lambda: k_matmul.matmul_padded(x.T, x, bm=32, bk=32,
+                                                    bn=32)),
+        (ValueError, lambda: k_syrk.syrk_packed(
+            torch.empty(64 * 64 + 1, device=dev)[1:].view(64, 64), bk=32,
+            bn=32)),
+        (ValueError, lambda: k_transpose.transpose_padded(x[:, :32], bm=32,
+                                                          bn=32)),
+        (TypeError, lambda: k_combine.strassen_combine(*[x.half()] * 7,
+                                                       bm=32, bn=32)),
+        (RuntimeError, lambda: ops.matmul(x.clone().requires_grad_(), x)))
+    before = dict(_launch.KERNEL_LAUNCHES)
+    for error, call in refusals:
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"not refused with {error.__name__}")
+    assert _launch.KERNEL_LAUNCHES == before
+    print("  a transposed view, a misaligned view, a strided view, fp16 and "
+          "an operand that requires grad are refused, nothing launched")
 
     # -- 4. main paths ----------------------------------------------------------
     n = args.n
@@ -665,6 +859,136 @@ def main() -> int:
         matmul_err = max(matmul_err, main_vs_plain(label, spec, xp, yp))
         del xp, yp
 
+    # -- 4f. the reference recursion with kernel leaves ----------------------
+    print(f"== 4f. main path: the reference recursion with kernel leaves at "
+          f"{n} x {n}, the ops entry points")
+    hooks = dict(base_syrk=ops.kernel_base_syrk(),
+                 base_matmul=ops.kernel_base_matmul())
+    path_launches = dict.fromkeys(_launch.KERNEL_LAUNCHES, 0)
+
+    def counted(label, fn, **want):
+        """Run ``fn`` with the counts zeroed just before and read just
+        after; every count of ``want`` must match, and no leaf program
+        may run."""
+        reset_counts()
+        out = fn()
+        got = read_counts(label)
+        assert all(got[k] == v for k, v in want.items()), (label, want)
+        assert not any(got[k] for k in sf.KERNEL_LAUNCHES), label
+        for k in path_launches:
+            path_launches[k] += got[k]
+        return out
+
+    s_leaves, m_leaves = hooked_leaves(n, n, DEFAULT_LEVELS, DEFAULT_LEAF)
+    sw_leaves, mw_leaves = hooked_leaves(n, wide, DEFAULT_LEVELS,
+                                         DEFAULT_LEAF)
+    print(f"  expected leaves: {s_leaves} syrk + {m_leaves} matmul at {n} x "
+          f"{n}, {sw_leaves} + {mw_leaves} at {n} x {wide}")
+    aw = randn(n, wide)
+    c = counted("ata(a) with kernel leaves", lambda: ata(a, **hooks),
+                syrk=s_leaves, matmul=m_leaves, combine=0, transpose=0)
+    cw = counted(f"ata(a {n} x {wide}) with kernel leaves",
+                 lambda: ata(aw, **hooks), syrk=sw_leaves, matmul=mw_leaves,
+                 combine=0, transpose=0)
+    cm = counted("strassen_matmul(a, b) with the kernel leaf",
+                 lambda: strassen_matmul(a, b,
+                                         base_matmul=hooks["base_matmul"]),
+                 syrk=0, matmul=7 ** DEFAULT_LEVELS, combine=0, transpose=0)
+    cs = counted("ops.syrk(a)", lambda: ops.syrk(a), syrk=1, matmul=0)
+    cp = counted("ops.matmul(a, b)", lambda: ops.matmul(a, b), syrk=0,
+                 matmul=1)
+    errs = []
+    for out, x in ((c, a), (cw, aw), (cs, a)):
+        assert out.shape == (x.shape[1],) * 2 and out.dtype == f32
+        assert bool(torch.isfinite(out).all())
+        x64 = x.double()
+        errs.append(_rel(out, torch.tril(x64.T @ x64)))
+        del x64
+    a64, b64 = a.double(), b.double()
+    want = a64 @ b64
+    for out in (cm, cp):
+        assert out.shape == (n, n) and out.dtype == f32
+        assert bool(torch.isfinite(out).all())
+        errs.append(_rel(out, want))
+    del c, cw, cm, cs, cp
+    print(f"vs float64 (of max|C|): ata with kernel leaves {errs[0]:.3e}, on "
+          f"{n} x {wide} {errs[1]:.3e}; ops.syrk {errs[2]:.3e}; "
+          f"strassen_matmul with the kernel leaf {errs[3]:.3e}; ops.matmul "
+          f"{errs[4]:.3e} (each <= 1e-4)")
+    assert max(errs) <= 1e-4
+    # The seven products of one Strassen level of a @ b, recombined.
+    h = (n + 1) // 2
+    qa = [F.pad(a, (0, 2 * h - n, 0, 2 * h - n))[r * h:(r + 1) * h,
+                                                 c_ * h:(c_ + 1) * h]
+          for r in (0, 1) for c_ in (0, 1)]
+    qb = [F.pad(b, (0, 2 * h - n, 0, 2 * h - n))[r * h:(r + 1) * h,
+                                                 c_ * h:(c_ + 1) * h]
+          for r in (0, 1) for c_ in (0, 1)]
+    (a11, a12, a21, a22), (b11, b12, b21, b22) = qa, qb
+    with torch.no_grad():
+        prods = [(a11 + a22) @ (b11 + b22), (a21 + a22) @ b11,
+                 a11 @ (b12 - b22), a22 @ (b21 - b11), (a11 + a12) @ b22,
+                 (a21 - a11) @ (b11 + b12), (a12 - a22) @ (b21 + b22)]
+    del qa, qb, a11, a12, a21, a22, b11, b12, b21, b22
+    quads = counted("ops.strassen_combine on seven products",
+                    lambda: ops.strassen_combine(*prods), combine=1)
+    plain_quads = k_combine._strassen_combine_plain(*prods)
+    assert all(torch.equal(q, p_) for q, p_ in zip(quads, plain_quads))
+    full = torch.cat([torch.cat(quads[:2], 1), torch.cat(quads[2:], 1)])
+    e_comb = _rel(full[:n, :n], want)
+    del full, plain_quads, quads, want
+    print(f"strassen_combine of the seven {h} x {h} products: bit-equal to "
+          f"plain; C vs float64 A B {e_comb:.3e} (<= 1e-4)")
+    assert e_comb <= 1e-4
+    t = counted("ops.transpose(a)", lambda: ops.transpose(a), transpose=1)
+    assert torch.equal(t, a.T)
+    del t, a64, b64
+    print("ops.transpose(a) equals a.T")
+    x = a.clone().requires_grad_()
+    for call in (lambda: ata(x, **hooks), lambda: ops.syrk(x),
+                 lambda: ops.matmul(x, b)):
+        try:
+            counted("a refused call", call, syrk=0, matmul=0)
+        except RuntimeError as err:
+            assert "forward-only" in str(err)
+            continue
+        raise AssertionError("an operand that requires grad ran")
+    del x
+    print(f"an A that requires grad is refused; launches on this path: "
+          f"{path_launches}")
+    # Each leaf configuration the path ran, against the plain version on
+    # the same operands; uncounted.
+    leaf_err = dict.fromkeys(("syrk", "matmul"), 0.0)
+    B = DEFAULT_BLOCK
+    hs = (h + 1) // 2
+    for label, x in (("ata leaf", a[:hs, :hs]),
+                     (f"ata {n} x {wide} leaf", aw[:hs, :(wide + 3) // 4]),
+                     ("ops.syrk(a)", a)):
+        xp = ops._pad_to(x, (B, B))
+        got = k_syrk.syrk_packed(xp, bk=B, bn=B)
+        ref = k_syrk._syrk_packed_plain(xp, B, f32)
+        err = float((got - ref).abs().max())
+        print(f"  syrk, {label} {tuple(xp.shape)}: kernel vs plain max|d| "
+              f"{err:.3e}, relative {_rel(got, ref.double()):.3e} (<= 1e-5)")
+        assert _rel(got, ref.double()) <= 1e-5
+        leaf_err["syrk"] = max(leaf_err["syrk"], err)
+    ww = (wide + 3) // 4
+    for label, x, y in (("ata leaf", a[:hs, :hs].T, a[:hs, :hs]),
+                        (f"ata {n} x {wide} leaf", aw[:hs, :ww].T,
+                         aw[:hs, :ww]),
+                        ("strassen_matmul leaf", a[:hs, :hs], b[:hs, :hs]),
+                        ("ops.matmul(a, b)", a, b)):
+        xp, yp = ops._pad_to(x, (B, B)), ops._pad_to(y, (B, B))
+        got = k_matmul.matmul_padded(xp, yp, bm=B, bk=B, bn=B)
+        ref = k_matmul._matmul_padded_plain(xp, yp, f32)
+        err = float((got - ref).abs().max())
+        print(f"  matmul, {label} {tuple(xp.shape)} @ {tuple(yp.shape)}: "
+              f"kernel vs plain max|d| {err:.3e}, relative "
+              f"{_rel(got, ref.double()):.3e} (<= 1e-5)")
+        assert _rel(got, ref.double()) <= 1e-5
+        leaf_err["matmul"] = max(leaf_err["matmul"], err)
+    del aw, xp, yp, got, ref
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
     print(f"card: {smi}")
@@ -683,30 +1007,38 @@ def main() -> int:
               f"executor, once: {plain_ms:.3f} ms")
         return ms, ms1, plain_ms
 
-    def bound(kind, flops_leaf, flops_classical, io_bytes, spec):
-        flops = min(flops_leaf, flops_classical)
+    def roofline(label, flops, io_bytes):
+        """The larger of the flops at the fp32 peak and the bytes at the
+        HBM rate; returns (bound_ms, bound_by)."""
         ops_ms = flops / PEAK_FP32_FLOPS * 1e3
         bytes_ms = io_bytes / PEAK_HBM_BYTES * 1e3
-        live = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
-        print(f"{kind} bound: min(leaf products once {flops_leaf:.4e}, "
-              f"classical {flops_classical:.4e}) = {flops:.4e} flops at "
-              f"{PEAK_FP32_FLOPS:.3g} FLOP/s -> {ops_ms:.3f} ms; "
-              f"inputs+outputs once {io_bytes:.4e} B at {PEAK_HBM_BYTES:.3g} "
-              f"B/s -> {bytes_ms:.3f} ms; bound_ms {max(ops_ms, bytes_ms):.3f}")
-        print(f"{kind}, not in the bound: the kernel's live-step flops (with "
-              f"the per-destination recomputation) {live:.4e} -> "
-              f"{live / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+        print(f"{label} bound: {flops:.4e} flops at {PEAK_FP32_FLOPS:.3g} "
+              f"FLOP/s -> {ops_ms:.3f} ms; inputs+outputs once "
+              f"{io_bytes:.4e} B at {PEAK_HBM_BYTES:.3g} B/s -> "
+              f"{bytes_ms:.3f} ms; bound_ms {max(ops_ms, bytes_ms):.3f}")
         return max(ops_ms, bytes_ms), \
             "operations" if ops_ms >= bytes_ms else "bytes"
 
-    def entry(kind, launches, err, ms, plain_ms, bound_ms, bound_by,
-              library_ms, **extra):
-        return {"name": "leaf_program", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES.format(kind), "kind": kind,
-                "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms, **extra,
-                "card": smi}
+    def bound(kind, flops_leaf, flops_classical, io_bytes, spec):
+        live = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
+        print(f"{kind}: the least flops are min(leaf products once "
+              f"{flops_leaf:.4e}, classical {flops_classical:.4e}); not in "
+              f"the bound, the kernel's live-step flops (with the "
+              f"per-destination recomputation) {live:.4e} -> "
+              f"{live / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+        return roofline(kind, min(flops_leaf, flops_classical), io_bytes)
+
+    def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                     bound_ms, bound_by, library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, **extra, "card": smi}
+
+    def entry(kind, *args, **extra):
+        return kernel_entry("leaf_program", SOURCE, REPLACES.format(kind),
+                            *args, kind=kind, **extra)
 
     kernels = []
 
@@ -840,6 +1172,96 @@ def main() -> int:
                          plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
                          ms_trans_a=t_ms, library_ms_trans_a=t_lib_ms,
                          trans_a_e2e_ms=e2e_ms, shape=[n, n, n]))
+
+    # The single-purpose kernels on the main path's padded operands.
+    def time_kernel(label, kernel, plain_fn, library=None):
+        ms, runs = _time_ms(kernel)
+        plain_ms, _ = _time_ms(plain_fn, reps=1, warmup=0)
+        line = (f"{label}: {ms:.3f} ms (runs {runs}); plain version, once: "
+                f"{plain_ms:.3f} ms")
+        lib_ms = None
+        if library is not None:
+            lib_ms, lib_runs = _time_ms(library[1])
+            line += f"; {library[0]}: {lib_ms:.3f} ms (runs {lib_runs})"
+        print(line)
+        return ms, plain_ms, lib_ms
+
+    def single(name, ms, plain_ms, lib_ms, flops, io_bytes, **extra):
+        bound_ms, bound_by = roofline(name, flops, io_bytes)
+        kernels.append(kernel_entry(
+            name, *KERNELS[name], path_launches[name],
+            0.0 if name in ("combine", "transpose") else leaf_err[name], ms,
+            plain_ms, bound_ms, bound_by, lib_ms, **extra))
+
+    B = DEFAULT_BLOCK
+    ap, bp = ops._pad_to(a, (B, B)), ops._pad_to(b, (B, B))
+    N = ap.shape[0]
+    T = N // B
+    # syrk: ops.syrk(a), the kernel on the padded A; the least flops are
+    # those of tril(A^t A), each input and output moved once
+    ms, plain_ms, lib_ms = time_kernel(
+        f"syrk kernel {tuple(ap.shape)} (bk = bn = {B})",
+        lambda: k_syrk.syrk_packed(ap, bk=B, bn=B),
+        lambda: k_syrk._syrk_packed_plain(ap, B, f32),
+        ("torch.tril(a.T @ a) on the same padded A",
+         lambda: torch.tril(ap.T @ ap)))
+    leaf = ops._pad_to(a[:hs, :hs], (B, B))
+    leaf_ms, _ = _time_ms(lambda: k_syrk.syrk_packed(leaf, bk=B, bn=B))
+    print(f"syrk kernel at the recursion's leaf {tuple(leaf.shape)}: "
+          f"{leaf_ms:.3f} ms")
+    single("syrk", ms, plain_ms, lib_ms, n * n * (n + 1),
+           (ap.numel() + tri_count(T) * B * B) * 4, leaf_ms=leaf_ms,
+           shape=list(ap.shape))
+    # matmul: ops.matmul(a, b), the kernel on the padded operands
+    ms, plain_ms, lib_ms = time_kernel(
+        f"matmul kernel {tuple(ap.shape)} @ {tuple(bp.shape)} (blocks {B})",
+        lambda: k_matmul.matmul_padded(ap, bp, bm=B, bk=B, bn=B),
+        lambda: k_matmul._matmul_padded_plain(ap, bp, f32),
+        ("a @ b on the same padded operands", lambda: ap @ bp))
+    leaf_b = ops._pad_to(b[:hs, :hs], (B, B))
+    leaf_ms, _ = _time_ms(lambda: k_matmul.matmul_padded(
+        leaf, leaf_b, bm=B, bk=B, bn=B))
+    print(f"matmul kernel at the recursion's leaf {tuple(leaf.shape)} @ "
+          f"{tuple(leaf_b.shape)}: {leaf_ms:.3f} ms")
+    single("matmul", ms, plain_ms, lib_ms, 2 * n * n * n, 3 * N * N * 4,
+           leaf_ms=leaf_ms, shape=[N, N, N])
+    del leaf, leaf_b
+    # combine: the seven padded products of one Strassen level
+    mp = [ops._pad_to(x, (B, B)) for x in prods]
+    H = mp[0].shape[0]
+    ms, plain_ms, _ = time_kernel(
+        f"combine kernel, seven {tuple(mp[0].shape)}",
+        lambda: k_combine.strassen_combine(*mp, bm=B, bn=B),
+        lambda: k_combine._strassen_combine_plain(*mp))
+    single("combine", ms, plain_ms, None, 10 * H * H, 11 * H * H * 4,
+           library_note="no single PyTorch call computes the four quadrants",
+           shape=[H, H])
+    del mp, prods
+    # transpose: ops.transpose(a), the kernel on the padded A
+    ms, plain_ms, lib_ms = time_kernel(
+        f"transpose kernel {tuple(ap.shape)}",
+        lambda: k_transpose.transpose_padded(ap, bm=B, bn=B),
+        lambda: k_transpose._transpose_padded_plain(ap),
+        ("a.T.contiguous() on the same padded A",
+         lambda: ap.T.contiguous()))
+    single("transpose", ms, plain_ms, lib_ms, 0, 2 * N * N * 4,
+           shape=[N, N])
+    del ap, bp
+    # End to end: the recursion on kernel leaves, on torch.matmul leaves,
+    # and the fused path.
+    e2e = {}
+    for label, fn in (
+            ("ata(a) on kernel leaves", lambda: ata(a, **hooks)),
+            ("ata(a, mode='reference') on torch.matmul leaves",
+             lambda: ata(a, mode="reference")),
+            ("ata(a), fused", lambda: ata(a)),
+            ("strassen_matmul(a, b) on the kernel leaf",
+             lambda: strassen_matmul(a, b, base_matmul=hooks["base_matmul"])),
+            ("strassen_matmul(a, b, mode='reference') on torch.matmul leaves",
+             lambda: strassen_matmul(a, b, mode="reference"))):
+        e2e[label], runs = _time_ms(fn)
+        print(f"{label}: {e2e[label]:.3f} ms (runs {runs})")
+    kernels[-4]["e2e_ms"] = e2e
 
     # -- 6. summary -------------------------------------------------------------
     print(json.dumps({"kernels": kernels}))

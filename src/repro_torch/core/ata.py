@@ -17,7 +17,9 @@ Two execution modes:
   same kernel as the symm kind (``bwd="fused"``).
 * ``mode="reference"`` — the recursion itself, capped at ``levels``;
   the numerical oracle, differentiable through autograd, and the only
-  mode that honours custom ``base_syrk`` / ``base_matmul`` hooks.
+  mode that honours custom ``base_syrk`` / ``base_matmul`` hooks, such
+  as the kernel leaves ``ops.kernel_base_syrk`` / ``kernel_base_matmul``
+  (the syrk and matmul CUDA kernels; forward-only).
 
 ``mode="auto"`` picks fused for a CUDA tensor and reference for a CPU
 tensor.  The entry points run on the card unless the caller passes
@@ -82,8 +84,12 @@ def ata(
       variant: registered algebra for the off-diagonal products.
       gram: registered gram algebra for the fused path's symmetric
         decomposition; the reference recursion ignores it.
-      base_syrk / base_matmul: leaf hooks of the reference recursion.
-        They force reference mode under ``mode="auto"``.
+      base_syrk / base_matmul: leaf hooks of the reference recursion,
+        e.g. ``kernels.ops.kernel_base_syrk()`` /
+        ``kernels.ops.kernel_base_matmul()``, which run every leaf
+        through the syrk and matmul kernels (forward-only: they refuse
+        an ``a`` that requires grad).  They force reference mode under
+        ``mode="auto"``.
       mode: "auto" | "fused" | "reference".
       bwd: the backward of the fused path — ``"fused"`` (default: the
         packed cotangent through the symm kind of the leaf-program

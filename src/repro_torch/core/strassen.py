@@ -3,8 +3,9 @@ matrices — the reference recursion, in torch.
 
 The port of ``repro/core/strassen.py`` for ``mode="reference"``: the
 recursion runs eagerly over the operands' quadrants, capped at
-``levels``, and below the cap a base matmul (``torch.matmul`` in at
-least fp32) takes over, as the JAX package leaves its leaves to XLA.
+``levels``, and below the cap a base matmul takes over: ``torch.matmul``
+in at least fp32 by default, as the JAX package leaves its leaves to
+XLA, or a hook such as ``ops.kernel_base_matmul()`` (the matmul kernel).
 Odd dimensions are zero-padded to even (exact) and sliced away.
 
 ``resolve_mode`` gives ``"fused"`` for a CUDA tensor and
@@ -130,7 +131,9 @@ def strassen_matmul(
       leaf: stop recursing when min(m, k, n) <= leaf.
       variant: "strassen" | "winograd" | "classical".
       base_matmul: leaf matmul; defaults to ``torch.matmul`` in >= fp32.
-        Forces reference mode under ``mode="auto"``.
+        ``kernels.ops.kernel_base_matmul()`` runs every leaf through the
+        matmul kernel (forward-only: it refuses operands that require
+        grad).  Forces reference mode under ``mode="auto"``.
       mode: "auto" | "fused" | "reference".  "auto" is "fused" (the
         matmul kind of the leaf-program kernel) for operands placed on
         the card and "reference" (the recursion) on the CPU.

@@ -1,9 +1,15 @@
 """Public entry points of the port's kernels, and where they run.
 
-The port of the leaf-program parts of ``repro/kernels/ops.py``: the
-column gram (``ata_fused[_packed]``), its backward's ``symm_matmul``, the
-row gram (``aat_fused[_packed]``), the streamed update
-(``rank_k_update``) and the Strassen product (``matmul_fused``).  Where
+The port of ``repro/kernels/ops.py`` but ``flash_mha``: the tiled
+product (``matmul``), the packed gram (``syrk[_packed]``), Strassen's
+recombination (``strassen_combine``), the transpose (``transpose``) and
+the leaf hooks of the reference recursion built on the first two
+(``kernel_base_matmul``, ``kernel_base_syrk``); and, through the
+leaf-program kernel, the column gram (``ata_fused[_packed]``), its
+backward's ``symm_matmul``, the row gram (``aat_fused[_packed]``), the
+streamed update (``rank_k_update``) and the Strassen product
+(``matmul_fused``).  Arbitrary shapes are zero-padded to block multiples
+(exact for all four single-purpose kernels) and sliced back.  Where
 the JAX package decides per backend whether a Pallas kernel runs
 compiled or in interpret mode (``_auto_interpret``), the port decides by
 device: the entry points run on the card unless the caller passes
@@ -11,14 +17,26 @@ device: the entry points run on the card unless the caller passes
 CUDA kernel.
 
 Block sizes default to 256, the JAX package's untuned default; the
-autotune cache is ROADMAP Queue 1 #8.
+autotune cache is ROADMAP Queue 1 #8.  The single-purpose kernels are
+forward-only, as the JAX package's are: with grad mode on they refuse an
+input that requires grad.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["ata_fused", "ata_fused_packed", "symm_matmul", "aat_fused",
-           "aat_fused_packed", "rank_k_update", "matmul_fused"]
+from ..core.symmetry import unpack_tril_blocks
+from . import _launch
+from . import combine as _combine
+from . import matmul as _matmul
+from . import syrk as _syrk
+from . import transpose as _transpose
+
+__all__ = ["matmul", "syrk_packed", "syrk", "strassen_combine", "transpose",
+           "kernel_base_matmul", "kernel_base_syrk", "ata_fused",
+           "ata_fused_packed", "symm_matmul", "aat_fused", "aat_fused_packed",
+           "rank_k_update", "matmul_fused"]
 
 DEFAULT_BLOCK = 256
 
@@ -38,6 +56,109 @@ def _place(a, device) -> torch.Tensor:
 
 def _block(b):
     return DEFAULT_BLOCK if b is None else b
+
+
+def _pad_to(x: torch.Tensor, mults) -> torch.Tensor:
+    """``x`` zero-padded at the end of each axis to a multiple of
+    ``mults``, as a contiguous, 16-byte aligned tensor (a kernel reads
+    it by pointer: a view is copied, never passed)."""
+    if x.ndim != len(mults):
+        raise ValueError(f"expected a {len(mults)}-d tensor, got shape "
+                         f"{tuple(x.shape)}")
+    pads = [(-d) % m for d, m in zip(x.shape, mults)]
+    if any(pads):
+        x = F.pad(x, [p for pad in reversed(pads) for p in (0, pad)])
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def matmul(a, b, *, bm=None, bk=None, bn=None, device=None):
+    """``a @ b`` via the tiled matmul kernel (``kernels/matmul.py``); any
+    shapes, fp32 or bf16, the result in ``promote_types(a, b)``."""
+    a, b = _place(a, device), _place(b, device)
+    bm, bk, bn = _block(bm), _block(bk), _block(bn)
+    _launch.check_blocks("matmul", bm=bm, bk=bk, bn=bn)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        # checked before padding, which would hide a mismatched k
+        raise ValueError(f"matmul takes (m, k) and (k, n), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    m, n = a.shape[0], b.shape[1]
+    out = _matmul.matmul_padded(_pad_to(a, (bm, bk)), _pad_to(b, (bk, bn)),
+                                bm=bm, bk=bk, bn=bn)
+    return out[:m, :n]
+
+
+def syrk_packed(a, *, bk=None, bn=None, device=None):
+    """Packed lower-tri block stack of ``a.T @ a`` via the syrk kernel
+    (``kernels/syrk.py``), N padded to a multiple of ``bn`` (the caller
+    keeps the block layout; :func:`syrk` gives the dense result)."""
+    a = _place(a, device)
+    bk, bn = _block(bk), _block(bn)
+    _launch.check_blocks("syrk", bk=bk, bn=bn)
+    return _syrk.syrk_packed(_pad_to(a, (bk, bn)), bk=bk, bn=bn)
+
+
+def syrk(a, *, bk=None, bn=None, symmetrize=False, device=None):
+    """Dense ``tril(a.T @ a)`` (or the full symmetric product) via the
+    packed syrk kernel, in ``a.dtype``."""
+    a = _place(a, device)
+    bk, bn = _block(bk), _block(bn)
+    _launch.check_blocks("syrk", bk=bk, bn=bn)
+    ap = _pad_to(a, (bk, bn))
+    n = a.shape[1]
+    packed = _syrk.syrk_packed(ap, bk=bk, bn=bn)
+    dense = unpack_tril_blocks(packed, ap.shape[1], bn, symmetrize=symmetrize)
+    if not symmetrize:
+        # diagonal tiles are computed whole: drop their upper halves
+        dense = torch.tril(dense)
+    return dense[:n, :n]
+
+
+def strassen_combine(m1, m2, m3, m4, m5, m6, m7, *, bm=256, bn=256,
+                     device=None):
+    """Fused Strassen recombination -> ``(c11, c12, c21, c22)`` via the
+    combine kernel (``kernels/combine.py``)."""
+    ms = [_place(x, device) for x in (m1, m2, m3, m4, m5, m6, m7)]
+    _launch.check_blocks("combine", bm=bm, bn=bn)
+    padded = [_pad_to(x, (bm, bn)) for x in ms]
+    m, n = ms[0].shape
+    outs = _combine.strassen_combine(*padded, bm=bm, bn=bn)
+    return tuple(c[:m, :n] for c in outs)
+
+
+def transpose(a, *, bm=256, bn=256, device=None):
+    """``a.T`` via the tiled transpose kernel (``kernels/transpose.py``);
+    any 2- or 4-byte dtype."""
+    a = _place(a, device)
+    _launch.check_blocks("transpose", bm=bm, bn=bn)
+    ap = _pad_to(a, (bm, bn))
+    m, n = a.shape
+    return _transpose.transpose_padded(ap, bm=bm, bn=bn)[:n, :m]
+
+
+# ---------------------------------------------------------------------------
+# Kernel-backed base cases for the reference recursion.
+# ---------------------------------------------------------------------------
+
+def kernel_base_matmul(bm=None, bk=None, bn=None):
+    """``base_matmul`` hook for ``core.strassen_matmul`` and ``core.ata``:
+    every leaf product through :func:`matmul`, on the device its operands
+    lie on.  The counterpart of the JAX package's ``pallas_base_matmul``;
+    forward-only."""
+    def base(a, b):
+        return matmul(a, b, bm=bm, bk=bk, bn=bn, device=a.device)
+    return base
+
+
+def kernel_base_syrk(bk=None, bn=None):
+    """``base_syrk`` hook for ``core.ata`` (the lower-triangular leaf
+    gram): every leaf through :func:`syrk`, on the device its operand
+    lies on.  The counterpart of the JAX package's ``pallas_base_syrk``;
+    forward-only."""
+    def base(a):
+        return syrk(a, bk=bk, bn=bn, symmetrize=False, device=a.device)
+    return base
 
 
 def ata_fused(a, *, levels=2, variant="strassen", gram="strassen", bk=None,

@@ -51,6 +51,7 @@ from ..core.leaf_ir import LeafProgram, compile_program
 from ..core.strassen import ieee_fp32
 from ..core.symmetry import tri_coords, unpack_tril_blocks
 from . import _build
+from ._launch import DTYPE_CODES as _DTYPE_CODES
 from .ops import _place
 
 __all__ = ["fused_ata", "fused_ata_packed", "fused_symm_matmul",
@@ -82,8 +83,6 @@ _SUPPORTED_OPERAND_DTYPES = ("float8_e4m3fn", "float8_e5m2", "bfloat16",
                              "float16", "float32", "float64")
 _PORTED_OPERAND_DTYPES = ("bfloat16", "float32")
 
-# dtype codes of the C interface
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KINDS = ("ata", "symm", "aat", "rank_k", "matmul")
 
 # right-side layouts of the C interface: dense K x j, dense j x K (a

@@ -25,6 +25,12 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.strassen_fused\n"
         "import repro_torch.core.schedule\n"
+        "import repro_torch.kernels._launch, repro_torch.kernels.matmul\n"
+        "import repro_torch.kernels.syrk, repro_torch.kernels.combine\n"
+        "import repro_torch.kernels.transpose\n"
+        "from repro_torch.kernels.ops import (matmul, syrk, syrk_packed,\n"
+        "    strassen_combine, transpose, kernel_base_matmul,\n"
+        "    kernel_base_syrk)\n"
         "from repro_torch.kernels.ops import (aat_fused, aat_fused_packed,\n"
         "    rank_k_update, matmul_fused)\n"
         "from repro_torch.kernels.strassen_fused import (fused_aat,\n"
@@ -70,7 +76,8 @@ def test_entry_points_refuse_to_run_without_cuda():
     for fn in (ata, ata_full, ops.ata_fused, ops.ata_fused_packed,
                strassen_fused.fused_ata, strassen_fused.fused_ata_packed,
                ops.aat_fused, ops.aat_fused_packed, strassen_fused.fused_aat,
-               strassen_fused.fused_aat_packed):
+               strassen_fused.fused_aat_packed, ops.syrk, ops.syrk_packed,
+               ops.transpose):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(a)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -81,7 +88,9 @@ def test_entry_points_refuse_to_run_without_cuda():
                      (ops.rank_k_update, (stack, a)),
                      (strassen_fused.fused_rank_k_update, (stack, a)),
                      (ops.matmul_fused, (a, a)),
-                     (strassen_fused.fused_matmul, (a, a))):
+                     (strassen_fused.fused_matmul, (a, a)),
+                     (ops.matmul, (a, a)),
+                     (ops.strassen_combine, (a,) * 7)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*args)
     with pytest.raises(RuntimeError, match="no CUDA device"):
