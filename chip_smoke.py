@@ -36,6 +36,19 @@ failure exits non-zero):
        the plain version (2^-8 for a bf16 output) and <= 1e-4 against
        float64; combine and transpose ``torch.equal``; what the wrappers
        refuse on the card;
+   3j. the flash_attention kernel against its plain version on (B, H, S,
+       D) operands: tests/test_flash_attention.py's grid, windows 16 and
+       48, softcap 50, non-causal (Skv 64 and 96), Qwen2.5-3B's shapes
+       (B 1, H 16, Hkv 2, D 128, Sq 128, 1000 and 2048 over Skv 2048), D
+       256 with window and softcap and non-causal, each in fp32 and bf16,
+       held of max|out| and row by row (each row's max|d| over that row's
+       max|plain|): fp32 <= 1e-5 both, bf16 <= 5e-3 and <= 2^-6 (a one-ulp
+       flip of a bf16 row maximum is up to 2^-7 of it); the same measures
+       of the kernel's output with its rows past the first q tile zeroed
+       (a kernel wrong past tile 0) must exceed the bars; ``ops.flash_mha``
+       over the grid and a causal Sq 80 over Skv 40 (kv zero-padded as in
+       the JAX package) against itself on the CPU; a bad head_dim, a view
+       and an operand that requires grad refused;
 4. the main paths at n x n fp32 from ``--seed`` (the paper's n = 10000),
    each with the launch counts zeroed just before it and read just
    after, checked against float64 on the card (<= 1e-4 of max|out|;
@@ -65,6 +78,29 @@ failure exits non-zero):
        seven products of one Strassen level (C against float64 A B),
        ``ops.transpose``, and the refusal of an A that requires grad;
        then each leaf configuration against its plain version;
+   4g. ``ServingEngine`` serving Qwen2.5-3B at full width (36 layers, d
+       2048, vocab 151936), bf16, ``attn_impl="flash"``, weights from a
+       ``torch.Generator`` on the card seeded with ``--seed``: slots 4,
+       max_seq 2048, greedy, 8 requests of 16 new tokens, prompt lengths
+       drawn from 100-1500 by numpy with ``--seed`` plus one of 2032 (the
+       2048 bucket fills the cache).  36 x 8 = 288 flash launches and no
+       other kernel; time to first token, prefill and decode tokens/s,
+       peak memory; each prefill's last-position logits against the same
+       bf16 forward with plain torch attention (only the attention
+       differs), against the same with plain attention in fp32, and
+       against the bf16 flash forward with no cache and no bucket padding,
+       and request 0's decode logits against a no-cache train-mode
+       forward, each <= 0.1 of max|logits| (bf16 noise through 36 layers
+       of random weights); the same bf16 forward with a planted fault in
+       its attention (the kernel's rows past its first q tile zeroed, or
+       each row past it blind to the first kv tile) must exceed that bar
+       against plain attention at every prompt; in fp32, the flash kernel
+       in the model against plain attention at each prompt, and request
+       0's prefill and decode through a cache against no cache, each <=
+       1e-4;
+   4h. where the serving time goes: one 2032-token prefill and one
+       decode tick of 4 slots under ``torch.profiler``, the wall time,
+       the device's kernel time, its busy share and the top kernels;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -76,7 +112,11 @@ failure exits non-zero):
    The syrk, matmul, combine and transpose kernels are timed on the
    padded operands of the main path's ``ops`` calls, with ``ata`` and
    ``strassen_matmul`` end to end on kernel leaves beside their
-   ``torch.matmul`` leaves and the fused path.
+   ``torch.matmul`` leaves and the fused path.  flash_attention is timed
+   at the serving prefill, q (1, 16, 2048, 128) over k/v (1, 2, 2048,
+   128), causal, bf16, beside ``F.scaled_dot_product_attention`` (timed
+   only); its bound is 4 D flops for each unmasked (q, k) pair at the
+   bf16 tensor-core peak against q, k, v and o once at HBM rate.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
@@ -86,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import dataclasses
 import importlib
 import json
@@ -97,6 +138,8 @@ import sys
 import time
 import warnings
 
+import numpy as np
+
 # H100 SXM data-sheet peaks at the 700 W limit (NVIDIA H100 data sheet):
 # fp32 on the CUDA cores (no tensor cores, no TF32) and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -106,7 +149,10 @@ SOURCE = "src/repro_torch/kernels/csrc/leaf_program.cu"
 REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
             "src/repro/kernels/strassen_fused.py:533 (_pipelined_kernel), "
             "{} kind")
-LIBRARIES = ("leaf_program", "syrk", "matmul", "combine", "transpose")
+# the bf16 tensor-core peak (dense), for flash attention's bound
+PEAK_BF16_FLOPS = 989e12
+LIBRARIES = ("leaf_program", "syrk", "matmul", "combine", "transpose",
+             "flash_attention")
 # the single-purpose kernels: their sources and the TPU kernels they replace
 KERNELS = {
     "syrk": ("src/repro_torch/kernels/csrc/syrk.cu",
@@ -121,7 +167,31 @@ KERNELS = {
     "transpose": ("src/repro_torch/kernels/csrc/transpose.cu",
                   "src/repro/kernels/transpose.py:17 (_transpose_kernel, "
                   "launched by transpose_padded :21)"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:27 "
+                        "(_flash_kernel, launched by flash_attention :82)"),
 }
+# tests/test_flash_attention.py's grid: (b, sq, skv, h, hkv, d)
+FLASH_GRID = [(2, 64, 64, 4, 4, 32), (2, 64, 64, 8, 2, 32),
+              (1, 128, 128, 4, 1, 16), (1, 48, 48, 2, 2, 64),
+              (2, 32, 96, 4, 4, 32)]
+# Qwen2.5-3B's attention: 16 query heads, 2 kv heads, head_dim 128, a
+# 2048-slot cache
+QWEN_HEADS, QWEN_KV_HEADS, QWEN_HEAD_DIM, MAX_SEQ = 16, 2, 128, 2048
+# Phase 3j's and phase 5's bars for the flash kernel against its plain
+# version, by dtype: (of max|out|, row by row).  The two round p at the
+# same place, so bf16 differs by the output's rounding: a one-ulp flip is
+# up to 2^-7 of an element.
+FLASH_BARS = {"float32": (1e-5, 1e-5), "bfloat16": (5e-3, 2 ** -6)}
+# Phase 4g's bars, of max|logits|.  bf16: the engine's logits against the
+# same model with plain attention, in bf16 and in fp32, and its decode
+# against a no-cache bf16 forward.  Any bf16 rounding that differs, even
+# another matmul shape, grows through 36 layers of random weights to
+# 4e-2 - 5e-2 of max|logits|; a planted fault in the attention reads
+# 0.4 - 1.4 (PERF.md, PR 15).  fp32: the same comparisons with the flash
+# kernel and the cache in fp32, where sums in another order are all that
+# differ.
+SERVE_BF16_BAR, SERVE_F32_BAR = 1e-1, 1e-4
 # tests/test_kernels.py's shapes, and the phase-3 ragged shape
 SHAPES_MM = [(32, 32, 32), (64, 128, 32), (100, 70, 50), (256, 256, 256),
              (257, 129, 65), (16, 512, 16), (1000, 777, 555)]
@@ -136,6 +206,13 @@ BLOCKS = (8, 32, 40, 128, 256)
 
 def _rel(got, want) -> float:
     return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def _row_rel(got, want) -> float:
+    """The largest, over rows (the last axis), of a row's max|got - want|
+    over that row's max|want|."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
 
 
 def _time_ms(fn, reps=5, warmup=2):
@@ -227,9 +304,15 @@ def main() -> int:
     from repro_torch.kernels import strassen_fused as sf
     from repro_torch.kernels.ops import DEFAULT_BLOCK
     # the package exports the ops functions under the modules' names
-    k_syrk, k_matmul, k_combine, k_transpose = (
+    k_syrk, k_matmul, k_combine, k_transpose, k_flash = (
         importlib.import_module(f"repro_torch.kernels.{name}")
-        for name in ("syrk", "matmul", "combine", "transpose"))
+        for name in ("syrk", "matmul", "combine", "transpose",
+                     "flash_attention"))
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, prefill)
+    from repro_torch.models.model import param_count
+    from repro_torch.runtime import ServingEngine
 
     # -- 1. device ------------------------------------------------------------
     print("== 1. device")
@@ -264,6 +347,10 @@ def main() -> int:
         print(f"  leaf_program {line}")
     for name in LIBRARIES[1:]:
         print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
+    smem = _build.library("flash_attention").flash_attention_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    print("  flash_attention dynamic shared memory by head_dim: "
+          + ", ".join(f"{d}: {smem(d)} B" for d in (16, 32, 64, 128, 256)))
 
     def plain(spec, left, right, out_dtype, seed=None):
         return sf._leaf_program_plain(spec, sf._spec_tables(spec, left.device),
@@ -584,6 +671,100 @@ def main() -> int:
     assert _launch.KERNEL_LAUNCHES == before
     print("  a transposed view, a misaligned view, a strided view, fp16 and "
           "an operand that requires grad are refused, nothing launched")
+
+    print("== 3j. flash_attention against its plain version")
+
+    # per dtype: the largest sound errors, and the least a fault reads
+    flash_read = {n_: {"sound": [0.0, 0.0], "fault": [np.inf, np.inf]}
+                  for n_ in FLASH_BARS}
+
+    def flash_check(b, h, hkv, sq, skv, d, dt, **kw):
+        """One counted launch on (B, H, S, D) operands against the plain
+        version, of max|out| and row by row, within ``FLASH_BARS``; where
+        Sq > 64, the output with its rows past the first q tile zeroed
+        must exceed both bars.  Returns max|kernel - plain|."""
+        q, k, v = (randn(b, heads, s_, d, dtype=dt) for heads, s_ in
+                   ((h, sq), (hkv, skv), (hkv, skv)))
+        got = counted_launch("flash_attention",
+                             lambda: k_flash.flash_attention(q, k, v, **kw))
+        opts = {"causal": True, "window": 0, "softcap": 0.0, **kw}
+        want = k_flash._flash_attention_plain(q, k, v, scale=d ** -0.5,
+                                              **opts)
+        assert got.dtype == dt and bool(torch.isfinite(got).all())
+        name = str(dt).removeprefix("torch.")
+        bars, read = FLASH_BARS[name], flash_read[name]
+        errs = (_rel(got, want.double()), _row_rel(got, want))
+        read["sound"] = [max(a_, e_) for a_, e_ in zip(read["sound"], errs)]
+        line = (f"  B {b} H {h} Hkv {hkv} Sq {sq} Skv {skv} D {d} {name} "
+                f"{kw or ''}: vs plain {errs[0]:.2e}, by row {errs[1]:.2e}")
+        if sq > 64:
+            bad = got.clone()
+            bad[:, :, 64:] = 0
+            faults = (_rel(bad, want.double()), _row_rel(bad, want))
+            read["fault"] = [min(a_, e_)
+                             for a_, e_ in zip(read["fault"], faults)]
+            line += (f"; rows past tile 0 zeroed: {faults[0]:.2e}, by row "
+                     f"{faults[1]:.2e}")
+            assert all(f_ > b_ for f_, b_ in zip(faults, bars)), faults
+        print(line)
+        assert all(e_ <= b_ for e_, b_ in zip(errs, bars)), (
+            b, h, hkv, sq, skv, d, dt, kw, errs)
+        return float((got.float() - want.float()).abs().max())
+
+    flash_err = 0.0
+    for dt in (f32, bf16):
+        for b_, sq, skv, h_, hkv, d in FLASH_GRID:
+            flash_check(b_, h_, hkv, sq, skv, d, dt)
+        for kw in ({"window": 16}, {"window": 48}):
+            flash_check(1, 4, 2, 128, 128, 32, dt, **kw)
+        flash_check(1, 2, 2, 64, 64, 32, dt, softcap=50.0)
+        flash_check(2, 4, 2, 64, 64, 32, dt, causal=False)
+        flash_check(1, 2, 2, 64, 96, 32, dt, causal=False)
+        for sq in (128, 1000, MAX_SEQ):
+            err = flash_check(1, QWEN_HEADS, QWEN_KV_HEADS, sq, MAX_SEQ,
+                              QWEN_HEAD_DIM, dt)
+            if dt == bf16:
+                flash_err = max(flash_err, err)
+        flash_check(1, 4, 2, 512, 512, 256, dt, window=100, softcap=50.0)
+        flash_check(1, 4, 2, 256, 320, 256, dt, causal=False, softcap=30.0)
+    for dt_name, read in flash_read.items():
+        print(f"  {dt_name}: largest sound error of max|out| "
+              f"{read['sound'][0]:.3e}, by row {read['sound'][1]:.3e} (<= "
+              f"{FLASH_BARS[dt_name][0]:.0e}, {FLASH_BARS[dt_name][1]:.3e}); "
+              f"least with rows past tile 0 zeroed {read['fault'][0]:.3e}, "
+              f"by row {read['fault'][1]:.3e}")
+    # the ops entry point on (B, S, H, D) against itself on the CPU (the
+    # plain version), over the grid and a causal Sq > Skv, where kv is
+    # zero-padded to the block as in the JAX package
+    for b_, sq, skv, h_, hkv, d in FLASH_GRID + [(1, 80, 40, 2, 1, 16)]:
+        q, k, v = (randn(b_, s_, heads, d) for s_, heads in
+                   ((sq, h_), (skv, hkv), (skv, hkv)))
+        got = counted_launch("flash_attention", lambda: ops.flash_mha(
+            q, k, v, block_q=32, block_kv=32))
+        want = ops.flash_mha(*(x.cpu() for x in (q, k, v)), block_q=32,
+                             block_kv=32, device="cpu")
+        assert _rel(got.cpu(), want.double()) <= 1e-5, (b_, sq, skv, h_,
+                                                        hkv, d)
+    print("  ops.flash_mha over the grid and Sq 80 over Skv 40 at blocks of "
+          "32: vs itself on the CPU <= 1e-5")
+    q = randn(1, 2, 64, 48)
+    x = randn(1, 2, 64, 64)
+    refusals = (
+        (ValueError, lambda: k_flash.flash_attention(q, q, q)),
+        (ValueError, lambda: k_flash.flash_attention(
+            x.transpose(2, 3), x, x)),
+        (RuntimeError, lambda: k_flash.flash_attention(
+            x.clone().requires_grad_(), x, x)))
+    before = dict(_launch.KERNEL_LAUNCHES)
+    for error, call in refusals:
+        try:
+            call()
+        except error:
+            continue
+        raise AssertionError(f"not refused with {error.__name__}")
+    assert _launch.KERNEL_LAUNCHES == before
+    print("  head_dim 48, a transposed view and an operand that requires "
+          "grad are refused, nothing launched")
 
     # -- 4. main paths ----------------------------------------------------------
     n = args.n
@@ -989,6 +1170,218 @@ def main() -> int:
         leaf_err["matmul"] = max(leaf_err["matmul"], err)
     del aw, xp, yp, got, ref
 
+    # -- 4g. serving Qwen2.5-3B at full width ---------------------------------
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b"), attn_impl="flash")
+    print(f"== 4g. main path: ServingEngine on {cfg.name} at full width "
+          f"({cfg.num_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}), {cfg.dtype}, attn_impl='flash'")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()    # the earlier phases' tensors
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed))
+    n_params = param_count(params)
+    rng = np.random.default_rng(args.seed)
+    lens = rng.integers(100, 1501, size=7).tolist() + [MAX_SEQ - 16]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n_).tolist()
+               for n_ in lens]
+    print(f"  {n_params} parameters; prompt lengths {lens}, 16 new tokens "
+          f"each, slots 4, max_seq {MAX_SEQ}, greedy")
+
+    class Recorder(ServingEngine):
+        """Keeps the logits each request's tokens were sampled from: the
+        prefill's last position, then request 0's decode rows."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.first_logits, self.decode_logits = [], []
+
+        def _sample(self, logits):
+            if logits.shape[0] == 1:                      # admission
+                self.first_logits.append(logits[0].float())
+            else:
+                for slot, r in self.active.items():
+                    if r is not None and r.uid == 0:
+                        self.decode_logits.append(logits[slot].float())
+            return super()._sample(logits)
+
+    eng = Recorder(cfg, params, slots=4, max_seq=MAX_SEQ)
+    for p_ in prompts:
+        eng.add_request(p_, max_new_tokens=16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    finished = eng.run_to_completion()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = read_counts("the serving path")
+    # weights, cache and activations: the peak less what was held before
+    peak_bytes = torch.cuda.max_memory_allocated() - held
+    want = dict.fromkeys(serve_launches, 0)
+    want["flash_attention"] = cfg.num_layers * len(prompts)
+    assert serve_launches == want, serve_launches
+    assert len(finished) == len(prompts)
+    assert all(r.status == "ok" and len(r.generated) == 16
+               and all(0 <= t_ < cfg.vocab_size for t_ in r.generated)
+               for r in finished)
+    st = eng.stats
+    ttft = {r.uid: r.t_first - r.t_submit for r in finished}
+    print(f"  {len(finished)} requests in {serve_s:.3f} s; flash_attention "
+          f"launches {serve_launches['flash_attention']} (= {cfg.num_layers}"
+          f" layers x {len(prompts)} prefills)")
+    print(f"  time to first token, s (from submission, queueing included): "
+          + ", ".join(f"{u}: {t_:.4f}" for u, t_ in sorted(ttft.items())))
+    prefill_rate = st["prefill_tokens"] / st["prefill_s"]
+    print(f"  prefill: {st['prefill_tokens']} tokens in "
+          f"{st['prefill_s']:.4f} s, {prefill_rate:.1f} tokens/s; decode: "
+          f"{st['decode_tokens']} tokens in {st['ticks']} ticks, "
+          f"{st['decode_s']:.4f} s, "
+          f"{st['decode_tokens'] / st['decode_s']:.1f} tokens/s; peak "
+          f"memory {peak_bytes} B")
+    # bf16: each prefill's last-position logits against the same forward
+    # with plain torch attention (attn_impl="xla", one-shot below 2048
+    # tokens) in bf16 and in fp32, and against the bf16 flash forward with
+    # no cache and no bucket padding; request 0's decode logits against a
+    # train-mode forward with no cache.  Then the bf16 forward with a
+    # planted fault in its attention, against plain attention.  fp32: the
+    # flash kernel in the model against plain attention at each prompt,
+    # and request 0's prefill and 15 decode steps through a fresh B = 1
+    # cache against the no-cache forward.
+    cfg_plain = dataclasses.replace(cfg, attn_impl="xla")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="xla")
+    cfg32_flash = dataclasses.replace(cfg32, attn_impl="flash")
+
+    def to_f32(tree):
+        if isinstance(tree, dict):
+            return {k_: to_f32(v_) for k_, v_ in tree.items()}
+        if isinstance(tree, list):
+            return [to_f32(v_) for v_ in tree]
+        return tree.float()
+    params32 = to_f32(params)
+    r0 = next(r for r in finished if r.uid == 0)
+    seq0 = torch.tensor([prompts[0] + r0.generated[:-1]], device=dev)
+    n0 = len(prompts[0])
+    flash_mha = ops.flash_mha
+
+    def rows_past_tile0_zeroed(q, k, v, **kw):
+        out = flash_mha(q, k, v, **kw).clone()
+        out[:, 64:] = 0
+        return out
+
+    def blind_to_kv_tile0(q, k, v, **kw):
+        """Causal attention in which each row past the first q tile misses
+        the first kv tile, as a wrong tile skip would."""
+        b_, sq_, h_, d_ = q.shape
+        skv_, hkv_ = k.shape[1], k.shape[2]
+        qg = q.float().reshape(b_, sq_, hkv_, h_ // hkv_, d_)
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d_ ** -0.5
+        qp = torch.arange(sq_, device=dev)[:, None]
+        kp = torch.arange(skv_, device=dev)[None]
+        sc = sc.masked_fill((qp < kp) | ((qp >= 64) & (kp < 64)), -1e30)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", sc.softmax(-1), v.float())
+        return out.reshape(b_, sq_, h_, d_).to(q.dtype)
+
+    faults = {"rows past the first q tile zeroed": rows_past_tile0_zeroed,
+              "rows past the first q tile blind to kv tile 0":
+              blind_to_kv_tile0}
+    fault_errs = {name: [] for name in faults}
+    prefill_errs, f32_errs, plain_errs, no_pad_errs = [], [], [], []
+    with torch.no_grad():
+        for p_, got in zip(prompts, eng.first_logits):
+            toks = torch.tensor([p_], device=dev)
+            plain_row = forward(cfg_plain, params, toks,
+                                mode="train")[0][0, -1]
+            plain_errs.append(_rel(got, plain_row.double()))
+            no_pad = forward(cfg, params, toks, mode="train")[0][0, -1]
+            no_pad_errs.append(_rel(got, no_pad.double()))
+            for fault_name, fault in faults.items():
+                ops.flash_mha = fault
+                try:
+                    bad = forward(cfg, params, toks, mode="train")[0][0, -1]
+                finally:
+                    ops.flash_mha = flash_mha
+                fault_errs[fault_name].append(_rel(bad, plain_row.double()))
+            del plain_row, no_pad, bad
+            ref32 = forward(cfg32, params32, toks, mode="train")[0][0, -1]
+            flash32 = forward(cfg32_flash, params32, toks,
+                              mode="train")[0][0, -1]
+            prefill_errs.append(_rel(got, ref32.double()))
+            f32_errs.append(_rel(flash32, ref32.double()))
+            del ref32, flash32
+        want32 = forward(cfg32, params32, seq0, mode="train")[0][0, n0 - 1:]
+        cache = init_cache(cfg32_flash, 1, MAX_SEQ)
+        got32, cache = prefill(cfg32_flash, params32, seq0[:, :n0], cache)
+        got32 = [got32[0]]
+        for i in range(15):
+            step, cache = decode_step(cfg32_flash, params32,
+                                      seq0[:, n0 + i:n0 + i + 1], cache)
+            got32.append(step[0])
+        e_dec32 = _rel(torch.stack(got32), want32.double())
+        del params32, cache, got32, want32
+        full0 = forward(cfg, params, seq0, mode="train")[0][0, n0:].float()
+    dec = torch.stack(eng.decode_logits)
+    assert dec.shape == full0.shape == (15, cfg.vocab_size)
+    e_dec = _rel(dec, full0.double())
+    print(f"  bf16 engine, prefill logits, of max|logits| (each <= "
+          f"{SERVE_BF16_BAR:.0e}): vs bf16 plain attention "
+          + ", ".join(f"{e:.3e}" for e in plain_errs)
+          + "; vs fp32 plain attention "
+          + ", ".join(f"{e:.3e}" for e in prefill_errs)
+          + "; vs the bf16 flash forward with no cache and no bucket "
+          "padding " + ", ".join(f"{e:.3e}" for e in no_pad_errs)
+          + f"; request 0's 15 decode steps vs a no-cache bf16 forward: "
+          f"{e_dec:.3e}")
+    for fault_name, errs in fault_errs.items():
+        print(f"  planted fault, {fault_name}: bf16 vs bf16 plain attention "
+              + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (each > {SERVE_BF16_BAR:.0e})")
+    print(f"  fp32, flash vs plain attention at each prompt: "
+          + ", ".join(f"{e:.3e}" for e in f32_errs)
+          + f"; request 0's prefill and 15 decode steps through the cache "
+          f"vs no cache: {e_dec32:.3e} (each <= {SERVE_F32_BAR:.0e})")
+    assert max(prefill_errs + plain_errs + no_pad_errs + [e_dec]) \
+        <= SERVE_BF16_BAR
+    assert min(min(errs) for errs in fault_errs.values()) > SERVE_BF16_BAR
+    assert max(f32_errs) <= SERVE_F32_BAR and e_dec32 <= SERVE_F32_BAR
+    del eng, full0, dec
+
+    # -- 4h. where the serving time goes -------------------------------------
+    print("== 4h. where the serving time goes: one 2032-token prefill and "
+          "one decode tick of 4 slots under torch.profiler (warm)")
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(label, step):
+        """Wall time of ``step`` (ending in a sync), the device's kernel
+        time inside it, the busy share and the top kernels."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        print(f"  {label}: wall {wall_ms:.3f} ms, device kernels "
+              f"{dev_ms:.3f} ms, busy {dev_ms / wall_ms:.1%}; top: "
+              + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
+                          f" ms x {e.count}" for e in top))
+        return {"wall_ms": wall_ms, "device_ms": dev_ms,
+                "top": [[e.key, e.self_device_time_total / 1e3, e.count]
+                        for e in top]}
+
+    one = ServingEngine(cfg, params, slots=1, max_seq=MAX_SEQ)
+    one.add_request(prompts[-1], max_new_tokens=1)
+    prof_prefill = profiled("prefill of 2032 tokens", one.step)
+    four = ServingEngine(cfg, params, slots=4, max_seq=MAX_SEQ)
+    for p_ in prompts[:4]:
+        four.add_request(p_, max_new_tokens=3)
+    four.step()                          # the four prefills, one tick
+    prof_decode = profiled("decode tick, 4 live slots", four.step)
+    del one, four, params
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
     print(f"card: {smi}")
@@ -1007,12 +1400,13 @@ def main() -> int:
               f"executor, once: {plain_ms:.3f} ms")
         return ms, ms1, plain_ms
 
-    def roofline(label, flops, io_bytes):
-        """The larger of the flops at the fp32 peak and the bytes at the
-        HBM rate; returns (bound_ms, bound_by)."""
-        ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    def roofline(label, flops, io_bytes, peak=PEAK_FP32_FLOPS):
+        """The larger of the flops at the ``peak`` rate (fp32 CUDA cores by
+        default) and the bytes at the HBM rate; returns (bound_ms,
+        bound_by)."""
+        ops_ms = flops / peak * 1e3
         bytes_ms = io_bytes / PEAK_HBM_BYTES * 1e3
-        print(f"{label} bound: {flops:.4e} flops at {PEAK_FP32_FLOPS:.3g} "
+        print(f"{label} bound: {flops:.4e} flops at {peak:.3g} "
               f"FLOP/s -> {ops_ms:.3f} ms; inputs+outputs once "
               f"{io_bytes:.4e} B at {PEAK_HBM_BYTES:.3g} B/s -> "
               f"{bytes_ms:.3f} ms; bound_ms {max(ops_ms, bytes_ms):.3f}")
@@ -1262,6 +1656,53 @@ def main() -> int:
         e2e[label], runs = _time_ms(fn)
         print(f"{label}: {e2e[label]:.3f} ms (runs {runs})")
     kernels[-4]["e2e_ms"] = e2e
+    # flash_attention at the serving prefill: a 2048-token prompt over the
+    # 2048-slot cache, causal, bf16; the least flops are 4 D for each
+    # unmasked (q, k) pair, at the bf16 tensor-core peak
+    fq = randn(1, QWEN_HEADS, MAX_SEQ, QWEN_HEAD_DIM, dtype=bf16)
+    fk, fv = (randn(1, QWEN_KV_HEADS, MAX_SEQ, QWEN_HEAD_DIM, dtype=bf16)
+              for _ in range(2))
+    opts = dict(causal=True, window=0, softcap=0.0,
+                scale=QWEN_HEAD_DIM ** -0.5)
+    ms, plain_ms, lib_ms = time_kernel(
+        f"flash_attention kernel q {tuple(fq.shape)}, k/v "
+        f"{tuple(fk.shape)}, bf16, causal",
+        lambda: k_flash.flash_attention(fq, fk, fv),
+        lambda: k_flash._flash_attention_plain(fq, fk, fv, **opts),
+        ("F.scaled_dot_product_attention(q, k, v, is_causal=True, "
+         "enable_gqa=True)",
+         lambda: F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
+                                                enable_gqa=True)))
+    got = k_flash.flash_attention(fq, fk, fv)
+    want = k_flash._flash_attention_plain(fq, fk, fv, **opts)
+    err = float((got.float() - want.float()).abs().max())
+    errs = (_rel(got, want.double()), _row_rel(got, want))
+    print(f"flash_attention at this shape: kernel vs plain max|d| {err:.3e}, "
+          f"of max|out| {errs[0]:.3e}, by row {errs[1]:.3e} (<= "
+          f"{FLASH_BARS['bfloat16'][0]:.0e}, {FLASH_BARS['bfloat16'][1]:.3e})")
+    assert all(e_ <= b_ for e_, b_ in zip(errs, FLASH_BARS["bfloat16"]))
+    pairs = MAX_SEQ * (MAX_SEQ + 1) // 2
+    bound_ms, bound_by = roofline(
+        "flash_attention", QWEN_HEADS * pairs * 4 * QWEN_HEAD_DIM,
+        (2 * fq.numel() + 2 * fk.numel()) * fq.element_size(),
+        peak=PEAK_BF16_FLOPS)
+    kernels.append(kernel_entry(
+        "flash_attention", *KERNELS["flash_attention"],
+        serve_launches["flash_attention"], max(err, flash_err), ms, plain_ms,
+        bound_ms, bound_by, lib_ms, shape=[list(fq.shape), list(fk.shape)],
+        dtype="bfloat16", serving={
+            "arch": cfg.name, "params": n_params, "prompt_lengths": lens,
+            "ttft_s": ttft, "prefill_tokens_per_s": prefill_rate,
+            "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
+            "peak_bytes": peak_bytes, "prefill_vs_fp32_plain": prefill_errs,
+            "prefill_vs_bf16_plain": plain_errs,
+            "prefill_vs_bf16_flash_no_cache": no_pad_errs,
+            "planted_faults_vs_bf16_plain": fault_errs,
+            "decode_vs_no_cache": e_dec, "fp32_flash_vs_plain": f32_errs,
+            "fp32_decode_vs_no_cache": e_dec32,
+            "profile": {"prefill_2032": prof_prefill,
+                        "decode_tick": prof_decode}}))
+    del fq, fk, fv, got, want
 
     # -- 6. summary -------------------------------------------------------------
     print(json.dumps({"kernels": kernels}))

@@ -13,15 +13,17 @@
                   (``csrc/combine.cu``) behind ``ops.strassen_combine``
 - transpose:      the tiled transpose (``csrc/transpose.cu``) behind
                   ``ops.transpose``
+- flash_attention: online-softmax GQA attention
+                  (``csrc/flash_attention.cu``) behind ``ops.flash_mha``
 - ref:            plain torch oracles
 """
 from . import ops, ref
 from .ops import (matmul, syrk_packed, syrk, strassen_combine, transpose,
                   kernel_base_matmul, kernel_base_syrk, ata_fused,
                   ata_fused_packed, symm_matmul, aat_fused, aat_fused_packed,
-                  rank_k_update, matmul_fused)
+                  rank_k_update, matmul_fused, flash_mha)
 
 __all__ = ["ops", "ref", "matmul", "syrk_packed", "syrk", "strassen_combine",
            "transpose", "kernel_base_matmul", "kernel_base_syrk", "ata_fused",
            "ata_fused_packed", "symm_matmul", "aat_fused", "aat_fused_packed",
-           "rank_k_update", "matmul_fused"]
+           "rank_k_update", "matmul_fused", "flash_mha"]

@@ -1,12 +1,12 @@
 """What the port's single-purpose kernels share around a launch.
 
-The syrk, matmul, combine and transpose kernels are each one library
-``csrc/<name>.cu`` with one plain-C entry ``<name>_launch(..., stream)``
-that returns ``cudaGetLastError()``.  Their wrappers check their
-arguments here, refuse inputs that require grad (these kernels have no
-backward, as their TPU counterparts have none), launch on the current
-stream, raise on an error and count the launch.  Nothing here builds or
-loads a library at import time.
+The syrk, matmul, combine, transpose and flash-attention kernels are
+each one library ``csrc/<name>.cu`` with one plain-C entry
+``<name>_launch(..., stream)`` that returns ``cudaGetLastError()``.
+Their wrappers check their arguments here, refuse inputs that require
+grad (these kernels have no backward), launch on the current stream,
+raise on an error and count the launch.  Nothing here builds or loads a
+library at import time.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from . import _build
 
 #: Launches of each kernel, bumped where it is launched and nowhere else
 #: (the leaf-program kinds count in ``strassen_fused.KERNEL_LAUNCHES``).
-KERNEL_LAUNCHES = {"syrk": 0, "matmul": 0, "combine": 0, "transpose": 0}
+KERNEL_LAUNCHES = {"syrk": 0, "matmul": 0, "combine": 0, "transpose": 0,
+                   "flash_attention": 0}
 
 # dtype codes of the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,10 +1,11 @@
 """Public entry points of the port's kernels, and where they run.
 
-The port of ``repro/kernels/ops.py`` but ``flash_mha``: the tiled
-product (``matmul``), the packed gram (``syrk[_packed]``), Strassen's
-recombination (``strassen_combine``), the transpose (``transpose``) and
-the leaf hooks of the reference recursion built on the first two
-(``kernel_base_matmul``, ``kernel_base_syrk``); and, through the
+The port of ``repro/kernels/ops.py``: flash attention
+(``flash_mha``), the tiled product (``matmul``), the packed gram
+(``syrk[_packed]``), Strassen's recombination (``strassen_combine``),
+the transpose (``transpose``) and the leaf hooks of the reference
+recursion built on the first two (``kernel_base_matmul``,
+``kernel_base_syrk``); and, through the
 leaf-program kernel, the column gram (``ata_fused[_packed]``), its
 backward's ``symm_matmul``, the row gram (``aat_fused[_packed]``), the
 streamed update (``rank_k_update``) and the Strassen product
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from ..core.symmetry import unpack_tril_blocks
 from . import _launch
 from . import combine as _combine
+from . import flash_attention as _fa
 from . import matmul as _matmul
 from . import syrk as _syrk
 from . import transpose as _transpose
@@ -36,14 +38,14 @@ from . import transpose as _transpose
 __all__ = ["matmul", "syrk_packed", "syrk", "strassen_combine", "transpose",
            "kernel_base_matmul", "kernel_base_syrk", "ata_fused",
            "ata_fused_packed", "symm_matmul", "aat_fused", "aat_fused_packed",
-           "rank_k_update", "matmul_fused"]
+           "rank_k_update", "matmul_fused", "flash_mha"]
 
 DEFAULT_BLOCK = 256
 
 
-def _place(a, device) -> torch.Tensor:
-    """Move ``a`` to the device an entry point runs on: ``None`` means
-    the card.  Without a card, only an explicit ``device="cpu"`` runs."""
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``None`` means the card.
+    Without a card, only an explicit ``device="cpu"`` runs."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"the port runs on cuda or cpu, not {dev}")
@@ -51,7 +53,13 @@ def _place(a, device) -> torch.Tensor:
         raise RuntimeError(
             "no CUDA device: the port runs on the card; pass device='cpu' "
             "to run the plain executor on the CPU")
-    return torch.as_tensor(a).to(dev)
+    return dev
+
+
+def _place(a, device) -> torch.Tensor:
+    """Move ``a`` to the device an entry point runs on
+    (:func:`resolve_device`)."""
+    return torch.as_tensor(a).to(resolve_device(device))
 
 
 def _block(b):
@@ -274,3 +282,34 @@ def rank_k_update(c_stack, a, *, levels=2, variant="strassen",
         bk=_block(bk), out_dtype=out_dtype, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, donate=donate,
         device=device)
+
+
+def flash_mha(q, k, v, *, causal=True, window=0, softcap=0.0, block_q=512,
+              block_kv=512, device=None):
+    """Flash attention with the (B, S, H, D) layout and any sequence
+    lengths, via the flash-attention kernel (``kernels/flash_attention.py``),
+    which tiles 64 x 64 and masks the ragged edges itself, so nothing is
+    padded for it.  ``block_q`` changes nothing; ``block_kv`` (clamped to
+    Skv, at least 16) only decides what the JAX package's zero-padding of
+    kv to a block multiple changes: its padded kv columns lie past every
+    real query of a causal call with Sq <= Skv, but the rows past Skv see
+    them, so kv is padded there as in the JAX package; non-causal
+    attention with ragged kv is refused, as there."""
+    q, k, v = (_place(x, device) for x in (q, k, v))
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"flash_mha takes (B, S, H, D) q, k and v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    sq, skv = q.shape[1], k.shape[1]
+    bk = min(block_kv, max(skv, 16))
+    pk = (-skv) % bk
+    if pk and not causal:
+        raise NotImplementedError(
+            "non-causal flash with ragged kv: pad kv to block multiple at "
+            "the call site")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if pk and sq > skv:
+        kt, vt = (F.pad(x, (0, 0, 0, pk)) for x in (kt, vt))
+    o = _fa.flash_attention(qt, kt, vt, causal=causal, window=window,
+                            softcap=softcap)
+    return o.transpose(1, 2)

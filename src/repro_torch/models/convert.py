@@ -1,0 +1,75 @@
+"""Carry the JAX package's parameters over to the port.
+
+``params_from_jax(cfg, tree)`` takes the JAX parameter tree with numpy
+arrays at its leaves (``jax.tree.map(np.asarray, params)``) and returns
+the port's parameters: the same dicts, with the layer stack (each leaf
+of ``tree["blocks"]`` stacked on a leading L axis) split into a list of
+per-layer dicts.  Both then compute the same thing, which is how the
+tests hold the port to the reference.  Every leaf of the tree is mapped
+and none is left over: a missing leaf, an extra one or a shape that
+differs raises ``ValueError``.  bf16 arrays (numpy's ``bfloat16`` from
+ml_dtypes) are carried bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..kernels.ops import resolve_device
+from .model import param_spec
+
+__all__ = ["params_from_jax"]
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], *,
+                    device=None) -> Dict[str, Any]:
+    """The port's parameters from the JAX tree, on ``device`` (the card
+    unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    flat = dict(_leaves(tree))
+    used = set()
+
+    def build(spec, path, layer=None):
+        """``spec``'s subtree from the leaves under ``path``; ``layer``
+        picks one layer of the stacked ``blocks``."""
+        if isinstance(spec, dict):
+            return {k: build(v, path + (k,), layer) for k, v in spec.items()}
+        name = "/".join(path)
+        if path not in flat:
+            raise ValueError(f"the JAX tree has no leaf {name}")
+        used.add(path)
+        arr = flat[path]
+        shape = tuple(spec) if layer is None else (cfg.num_layers, *spec)
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, the port "
+                             f"expects {shape}")
+        return _tensor(arr if layer is None else arr[layer], dev)
+
+    spec = param_spec(cfg)
+    out = {k: build(v, (k,)) for k, v in spec.items() if k != "blocks"}
+    out["blocks"] = [build(layer, ("blocks",), li)
+                     for li, layer in enumerate(spec["blocks"])]
+    left = sorted("/".join(p) for p in set(flat) - used)
+    if left:
+        raise ValueError(f"leaves of the JAX tree the port does not map: "
+                         f"{left}")
+    return out

@@ -1,0 +1,295 @@
+"""Layer library of the port: norms, rope, GQA attention, MLPs.
+
+The port of the dense part of ``repro/models/layers.py``.  Functional
+layers over parameter dicts, as in the JAX package:
+
+- activations (B, S, D); attention heads (B, S, H, Dh);
+- parameters in ``cfg.dtype``; projections are torch matmuls in that
+  dtype; norms, softmax and attention scores in fp32 (full fp32 on the
+  card: TF32 off, :func:`~repro_torch.core.strassen.ieee_fp32`);
+- every ``init_*`` takes a maker (:class:`Init` for random weights,
+  :class:`Spec` for the shapes alone) and returns a dict.
+
+``attention`` takes the flash branch, the CUDA kernel behind
+``ops.flash_mha``, exactly where the JAX package takes its Pallas
+kernel: ``impl == "flash"``, more than one query and no ``kv_len`` (train
+and prefill).  Decode attention is plain torch (the one-shot branch), as
+the JAX package leaves it to XLA.  The chunked branch, which the JAX
+package takes for sequences longer than ``cfg.attn_chunk_q``, is not
+ported.  MLA, MoE and the Mamba2 SSD layer come with their families.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..core.strassen import ieee_fp32
+
+# A large-but-finite mask value: big enough to zero softmax weight, small
+# enough that (-MASK) + finite stays finite in bf16/fp32.
+MASK_VALUE = -1e9
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameter makers
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Random weights: normal * scale drawn in fp32 from ``generator``
+    and cast to ``dtype``, ones and zeros, on ``device``."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.generator, self.device, self.dtype = generator, device, dtype
+
+    def normal(self, shape, scale: float) -> torch.Tensor:
+        x = torch.randn(shape, generator=self.generator, device=self.device)
+        return (x * scale).to(self.dtype)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+
+class Spec:
+    """Shapes alone: the parameter tree's layout, allocating nothing."""
+
+    def normal(self, shape, scale: float):
+        return tuple(shape)
+
+    def ones(self, shape):
+        return tuple(shape)
+
+    zeros = ones
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ModelConfig, d: int, mk):
+    if cfg.norm == "layernorm":
+        return {"scale": mk.ones((d,)), "bias": mk.zeros((d,))}
+    return {"scale": mk.ones((d,))}
+
+
+def apply_norm(p, x, cfg: ModelConfig):
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        var = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_head_norm(x, scale, eps=1e-6):
+    """Per-head qk-norm (Chameleon): RMS over the head dim."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * scale.float()
+    return y.to(x.dtype)
+
+
+def softcap(x, cap):
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_table(positions, dim: int, theta: float):
+    """(..., S) int positions -> cos/sin tables (..., S, dim//2), fp32."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) or (S, D/2).  Rotates the
+    interleaved (even, odd) lane pairs, as the JAX package (not the
+    halves of Hugging Face's ``rotate_half``)."""
+    if cos.ndim == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]  # (B,S,1,D/2)
+    xf1, xf2 = x[..., 0::2].float(), x[..., 1::2].float()
+    o1 = xf1 * cos - xf2 * sin
+    o2 = xf2 * cos + xf1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos, kv_pos, *, causal, window, kv_len=None):
+    """Additive fp32 mask (R, Sq, Skv) from position vectors: R = 1 for
+    q_pos (Sq,), R = B for per-row q_pos (B, Sq) and kv_len (B,).
+
+    window: number of positions attended (q - kv < window) or None.
+    kv_len masks invalid cache slots (decode).
+    """
+    q_pos = q_pos.reshape(-1, q_pos.shape[-1])
+    diff = q_pos[:, :, None] - kv_pos[None, None, :]
+    valid = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        valid &= diff >= 0
+    if window is not None:
+        valid &= diff < window
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=diff.device).reshape(-1)
+        valid &= (kv_pos[None, :] < kv_len[:, None])[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=diff.device)
+    return torch.where(valid, zero, MASK_VALUE)
+
+
+def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
+              kv_len=None, attn_softcap=None, scale=None,
+              chunk_q: int = 0, chunk_kv: int = 0, impl: str = "xla"):
+    """General GQA attention.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); Hq % Hkv == 0.
+    q_pos: (Sq,) or per-row (B, Sq) int positions of queries; kv_pos:
+    (Skv,).  window: optional int sliding window.  kv_len: optional
+    number of valid kv slots, a scalar or per row (B,) (decode caches).
+    Returns (B, Sq, Hq, D) in q.dtype.
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if impl == "stub":
+        raise NotImplementedError(
+            "attn_impl='stub' is the JAX package's roofline stand-in for "
+            "its dry-run; not ported (ROADMAP.md Queue 1 #11)")
+    if impl == "flash" and sq > 1 and kv_len is None:
+        from ..kernels import ops as _kops
+        return _kops.flash_mha(q, k, v, causal=causal, window=window or 0,
+                               softcap=float(attn_softcap or 0.0),
+                               device=q.device)
+    if chunk_q and sq > chunk_q and skv > max(chunk_kv, 1):
+        raise NotImplementedError(
+            "the chunked attention branch (sequences longer than "
+            "cfg.attn_chunk_q with attn_impl='xla') is not ported: "
+            "ROADMAP.md Queue 1 #11; use attn_impl='flash' or a longer "
+            "attn_chunk_q")
+
+    bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window,
+                      kv_len=kv_len)
+    qg = q.reshape(b, sq, hkv, g, d)
+    with ieee_fp32():
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+        if attn_softcap is not None:
+            s = softcap(s, attn_softcap)
+        s = s + bias[:, None, None]
+        w = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype).float(),
+                         v.float())
+    return o.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg: ModelConfig, mk):
+    d, hd = cfg.d_model, cfg.head_dim_
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    sc = 0.02
+    p = {
+        "wq": mk.normal((d, hq * hd), sc),
+        "wk": mk.normal((d, hkv * hd), sc),
+        "wv": mk.normal((d, hkv * hd), sc),
+        "wo": mk.normal((hq * hd, d), sc / math.sqrt(2 * cfg.num_layers)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = mk.zeros((hq * hd,))
+        p["bk"] = mk.zeros((hkv * hd,))
+        p["bv"] = mk.zeros((hkv * hd,))
+    if cfg.o_bias:
+        p["bo"] = mk.zeros((d,))
+    if cfg.qk_norm:
+        p["q_norm"] = mk.ones((hd,))
+        p["k_norm"] = mk.ones((hd,))
+    return p
+
+
+def attention_qkv(p, x, cfg: ModelConfig, *, kv_src=None, positions=None,
+                  kv_positions=None):
+    """Project to q, k, v (+bias, qk-norm, rope). Returns (q, k, v)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    kv_src = x if kv_src is None else kv_src
+    skv = kv_src.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (kv_src @ p["wk"]).reshape(b, skv, cfg.num_kv_heads, hd)
+    v = (kv_src @ p["wv"]).reshape(b, skv, cfg.num_kv_heads, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(1, 1, cfg.num_heads, hd)
+        k = k + p["bk"].reshape(1, 1, cfg.num_kv_heads, hd)
+        v = v + p["bv"].reshape(1, 1, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.pos_emb == "rope" and positions is not None:
+        cos_q, sin_q = rope_table(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos_q, sin_q)
+        kv_positions = positions if kv_positions is None else kv_positions
+        cos_k, sin_k = rope_table(kv_positions, hd, cfg.rope_theta)
+        k = apply_rope(k, cos_k, sin_k)
+    return q, k, v
+
+
+def attention_out(p, o, cfg: ModelConfig):
+    b, s = o.shape[:2]
+    y = o.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]
+    if cfg.o_bias:
+        y = y + p["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ModelConfig, mk, d_ff: Optional[int] = None):
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    sc = 0.02
+    out_sc = sc / math.sqrt(2 * cfg.num_layers)
+    if cfg.act == "gelu_mlp":                      # plain 2-matrix MLP
+        return {"w_in": mk.normal((d, f), sc), "b_in": mk.zeros((f,)),
+                "w_out": mk.normal((f, d), out_sc), "b_out": mk.zeros((d,))}
+    return {"w_gate": mk.normal((d, f), sc), "w_up": mk.normal((d, f), sc),
+            "w_down": mk.normal((f, d), out_sc)}
+
+
+def _act(cfg: ModelConfig, x):
+    if cfg.act in ("gelu", "gelu_mlp"):
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def apply_mlp(p, x, cfg: ModelConfig):
+    if "w_in" in p:                                 # plain MLP
+        h = _act(cfg, x @ p["w_in"] + p["b_in"])
+        return h @ p["w_out"] + p["b_out"]
+    h = _act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]

@@ -36,6 +36,17 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from repro_torch.kernels.strassen_fused import (fused_aat,\n"
         "    fused_aat_packed, fused_rank_k_update, fused_matmul)\n"
         "from repro_torch.core import strassen_matmul\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "from repro_torch.kernels.ops import flash_mha\n"
+        "from repro_torch.kernels.ref import flash_attention_ref\n"
+        "import repro_torch.configs.base, repro_torch.configs.qwen2_5_3b\n"
+        "from repro_torch.configs.registry import get_arch, reduced_arch\n"
+        "import repro_torch.models.layers, repro_torch.models.blocks\n"
+        "from repro_torch.models import (init_params, forward, init_cache,\n"
+        "    prefill, decode_step)\n"
+        "from repro_torch.models.convert import params_from_jax\n"
+        "from repro_torch.runtime import ServingEngine, Request\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -95,6 +106,32 @@ def test_entry_points_refuse_to_run_without_cuda():
             fn(*args)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         strassen_matmul(a, a, trans_a=True, mode="auto")
+
+
+def test_serving_entry_points_refuse_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run there")
+    from repro_torch.configs.registry import reduced_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.runtime import ServingEngine
+    from repro_torch.launch import serve
+    q = torch.ones(1, 16, 2, 16)
+    cfg = reduced_arch("qwen2.5-3b", num_layers=1)
+    for call in (lambda: ops.flash_mha(q, q, q),
+                 lambda: init_params(cfg, 0),
+                 lambda: init_cache(cfg, 1, 16),
+                 lambda: params_from_jax(cfg, {}),
+                 lambda: serve.main(["--requests", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params)
+    # with device="cpu" they run
+    assert ops.flash_mha(q, q, q, device="cpu").shape == q.shape
+    ServingEngine(cfg, params, device="cpu")
 
 
 def test_chip_smoke_fails_without_cuda():
