@@ -11,14 +11,16 @@ failure exits non-zero):
    both TF32 flags, set off;
 2. build: every kernel library of ``src/repro_torch/kernels/csrc`` from
    source, one ``nvcc`` each, all started together;
-3. the ``leaf_program`` kernel against its plain torch version on the
-   card, one sub-phase per program kind, each over its sweep at ragged
-   shapes (tiles of 64), with bf16 operands, a bf16 output and a
-   tile-aligned 1024^2 at 128: kernel vs plain <= 1e-5 of max|out| (fp32
-   sums in another order; 2^-8 for a bf16 output), kernel vs float64
-   <= 1e-4 (the JAX suite's bar for the deeper algebras), ring depths
-   2-4 bit-equal to depth 1, and a depth whose shared memory would
-   exceed 227 KB refused:
+3. the leaf program's kernels against their plain torch versions on
+   the card (``leaf_program.cu`` for the gram kinds, ``leaf_products.cu``
+   for symm and matmul), one sub-phase per program kind, each over its
+   sweep at ragged shapes (tiles of 64), with bf16 operands, a bf16
+   output and a tile-aligned 1024^2 at 128: kernel vs plain <= 1e-5 of
+   max|out| (fp32 sums in another order; 2^-8 for a bf16 output), kernel
+   vs float64 <= 1e-4 (the JAX suite's bar for the deeper algebras), ring
+   depths 2-4 bit-equal to depth 1, every block tile of leaf_products
+   that divides the output tiles bit-equal to the default, and a depth
+   whose shared memory would exceed 227 KB refused:
    3. ata, tril(A^t A), algebra x gram x levels 0-3 at 1000x777;
    3b. symm, X @ Sym and X @ (S + S^t) from a packed stack, algebra x
        levels 0-3 x diag_sym at X 1000x777 against a 16-tile stack;
@@ -107,8 +109,11 @@ failure exits non-zero):
    versions once, and each kind's bound: the least flops of its function
    (each leaf product once, or classical, whichever is less) at the fp32
    CUDA-core peak against its inputs and outputs once at HBM rate.  The
-   kernels' live-step flops, which include the per-destination
-   recomputation, are printed beside the bounds and kept out of them.
+   kernels' own flops are printed beside the bounds and kept out of
+   them: the live-step flops of the gram kinds, which include the
+   per-destination recomputation, and each leaf product once for symm
+   and matmul, which are also timed at both block tiles with their
+   blocks, blocks an SM and waves on the 132 SMs.
    The syrk, matmul, combine and transpose kernels are timed on the
    padded operands of the main path's ``ops`` calls, with ``ata`` and
    ``strassen_matmul`` end to end on kernel leaves beside their
@@ -145,14 +150,21 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-SOURCE = "src/repro_torch/kernels/csrc/leaf_program.cu"
+# the leaf program's kinds: the gram kinds run leaf_program.cu, symm and
+# matmul leaf_products.cu
+SOURCES = dict.fromkeys(("ata", "aat", "rank_k"),
+                        "src/repro_torch/kernels/csrc/leaf_program.cu") | \
+    dict.fromkeys(("symm", "matmul"),
+                  "src/repro_torch/kernels/csrc/leaf_products.cu")
 REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
             "src/repro/kernels/strassen_fused.py:533 (_pipelined_kernel), "
             "{} kind")
+# the H100 SXM's SMs, for the waves of a leaf_products launch
+SMS = 132
 # the bf16 tensor-core peak (dense), for flash attention's bound
 PEAK_BF16_FLOPS = 989e12
-LIBRARIES = ("leaf_program", "syrk", "matmul", "combine", "transpose",
-             "flash_attention")
+LIBRARIES = ("leaf_program", "leaf_products", "syrk", "matmul", "combine",
+             "transpose", "flash_attention")
 # the single-purpose kernels: their sources and the TPU kernels they replace
 KERNELS = {
     "syrk": ("src/repro_torch/kernels/csrc/syrk.cu",
@@ -232,14 +244,15 @@ def _time_ms(fn, reps=5, warmup=2):
 
 
 def _ptxas_summary(report: str) -> list:
-    """Registers and spills per right-side layout from ``nvcc -Xptxas -v``
-    (the kernel's first template argument: a packed tri right side)."""
-    kinds = {"0": "dense right side", "1": "tri right side"}
+    """Registers and spills of ``leaf_products`` per right-side layout and
+    block tile from ``nvcc -Xptxas -v`` (the kernel's template arguments
+    after the two element types: a packed tri right side, the tile)."""
     stats, kind = {}, None
     for line in report.splitlines():
-        found = re.search(r"leaf_program_kernelILb(\d)E", line)
+        found = re.search(r"leaf_products_kernelI.*?Lb(\d)ELi(\d+)E", line)
         if found:
-            kind = kinds[found.group(1)]
+            kind = (f"{'tri' if found.group(1) == '1' else 'dense'} right "
+                    f"side, tile {found.group(2)}")
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kind and (regs or spill):
@@ -343,10 +356,11 @@ def main() -> int:
     print(f"{len(LIBRARIES)} libraries, one nvcc each in parallel: "
           f"{sum(r is not None for r in reports.values())} built, the rest "
           f"cached, in {time.perf_counter() - t0:.1f} s")
-    for line in _ptxas_summary(reports["leaf_program"] or ""):
-        print(f"  leaf_program {line}")
-    for name in LIBRARIES[1:]:
-        print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
+    for line in _ptxas_summary(reports["leaf_products"] or ""):
+        print(f"  leaf_products {line}")
+    for name in LIBRARIES:
+        if name != "leaf_products":
+            print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
     smem = _build.library("flash_attention").flash_attention_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
     print("  flash_attention dynamic shared memory by head_dim: "
@@ -385,6 +399,23 @@ def main() -> int:
             torch.cuda.synchronize()
             assert torch.equal(kd, k1), (label, depth)
 
+    def tiles_bit_equal(spec, left, right, out_dtype, k1, label):
+        """leaf_products: every block tile that divides the output tiles
+        and fits gives the default tile's bits."""
+        if spec.kind not in ("symm", "matmul"):
+            return
+        for tile in sf.PRODUCT_TILES:
+            if spec.bi % tile or spec.bj % tile or sf.smem_bytes(
+                    spec, left.element_size(), right.element_size(),
+                    tile) > sf.SMEM_LIMIT_BYTES:
+                continue
+            kt = sf.leaf_program(spec, left, right, out_dtype, tile=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(kt, k1), (label, tile)
+            tiles_checked[tile] += 1
+
+    tiles_checked = dict.fromkeys(sf.PRODUCT_TILES, 0)
+
     def check(spec, left, right, out_dtype, to_dense, want, label,
               seed=None):
         """One counted launch against its plain version and float64, and
@@ -394,6 +425,7 @@ def main() -> int:
         k1 = sf.leaf_program(spec, left, right, out_dtype, seed=seed)
         assert sf.KERNEL_LAUNCHES[key] == before + 1
         depths_bit_equal(spec, left, right, out_dtype, k1, label, seed)
+        tiles_bit_equal(spec, left, right, out_dtype, k1, label)
         ref = plain(spec, left, right, f32, seed)
         e_plain = _rel(k1, ref.double())
         e64 = _rel(to_dense(k1), want)
@@ -562,6 +594,9 @@ def main() -> int:
     print(f"depths over {sf.SMEM_LIMIT_BYTES} B of shared memory refused "
           f"with ValueError, per kind: {refused}")
     assert all(refused.values()), refused
+    print(f"leaf_products block tiles bit-equal to the default, launches per "
+          f"tile: {tiles_checked}")
+    assert all(tiles_checked.values()), tiles_checked
 
     # -- 3f-3i. the single-purpose kernels ------------------------------------
     def counted_launch(name, fn):
@@ -1414,13 +1449,37 @@ def main() -> int:
             "operations" if ops_ms >= bytes_ms else "bytes"
 
     def bound(kind, flops_leaf, flops_classical, io_bytes, spec):
-        live = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
+        if kind in ("symm", "matmul"):
+            own = sf.product_flops(spec)
+            what = "the kernel's own flops (each leaf product once)"
+        else:
+            own = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
+            what = ("the kernel's live-step flops (with the per-destination "
+                    "recomputation)")
         print(f"{kind}: the least flops are min(leaf products once "
               f"{flops_leaf:.4e}, classical {flops_classical:.4e}); not in "
-              f"the bound, the kernel's live-step flops (with the "
-              f"per-destination recomputation) {live:.4e} -> "
-              f"{live / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+              f"the bound, {what} {own:.4e} -> "
+              f"{own / PEAK_FP32_FLOPS * 1e3:.3f} ms")
         return roofline(kind, min(flops_leaf, flops_classical), io_bytes)
+
+    def tiles(spec, left, right):
+        """leaf_products at each block tile: its time, blocks, blocks an SM
+        holds at once and waves on the card's SMs."""
+        out = {}
+        for tile in sf.PRODUCT_TILES:
+            shape = sf.products_launch_shape(spec, left.dtype, right.dtype,
+                                             tile)
+            ms, runs = _time_ms(lambda: sf.leaf_program(spec, left, right,
+                                                        f32, tile=tile))
+            waves = shape["positions"] / (SMS * shape["blocks_per_sm"])
+            print(f"  {spec.kind} tile {tile}: {ms:.3f} ms (runs {runs}); "
+                  f"{shape['positions']} positions, {waves:.2f} waves at "
+                  f"{shape['blocks_per_sm']} blocks an SM on {SMS} SMs, "
+                  f"{shape['positions'] - shape['whole_positions']} of them "
+                  f"walked in quarters, {shape['blocks']} blocks, "
+                  f"{shape['smem_bytes']} B of shared memory a block")
+            out[tile] = {"ms": ms, "waves": waves, **shape}
+        return out
 
     def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                      bound_ms, bound_by, library_ms, **extra):
@@ -1431,7 +1490,8 @@ def main() -> int:
                 "library_ms": library_ms, **extra, "card": smi}
 
     def entry(kind, *args, **extra):
-        return kernel_entry("leaf_program", SOURCE, REPLACES.format(kind),
+        return kernel_entry("leaf_program", SOURCES[kind],
+                            REPLACES.format(kind),
                             *args, kind=kind, **extra)
 
     kernels = []
@@ -1462,6 +1522,7 @@ def main() -> int:
                                      DEFAULT_BLOCK, True,
                                      pipeline_depth=depth)
     ms, ms1, plain_ms = time_kind(sspec, xp, sp)
+    symm_tiles = tiles(sspec, xp, sp)
     s_dense = torch.tril(w)
 
     def library_symm():
@@ -1487,7 +1548,8 @@ def main() -> int:
     kernels.append(entry("symm", bwd_launches[SYMM], symm_err, ms, plain_ms,
                          bound_ms, bound_by, lib_ms, ms_depth1=ms1,
                          bwd_e2e_ms=bwd_ms, peak_bwd_bytes=peaks,
-                         shape=[M, N]))
+                         product_flops=sf.product_flops(sspec),
+                         tiles=symm_tiles, shape=[M, N]))
     del xp, sp
 
     # aat at the main path: tril(A A^t), levels 2
@@ -1541,6 +1603,7 @@ def main() -> int:
                                       DEFAULT_BLOCK, DEFAULT_BLOCK,
                                       DEFAULT_BLOCK, pipeline_depth=depth)
     ms, ms1, plain_ms = time_kind(spec, ap, bp)
+    matmul_tiles = tiles(spec, ap, bp)
     tspec, tap, tbp = sf._prepare_matmul(a, b, DEFAULT_LEVELS, "strassen",
                                          DEFAULT_BLOCK, DEFAULT_BLOCK,
                                          DEFAULT_BLOCK, True, False,
@@ -1565,7 +1628,9 @@ def main() -> int:
     kernels.append(entry("matmul", mm_launches[MATMUL], matmul_err, ms,
                          plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
                          ms_trans_a=t_ms, library_ms_trans_a=t_lib_ms,
-                         trans_a_e2e_ms=e2e_ms, shape=[n, n, n]))
+                         trans_a_e2e_ms=e2e_ms,
+                         product_flops=sf.product_flops(spec),
+                         tiles=matmul_tiles, shape=[n, n, n]))
 
     # The single-purpose kernels on the main path's padded operands.
     def time_kernel(label, kernel, plain_fn, library=None):

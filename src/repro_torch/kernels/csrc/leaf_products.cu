@@ -1,0 +1,783 @@
+// leaf_products.cu — the symm and matmul kinds of the fused leaf program, each leaf product
+// computed once.
+//
+// Replaces, for the symm and matmul kinds, both TPU kernels of the JAX package:
+//   src/repro/kernels/strassen_fused.py:474 _leaf_kernel       (pipeline_depth 1)
+//   src/repro/kernels/strassen_fused.py:533 _pipelined_kernel  (pipeline_depth >= 2)
+// (the gram kinds, ata, aat and rank_k, stay on csrc/leaf_program.cu).  It computes what they
+// compute: every destination block D of the dense output is
+//   D = sum over the leaf ops o that feed D, in op order, of sign[o, D] * P_o,
+//   P_o = sum over K blocks k of op_L(sum_p lsgn[o,p] L_p)_k op_R(sum_q rsgn[o,q] R_q)_k,
+// with the signed operand sums formed in fp32 after upcasting.  The TPU kernel walks output
+// tiles and recomputes P_o for every destination it feeds (144 products for 49 ops at
+// levels 2); this kernel walks the ops and computes each P_o once per output position.
+//
+// The tables are the host's op-indexed lowering of the leaf program
+// (strassen_fused._op_tables): per op its left terms (row, col, coef), right terms (row, col,
+// coef, mirror) and destinations (leaf index, sign, flags: the op is the first or the last
+// to feed that destination).  How each side lies in memory is a field of the launch:
+//
+//   kind    left tile as stored          right tile as stored
+//   matmul  K x i if trans_a, else i x K  j x K if trans_b, else K x j
+//   symm    i x K (X)                     packed lower-triangular stack of S: the stored tile
+//                                         (max(gr, gc), min(gr, gc)) of a term's conceptual
+//                                         coordinates, mirrored when the term says so or
+//                                         gr < gc; a diagonal tile under diag_sym is tile +
+//                                         tile^t
+//
+// What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): the leaf products, each
+// computed once, on the fp32 CUDA cores.  At n = 10000 (padded 10240, levels 2, 49 products
+// of 2560^3) that is 1.644e12 flops, 24.540 ms at 67 TFLOP/s; the inputs and the output once
+// are 1.3 GB, 0.4 ms at 3.35 TB/s.  What the design does about it:
+//   * a block owns one output position, (iq, jq) inside a leaf block plus a TILE x TILE
+//     sub-tile of that output tile, at every leaf destination; it runs each op's whole K range
+//     once and adds sign * P_o into each destination of the op.  Only this block touches
+//     those elements, so the read-modify-write in global memory needs no atomics and is
+//     deterministic; an op's first contribution to a destination stores, its last rounds
+//     into the output type (a bf16 output accumulates in an fp32 workspace until then);
+//   * the sum phase costs KC x TILE elements a term, the product KC x TILE^2 FMAs, so a
+//     larger TILE amortises it: TILE is a template parameter, 64 (4 x 4 outputs a thread) or
+//     128 (8 x 8 a thread), 256 threads either way;
+//   * the raw chunks travel by TMA (cp.async.bulk.tensor), one box a term and chunk, into a
+//     STAGES-deep ring of shared-memory slots, each with an mbarrier that counts its bytes.
+//     Warp 0 issues a step's boxes, one lane a term.  A ring of 16-byte cp.async copies, about
+//     ten requests a thread a step, cost more than the arithmetic at any depth;
+//   * the signed sums go to a padded ([KC][TILE + 4]), double-buffered shared buffer, so one
+//     barrier a step separates summing step s from multiplying step s - 1, and warps 0-3 sum
+//     first while warps 4-7 multiply first, so the FMAs of one warp issue while its neighbour
+//     on the same scheduler waits on shared memory;
+//   * null terms (coefficient 0) fetch nothing; no register cap, so nothing spills.
+// Tensor cores (3xTF32, wgmma) are later work: no TF32 on this fp32 path.
+//
+// Arithmetic, the same at every STAGES and every TILE: each element's signed sum runs in term
+// order as sum = sum + coef * x (no FMA contraction), and depth past the K block sums to 0;
+// the product of a K block accumulates by fmaf over its depth into one fp32 part, added into
+// P_o once per K block (the TPU kernel's one dot per grid step); then D = D + sign * P_o,
+// each rounded.
+//
+// Interface: plain C, loaded with ctypes.  The launcher returns cudaGetLastError() after the
+// launch.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KC = 16;             // contraction depth per chunk
+constexpr int THREADS = 256;       // 16 x 16 threads
+constexpr int MAX_TERMS = 8;       // terms a side: strassen_fused.MAX_OPERAND_TERMS
+constexpr int FIRST = 1;           // destination flags of the tables
+constexpr int LAST = 2;
+
+// How the right side's tiles lie: dense K x j, dense j x K, or the packed tri stack of symm.
+enum RightLayout { RIGHT_KJ = 0, RIGHT_JK = 1, RIGHT_TRI = 2 };
+
+template <int TILE>
+struct Geometry {
+  static constexpr int CHUNK = KC * TILE;        // elements of one raw chunk
+  static constexpr int LDS = TILE + 4;           // padded row of a summed chunk
+  static constexpr int SUM = KC * LDS;           // floats of one summed chunk
+  static constexpr int R = TILE / 16;            // outputs a thread owns along each axis
+  static constexpr int XQ = TILE / 32;           // x groups of a thread's summed elements
+};
+
+// Raw chunks each right term holds in a ring slot: a tri term on a diagonal tile under
+// diag_sym reads the stored chunk and its mirror.
+__host__ __device__ constexpr int right_chunks(bool tri) { return tri ? 2 : 1; }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The ring's mbarriers: one a slot, one arrival (the issuing warp's expect_tx) a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// One TMA copy of the box at element (col, row) of a 2-D operand into dst, counted on bar.
+// Elements outside the operand arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A step of the walk: op o, K block k, chunk c of the K block.
+struct Step {
+  int o, k, c;
+};
+
+// What the sum phase needs of a step, left in shared memory with the step's ring slot by the
+// warp that starts its copies: each side's live terms, their coefficients and, for a tri
+// right side, whether each term reads its tile mirrored and whether it is a diagonal tile.
+struct StepTerms {
+  float lc[MAX_TERMS], rc[MAX_TERMS];
+  int mirrored[MAX_TERMS], diag[MAX_TERMS];
+  int n_l, n_r;
+};
+
+// One bound op-indexed program (strassen_fused._Spec and _op_tables); the operands are the
+// launch's tensor maps.
+struct Ops {
+  float* ws;            // fp32 accumulator of the output (the output itself when it is fp32)
+  void* out;
+  const int* lrow;      // [n_ops, tmax]
+  const int* lcol;
+  const float* lsgn;
+  const int* rrow;      // [n_ops, tmax]
+  const int* rcol;
+  const float* rsgn;
+  const int* rtrn;      // tri right side: the per-term mirror
+  const int* dest;      // [n_ops, max_dests]: leaf destination index
+  const float* dsgn;    //   its sign (0: an empty slot)
+  const int* dflag;     //   FIRST | LAST
+  int n_ops, tmax, max_dests, n_k;
+  int q_i, q_j;         // output tiles per leaf block along i and j
+  int blocks_j;         // leaf blocks of the output along j
+  int bi, bj, bc;       // output tile edges, contraction tile edge
+  int left_trans;       // left tiles stored K x i (else i x K)
+  int right_jk;         // dense right tiles stored j x K (else K x j)
+  int diag_sym;
+  int out_bf16;         // the output's element type (else fp32)
+  int n_big;            // blocks that walk a whole position; the rest walk quarters
+};
+
+// A tri-stored right term at K block k, as _tri_term_coords decides it: the stored tile
+// (max, min) of the conceptual coordinates (gr, gc), mirrored when the term is mirrored or
+// gr < gc, doubled into tile + tile^t when it lies on the diagonal under diag_sym.
+struct TriTerm {
+  long long row;        // first stack row of the stored tile
+  bool mirrored, diag;
+};
+
+__device__ __forceinline__ TriTerm tri_term(const Ops& P, int rrow, int rcol, bool trn, int k,
+                                            int jq) {
+  const long long gr = static_cast<long long>(rrow) * P.q_j + (trn ? jq : k);
+  const long long gc = static_cast<long long>(rcol) * P.q_j + (trn ? k : jq);
+  const long long fr = gr > gc ? gr : gc;
+  const long long fc = gr > gc ? gc : gr;
+  return {(fr * (fr + 1) / 2 + fc) * P.bj, trn || gr < gc, P.diag_sym != 0 && gr == gc};
+}
+
+size_t smem_bytes(bool right_tri, int tmax, int tile, int left_bytes, int right_bytes,
+                  int stages) {
+  const size_t chunk = static_cast<size_t>(KC) * tile;
+  return static_cast<size_t>(stages) * tmax * chunk *
+             (left_bytes + right_chunks(right_tri) * right_bytes)  // raw rings
+         + 2 * 2 * static_cast<size_t>(KC) * (tile + 4) * sizeof(float)  // summed, 2 buffers
+         + static_cast<size_t>(stages) * (sizeof(StepTerms) + sizeof(uint64_t));  // per slot
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&lo);
+  raw.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// One block's walk of every op at one position: output tile (iq, jq) of a leaf block,
+// TILE x TILE sub-tile (i0, j0) of it.  The three operand maps are the left side's, the right
+// side's and, for a tri right side, the mirrored read of the same stack (boxes TILE x KC where
+// the stored box is KC x TILE).
+template <typename Tl, typename Tr, bool TRI, int TILE, int STAGES>
+__device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
+                                     const CUtensorMap& rmap, const CUtensorMap& mmap, int iq,
+                                     int jq, int i0, int j0) {
+  using G = Geometry<TILE>;
+  constexpr int RC = right_chunks(TRI);
+  constexpr int R = G::R, XQ = G::XQ, LDS = G::LDS, CHUNK = G::CHUNK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tmax = P.tmax;
+  Tl* lring = reinterpret_cast<Tl*>(smem);
+  const size_t lring_bytes = static_cast<size_t>(STAGES) * tmax * CHUNK * sizeof(Tl);
+  Tr* rring = reinterpret_cast<Tr*>(smem + lring_bytes);
+  float* sum_base = reinterpret_cast<float*>(
+      smem + lring_bytes + static_cast<size_t>(STAGES) * tmax * RC * CHUNK * sizeof(Tr));
+  StepTerms* terms = reinterpret_cast<StepTerms*>(sum_base + 2 * 2 * G::SUM);  // [STAGES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(terms + STAGES);                 // [STAGES]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int lane = tid % 32, warp = tid / 32;
+  const int n_kc = (P.bc + KC - 1) / KC;
+  const int n_steps = P.n_ops * P.n_k * n_kc;
+
+  // Warp 0 starts the copies of step t into ring slot `slot`, lane p the left term p and
+  // lane MAX_TERMS + p the right term p: one TMA box a live term (two for a diagonal tri term
+  // under diag_sym), all counted on the slot's mbarrier, and leaves the step's terms with the
+  // slot.  A box is KC x TILE or TILE x KC as the side lies in memory; rows or columns past
+  // the edge of the output tile are other tiles' data and reach only outputs that are never
+  // stored, and depth past the K block is masked in the sum phase.
+  const bool right_side = lane >= MAX_TERMS;
+  const int p = lane % MAX_TERMS;
+  int term_op = -1, term_row = 0, term_col = 0;  // the issuing lane's term, read once an op
+  bool term_trn = false;
+  float coef = 0.f;
+  auto start_copies = [&](const Step& t, int slot) {
+    const int kc = t.c * KC;
+    if (t.o != term_op) {
+      term_op = t.o;
+      const int at = t.o * tmax + p;
+      coef = lane < 2 * MAX_TERMS && p < tmax ? (right_side ? P.rsgn : P.lsgn)[at] : 0.f;
+      if (coef != 0.f) {
+        term_row = (right_side ? P.rrow : P.lrow)[at];
+        term_col = (right_side ? P.rcol : P.lcol)[at];
+        term_trn = right_side && P.rtrn[at] != 0;
+      }
+    }
+    // a side's live terms come first, so its count is its lanes with a coefficient
+    const unsigned live = __ballot_sync(0xffffffffu, coef != 0.f);
+    TriTerm tt{0, false, false};
+    if constexpr (TRI)
+      if (right_side && coef != 0.f) tt = tri_term(P, term_row, term_col, term_trn, t.k, jq);
+    const unsigned bytes =
+        coef == 0.f ? 0u
+                    : (right_side ? (tt.diag ? 2 : 1) * CHUNK * sizeof(Tr) : CHUNK * sizeof(Tl));
+    const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
+    StepTerms& st = terms[slot];
+    if (lane == 0) {
+      st.n_l = __popc(live & ((1u << MAX_TERMS) - 1));
+      st.n_r = __popc(live >> MAX_TERMS);
+    }
+    if (coef != 0.f && !right_side) st.lc[p] = coef;
+    if (coef != 0.f && right_side) {
+      st.rc[p] = coef;
+      st.mirrored[p] = tt.mirrored;  // read for a tri right side only
+      st.diag[p] = tt.diag;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_expect(&full[slot], total);
+    __syncwarp();
+    if (coef == 0.f) return;
+    if (!right_side) {
+      Tl* dst = lring + (static_cast<size_t>(slot) * tmax + p) * CHUNK;
+      const int lr = term_row, lc = term_col;
+      if (P.left_trans)  // K x i: rows (lrow*n_k + k)*bc + kc.., cols (lcol*q_i + iq)*bi + i0..
+        tma_load(dst, &lmap, (lc * P.q_i + iq) * P.bi + i0, (lr * P.n_k + t.k) * P.bc + kc,
+                 &full[slot]);
+      else  // i x K: rows (lrow*q_i + iq)*bi + i0.., cols (lcol*n_k + k)*bc + kc..
+        tma_load(dst, &lmap, (lc * P.n_k + t.k) * P.bc + kc, (lr * P.q_i + iq) * P.bi + i0,
+                 &full[slot]);
+      return;
+    }
+    Tr* dst = rring + (static_cast<size_t>(slot) * tmax + p) * RC * CHUNK;
+    if constexpr (TRI) {
+      if (!tt.mirrored || tt.diag)  // stored rows kc.., cols j0..
+        tma_load(dst, &rmap, j0, static_cast<int>(tt.row) + kc, &full[slot]);
+      if (tt.mirrored || tt.diag)   // stored rows j0.., cols kc..
+        tma_load(dst + CHUNK, &mmap, kc, static_cast<int>(tt.row) + j0, &full[slot]);
+    } else {
+      const int rr = term_row, rc = term_col;
+      if (P.right_jk)  // j x K: rows (rrow*q_j + jq)*bj + j0.., cols (rcol*n_k + k)*bc + kc..
+        tma_load(dst, &rmap, (rc * P.n_k + t.k) * P.bc + kc, (rr * P.q_j + jq) * P.bj + j0,
+                 &full[slot]);
+      else  // K x j: rows (rrow*n_k + k)*bc + kc.., cols (rcol*q_j + jq)*bj + j0..
+        tma_load(dst, &rmap, (rc * P.q_j + jq) * P.bj + j0, (rr * P.n_k + t.k) * P.bc + kc,
+                 &full[slot]);
+    }
+  };
+
+  // Each thread sums the elements (kk, x) of the KC x TILE chunk with x = lane + 32 q and
+  // kk = (2 warp + h + lane / 2) % KC, h in {0, 1}: a warp's 32 lanes hit 32 banks where a
+  // chunk is read as it lies KC x TILE ([kk][x]), where it lies TILE x KC ([x][kk], kk skewed
+  // by lane / 2) and where the sum is written ([kk][x] in rows of TILE + 4).  Ownership is
+  // fixed for the whole kernel, so each element sums its terms in table order.
+  int kk_of[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kk_of[h] = (warp * 2 + h + (lane >> 1)) % KC;
+
+  auto sum_phase = [&](const Step& t, int slot, float* lsum, float* rsum) {
+    const StepTerms& st = terms[slot];
+    const Tl* lslot = lring + static_cast<size_t>(slot) * tmax * CHUNK;
+    const Tr* rslot = rring + static_cast<size_t>(slot) * tmax * RC * CHUNK;
+    float l[2][XQ], r[2][XQ];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) l[h][q] = r[h][q] = 0.f;
+    for (int p = 0; p < st.n_l; ++p) {
+      const float cl = st.lc[p];
+      const Tl* src = lslot + p * CHUNK;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < XQ; ++q) {
+          const int x = lane + 32 * q;
+          const int at = P.left_trans ? kk_of[h] * TILE + x : x * KC + kk_of[h];
+          l[h][q] = __fadd_rn(l[h][q], __fmul_rn(cl, to_f32(src[at])));
+        }
+    }
+    if constexpr (TRI) {
+      // Right element (kk, j): stored[kk][j] in the stored chunk, stored[j][kk] in the
+      // mirrored one; a term reads one of them, or both on a diagonal tile, the same for all
+      // its elements, so the choice is one branch a term.
+      for (int p = 0; p < st.n_r; ++p) {
+        const float cr = st.rc[p];
+        const bool mirrored = st.mirrored[p], diag = st.diag[p];
+        const Tr* sto = rslot + p * RC * CHUNK;
+        const Tr* mi = sto + CHUNK;
+        if (diag) {  // tile + tile^t, in the order the term reads it
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < XQ; ++q) {
+              const int x = lane + 32 * q;
+              const float sv = to_f32(sto[kk_of[h] * TILE + x]);
+              const float mv = to_f32(mi[x * KC + kk_of[h]]);
+              const float v = mirrored ? __fadd_rn(mv, sv) : __fadd_rn(sv, mv);
+              r[h][q] = __fadd_rn(r[h][q], __fmul_rn(cr, v));
+            }
+        } else if (mirrored) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < XQ; ++q)
+              r[h][q] = __fadd_rn(r[h][q],
+                                  __fmul_rn(cr, to_f32(mi[(lane + 32 * q) * KC + kk_of[h]])));
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < XQ; ++q)
+              r[h][q] = __fadd_rn(r[h][q],
+                                  __fmul_rn(cr, to_f32(sto[kk_of[h] * TILE + lane + 32 * q])));
+        }
+      }
+    } else {
+      for (int p = 0; p < st.n_r; ++p) {
+        const float cr = st.rc[p];
+        const Tr* src = rslot + p * CHUNK;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int q = 0; q < XQ; ++q) {
+            const int x = lane + 32 * q;
+            const int at = P.right_jk ? x * KC + kk_of[h] : kk_of[h] * TILE + x;
+            r[h][q] = __fadd_rn(r[h][q], __fmul_rn(cr, to_f32(src[at])));
+          }
+      }
+    }
+    // depth past the K block (the box's next K block, or zeros past the operand) sums to 0
+    const int k_lim = P.bc - t.c * KC;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) {
+        const bool live = kk_of[h] < k_lim;
+        lsum[kk_of[h] * LDS + lane + 32 * q] = live ? l[h][q] : 0.f;
+        rsum[kk_of[h] * LDS + lane + 32 * q] = live ? r[h][q] : 0.f;
+      }
+  };
+
+  // This thread's outputs: rows 64 a + 4 ty + i, columns 64 b + 4 tx + j of the sub-tile.
+  float part[R][R], prod[R][R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) part[i][j] = prod[i][j] = 0.f;
+
+  auto multiply = [&](const float* lsum, const float* rsum) {
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      float a[R], b[R];
+#pragma unroll
+      for (int g = 0; g < R / 4; ++g) {
+        const float4 av = *reinterpret_cast<const float4*>(lsum + kk * LDS + g * 64 + ty * 4);
+        const float4 bv = *reinterpret_cast<const float4*>(rsum + kk * LDS + g * 64 + tx * 4);
+        a[4 * g] = av.x; a[4 * g + 1] = av.y; a[4 * g + 2] = av.z; a[4 * g + 3] = av.w;
+        b[4 * g] = bv.x; b[4 * g + 1] = bv.y; b[4 * g + 2] = bv.z; b[4 * g + 3] = bv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
+    }
+  };
+
+  const long long ldo = static_cast<long long>(P.blocks_j) * P.q_j * P.bj;
+  // After step t: the end of a K block adds its part into the op's product; the end of an op
+  // adds sign * product into each of its destinations, in table order.
+  auto finish_step = [&](const Step& t) {
+    if (t.c != n_kc - 1) return;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        prod[i][j] = __fadd_rn(prod[i][j], part[i][j]);
+        part[i][j] = 0.f;
+      }
+    if (t.k != P.n_k - 1) return;
+    for (int d = 0; d < P.max_dests; ++d) {
+      const float sg = P.dsgn[t.o * P.max_dests + d];
+      if (sg == 0.f) break;  // an op's destinations come first
+      const int ld = P.dest[t.o * P.max_dests + d];
+      const int flag = P.dflag[t.o * P.max_dests + d];
+      const long long row0 = (static_cast<long long>(ld / P.blocks_j) * P.q_i + iq) * P.bi + i0;
+      const long long col0 = (static_cast<long long>(ld % P.blocks_j) * P.q_j + jq) * P.bj + j0;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int oi = (i / 4) * 64 + ty * 4 + i % 4;
+        if (i0 + oi >= P.bi) continue;
+#pragma unroll
+        for (int g = 0; g < R / 4; ++g) {
+          const int oj = g * 64 + tx * 4;
+          if (j0 + oj >= P.bj) continue;  // bj is a multiple of 8: all 4 columns are in
+          const long long at = (row0 + oi) * ldo + col0 + oj;
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(sg, prod[i][4 * g + j]);
+          if (!(flag & FIRST)) {
+            const float4 w = *reinterpret_cast<const float4*>(P.ws + at);
+            v[0] = __fadd_rn(w.x, v[0]);
+            v[1] = __fadd_rn(w.y, v[1]);
+            v[2] = __fadd_rn(w.z, v[2]);
+            v[3] = __fadd_rn(w.w, v[3]);
+          }
+          if ((flag & LAST) && P.out_bf16)  // rounded once, after the last contribution
+            store4(static_cast<__nv_bfloat16*>(P.out) + at, v[0], v[1], v[2], v[3]);
+          else
+            store4(P.ws + at, v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) prod[i][j] = 0.f;
+  };
+
+  float* const sums = sum_base;     // [buffer][side][KC][LDS]
+  auto lsum = [&](int s) { return sums + (s & 1) * 2 * G::SUM; };
+  auto rsum = [&](int s) { return sums + (s & 1) * 2 * G::SUM + G::SUM; };
+  // The steps walked in order, op, then K block, then chunk: the next one copied into the
+  // ring, the next one summed and the next one multiplied.
+  auto advance = [&](Step& t) {
+    if (++t.c == n_kc) {
+      t.c = 0;
+      if (++t.k == P.n_k) {
+        t.k = 0;
+        ++t.o;
+      }
+    }
+  };
+  Step copy{0, 0, 0}, summed{0, 0, 0}, done{0, 0, 0};
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if constexpr (STAGES == 1) {
+    // Load, then compute: the copy of step s starts once step s - 1's chunks are summed
+    // (the barrier after the sum phase); the sums are double-buffered, so summing step s
+    // overlaps nobody's multiply of step s - 1 in the same buffer.
+    for (int s = 0; s < n_steps; ++s) {
+      if (warp == 0) start_copies(summed, 0);
+      __syncthreads();  // the step's terms, left by warp 0
+      mbar_wait(&full[0], s & 1);
+      sum_phase(summed, 0, lsum(s), rsum(s));
+      __syncthreads();
+      multiply(lsum(s), rsum(s));
+      finish_step(summed);
+      advance(summed);
+    }
+  } else {
+    // STAGES - 1 steps in flight.  Iteration s sums step s and multiplies step s - 1 between
+    // one pair of barriers: the sums are double-buffered, and the slot refilled in iteration
+    // s, (s - 1) % STAGES, was last read by the sum phase of iteration s - 1.  Slot s %
+    // STAGES holds step s in its (s / STAGES)-th phase.
+    const bool sum_first = warp < 4;
+    if (warp == 0)
+      for (int s = 0; s < STAGES - 1 && s < n_steps; ++s) {
+        start_copies(copy, s);
+        advance(copy);
+      }
+    for (int s = 0; s <= n_steps; ++s) {
+      if (s < n_steps) mbar_wait(&full[s % STAGES], (s / STAGES) & 1);
+      __syncthreads();
+      if (warp == 0 && copy.o < P.n_ops) {
+        start_copies(copy, (s + STAGES - 1) % STAGES);
+        advance(copy);
+      }
+      // warps 0-3 sum first, 4-7 multiply first: each warp scheduler holds one of each, so
+      // one's FMAs issue while the other waits on shared memory
+      if (s < n_steps && sum_first) sum_phase(summed, s % STAGES, lsum(s), rsum(s));
+      if (s > 0) multiply(lsum(s - 1), rsum(s - 1));
+      if (s < n_steps && !sum_first) sum_phase(summed, s % STAGES, lsum(s), rsum(s));
+      advance(summed);
+      if (s > 0) {
+        finish_step(done);
+        advance(done);
+      }
+    }
+  }
+}
+
+// Blocks below n_big walk one position each at TILE; past it (TILE 128 only) each of the
+// last positions is split into four quarters, walked at TILE / 2 with the half maps, so that
+// a ragged last wave of whole positions becomes a short one.  The arithmetic of an output
+// element does not depend on the tile.
+template <typename Tl, typename Tr, bool TRI, int TILE, int STAGES>
+__global__ void __launch_bounds__(THREADS)
+    leaf_products_kernel(const Ops P, const __grid_constant__ CUtensorMap lmap,
+                         const __grid_constant__ CUtensorMap rmap,
+                         const __grid_constant__ CUtensorMap mmap,
+                         const __grid_constant__ CUtensorMap lmap_half,
+                         const __grid_constant__ CUtensorMap rmap_half,
+                         const __grid_constant__ CUtensorMap mmap_half) {
+  int pos = blockIdx.x, quarter = -1;
+  if (pos >= P.n_big) {
+    quarter = (pos - P.n_big) % 4;
+    pos = P.n_big + (pos - P.n_big) / 4;
+  }
+  const int n_sub_i = (P.bi + TILE - 1) / TILE, n_sub_j = (P.bj + TILE - 1) / TILE;
+  const int j0 = (pos % n_sub_j) * TILE;
+  pos /= n_sub_j;
+  const int i0 = (pos % n_sub_i) * TILE;
+  pos /= n_sub_i;
+  const int jq = pos % P.q_j, iq = pos / P.q_j;
+  if constexpr (TILE == 128) {
+    if (quarter >= 0) {
+      walk<Tl, Tr, TRI, TILE / 2, STAGES>(P, lmap_half, rmap_half, mmap_half, iq, jq,
+                                          i0 + (quarter / 2) * (TILE / 2),
+                                          j0 + (quarter % 2) * (TILE / 2));
+      return;
+    }
+  }
+  walk<Tl, Tr, TRI, TILE, STAGES>(P, lmap, rmap, mmap, iq, jq, i0, j0);
+}
+
+using KernelFn = void (*)(const Ops, const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                          const CUtensorMap, const CUtensorMap, const CUtensorMap);
+
+template <typename Tl, typename Tr, bool TRI, int TILE>
+KernelFn by_stages(int stages) {
+  switch (stages) {
+    case 1: return leaf_products_kernel<Tl, Tr, TRI, TILE, 1>;
+    case 2: return leaf_products_kernel<Tl, Tr, TRI, TILE, 2>;
+    case 3: return leaf_products_kernel<Tl, Tr, TRI, TILE, 3>;
+    case 4: return leaf_products_kernel<Tl, Tr, TRI, TILE, 4>;
+    default: return nullptr;
+  }
+}
+
+template <typename Tl, typename Tr, bool TRI>
+KernelFn by_tile(int tile, int stages) {
+  if (tile == 64) return by_stages<Tl, Tr, TRI, 64>(stages);
+  if (tile == 128) return by_stages<Tl, Tr, TRI, 128>(stages);
+  return nullptr;
+}
+
+template <typename Tl, typename Tr>
+KernelFn by_layout(bool tri, int tile, int stages) {
+  return tri ? by_tile<Tl, Tr, true>(tile, stages) : by_tile<Tl, Tr, false>(tile, stages);
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16.
+template <typename Tl>
+KernelFn by_right(int r_dtype, bool tri, int tile, int stages) {
+  if (r_dtype == 0) return by_layout<Tl, float>(tri, tile, stages);
+  if (r_dtype == 1) return by_layout<Tl, __nv_bfloat16>(tri, tile, stages);
+  return nullptr;
+}
+
+KernelFn select(int l_dtype, int r_dtype, bool tri, int tile, int stages) {
+  if (l_dtype == 0) return by_right<float>(r_dtype, tri, tile, stages);
+  if (l_dtype == 1) return by_right<__nv_bfloat16>(r_dtype, tri, tile, stages);
+  return nullptr;
+}
+
+// The kernel for a launch, its dynamic shared memory raised to what it needs.
+cudaError_t prepare(KernelFn kernel, size_t smem) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 2-D map of a row-major (rows, cols) operand with row stride ld (elements), read in
+// boxes of box_rows x box_cols; reads past its edge give zeros.
+bool make_map(CUtensorMap* map, const void* base, int bf16, long long rows, long long cols,
+              long long ld, int box_rows, int box_cols) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * (bf16 ? 2 : 4)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// How many of n_pos positions a launch walks whole: all of them, unless the last wave of whole
+// positions is ragged and its positions, split into quarters (TILE 128 only), fit in one wave;
+// then the positions of the full waves.  -1 for arguments no kernel takes.
+long long whole_positions(KernelFn kernel, size_t smem, int tile, long long n_pos) {
+  if (prepare(kernel, smem) != cudaSuccess) return -1;
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem) !=
+          cudaSuccess)
+    return -1;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  const long long tail = wave > 0 ? n_pos % wave : 0;
+  return tile == 128 && tail > 0 && 4 * tail <= wave ? n_pos - tail : n_pos;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one launch needs (the wrapper refuses > 227 KB).  right_tri: the
+// right side is a packed tri stack; left_bytes / right_bytes: operand element sizes.
+size_t leaf_products_smem_bytes(int right_tri, int tmax, int tile, int left_bytes,
+                                int right_bytes, int stages) {
+  return smem_bytes(right_tri != 0, tmax, tile, left_bytes, right_bytes, stages);
+}
+
+// Thread blocks of one launch an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or -1 for arguments no kernel takes.
+int leaf_products_blocks_per_sm(int l_dtype, int r_dtype, int right_tri, int tmax, int tile,
+                                int stages) {
+  const KernelFn kernel = select(l_dtype, r_dtype, right_tri != 0, tile, stages);
+  const size_t smem = smem_bytes(right_tri != 0, tmax, tile, l_dtype == 1 ? 2 : 4,
+                                 r_dtype == 1 ? 2 : 4, stages);
+  if (prepare(kernel, smem) != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// The positions a launch of n_pos positions walks whole (whole_positions); the other n_pos
+// minus that many are walked in quarters, four blocks each.
+long long leaf_products_whole_positions(int l_dtype, int r_dtype, int right_tri, int tmax,
+                                        int tile, int stages, long long n_pos) {
+  const size_t smem = smem_bytes(right_tri != 0, tmax, tile, l_dtype == 1 ? 2 : 4,
+                                 r_dtype == 1 ? 2 : 4, stages);
+  return whole_positions(select(l_dtype, r_dtype, right_tri != 0, tile, stages), smem, tile,
+                         n_pos);
+}
+
+const char* leaf_products_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// One bound symm or matmul program.  `left` / `right` are the padded operands, (l_rows,
+// l_cols) and (r_rows, r_cols) with row strides ldl / ldr, `out` the dense (blocks_i*q_i*bi,
+// blocks_j*q_j*bj) grid and `ws` its fp32 accumulator (out itself for an fp32 output).  The
+// tables are _op_tables' ten arrays.  left_trans: left tiles stored K x i.  right_layout: 0 K
+// x j, 1 j x K, 2 packed tri stack of (bj, bj) tiles (then bc == bj).  dtype codes: 0 fp32,
+// 1 bf16.  tile: 64 or 128, a block's sub-tile edge.  The operands' row strides and bases
+// are 16-byte aligned, their extents below 2^31.
+int leaf_products_launch(const void* left, const void* right, void* ws, void* out,
+                         const void* lrow, const void* lcol, const void* lsgn, const void* rrow,
+                         const void* rcol, const void* rsgn, const void* rtrn, const void* dest,
+                         const void* dsgn, const void* dflag, long long l_rows, long long l_cols,
+                         long long r_rows, long long r_cols, int n_ops, int tmax, int max_dests,
+                         int n_k, int q_i, int q_j, int blocks_j, int bi, int bj, int bc,
+                         int left_trans, int right_layout, int diag_sym, int l_dtype,
+                         int r_dtype, int out_dtype, int tile, int stages, void* stream) {
+  if (n_ops < 1 || tmax < 1 || tmax > MAX_TERMS || max_dests < 1 || n_k < 1 || q_i < 1 ||
+      q_j < 1 || blocks_j < 1 || bi < 8 || bj < 8 || bc < 8 || right_layout < RIGHT_KJ ||
+      right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
+      (out_dtype != 0 && out_dtype != 1) || (out_dtype == 0 && ws != out) ||
+      l_rows >= (1LL << 31) || l_cols >= (1LL << 31) || r_rows >= (1LL << 31) ||
+      r_cols >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const bool tri = right_layout == RIGHT_TRI;
+  const KernelFn kernel = select(l_dtype, r_dtype, tri, tile, stages);
+  const size_t smem = smem_bytes(tri, tmax, tile, l_dtype == 1 ? 2 : 4, r_dtype == 1 ? 2 : 4,
+                                 stages);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // Boxes as each side lies: KC deep along K, TILE wide along i or j; the half maps read the
+  // quarters' TILE / 2 wide boxes.
+  CUtensorMap maps[2][3];
+  const bool r_kx = right_layout != RIGHT_JK;  // K x j rows, or the stored read of a stack
+  for (int half = 0; half < 2; ++half) {
+    const int w = tile >> half;
+    CUtensorMap* m = maps[half];
+    if (!make_map(&m[0], left, l_dtype, l_rows, l_cols, l_cols, left_trans ? KC : w,
+                  left_trans ? w : KC) ||
+        !make_map(&m[1], right, r_dtype, r_rows, r_cols, r_cols, r_kx ? KC : w,
+                  r_kx ? w : KC) ||
+        (tri && !make_map(&m[2], right, r_dtype, r_rows, r_cols, r_cols, w, KC)))
+      return cudaErrorInvalidValue;
+    if (!tri) m[2] = m[1];  // unread
+  }
+  Ops P{static_cast<float*>(ws), out,
+        static_cast<const int*>(lrow), static_cast<const int*>(lcol),
+        static_cast<const float*>(lsgn), static_cast<const int*>(rrow),
+        static_cast<const int*>(rcol), static_cast<const float*>(rsgn),
+        static_cast<const int*>(rtrn), static_cast<const int*>(dest),
+        static_cast<const float*>(dsgn), static_cast<const int*>(dflag),
+        n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
+        left_trans, right_layout == RIGHT_JK, diag_sym, out_dtype == 1, 0};
+  const long long n_pos = static_cast<long long>(q_i) * q_j * ((bi + tile - 1) / tile) *
+                          ((bj + tile - 1) / tile);
+  const long long n_big = whole_positions(kernel, smem, tile, n_pos);
+  const long long blocks = n_big + 4 * (n_pos - n_big);
+  if (n_big < 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  P.n_big = static_cast<int>(n_big);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      P, maps[0][0], maps[0][1], maps[0][2], maps[1][0], maps[1][1], maps[1][2]);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,56 +1,50 @@
-// leaf_program.cu — the fused leaf-program kernel of the PyTorch port, all five program kinds.
+// leaf_program.cu — the fused leaf-program kernel of the PyTorch port, the gram kinds.
 //
-// Replaces both TPU kernels of the JAX package, for the ata, symm, aat, rank_k and matmul kinds:
+// Replaces both TPU kernels of the JAX package, for the ata, aat and rank_k kinds:
 //   src/repro/kernels/strassen_fused.py:474 _leaf_kernel       (pipeline_depth 1)
 //   src/repro/kernels/strassen_fused.py:533 _pipelined_kernel  (pipeline_depth >= 2)
-// It computes what they compute: for every output tile,
+// (the symm and matmul kinds run csrc/leaf_products.cu, which computes each leaf product
+// once).  It computes what they compute: for every output tile,
 //   acc = seed + sum over contributions c, K blocks k of
 //           sign[ld, c] * op_L(sum_p lsgn[ld,c,p] L_p) op_R(sum_q rsgn[ld,c,q] R_q)
 // with the signed sums formed in fp32 after upcasting the operands, and the
 // tile stored once.  The eight tables are the host's lowering of the leaf
 // program (strassen_fused._program_tables).  The kinds differ only in how
-// each side's tiles lie in memory, how an output tile is decoded and stored,
-// and whether a seed starts the sum (the JAX _Spec's left_trans, right_trans,
-// right_tri, out_tri, accumulate), and the kernel takes those per side:
+// each side's tiles lie in memory and whether a seed starts the sum (the JAX
+// _Spec's left_trans, right_trans, accumulate), and the kernel takes those per
+// side:
 //
-//   kind    left tile as stored   right tile as stored          output       seed
-//   ata     K x i (A, read A^t)   K x j (A)                     packed tri   -
-//   aat     i x K (A)             j x K (A again, read A^t)     packed tri   -
-//   rank_k  K x i                 K x j                         packed tri   incoming stack
-//   matmul  K x i if trans_a,     j x K if trans_b,             dense        -
-//           else i x K            else K x j
-//   symm    i x K (X)             packed tri stack of S: the    dense        -
-//                                 stored tile (max(gr, gc), min(gr, gc)) of
-//                                 a term's conceptual coordinates, mirrored
-//                                 when rtrn says so or gr < gc; a diagonal tile
-//                                 under diag_sym gives tile + tile^t
+//   kind    left tile as stored   right tile as stored          seed
+//   ata     K x i (A, read A^t)   K x j (A)                     -
+//   aat     i x K (A)             j x K (A again, read A^t)     -
+//   rank_k  K x i                 K x j                         incoming stack
 //
-// A tri output is the packed lower-triangular tile stack (tile t decoded to
-// (i, j), i >= j); a dense output the (rows, n_tj * bj) grid.  The rank_k
-// seed is the incoming packed stack: each block reads its own sub-tile before
-// the contribution loop and writes it after, so the seed may be the output
-// (the in-place update of ops.rank_k_update(donate=True)).
+// The output is the packed lower-triangular tile stack (tile t decoded to
+// (i, j), i >= j).  The rank_k seed is the incoming packed stack: each block
+// reads its own sub-tile before the contribution loop and writes it after, so
+// the seed may be the output (the in-place update of
+// ops.rank_k_update(donate=True)).
 //
 // What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): the
 // non-null (tile, contribution, K) steps do 2*bi*bj*bc flops each on the fp32
 // CUDA cores (67 TFLOP/s).  Each step reads tmax tiles a side, which the 50 MB
 // L2 serves for neighbouring blocks; the functions themselves need their
 // inputs and outputs once (0.4-1.2 GB at n = 10000), far below the flops: at
-// n = 10000 the least flops take 14.9 ms (ata, aat), 24.5 ms (symm, matmul)
-// and the bytes 0.1-0.4 ms.  So every kind is bound by fp32 FMA, and the
-// design keeps the re-reads out of HBM:
+// n = 10000 the least flops take 14.9 ms (ata, aat) and the bytes 0.1-0.4 ms.
+// So every kind is bound by fp32 FMA, and the design keeps the re-reads out of
+// HBM:
 //   * blocks of one output tile (its 64 x 64 sub-tiles) and of neighbouring
 //     tiles read the same rows, which L2 serves;
 //   * null contributions (sign 0) and null terms (coefficient 0) fetch
 //     nothing, where the TPU kernel fetches and discards them;
 //   * a STAGES-deep cp.async ring streams the next steps' raw chunks while
 //     the current one is summed and multiplied;
-//   * the dense-right instantiations are held to 80 registers, 3 blocks an
-//     SM, so more warps hide the sum phase's shared-memory latency.
-// The matmul and symm kinds recompute a leaf product for every destination it
-// feeds (144 contributions for 49 products at levels 2), the gram kinds less
-// (48 for 38); computing each product once, tensor cores (wgmma), TMA and warp
-// specialisation are later work.
+//   * the kernel is held to 80 registers, 3 blocks an SM, so more warps hide
+//     the sum phase's shared-memory latency.
+// The gram kinds recompute a leaf product for every destination it feeds (48
+// contributions for 38 products at levels 2); computing each product once, as
+// leaf_products.cu does for symm and matmul, tensor cores (wgmma), TMA and
+// warp specialisation are later work.
 //
 // Grid: x = output tile t, y = 64 x 64 sub-tile of the bi x bj tile.  256
 // threads, 4 x 4 fp32 outputs each.  Inside a block the loop runs
@@ -62,9 +56,8 @@
 // rsum[kk * TILE + j].  The arithmetic does not depend on STAGES, so every
 // depth gives the same bits.
 //
-// Orientation is a field of the launch, not a template parameter: only what
-// changes the shared-memory layout (a tri-stored right side rings two chunks a
-// term) or an element type is templated, 64 instantiations in all.
+// Orientation is a field of the launch, not a template parameter: only an
+// element type and the ring depth are templated, 32 instantiations in all.
 //
 // Interface: plain C, loaded with ctypes.  The launcher returns
 // cudaGetLastError() after the launch.
@@ -82,13 +75,9 @@ constexpr int THREADS = 256;       // 16 x 16 threads, 4 x 4 outputs each
 constexpr int EPT = CHUNK / THREADS;
 constexpr int MAX_CONTRIB = 128;   // contribution slots a block can list
 
-// How the right side's tiles lie: dense K x j, dense j x K, or the packed
-// lower-triangular stack of the symm kind.
+// How the right side's tiles lie: dense K x j or dense j x K.  The C entry
+// refuses RIGHT_TRI, the packed stack of the symm kind (leaf_products.cu).
 enum RightLayout { RIGHT_KJ = 0, RIGHT_JK = 1, RIGHT_TRI = 2 };
-
-// Raw chunks each right term holds in a ring slot: a tri term on a diagonal
-// tile under diag_sym reads the stored chunk and its mirror.
-__host__ __device__ constexpr int right_chunks(bool tri) { return tri ? 2 : 1; }
 
 template <typename T> struct VecElems;          // elements per 16-byte copy
 template <> struct VecElems<float> { static constexpr int n = 4; };
@@ -152,58 +141,32 @@ struct Program {
   const int* rrow;
   const int* rcol;
   const float* rsgn;
-  const int* rtrn;      // tri right side only
   long long ldl, ldr;   // row strides of the operands, in elements
   int n_c, n_k, tmax;
   int q_i, q_j;         // output tiles per leaf block along i and j
-  int n_tj, blocks_j;   // dense outputs: output tiles and leaf blocks along j
   int bi, bj, bc;       // output tile edges, contraction tile edge
   int left_trans;       // left tiles stored K x i (else i x K)
-  int right_layout;     // RightLayout
-  int out_tri;          // packed tri output (else dense)
-  int diag_sym;
+  int right_jk;         // right tiles stored j x K (else K x j)
   int seed_bf16;        // the seed's element type (else fp32)
 };
 
-// A tri-stored right term at K block k, as _tri_term_coords decides it: the
-// stored tile (max, min) of the conceptual coordinates (gr, gc), mirrored
-// when the term is mirrored or gr < gc, doubled into tile + tile^t when it
-// lies on the diagonal under diag_sym.
-struct TriTerm {
-  long long row;        // first stack row of the stored tile
-  bool mirrored, diag;
-};
-
-__device__ __forceinline__ TriTerm tri_term(const Program& P, int tab, int p, int k, int jq) {
-  const bool trn = P.rtrn[tab + p] != 0;
-  const long long gr = static_cast<long long>(P.rrow[tab + p]) * P.q_j + (trn ? jq : k);
-  const long long gc = static_cast<long long>(P.rcol[tab + p]) * P.q_j + (trn ? k : jq);
-  const long long fr = gr > gc ? gr : gc;
-  const long long fc = gr > gc ? gc : gr;
-  return {(fr * (fr + 1) / 2 + fc) * P.bj, trn || gr < gc, P.diag_sym != 0 && gr == gc};
+size_t smem_bytes(int tmax, int left_bytes, int right_bytes, int stages) {
+  return static_cast<size_t>(stages) * tmax * CHUNK * (left_bytes + right_bytes)  // raw rings
+         + 2 * CHUNK * sizeof(float)                                             // signed sums
+         + MAX_CONTRIB * sizeof(int);                          // live contributions
 }
 
-size_t smem_bytes(bool right_tri, int tmax, int left_bytes, int right_bytes, int stages) {
-  return static_cast<size_t>(stages) * tmax * CHUNK *
-             (left_bytes + right_chunks(right_tri) * right_bytes)  // raw rings
-         + 2 * CHUNK * sizeof(float)                               // signed sums
-         + MAX_CONTRIB * sizeof(int);                              // live contributions
-}
-
-// Registers bound the dense-right kinds: left to itself the compiler takes
-// 121-128 a thread, 2 blocks an SM.  Capped at 3 blocks an SM (80 registers,
-// a few hundred bytes of spills) they ran 6-8 % faster on the H100; the tri
-// right side needs the extra ring and keeps 2 blocks.
-template <bool RIGHT_TRI, typename Tl, typename Tr, typename Tout, int STAGES>
-__global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
-    leaf_program_kernel(const Program P) {
-  constexpr int RC = right_chunks(RIGHT_TRI);
+// Registers bound the kernel: left to itself the compiler takes 121-128 a
+// thread, 2 blocks an SM.  Capped at 3 blocks an SM (80 registers, a few
+// hundred bytes of spills) it ran 6-8 % faster on the H100.
+template <typename Tl, typename Tr, typename Tout, int STAGES>
+__global__ void __launch_bounds__(THREADS, 3) leaf_program_kernel(const Program P) {
   extern __shared__ __align__(16) unsigned char smem[];
   Tl* lring = reinterpret_cast<Tl*>(smem);
   const size_t lring_bytes = static_cast<size_t>(STAGES) * P.tmax * CHUNK * sizeof(Tl);
   Tr* rring = reinterpret_cast<Tr*>(smem + lring_bytes);
   float* lsum = reinterpret_cast<float*>(
-      smem + lring_bytes + static_cast<size_t>(STAGES) * P.tmax * RC * CHUNK * sizeof(Tr));
+      smem + lring_bytes + static_cast<size_t>(STAGES) * P.tmax * CHUNK * sizeof(Tr));
   float* rsum = lsum + CHUNK;
   int* live = reinterpret_cast<int*>(rsum + CHUNK);
   const Tl* left = static_cast<const Tl*>(P.left);
@@ -211,29 +174,20 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  int gi, gj, ld;
-  if (P.out_tri) {
-    tri_decode(blockIdx.x, gi, gj);
-    const int di = gi / P.q_i, dj = gj / P.q_j;
-    ld = di * (di + 1) / 2 + dj;
-  } else {
-    gi = blockIdx.x / P.n_tj;
-    gj = blockIdx.x % P.n_tj;
-    ld = (gi / P.q_i) * P.blocks_j + gj / P.q_j;
-  }
+  int gi, gj;
+  tri_decode(blockIdx.x, gi, gj);
+  const int di = gi / P.q_i, dj = gj / P.q_j;
+  const int ld = di * (di + 1) / 2 + dj;
   const int n_sub_j = (P.bj + TILE - 1) / TILE;
   const int i0 = (blockIdx.y / n_sub_j) * TILE;
   const int j0 = (blockIdx.y % n_sub_j) * TILE;
   const int iq = gi % P.q_i, jq = gj % P.q_j;
   const int n_c = P.n_c, tmax = P.tmax;
-  const bool right_jk = P.right_layout == RIGHT_JK;
+  const bool right_jk = P.right_jk != 0;
 
-  // Where this thread's outputs lie: a tri tile t at stack rows t*bi.., a
-  // dense tile at grid rows gi*bi.., cols gj*bj...
-  const long long row_base = P.out_tri ? static_cast<long long>(blockIdx.x) * P.bi
-                                       : static_cast<long long>(gi) * P.bi;
-  const long long col_base = P.out_tri ? 0 : static_cast<long long>(gj) * P.bj;
-  const long long ldo = P.out_tri ? P.bj : static_cast<long long>(P.n_tj) * P.bj;
+  // Where this thread's outputs lie: tile t at stack rows t*bi...
+  const long long row_base = static_cast<long long>(blockIdx.x) * P.bi;
+  const long long ldo = P.bj;
 
   // The live contributions of this tile's leaf destination, in slot order.
   if (tid == 0) {
@@ -249,7 +203,7 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
   const int n_steps = n_live * steps_per_c;
 
   // Start the copies of step s into ring slot s % STAGES, one raw chunk per
-  // live term (two for a diagonal tri term under diag_sym).
+  // live term.
   auto start_copies = [&](int s) {
     const int c = live[s / steps_per_c];
     const int rem = s % steps_per_c;
@@ -257,7 +211,7 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
     const int kc = (rem % n_kc) * KC;
     const int tab = (ld * n_c + c) * tmax;
     Tl* lslot = lring + static_cast<size_t>(s % STAGES) * tmax * CHUNK;
-    Tr* rslot = rring + static_cast<size_t>(s % STAGES) * tmax * RC * CHUNK;
+    Tr* rslot = rring + static_cast<size_t>(s % STAGES) * tmax * CHUNK;
     for (int p = 0; p < tmax; ++p) {
       if (P.lsgn[tab + p] == 0.f) continue;
       const long long lr = P.lrow[tab + p], lc = P.lcol[tab + p];
@@ -270,23 +224,14 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
     }
     for (int p = 0; p < tmax; ++p) {
       if (P.rsgn[tab + p] == 0.f) continue;
-      Tr* dst = rslot + p * RC * CHUNK;
-      if constexpr (RIGHT_TRI) {
-        const TriTerm t = tri_term(P, tab, p, k, jq);
-        if (!t.mirrored || t.diag)  // stored rows kc.., cols j0..
-          copy_chunk<Tr, KC, TILE>(dst, right, t.row + kc, j0, P.bj, P.bc - kc, P.bj - j0);
-        if (t.mirrored || t.diag)   // stored rows j0.., cols kc..
-          copy_chunk<Tr, TILE, KC>(dst + CHUNK, right, t.row + j0, kc, P.bj, P.bj - j0,
-                                   P.bc - kc);
-      } else {
-        const long long rr = P.rrow[tab + p], rc = P.rcol[tab + p];
-        if (right_jk)  // j x K: rows (rrow*q_j + jq)*bj + j0.., cols (rcol*n_k + k)*bc + kc..
-          copy_chunk<Tr, TILE, KC>(dst, right, (rr * P.q_j + jq) * P.bj + j0,
-                                   (rc * P.n_k + k) * P.bc + kc, P.ldr, P.bj - j0, P.bc - kc);
-        else  // K x j: rows (rrow*n_k + k)*bc + kc.., cols (rcol*q_j + jq)*bj + j0..
-          copy_chunk<Tr, KC, TILE>(dst, right, (rr * P.n_k + k) * P.bc + kc,
-                                   (rc * P.q_j + jq) * P.bj + j0, P.ldr, P.bc - kc, P.bj - j0);
-      }
+      Tr* dst = rslot + p * CHUNK;
+      const long long rr = P.rrow[tab + p], rc = P.rcol[tab + p];
+      if (right_jk)  // j x K: rows (rrow*q_j + jq)*bj + j0.., cols (rcol*n_k + k)*bc + kc..
+        copy_chunk<Tr, TILE, KC>(dst, right, (rr * P.q_j + jq) * P.bj + j0,
+                                 (rc * P.n_k + k) * P.bc + kc, P.ldr, P.bj - j0, P.bc - kc);
+      else  // K x j: rows (rrow*n_k + k)*bc + kc.., cols (rcol*q_j + jq)*bj + j0..
+        copy_chunk<Tr, KC, TILE>(dst, right, (rr * P.n_k + k) * P.bc + kc,
+                                 (rc * P.q_j + jq) * P.bj + j0, P.ldr, P.bc - kc, P.bj - j0);
     }
   };
 
@@ -318,7 +263,7 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
       acc[i][j] = part[i][j] = 0.f;
       const int oi = i0 + ty * 4 + i, oj = j0 + tx * 4 + j;
       if (P.seed != nullptr && oi < P.bi && oj < P.bj) {
-        const long long at_out = (row_base + oi) * ldo + col_base + oj;
+        const long long at_out = (row_base + oi) * ldo + oj;
         acc[i][j] = P.seed_bf16 ? to_f32(static_cast<const __nv_bfloat16*>(P.seed)[at_out])
                                 : static_cast<const float*>(P.seed)[at_out];
       }
@@ -342,7 +287,7 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
     const int c = live[s / steps_per_c];
     const int tab = (ld * n_c + c) * tmax;
     const Tl* lslot = lring + static_cast<size_t>(s % STAGES) * tmax * CHUNK;
-    const Tr* rslot = rring + static_cast<size_t>(s % STAGES) * tmax * RC * CHUNK;
+    const Tr* rslot = rring + static_cast<size_t>(s % STAGES) * tmax * CHUNK;
     // Signed sums in fp32, terms in table order; no FMA contraction, so the
     // sums round as term = coef * x; sum += term do.
     float l[EPT], r[EPT];
@@ -355,33 +300,12 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
 #pragma unroll
       for (int u = 0; u < EPT; ++u) l[u] = __fadd_rn(l[u], __fmul_rn(cl, to_f32(src[lat[u]])));
     }
-    if constexpr (RIGHT_TRI) {
-      // Right element (kk, j): stored[kk][j] in the stored chunk,
-      // stored[j][kk] in the mirrored one.
-      const int k = (s % steps_per_c) / n_kc;
-      for (int p = 0; p < tmax; ++p) {
-        const float cr = P.rsgn[tab + p];
-        if (cr == 0.f) continue;
-        const TriTerm t = tri_term(P, tab, p, k, jq);
-        const Tr* st = rslot + p * RC * CHUNK;
-        const Tr* mi = st + CHUNK;
+    for (int p = 0; p < tmax; ++p) {
+      const float cr = P.rsgn[tab + p];
+      if (cr == 0.f) continue;
+      const Tr* src = rslot + p * CHUNK;
 #pragma unroll
-        for (int u = 0; u < EPT; ++u) {
-          const float sv = (!t.mirrored || t.diag) ? to_f32(st[at[u]]) : 0.f;
-          const float mv = (t.mirrored || t.diag) ? to_f32(mi[mirror_at[u]]) : 0.f;
-          float v = t.mirrored ? mv : sv;
-          if (t.diag) v = t.mirrored ? __fadd_rn(mv, sv) : __fadd_rn(sv, mv);  // tile + tile^t
-          r[u] = __fadd_rn(r[u], __fmul_rn(cr, v));
-        }
-      }
-    } else {
-      for (int p = 0; p < tmax; ++p) {
-        const float cr = P.rsgn[tab + p];
-        if (cr == 0.f) continue;
-        const Tr* src = rslot + p * CHUNK;
-#pragma unroll
-        for (int u = 0; u < EPT; ++u) r[u] = __fadd_rn(r[u], __fmul_rn(cr, to_f32(src[rat[u]])));
-      }
+      for (int u = 0; u < EPT; ++u) r[u] = __fadd_rn(r[u], __fmul_rn(cr, to_f32(src[rat[u]])));
     }
 #pragma unroll
     for (int u = 0; u < EPT; ++u) {
@@ -426,15 +350,15 @@ __global__ void __launch_bounds__(THREADS, RIGHT_TRI ? 2 : 3)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int oj = j0 + tx * 4 + j;
-      if (oj < P.bj) store(out + (row_base + oi) * ldo + col_base + oj, acc[i][j]);
+      if (oj < P.bj) store(out + (row_base + oi) * ldo + oj, acc[i][j]);
     }
   }
 }
 
-template <bool RIGHT_TRI, typename Tl, typename Tr, typename Tout, int S>
+template <typename Tl, typename Tr, typename Tout, int S>
 cudaError_t launch(const Program& P, int n_out, cudaStream_t stream) {
-  auto kernel = leaf_program_kernel<RIGHT_TRI, Tl, Tr, Tout, S>;
-  const size_t smem = smem_bytes(RIGHT_TRI, P.tmax, sizeof(Tl), sizeof(Tr), S);
+  auto kernel = leaf_program_kernel<Tl, Tr, Tout, S>;
+  const size_t smem = smem_bytes(P.tmax, sizeof(Tl), sizeof(Tr), S);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -444,36 +368,30 @@ cudaError_t launch(const Program& P, int n_out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool RIGHT_TRI, typename Tl, typename Tr, typename Tout>
+template <typename Tl, typename Tr, typename Tout>
 cudaError_t by_stages(int stages, const Program& P, int n_out, cudaStream_t s) {
   switch (stages) {
-    case 1: return launch<RIGHT_TRI, Tl, Tr, Tout, 1>(P, n_out, s);
-    case 2: return launch<RIGHT_TRI, Tl, Tr, Tout, 2>(P, n_out, s);
-    case 3: return launch<RIGHT_TRI, Tl, Tr, Tout, 3>(P, n_out, s);
-    case 4: return launch<RIGHT_TRI, Tl, Tr, Tout, 4>(P, n_out, s);
+    case 1: return launch<Tl, Tr, Tout, 1>(P, n_out, s);
+    case 2: return launch<Tl, Tr, Tout, 2>(P, n_out, s);
+    case 3: return launch<Tl, Tr, Tout, 3>(P, n_out, s);
+    case 4: return launch<Tl, Tr, Tout, 4>(P, n_out, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16.
-template <bool RIGHT_TRI, typename Tl, typename Tr>
-cudaError_t by_out(int out_dtype, int stages, const Program& P, int n_out, cudaStream_t s) {
-  if (out_dtype == 0) return by_stages<RIGHT_TRI, Tl, Tr, float>(stages, P, n_out, s);
-  if (out_dtype == 1) return by_stages<RIGHT_TRI, Tl, Tr, __nv_bfloat16>(stages, P, n_out, s);
-  return cudaErrorInvalidValue;
-}
-
 template <typename Tl, typename Tr>
-cudaError_t by_layout(int out_dtype, int stages, const Program& P, int n_out, cudaStream_t s) {
-  if (P.right_layout == RIGHT_TRI) return by_out<true, Tl, Tr>(out_dtype, stages, P, n_out, s);
-  return by_out<false, Tl, Tr>(out_dtype, stages, P, n_out, s);
+cudaError_t by_out(int out_dtype, int stages, const Program& P, int n_out, cudaStream_t s) {
+  if (out_dtype == 0) return by_stages<Tl, Tr, float>(stages, P, n_out, s);
+  if (out_dtype == 1) return by_stages<Tl, Tr, __nv_bfloat16>(stages, P, n_out, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename Tl>
 cudaError_t by_right(int r_dtype, int out_dtype, int stages, const Program& P, int n_out,
                      cudaStream_t s) {
-  if (r_dtype == 0) return by_layout<Tl, float>(out_dtype, stages, P, n_out, s);
-  if (r_dtype == 1) return by_layout<Tl, __nv_bfloat16>(out_dtype, stages, P, n_out, s);
+  if (r_dtype == 0) return by_out<Tl, float>(out_dtype, stages, P, n_out, s);
+  if (r_dtype == 1) return by_out<Tl, __nv_bfloat16>(out_dtype, stages, P, n_out, s);
   return cudaErrorInvalidValue;
 }
 
@@ -482,11 +400,9 @@ cudaError_t by_right(int r_dtype, int out_dtype, int stages, const Program& P, i
 extern "C" {
 
 // Dynamic shared memory one launch needs (the wrapper refuses > 227 KB).
-// right_tri: the right side is a packed tri stack; left_bytes / right_bytes:
-// operand element sizes.
-size_t leaf_program_smem_bytes(int right_tri, int tmax, int left_bytes, int right_bytes,
-                               int stages) {
-  return smem_bytes(right_tri != 0, tmax, left_bytes, right_bytes, stages);
+// left_bytes / right_bytes: operand element sizes.
+size_t leaf_program_smem_bytes(int tmax, int left_bytes, int right_bytes, int stages) {
+  return smem_bytes(tmax, left_bytes, right_bytes, stages);
 }
 
 int leaf_program_max_contributions() { return MAX_CONTRIB - 1; }
@@ -495,13 +411,14 @@ const char* leaf_program_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// One bound program of any kind.  `left` / `right` are the padded operands
+// One bound program of a gram kind.  `left` / `right` are the padded operands
 // (row strides ldl / ldr), `seed` the incoming packed stack or null, `out` the
-// packed (n_out*bi, bj) stack (out_tri) or the dense ((n_out/n_tj)*bi, n_tj*bj)
-// grid.  left_trans: left tiles stored K x i.  right_layout: 0 K x j, 1 j x K,
-// 2 packed tri stack of (bj, bj) tiles (then bc == bj).  dtype codes: 0 fp32,
-// 1 bf16.  A chunk's column edge (bi or bc on the left, bj or bc on the right)
-// must be a multiple of 8.
+// packed (n_out*bi, bj) stack.  left_trans: left tiles stored K x i.
+// right_layout: 0 K x j, 1 j x K.  The packed tri right side (2) and a dense
+// output (out_tri 0) are the symm and matmul kinds', which leaf_products.cu
+// runs: both are refused, and rtrn, n_tj, blocks_j and diag_sym are ignored.
+// dtype codes: 0 fp32, 1 bf16.  A chunk's column edge (bi or bc on the left,
+// bj or bc on the right) must be a multiple of 8.
 int leaf_program_launch(const void* left, const void* right, const void* seed, void* out,
                         const void* sign, const void* lrow, const void* lcol, const void* lsgn,
                         const void* rrow, const void* rcol, const void* rsgn, const void* rtrn,
@@ -514,16 +431,17 @@ int leaf_program_launch(const void* left, const void* right, const void* seed, v
   const int r_cols = right_layout == RIGHT_JK ? bc : bj;
   if (n_c > MAX_CONTRIB - 1 || tmax < 1 || n_out < 1 || bi < 8 || bj < 8 || bc < 8 ||
       l_cols % 8 != 0 || r_cols % 8 != 0 || right_layout < RIGHT_KJ ||
-      right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
-      (!out_tri && n_tj < 1) || (seed != nullptr && seed_dtype != 0 && seed_dtype != 1))
+      right_layout >= RIGHT_TRI || !out_tri ||
+      (seed != nullptr && seed_dtype != 0 && seed_dtype != 1))
     return cudaErrorInvalidValue;
+  (void)rtrn, (void)n_tj, (void)blocks_j, (void)diag_sym;
   Program P{left, right, seed, out,
             static_cast<const float*>(sign), static_cast<const int*>(lrow),
             static_cast<const int*>(lcol), static_cast<const float*>(lsgn),
             static_cast<const int*>(rrow), static_cast<const int*>(rcol),
-            static_cast<const float*>(rsgn), static_cast<const int*>(rtrn),
-            ldl, ldr, n_c, n_k, tmax, q_i, q_j, n_tj, blocks_j, bi, bj, bc,
-            left_trans, right_layout, out_tri, diag_sym, seed_dtype == 1};
+            static_cast<const float*>(rsgn),
+            ldl, ldr, n_c, n_k, tmax, q_i, q_j, bi, bj, bc,
+            left_trans, right_layout == RIGHT_JK, seed_dtype == 1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (l_dtype == 0) return by_right<float>(r_dtype, out_dtype, stages, P, n_out, s);
   if (l_dtype == 1) return by_right<__nv_bfloat16>(r_dtype, out_dtype, stages, P, n_out, s);

@@ -2,16 +2,22 @@
 
 The port of the host side of ``repro/kernels/strassen_fused.py``.  A
 ``LeafProgram`` (``core/leaf_ir.py``) is bound to tile sizes
-(:class:`_Spec`), lowered to eight tables (:func:`_program_tables`) and
-run by :func:`leaf_program`:
+(:class:`_Spec`) and run by :func:`leaf_program`.  The gram kinds (ata,
+aat, rank_k) are lowered to eight destination-indexed tables
+(:func:`_program_tables`), the symm and matmul kinds to ten op-indexed
+ones (:func:`_op_tables`), and each runs:
 
-* on a CUDA tensor, the hand-written kernel ``csrc/leaf_program.cu``
-  (one thread block per (output tile, 64 x 64 sub-tile); the
-  contribution x K sweep loops inside the block behind a
-  ``pipeline_depth``-slot ``cp.async`` ring);
-* on a CPU tensor, :func:`_leaf_program_plain`, a torch walk over the
-  same tables — the counterpart of Pallas interpret mode, and the plain
-  version the kernel is held against on the card.
+* on a CUDA tensor, a hand-written kernel: ``csrc/leaf_program.cu`` for
+  the gram kinds (one thread block per (output tile, 64 x 64 sub-tile);
+  the contribution x K sweep loops inside the block behind a
+  ``pipeline_depth``-slot ``cp.async`` ring), ``csrc/leaf_products.cu``
+  for symm and matmul (one block per output position; the ops loop
+  inside it, each leaf product computed once and added into each of its
+  destinations);
+* on a CPU tensor, the plain torch walk over the same tables
+  (:func:`_leaf_program_plain`, :func:`_leaf_products_plain`) — the
+  counterpart of Pallas interpret mode, and the plain version each
+  kernel is held against on the card.
 
 The program kinds, each with its entry point and its autograd:
 
@@ -58,7 +64,8 @@ __all__ = ["fused_ata", "fused_ata_packed", "fused_symm_matmul",
            "fused_aat", "fused_aat_packed", "fused_rank_k_update",
            "fused_matmul", "ata_traffic_model", "ata_bwd_traffic_model",
            "aat_traffic_model", "rank_k_traffic_model", "leaf_program",
-           "KERNEL_LAUNCHES", "MAX_OPERAND_TERMS", "MAX_PIPELINE_DEPTH"]
+           "product_flops", "KERNEL_LAUNCHES", "MAX_OPERAND_TERMS",
+           "MAX_PIPELINE_DEPTH", "PRODUCT_TILES"]
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -84,10 +91,21 @@ _SUPPORTED_OPERAND_DTYPES = ("float8_e4m3fn", "float8_e5m2", "bfloat16",
 _PORTED_OPERAND_DTYPES = ("bfloat16", "float32")
 
 _KINDS = ("ata", "symm", "aat", "rank_k", "matmul")
+# the kinds with a dense output, run by csrc/leaf_products.cu
+_PRODUCT_KINDS = ("symm", "matmul")
 
 # right-side layouts of the C interface: dense K x j, dense j x K (a
 # transposed right side), the packed tri stack (symm)
 _RIGHT_KJ, _RIGHT_JK, _RIGHT_TRI = 0, 1, 2
+
+# destination flags of the op tables: the op is the first / the last to
+# feed that leaf destination
+_FIRST, _LAST = 1, 2
+
+#: Block tiles of ``csrc/leaf_products.cu`` (a thread block's TILE x TILE
+#: sub-tile of an output tile), in the order the launch prefers them: the
+#: first that divides both output tile edges and fits in shared memory.
+PRODUCT_TILES = (128, 64)
 
 #: Launches of each CUDA kernel, one count per program kind, bumped where
 #: the kernel is launched and nowhere else — a run reads it to show the
@@ -422,10 +440,76 @@ def _spec_tables(spec: _Spec, device) -> tuple:
                           str(device), spec.trans_a, spec.trans_b)
 
 
+@functools.lru_cache(maxsize=None)
+def _op_tables(kind: str, levels: int, variant: str, trans_a: bool = False,
+               trans_b: bool = False):
+    """The symm or matmul program as op-indexed tables, what
+    ``csrc/leaf_products.cu`` walks: per leaf op (``LeafProgram.ops``
+    order) its left terms ``lrow, lcol, lsgn`` and right terms ``rrow,
+    rcol, rsgn, rtrn`` (``[n_ops, tmax]``), and its destinations ``dest``
+    (leaf index), ``dsgn`` (sign) and ``dflag`` (``_FIRST``: no earlier op
+    feeds that destination; ``_LAST``: no later one does), ``[n_ops,
+    max_dests]`` in the op's order.  Empty slots carry coefficient or sign
+    0 and come last in their row, which the kernel counts on.  Since
+    ``by_dest`` sorts stably, a destination's contributions in op order
+    are exactly its slots in :func:`_program_tables`.
+
+    Only the gram kinds emit transposed destinations, so only symm and
+    matmul lower here; a destination that no op feeds is refused (the
+    kernel stores it first where an op first feeds it)."""
+    if kind not in _PRODUCT_KINDS:
+        raise ValueError(f"op tables lower the symm and matmul kinds, not "
+                         f"{kind!r}")
+    prog = compile_program(kind, levels, variant, trans_a=trans_a,
+                           trans_b=trans_b)
+    n_ops, tmax = len(prog.ops), prog.max_terms
+    max_dests = max(len(op.dests) for op in prog.ops)
+    lrow = np.zeros((n_ops, tmax), np.int32)
+    lcol, rrow, rcol, rtrn = (np.zeros_like(lrow) for _ in range(4))
+    lsgn = np.zeros((n_ops, tmax), np.float32)
+    rsgn = np.zeros_like(lsgn)
+    dest = np.zeros((n_ops, max_dests), np.int32)
+    dflag = np.zeros_like(dest)
+    dsgn = np.zeros((n_ops, max_dests), np.float32)
+    last = {}
+    for o, op in enumerate(prog.ops):
+        for p, (r, c, sg, tr) in enumerate(op.left):
+            assert tr == 0, "per-term left transposes are not lowered"
+            lrow[o, p], lcol[o, p], lsgn[o, p] = r, c, sg
+        for q, (r, c, sg, tr) in enumerate(op.right):
+            rrow[o, q], rcol[o, q], rsgn[o, q], rtrn[o, q] = r, c, sg, tr
+        for d, (di, dj, sg, tr) in enumerate(op.dests):
+            if tr:
+                raise ValueError(f"the {kind} program has a transposed "
+                                 "destination; only the gram kinds lower "
+                                 "those")
+            ld = prog.dest_index(di, dj)
+            dest[o, d], dsgn[o, d] = ld, sg
+            if ld not in last:
+                dflag[o, d] |= _FIRST
+            last[ld] = (o, d)
+    if len(last) != prog.n_dests():
+        raise ValueError(f"{prog.n_dests() - len(last)} destinations of the "
+                         f"{kind} program get no contribution")
+    for o, d in last.values():
+        dflag[o, d] |= _LAST
+    return lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag
+
+
+@functools.lru_cache(maxsize=None)
+def _device_op_tables(kind: str, levels: int, variant: str, device: str,
+                      trans_a: bool = False, trans_b: bool = False):
+    """The op tables as tensors on ``device``, uploaded once."""
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in _op_tables(kind, levels, variant, trans_a, trans_b))
+
+
 # a re-registered algebra table must invalidate the lowered tables too —
 # compile_program.cache_clear() alone would leave these stale
 leaf_ir.on_algebra_change(_program_tables.cache_clear)
 leaf_ir.on_algebra_change(_device_tables.cache_clear)
+leaf_ir.on_algebra_change(_op_tables.cache_clear)
+leaf_ir.on_algebra_change(_device_op_tables.cache_clear)
 
 
 # ---------------------------------------------------------------------------
@@ -433,19 +517,13 @@ leaf_ir.on_algebra_change(_device_tables.cache_clear)
 # ---------------------------------------------------------------------------
 
 def _out_tiles(spec: _Spec, device):
-    """Per output tile: leaf destination ``ld`` and global tile coords
-    ``(gi, gj)`` — the kernel's tri-decode (packed outputs) or row-major
-    ``divmod(t, n_tj)`` (dense outputs), for all tiles."""
-    if spec.out_tri:
-        ij = tri_coords(spec.q_i * spec.blocks_j).long().to(device)
-        gi, gj = ij[:, 0], ij[:, 1]
-    else:
-        t = torch.arange(spec.n_out, device=device)
-        gi, gj = t // spec.n_tj, t % spec.n_tj
+    """Per output tile of a packed (gram-kind) output: leaf destination
+    ``ld`` and global tile coords ``(gi, gj)``, the kernel's tri-decode,
+    for all tiles."""
+    ij = tri_coords(spec.q_i * spec.blocks_j).long().to(device)
+    gi, gj = ij[:, 0], ij[:, 1]
     di, dj = gi // spec.q_i, gj // spec.q_j
-    ld = di * (di + 1) // 2 + dj if spec.out_tri \
-        else di * spec.blocks_j + dj
-    return ld, gi, gj
+    return di * (di + 1) // 2 + dj, gi, gj
 
 
 def _operand_shapes(spec: _Spec):
@@ -478,25 +556,27 @@ def _tiles(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
 def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
                         right: torch.Tensor, out_dtype,
                         seed: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain torch version of the kernel: the same tables, the same
+    """The plain torch version of the kernels.  The symm and matmul kinds
+    go to :func:`_leaf_products_plain` (``tables`` unused); the gram
+    kinds walk ``csrc/leaf_program.cu``'s way: the same tables, the same
     walk (contributions, then K blocks), over every output tile at once.
 
     The accumulator starts from ``seed`` (the incoming stack of an
     accumulating program, upcast to fp32) or from zero.  Per
     (contribution, K block) step it gathers each term's tile for all
     output tiles and forms the signed sums in fp32, term by term in
-    table order: the tile upcast, mirrored where the tables say so,
-    ``tile + tile^t`` on a diagonal tile under ``diag_sym``, times its
-    coefficient, added to the running sum; a transposed side flips its
-    sum once.  Then it adds ``sign * (L @ R)`` where the sign is not 0.
+    table order: the tile upcast, times its coefficient, added to the
+    running sum; a transposed side flips its sum once.  Then it adds
+    ``sign * (L @ R)`` where the sign is not 0.
     """
-    sign, lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn = tables
+    if spec.kind in _PRODUCT_KINDS:
+        return _leaf_products_plain(spec, left, right, out_dtype)
+    sign, lrow, lcol, lsgn, rrow, rcol, rsgn, _ = tables
     ld, gi, gj = _out_tiles(spec, left.device)
     iq, jq = gi % spec.q_i, gj % spec.q_j
     l_shape, r_shape = _operand_shapes(spec)
     ltiles = _tiles(left, *l_shape)
-    rtiles = right.reshape(-1, *r_shape) if spec.right_tri \
-        else _tiles(right, *r_shape)
+    rtiles = _tiles(right, *r_shape)
 
     def add(acc, term):
         return term if acc is None else acc + term
@@ -515,21 +595,7 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
         acc = None
         for p in range(spec.tmax):
             r, col = rrow[ld, c, p].long(), rcol[ld, c, p].long()
-            if spec.right_tri:
-                # conceptual tile coords as _tri_term_coords; the stored
-                # tile is (max, min), mirrored when the read lies above
-                # the diagonal or the term itself is mirrored
-                trn = rtrn[ld, c, p] != 0
-                gr = r * spec.q_j + torch.where(trn, jq, k)
-                gc = col * spec.q_j + torch.where(trn, k, jq)
-                fr, fc = torch.maximum(gr, gc), torch.minimum(gr, gc)
-                tile = rtiles[fr * (fr + 1) // 2 + fc].float()
-                mirrored = (trn | (gr < gc))[:, None, None]
-                tile = torch.where(mirrored, tile.transpose(1, 2), tile)
-                if spec.diag_sym:
-                    tile = torch.where((gr == gc)[:, None, None],
-                                       tile + tile.transpose(1, 2), tile)
-            elif spec.right_trans:
+            if spec.right_trans:
                 tile = rtiles[r * spec.q_j + jq, col * spec.n_k + k].float()
             else:
                 tile = rtiles[r * spec.n_k + k, col * spec.q_j + jq].float()
@@ -548,10 +614,104 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
             for k in range(spec.n_k):
                 contrib = sgn * torch.bmm(left_sum(c, k), right_sum(c, k))
                 acc += torch.where(sgn != 0, contrib, 0.0)
-    if not spec.out_tri:
-        acc = acc.reshape(spec.n_out // spec.n_tj, spec.n_tj, spec.bi,
-                          spec.bj).permute(0, 2, 1, 3)
     return acc.reshape(_out_shape(spec)).to(out_dtype)
+
+
+def _spec_op_tables(spec: _Spec, device=None) -> tuple:
+    """The op tables of the symm or matmul program ``spec`` binds: numpy
+    arrays, or tensors on ``device``."""
+    key = (spec.kind, spec.levels, spec.variant)
+    if device is None:
+        return _op_tables(*key, spec.trans_a, spec.trans_b)
+    return _device_op_tables(*key, str(device), spec.trans_a, spec.trans_b)
+
+
+def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
+                         right: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The plain torch version of ``csrc/leaf_products.cu``: the op
+    tables, the kernel's walk, every output position at once.
+
+    A position is an output tile ``(iq, jq)`` of a leaf block (the
+    kernel's positions are its sub-tiles, which share the arithmetic).
+    Per op, per K block it forms each side's signed sum in fp32 for all
+    positions, term by term in table order (the tile upcast, mirrored
+    where a tri-stored term says so, ``tile + tile^t`` on a diagonal
+    tile under ``diag_sym``, times its coefficient, added to the running
+    sum; a transposed side flips its sum once) and adds one ``torch.bmm``
+    into the op's product.  Then it adds ``sign * product`` into each of
+    the op's destinations in table order, storing where the op is the
+    first to feed one.  So each leaf product is computed once:
+    ``n_ops * n_k`` bmm calls.
+    """
+    lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag = \
+        _spec_op_tables(spec)
+    dev = left.device
+    q_i, q_j, n_k = spec.q_i, spec.q_j, spec.n_k
+    pos = torch.arange(q_i * q_j, device=dev)
+    iq, jq = pos // q_j, pos % q_j
+    l_shape, r_shape = _operand_shapes(spec)
+    ltiles = _tiles(left, *l_shape)
+    rtiles = right.reshape(-1, *r_shape) if spec.right_tri \
+        else _tiles(right, *r_shape)
+
+    def signed_sum(tile_of, rows, cols, coefs):
+        acc = None
+        for p, coef in enumerate(coefs):
+            if coef == 0:
+                continue
+            term = tile_of(p, int(rows[p]), int(cols[p])).float() \
+                * float(coef)
+            acc = term if acc is None else acc + term
+        return acc
+
+    def left_sum(o, k):
+        def tile_of(_, r, c):
+            return ltiles[r * n_k + k, c * q_i + iq] if spec.left_trans \
+                else ltiles[r * q_i + iq, c * n_k + k]
+        acc = signed_sum(tile_of, lrow[o], lcol[o], lsgn[o])
+        return acc.transpose(1, 2) if spec.left_trans else acc
+
+    def right_sum(o, k):
+        def tile_of(p, r, c):
+            if spec.right_tri:
+                # conceptual tile coords as _tri_term_coords; the stored
+                # tile is (max, min), mirrored when the read lies above
+                # the diagonal or the term itself is mirrored
+                trn, kk = bool(rtrn[o, p]), torch.full_like(jq, k)
+                gr = r * q_j + (jq if trn else kk)
+                gc = c * q_j + (kk if trn else jq)
+                fr, fc = torch.maximum(gr, gc), torch.minimum(gr, gc)
+                tile = rtiles[fr * (fr + 1) // 2 + fc].float()
+                mirrored = (gr < gc)[:, None, None] | trn
+                tile = torch.where(mirrored, tile.transpose(1, 2), tile)
+                if spec.diag_sym:
+                    tile = torch.where((gr == gc)[:, None, None],
+                                       tile + tile.transpose(1, 2), tile)
+                return tile
+            if spec.right_trans:
+                return rtiles[r * q_j + jq, c * n_k + k]
+            return rtiles[r * n_k + k, c * q_j + jq]
+        acc = signed_sum(tile_of, rrow[o], rcol[o], rsgn[o])
+        return acc.transpose(1, 2) if spec.right_trans else acc
+
+    shape = (len(jq), spec.bi, spec.bj)
+    n_dest = int(dest.max()) + 1          # _op_tables: every one is fed
+    acc = torch.empty((n_dest, *shape), dtype=torch.float32, device=dev)
+    with ieee_fp32():
+        for o in range(len(lrow)):
+            prod = torch.zeros(shape, dtype=torch.float32, device=dev)
+            for k in range(n_k):
+                prod += torch.bmm(left_sum(o, k), right_sum(o, k))
+            for d in np.flatnonzero(dsgn[o]):
+                term = prod * float(dsgn[o, d])
+                if dflag[o, d] & _FIRST:
+                    acc[dest[o, d]] = term
+                else:
+                    acc[dest[o, d]] += term
+    blocks_i = acc.shape[0] // spec.blocks_j
+    out = acc.reshape(blocks_i, spec.blocks_j, q_i, q_j, spec.bi, spec.bj) \
+        .permute(0, 2, 4, 1, 3, 5)
+    return out.reshape(_out_shape(spec)).to(out_dtype)
 
 
 @functools.cache
@@ -561,7 +721,7 @@ def _lib() -> ctypes.CDLL:
     lib.leaf_program_launch.argtypes = [ptr] * 12 + [i64] * 2 + [i32] * 20 \
         + [ptr]
     lib.leaf_program_launch.restype = i32
-    lib.leaf_program_smem_bytes.argtypes = [i32] * 5
+    lib.leaf_program_smem_bytes.argtypes = [i32] * 4
     lib.leaf_program_smem_bytes.restype = ctypes.c_size_t
     lib.leaf_program_max_contributions.argtypes = []
     lib.leaf_program_max_contributions.restype = i32
@@ -570,12 +730,91 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
-    """Dynamic shared memory one launch of ``spec`` needs, as the kernel
-    lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``)."""
-    return _lib().leaf_program_smem_bytes(
-        int(spec.right_tri), spec.tmax, left_bytes, right_bytes,
+@functools.cache
+def _products_lib() -> ctypes.CDLL:
+    lib = _build.library("leaf_products")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.leaf_products_launch.argtypes = [ptr] * 14 + [i64] * 4 + [i32] * 18 \
+        + [ptr]
+    lib.leaf_products_launch.restype = i32
+    lib.leaf_products_smem_bytes.argtypes = [i32] * 6
+    lib.leaf_products_smem_bytes.restype = ctypes.c_size_t
+    lib.leaf_products_blocks_per_sm.argtypes = [i32] * 6
+    lib.leaf_products_blocks_per_sm.restype = i32
+    lib.leaf_products_whole_positions.argtypes = [i32] * 6 + [i64]
+    lib.leaf_products_whole_positions.restype = i64
+    lib.leaf_products_error_string.argtypes = [i32]
+    lib.leaf_products_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _products_smem(spec: _Spec, tile: int, left_bytes: int,
+                   right_bytes: int) -> int:
+    return _products_lib().leaf_products_smem_bytes(
+        int(spec.right_tri), spec.tmax, tile, left_bytes, right_bytes,
         spec.pipeline_depth)
+
+
+def _products_tile(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
+    """The block tile a symm or matmul launch takes: the first of
+    ``PRODUCT_TILES`` that divides both output tile edges and fits in
+    shared memory at this depth, else the smallest."""
+    for tile in PRODUCT_TILES:
+        if spec.bi % tile == 0 and spec.bj % tile == 0 and _products_smem(
+                spec, tile, left_bytes, right_bytes) <= SMEM_LIMIT_BYTES:
+            return tile
+    return PRODUCT_TILES[-1]
+
+
+def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int,
+               tile: int | None = None) -> int:
+    """Dynamic shared memory one launch of ``spec`` needs, as its kernel
+    lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``); for
+    symm and matmul at ``tile``, by default the one the launch takes."""
+    if spec.kind in _PRODUCT_KINDS:
+        if tile is None:
+            tile = _products_tile(spec, left_bytes, right_bytes)
+        return _products_smem(spec, tile, left_bytes, right_bytes)
+    return _lib().leaf_program_smem_bytes(spec.tmax, left_bytes, right_bytes,
+                                          spec.pipeline_depth)
+
+
+def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
+                          tile: int | None = None) -> dict:
+    """How a symm or matmul launch of ``spec`` fills the current card: its
+    block tile, output positions (a tile x tile sub-tile each), the
+    positions walked whole (the rest, the ragged last wave's, are walked
+    in quarters, four blocks each), thread blocks, blocks an SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared
+    memory a block."""
+    lb, rb = (torch.empty((), dtype=d).element_size()
+              for d in (left_dtype, right_dtype))
+    tile = _products_tile(spec, lb, rb) if tile is None else tile
+    positions = spec.q_i * spec.q_j * -(-spec.bi // tile) \
+        * -(-spec.bj // tile)
+    lib = _products_lib()
+    codes = (_DTYPE_CODES[left_dtype], _DTYPE_CODES[right_dtype],
+             int(spec.right_tri), spec.tmax, tile, spec.pipeline_depth)
+    whole = lib.leaf_products_whole_positions(*codes, positions)
+    return {"tile": tile, "positions": positions, "whole_positions": whole,
+            "blocks": whole + 4 * (positions - whole),
+            "blocks_per_sm": lib.leaf_products_blocks_per_sm(*codes),
+            "smem_bytes": _products_smem(spec, tile, lb, rb)}
+
+
+def product_flops(spec: _Spec) -> int:
+    """Flops of a symm or matmul program with each leaf product computed
+    once at the padded leaf shapes (``2 * LeafProgram.mult_count``): the
+    work of ``csrc/leaf_products.cu``."""
+    if spec.kind not in _PRODUCT_KINDS:
+        raise ValueError(f"product_flops counts the symm and matmul kinds, "
+                         f"not {spec.kind!r}")
+    prog = compile_program(spec.kind, spec.levels, spec.variant,
+                           trans_a=spec.trans_a, trans_b=spec.trans_b)
+    mb, nb = spec.q_i * spec.bi, spec.q_j * spec.bj
+    if spec.kind == "symm":
+        return 2 * prog.mult_count(mb, nb)
+    return 2 * prog.mult_count(mb, nb, spec.n_k * spec.bc)
 
 
 def _operand_extents(spec: _Spec):
@@ -646,7 +885,8 @@ def _check_kernel_args(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
 
 def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                  out_dtype, seed: torch.Tensor | None = None,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
+                 out: torch.Tensor | None = None,
+                 tile: int | None = None) -> torch.Tensor:
     """Run a bound program on its padded operands.
 
     ``ata``, ``aat``, ``rank_k``: ``left`` and ``right`` are the same
@@ -655,31 +895,42 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     B as stored (the transposes are the spec's).  ``seed`` is the
     incoming packed stack of ``rank_k``, which starts the accumulator.
     ``out``, where given, is the buffer written (it may be ``seed``: each
-    output element is read before it is written).
+    output element is read before it is written).  ``tile`` (symm and
+    matmul) is the kernel's block tile, one of ``PRODUCT_TILES``; by
+    default the first that divides the output tiles and fits.  Neither
+    it nor ``spec.pipeline_depth`` changes a bit of the result.
 
-    A CUDA tensor launches ``csrc/leaf_program.cu`` on the current
-    stream (no synchronisation) or raises; a CPU tensor runs
-    :func:`_leaf_program_plain`.  Returns the raw output buffer in
-    ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for the gram
-    kinds, the dense padded grid for symm and matmul.
+    A CUDA tensor launches, on the current stream (no synchronisation),
+    ``csrc/leaf_program.cu`` for the gram kinds or
+    ``csrc/leaf_products.cu`` for symm and matmul, or raises; a CPU
+    tensor runs :func:`_leaf_program_plain`.  Returns the raw output
+    buffer in ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for
+    the gram kinds, the dense padded grid for symm and matmul.
     """
     if spec.kind not in _KINDS:
         raise ValueError(f"unknown program kind {spec.kind!r}")
     if left.device != right.device:
         raise ValueError(f"operands on {left.device} and {right.device}")
-    tables = _spec_tables(spec, left.device)
     if left.device.type == "cpu":
+        tables = None if spec.kind in _PRODUCT_KINDS \
+            else _spec_tables(spec, left.device)
         res = _leaf_program_plain(spec, tables, left, right, out_dtype, seed)
         return res if out is None else out.copy_(res)
     if left.device.type != "cuda":
         raise ValueError(f"leaf_program runs on cuda or cpu, not "
                          f"{left.device}")
     _check_kernel_args(spec, left, right, out_dtype, seed, out)
-    lib = _lib()
-    if spec.n_c > lib.leaf_program_max_contributions():
+    if spec.kind in _PRODUCT_KINDS:
+        if tile is None:
+            tile = _products_tile(spec, left.element_size(),
+                                  right.element_size())
+        elif tile not in PRODUCT_TILES:
+            raise ValueError(f"tile must be one of {PRODUCT_TILES}, got "
+                             f"{tile}")
+    elif spec.n_c > _lib().leaf_program_max_contributions():
         raise ValueError(f"{spec.n_c} contribution slots exceed the "
-                         f"kernel's {lib.leaf_program_max_contributions()}")
-    smem = smem_bytes(spec, left.element_size(), right.element_size())
+                         f"kernel's {_lib().leaf_program_max_contributions()}")
+    smem = smem_bytes(spec, left.element_size(), right.element_size(), tile)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"pipeline_depth={spec.pipeline_depth} with {spec.tmax} operand "
@@ -689,26 +940,53 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     if out is None:
         out = torch.empty(_out_shape(spec), dtype=out_dtype,
                           device=left.device)
-    right_layout = _RIGHT_TRI if spec.right_tri \
-        else _RIGHT_JK if spec.right_trans else _RIGHT_KJ
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.leaf_program_launch(
-            left.data_ptr(), right.data_ptr(),
-            None if seed is None else seed.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in tables), left.shape[1], right.shape[1],
-            spec.n_out, spec.n_c, spec.n_k, spec.tmax, spec.q_i, spec.q_j,
-            spec.n_tj, spec.blocks_j, spec.bi, spec.bj, spec.bc,
-            int(spec.left_trans), right_layout, int(spec.out_tri),
-            int(spec.diag_sym), _DTYPE_CODES[left.dtype],
-            _DTYPE_CODES[right.dtype],
-            0 if seed is None else _DTYPE_CODES[seed.dtype],
-            _DTYPE_CODES[out_dtype], spec.pipeline_depth, stream)
+        if spec.kind in _PRODUCT_KINDS:
+            lib = _products_lib()
+            err = _launch_products(lib, spec, left, right, out, tile, stream)
+            error_string = lib.leaf_products_error_string
+        else:
+            lib = _lib()
+            err = lib.leaf_program_launch(
+                left.data_ptr(), right.data_ptr(),
+                None if seed is None else seed.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() for t in _spec_tables(spec, left.device)),
+                left.shape[1], right.shape[1], spec.n_out, spec.n_c,
+                spec.n_k, spec.tmax, spec.q_i, spec.q_j, spec.n_tj,
+                spec.blocks_j, spec.bi, spec.bj, spec.bc,
+                int(spec.left_trans),
+                _RIGHT_JK if spec.right_trans else _RIGHT_KJ,
+                int(spec.out_tri), int(spec.diag_sym),
+                _DTYPE_CODES[left.dtype], _DTYPE_CODES[right.dtype],
+                0 if seed is None else _DTYPE_CODES[seed.dtype],
+                _DTYPE_CODES[out.dtype], spec.pipeline_depth, stream)
+            error_string = lib.leaf_program_error_string
     if err:
         raise RuntimeError(f"leaf_program launch failed: CUDA error {err} "
-                           f"({lib.leaf_program_error_string(err).decode()})")
+                           f"({error_string(err).decode()})")
     KERNEL_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
     return out
+
+
+def _launch_products(lib, spec: _Spec, left, right, out, tile: int,
+                     stream) -> int:
+    """One ``csrc/leaf_products.cu`` launch into ``out``; a bf16 output
+    accumulates in an fp32 workspace of its size and is rounded once."""
+    tables = _spec_op_tables(spec, left.device)
+    ws = out if out.dtype == torch.float32 else torch.empty(
+        out.shape, dtype=torch.float32, device=out.device)
+    n_ops, max_dests = tables[7].shape
+    right_layout = _RIGHT_TRI if spec.right_tri \
+        else _RIGHT_JK if spec.right_trans else _RIGHT_KJ
+    return lib.leaf_products_launch(
+        left.data_ptr(), right.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in tables), *left.shape, *right.shape,
+        n_ops, spec.tmax, max_dests, spec.n_k, spec.q_i, spec.q_j,
+        spec.blocks_j, spec.bi, spec.bj, spec.bc, int(spec.left_trans),
+        right_layout, int(spec.diag_sym), _DTYPE_CODES[left.dtype],
+        _DTYPE_CODES[right.dtype], _DTYPE_CODES[out.dtype], tile,
+        spec.pipeline_depth, stream)
 
 
 # ---------------------------------------------------------------------------
@@ -1660,10 +1938,15 @@ def ata_bwd_traffic_model(
 
 
 def live_steps(spec: _Spec) -> int:
-    """(tile, contribution, K block) steps with a nonzero sign — the
-    steps the kernel runs; ``2 * bi * bj * bc`` flops each."""
+    """(tile, contribution, K block) steps with a nonzero sign, ``2 * bi *
+    bj * bc`` flops each: the steps of the TPU kernel's walk, which
+    ``csrc/leaf_program.cu`` runs for the gram kinds.  For symm and
+    matmul they count the per-destination recomputation that
+    ``csrc/leaf_products.cu`` does not do (:func:`product_flops`)."""
     sign = _program_tables(spec.kind, spec.levels, spec.variant,
                            spec.gram, spec.trans_a, spec.trans_b)[0]
-    ld, _, _ = _out_tiles(spec, "cpu")
     live_per_dest = torch.from_numpy((sign != 0).sum(axis=1))
+    if not spec.out_tri:        # every leaf destination has q_i * q_j tiles
+        return int(live_per_dest.sum()) * spec.q_i * spec.q_j * spec.n_k
+    ld, _, _ = _out_tiles(spec, "cpu")
     return int(live_per_dest[ld].sum()) * spec.n_k
