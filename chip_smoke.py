@@ -10,7 +10,9 @@ failure exits non-zero):
 1. device: the card's name and power limit, torch/CUDA versions, and
    both TF32 flags, set off;
 2. build: every kernel library of ``src/repro_torch/kernels/csrc`` from
-   source, one ``nvcc`` each, all started together;
+   source, one ``nvcc`` each, all started together, each one's build
+   time, and the registers and spills of every flash-attention
+   instantiation;
 3. the leaf program's kernels against their plain torch versions on
    the card (``leaf_program.cu`` for the gram kinds, ``leaf_products.cu``
    for symm and matmul), one sub-phase per program kind, each over its
@@ -38,16 +40,19 @@ failure exits non-zero):
        the plain version (2^-8 for a bf16 output) and <= 1e-4 against
        float64; combine and transpose ``torch.equal``; what the wrappers
        refuse on the card;
-   3j. the flash_attention kernel against its plain version on (B, H, S,
-       D) operands: tests/test_flash_attention.py's grid, windows 16 and
-       48, softcap 50, non-causal (Skv 64 and 96), Qwen2.5-3B's shapes
-       (B 1, H 16, Hkv 2, D 128, Sq 128, 1000 and 2048 over Skv 2048), D
-       256 with window and softcap and non-causal, each in fp32 and bf16,
-       held of max|out| and row by row (each row's max|d| over that row's
-       max|plain|): fp32 <= 1e-5 both, bf16 <= 5e-3 and <= 2^-6 (a one-ulp
-       flip of a bf16 row maximum is up to 2^-7 of it); the same measures
-       of the kernel's output with its rows past the first q tile zeroed
-       (a kernel wrong past tile 0) must exceed the bars; ``ops.flash_mha``
+   3j. the flash_attention kernel (bf16 on the tensor cores, fp32 on the
+       CUDA cores) against its plain version on (B, H, S, D) operands:
+       tests/test_flash_attention.py's grid, windows 16 and 48, softcap
+       50, non-causal (Skv 64 and 96), Qwen2.5-3B's shapes (B 1, H 16, Hkv
+       2, D 128, Sq 128, 1000 and 2048 over Skv 2048), D 256 with window
+       and softcap and non-causal, D 80 (causal, GQA, a ragged Sq, window
+       with softcap, non-causal), each in fp32 and bf16, held of max|out|
+       and row by row (each row's max|d| over that row's max|plain|): fp32
+       <= 1e-5 both, bf16 <= 5e-3 and <= 2^-6 (a one-ulp flip of a bf16
+       row maximum is up to 2^-7 of it); the same measures of the kernel's
+       output with its rows past the first q tile (128 rows in bf16, 64
+       in fp32) zeroed (a kernel wrong past tile 0) must exceed the bars;
+       ``ops.flash_mha``
        over the grid and a causal Sq 80 over Skv 40 (kv zero-padded as in
        the JAX package) against itself on the CPU; a bad head_dim, a view
        and an operand that requires grad refused;
@@ -102,7 +107,8 @@ failure exits non-zero):
        1e-4;
    4h. where the serving time goes: one 2032-token prefill and one
        decode tick of 4 slots under ``torch.profiler``, the wall time,
-       the device's kernel time, its busy share and the top kernels;
+       the device's kernel time, its busy share, the flash kernel's time
+       and share, and the top kernels;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -120,7 +126,9 @@ failure exits non-zero):
    ``torch.matmul`` leaves and the fused path.  flash_attention is timed
    at the serving prefill, q (1, 16, 2048, 128) over k/v (1, 2, 2048,
    128), causal, bf16, beside ``F.scaled_dot_product_attention`` (timed
-   only); its bound is 4 D flops for each unmasked (q, k) pair at the
+   only), by events and as device time (20 calls in a CUDA graph,
+   replayed), and at that prefill's first 512 and 1024 rows over the
+   same cache; its bound is 4 D flops for each unmasked (q, k) pair at the
    bf16 tensor-core peak against q, k, v and o once at HBM rate.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
@@ -266,6 +274,50 @@ def _ptxas_summary(report: str) -> list:
             f"{max(v['spill'])} B" for k, v in stats.items()]
 
 
+def _device_ms(fn, n=20):
+    """The device time of one call of ``fn``: ``n`` calls captured in one
+    CUDA graph, the graph replayed between two events (``_time_ms``), over
+    ``n``.  Unlike an event pair around one call, it leaves out the host's
+    time to launch."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # first use outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms, _ = _time_ms(graph.replay)
+    return ms / n
+
+
+def _ptxas_flash(report: str) -> list:
+    """Registers and spills of each flash-attention instantiation from
+    ``nvcc -Xptxas -v``: the bf16 tensor-core kernel by its head_dim and
+    the fp32 CUDA-core body by its own.  The tensor-core kernel's count is
+    its entry budget (384 threads); setmaxnreg moves the producer
+    warpgroup to 24 and the consumers to 240 after entry."""
+    stats, kind = {}, None
+    for line in report.splitlines():
+        found = re.search(r"(flash_tc_kernel|flash_kernel)ILi(\d+)E", line)
+        if found:
+            kind = (f"bf16 tensor cores, D {found.group(2)}"
+                    if found.group(1) == "flash_tc_kernel"
+                    else f"fp32 CUDA cores, D {found.group(2)}")
+            stats[kind] = {"regs": None, "spill": 0}
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if kind and spill:
+            stats[kind]["spill"] = int(spill.group(1))
+        if kind and regs:
+            stats[kind]["regs"] = int(regs.group(1))
+    return [f"{k}: {v['regs']} registers, {v['spill']} B of spill stores"
+            for k, v in stats.items()] + [
+        f"wgmma serialized by ptxas (C7514): {report.count('C7514')} times"]
+
+
 def _ptxas_registers(report: str) -> str:
     """Instantiations, registers and spills of a library from ``nvcc
     -Xptxas -v``."""
@@ -351,20 +403,31 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     print("== 2. build")
     t0 = time.perf_counter()
+
+    def timed_build(name):
+        start = time.perf_counter()
+        return _build.build(name), time.perf_counter() - start
+
     with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        reports = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
+        built = dict(zip(LIBRARIES, pool.map(timed_build, LIBRARIES)))
+    reports = {name: report for name, (report, _) in built.items()}
     print(f"{len(LIBRARIES)} libraries, one nvcc each in parallel: "
           f"{sum(r is not None for r in reports.values())} built, the rest "
-          f"cached, in {time.perf_counter() - t0:.1f} s")
+          f"cached, in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{name} {secs:.1f} s" for name, (_, secs)
+                      in built.items()) + ")")
     for line in _ptxas_summary(reports["leaf_products"] or ""):
         print(f"  leaf_products {line}")
     for name in LIBRARIES:
-        if name != "leaf_products":
+        if name not in ("leaf_products", "flash_attention"):
             print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
+    for line in _ptxas_flash(reports["flash_attention"] or ""):
+        print(f"  flash_attention {line}")
     smem = _build.library("flash_attention").flash_attention_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    print("  flash_attention dynamic shared memory by head_dim: "
-          + ", ".join(f"{d}: {smem(d)} B" for d in (16, 32, 64, 128, 256)))
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    print("  flash_attention dynamic shared memory by head_dim, fp32 / bf16: "
+          + ", ".join(f"{d}: {smem(d, 0)} / {smem(d, 1)} B"
+                      for d in k_flash.HEAD_DIMS))
 
     def plain(spec, left, right, out_dtype, seed=None):
         return sf._leaf_program_plain(spec, sf._spec_tables(spec, left.device),
@@ -716,8 +779,9 @@ def main() -> int:
     def flash_check(b, h, hkv, sq, skv, d, dt, **kw):
         """One counted launch on (B, H, S, D) operands against the plain
         version, of max|out| and row by row, within ``FLASH_BARS``; where
-        Sq > 64, the output with its rows past the first q tile zeroed
-        must exceed both bars.  Returns max|kernel - plain|."""
+        Sq exceeds the kernel's q tile (128 rows in bf16, 64 in fp32), the
+        output with its rows past the first q tile zeroed must exceed both
+        bars.  Returns max|kernel - plain|."""
         q, k, v = (randn(b, heads, s_, d, dtype=dt) for heads, s_ in
                    ((h, sq), (hkv, skv), (hkv, skv)))
         got = counted_launch("flash_attention",
@@ -732,9 +796,9 @@ def main() -> int:
         read["sound"] = [max(a_, e_) for a_, e_ in zip(read["sound"], errs)]
         line = (f"  B {b} H {h} Hkv {hkv} Sq {sq} Skv {skv} D {d} {name} "
                 f"{kw or ''}: vs plain {errs[0]:.2e}, by row {errs[1]:.2e}")
-        if sq > 64:
+        if sq > k_flash.q_tile(dt):
             bad = got.clone()
-            bad[:, :, 64:] = 0
+            bad[:, :, k_flash.q_tile(dt):] = 0
             faults = (_rel(bad, want.double()), _row_rel(bad, want))
             read["fault"] = [min(a_, e_)
                              for a_, e_ in zip(read["fault"], faults)]
@@ -762,6 +826,11 @@ def main() -> int:
                 flash_err = max(flash_err, err)
         flash_check(1, 4, 2, 512, 512, 256, dt, window=100, softcap=50.0)
         flash_check(1, 4, 2, 256, 320, 256, dt, causal=False, softcap=30.0)
+        # head_dim 80 (zamba2-2.7b's): bf16 runs it as 128 with zero columns
+        flash_check(2, 4, 4, 64, 64, 80, dt)
+        flash_check(1, 8, 2, 300, 300, 80, dt)
+        flash_check(1, 4, 2, 200, 260, 80, dt, window=50, softcap=30.0)
+        flash_check(1, 4, 2, 160, 200, 80, dt, causal=False)
     for dt_name, read in flash_read.items():
         print(f"  {dt_name}: largest sound error of max|out| "
               f"{read['sound'][0]:.3e}, by row {read['sound'][1]:.3e} (<= "
@@ -1300,7 +1369,7 @@ def main() -> int:
 
     def rows_past_tile0_zeroed(q, k, v, **kw):
         out = flash_mha(q, k, v, **kw).clone()
-        out[:, 64:] = 0
+        out[:, k_flash.q_tile(q.dtype):] = 0
         return out
 
     def blind_to_kv_tile0(q, k, v, **kw):
@@ -1308,11 +1377,12 @@ def main() -> int:
         the first kv tile, as a wrong tile skip would."""
         b_, sq_, h_, d_ = q.shape
         skv_, hkv_ = k.shape[1], k.shape[2]
+        bq_, bk_ = k_flash.q_tile(q.dtype), k_flash.kv_tile(q.dtype, d_)
         qg = q.float().reshape(b_, sq_, hkv_, h_ // hkv_, d_)
         sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d_ ** -0.5
         qp = torch.arange(sq_, device=dev)[:, None]
         kp = torch.arange(skv_, device=dev)[None]
-        sc = sc.masked_fill((qp < kp) | ((qp >= 64) & (kp < 64)), -1e30)
+        sc = sc.masked_fill((qp < kp) | ((qp >= bq_) & (kp < bk_)), -1e30)
         out = torch.einsum("bhgqk,bkhd->bqhgd", sc.softmax(-1), v.float())
         return out.reshape(b_, sq_, h_, d_).to(q.dtype)
 
@@ -1398,12 +1468,17 @@ def main() -> int:
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        flash_ms = sum(e.self_device_time_total for e in kern
+                       if "flash_tc_kernel" in e.key
+                       or "flash_kernel" in e.key) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
         print(f"  {label}: wall {wall_ms:.3f} ms, device kernels "
-              f"{dev_ms:.3f} ms, busy {dev_ms / wall_ms:.1%}; top: "
+              f"{dev_ms:.3f} ms, busy {dev_ms / wall_ms:.1%}; the flash "
+              f"kernel {flash_ms:.3f} ms, {flash_ms / dev_ms:.1%} of the "
+              f"device time; top: "
               + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
                           f" ms x {e.count}" for e in top))
-        return {"wall_ms": wall_ms, "device_ms": dev_ms,
+        return {"wall_ms": wall_ms, "device_ms": dev_ms, "flash_ms": flash_ms,
                 "top": [[e.key, e.self_device_time_total / 1e3, e.count]
                         for e in top]}
 
@@ -1738,6 +1813,34 @@ def main() -> int:
          "enable_gqa=True)",
          lambda: F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
                                                 enable_gqa=True)))
+    dev_ms = _device_ms(lambda: k_flash.flash_attention(fq, fk, fv))
+    lib_dev_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+        fq, fk, fv, is_causal=True, enable_gqa=True))
+    print(f"flash_attention device time a call (20 calls in a CUDA graph, "
+          f"replayed): {dev_ms:.4f} ms; SDPA's {lib_dev_ms:.4f} ms")
+    # the same prefill's first Sq rows over the cache: how the kernel scales
+    # (causal from the top left, so they need only the first Sq kv rows)
+    scaling = {}
+    for sq in (512, 1024):
+        sub = fq[:, :, :sq].contiguous()
+        k_ms, _ = _time_ms(lambda: k_flash.flash_attention(sub, fk, fv))
+        l_ms, _ = _time_ms(lambda: F.scaled_dot_product_attention(
+            sub, fk, fv, is_causal=True, enable_gqa=True))
+        sub_dev = _device_ms(lambda: k_flash.flash_attention(sub, fk, fv))
+        sub_pairs = sq * (sq + 1) // 2
+        sub_bound, _ = roofline(
+            f"flash_attention Sq {sq}", QWEN_HEADS * sub_pairs * 4
+            * QWEN_HEAD_DIM, (2 * sub.numel() + 2 * fk[:, :, :sq].numel())
+            * sub.element_size(), peak=PEAK_BF16_FLOPS)
+        sub_lib_dev = _device_ms(lambda: F.scaled_dot_product_attention(
+            sub, fk, fv, is_causal=True, enable_gqa=True))
+        print(f"flash_attention q (1, 16, {sq}, 128) over k/v (1, 2, 2048, "
+              f"128): kernel {k_ms:.4f} ms (device {sub_dev:.4f}), SDPA "
+              f"{l_ms:.4f} ms (device {sub_lib_dev:.4f}), bound "
+              f"{sub_bound:.4f} ms")
+        scaling[sq] = {"ms": k_ms, "device_ms": sub_dev, "library_ms": l_ms,
+                       "library_device_ms": sub_lib_dev, "bound_ms": sub_bound}
+        del sub
     got = k_flash.flash_attention(fq, fk, fv)
     want = k_flash._flash_attention_plain(fq, fk, fv, **opts)
     err = float((got.float() - want.float()).abs().max())
@@ -1755,7 +1858,8 @@ def main() -> int:
         "flash_attention", *KERNELS["flash_attention"],
         serve_launches["flash_attention"], max(err, flash_err), ms, plain_ms,
         bound_ms, bound_by, lib_ms, shape=[list(fq.shape), list(fk.shape)],
-        dtype="bfloat16", serving={
+        dtype="bfloat16", device_ms=dev_ms, library_device_ms=lib_dev_ms,
+        by_sq=scaling, serving={
             "arch": cfg.name, "params": n_params, "prompt_lengths": lens,
             "ttft_s": ttft, "prefill_tokens_per_s": prefill_rate,
             "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],

@@ -8,98 +8,115 @@
 //
 //   s = (q_i . k_j) * scale;  s = softcap * tanh(s / softcap) if softcap > 0;
 //   s = -1e30 where j > i (causal) or i - j >= window (window > 0);
-//   online softmax over kv tiles: m, l and the (64, D) accumulator in fp32,
+//   online softmax over kv tiles: m, l and the accumulator in fp32,
 //   p = exp(s - m_new) summed into l in fp32 and cast to v's type before P V;
 //   out = acc / max(l, 1e-30) in q's type.
 //
 // The mask value is the TPU kernel's finite -1e30, not -inf.  A row whose first worked kv
 // tile is wholly masked (under a sliding window: the tile skip below tests only the q tile's
 // first row) takes p = exp(0) = 1 there; its first real score then wipes that through
-// corr = exp(-1e30 - m) = 0.  With -inf the same row would give inf - inf = NaN.
+// corr = exp(-1e30 - m) = 0.  With -inf the same row would give inf - inf = NaN.  Both
+// kernels skip causal kv tiles past the q tile's last row and kv tiles wholly below the
+// window of its first row; at any tile size that changes no result, as the mask is finite.
 //
 // What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): at the serving
 // prefill (1 x 16 heads x 2048 queries over a 2048-slot cache, 2 kv heads, D 128, bf16,
 // causal) the unmasked (q, k) pairs need 4 D flops each, 17.2 GFLOP, which take 0.017 ms on
 // the bf16 tensor cores at 989 TFLOP/s; q, k, v and o once are 18.9 MB, 0.0056 ms at
-// 3.35 TB/s.  So it is bound by operations.
+// 3.35 TB/s.  So it is bound by the tensor cores' operations.
 //
-// The design is the simple one: one block of 256 threads per (b * h, tile of 64 query
-// rows); a loop over kv tiles of 64 inside the block, in place of the TPU's sequential kv
-// grid axis; Q, K and V staged in shared memory as fp32 (dynamic, up to 212 KB at D 256);
-// S = Q K^T and P V by fp32 FMA on the CUDA cores in the kernel's own body, each thread a
-// 4 x 4 tile of S and 4 rows x D/16 columns of the accumulator; four threads per row for the
-// softmax.  Causal tiles past the q tile's last row, and tiles wholly below the window of its
-// first row, are skipped.  What it leaves on the table: the tensor cores (wgmma or mma.sync
-// on bf16 fragments, the whole gap to the bound), TMA and a double-buffered kv ring (loads
-// are not overlapped with compute), warp specialisation, and occupancy (one block per SM at
-// D 128, as Q, K and V sit in fp32).
+// bf16, the serving path: a kernel for the tensor cores (flash_tc_kernel below).
+//   * Both products are wgmma.mma_async m64 x N x k16 with fp32 accumulators in registers.
+//     S = Q K^T reads Q and K from shared memory, both K-major (head_dim contiguous), so K
+//     needs no transpose.  O += P V takes P from registers: the fp32 S fragment, after the
+//     softmax and a cast to bf16, is already the A fragment of the next wgmma (the two
+//     layouts match), and V is read N-major from shared memory with the transpose bit.
+//   * The online softmax runs on the accumulator fragments: a thread holds 2 rows, a row's
+//     max and sum reduce over the quad of threads that share it (__shfl_xor_sync 1, 2).  It
+//     works in whole-tile passes (scale; softcap; the mask, only on tiles that cross an
+//     edge; max; exp and sum), each branch taken once a tile, so that the 64 elements'
+//     chains of a thread interleave, and 2^x is one SFU instruction (ex2.approx.ftz).
+//   * Copies are TMA (cp.async.bulk.tensor) through 3-D tensor maps (D, S, B * heads), so a
+//     ragged Sq or Skv reads zeros past its edge, never the next head's rows.  Q is loaded
+//     once a block; K and V flow through a 2-stage ring, each with a full and an empty
+//     mbarrier a stage: K is released once its S is done, V once its P V is.
+//   * Warp specialisation: 384 threads.  Warpgroup 0 is the producer: one thread issues
+//     every copy, and setmaxnreg drops the group to 24 registers so that the two consumer
+//     warpgroups can take 240 each.  Consumer warpgroup c owns q rows 64 c .. 64 c + 63 of
+//     the block's BQ = 128 rows.
+//   * Inside a consumer, iteration i issues tile i's S and tile i - 1's P V back to back and
+//     runs tile i's softmax while that P V is in flight (S, O and P live at once: 64 + 64 +
+//     32 registers at D 128).  The two consumers take turns to issue (two named barriers),
+//     so one's softmax runs under the other's products.
+//   * Tiles: BK = 128 kv rows at D <= 128 (Q 32 KB + 2 stages x (K 32 + V 32) KB = 160 KB
+//     of shared memory at D 128), 64 at D 256 (64 KB + 2 x 64 KB = 192 KB).  Every tile lies
+//     in slabs of 64 bf16 columns, 128 bytes a row, in the 128-byte swizzle that the TMA box
+//     and the wgmma descriptors both name; slabs are 1024-byte aligned, so the swizzle phase
+//     of a row is its index mod 8.
+//   * Head dims 16 and 32 run the D 64 instantiation and 80 the D 128 one: TMA fills the
+//     columns past D with zeros, which add 0 to S and give output columns that are not
+//     stored.  That wastes 75 %, 50 % and 37.5 % of the products at 16, 32 and 80.
+//   * Blocks run longest first: blockIdx.x is the (batch, head) and blockIdx.y counts q tiles
+//     from the last, so under causal masking the blocks with the most kv tiles start first.
+//   What it leaves: persistent blocks (one a SM, walking tiles, so that one tile's epilogue
+//   and the next one's Q load overlap), packing the H / Hkv q heads of a kv head into one
+//   block or a cluster with multicast loads (each K and V tile is now read from L2 by each
+//   of them), and a TMA store of O.
+//
+// fp32: the CUDA-core body (flash_kernel below), no TF32.  One block of 256 threads per
+// (b * h, tile of 64 query rows); a loop over kv tiles of 64; Q, K and V staged in shared
+// memory; S = Q K^T and P V by fp32 FMA, each thread a 4 x 4 tile of S and 4 rows x D/16
+// columns of the accumulator; four threads per row for the softmax.
 //
 // Interface: plain C, loaded with ctypes.  The launcher returns cudaGetLastError() after the
 // launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
+
+using namespace tma;
+
+constexpr float NEG_INF = -1e30f;
+constexpr int F32 = 0, BF16 = 1;
+
+// ---- fp32: the CUDA-core body ---------------------------------------------------------------
+
+namespace cuda_core {
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // kv columns per tile
 constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e30f;
-constexpr int F32 = 0, BF16 = 1;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// p rounded to v's type, as the TPU kernel casts p before P V.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
-// Copy `rows` valid rows of a (rows_total, D) row-major tile, starting at `src`, into shared
-// memory as fp32 with row stride `stride`; rows past `rows` are zero.  16-byte loads.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src, int rows) {
-  constexpr int VEC = 16 / sizeof(T);           // 4 fp32 or 8 bf16
-  constexpr int CHUNKS = BQ * D / VEC;
+// Copy `rows` valid rows of a (rows_total, D) row-major fp32 tile, starting at `src`, into
+// shared memory with row stride `stride`; rows past `rows` are zero.  16-byte loads.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int stride, const float* src, int rows) {
+  constexpr int CHUNKS = BQ * D / 4;
   for (int c = threadIdx.x; c < CHUNKS; c += THREADS) {
-    const int e = c * VEC, r = e / D, col = e % D;
-    float vals[VEC];
-    if (r < rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + static_cast<long long>(r) * D + col);
-      const T* x = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) vals[i] = to_f32(x[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) vals[i] = 0.f;
-    }
-    float* out = dst + r * stride + col;
-#pragma unroll
-    for (int i = 0; i < VEC; i += 4)
-      *reinterpret_cast<float4*>(out + i) = make_float4(vals[i], vals[i + 1], vals[i + 2],
-                                                        vals[i + 3]);
+    const int e = c * 4, r = e / D, col = e % D;
+    const float4 x = r < rows ? *reinterpret_cast<const float4*>(
+                                    src + static_cast<long long>(r) * D + col)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * stride + col) = x;
   }
 }
 
 template <int D>
-constexpr int smem_floats() {
-  return 2 * BQ * (D + 4) + BK * D + BQ * (BK + 4) + BQ;
+constexpr int smem_bytes() {
+  return (2 * BQ * (D + 4) + BK * D + BQ * (BK + 4) + BQ) * 4;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_kernel(const T* q, const T* k, const T* v,
-                                                        T* out, int heads, int kv_heads,
-                                                        int sq, int skv, float scale,
-                                                        float softcap, int causal,
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_kernel(const float* q, const float* k,
+                                                        const float* v, float* out, int heads,
+                                                        int kv_heads, int sq, int skv,
+                                                        float scale, float softcap, int causal,
                                                         int window) {
   constexpr int DS = D + 4;                     // padded row stride of Q and K
   constexpr int SS = BK + 4;                    // padded row stride of S
@@ -118,7 +135,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const T* q, const T* k, 
   const long long q_off = (static_cast<long long>(b) * heads + h) * sq * D;
   const long long kv_off = (static_cast<long long>(b) * kv_heads + hkv) * skv * D;
 
-  load_tile<T, D>(qs, DS, q + q_off + static_cast<long long>(q0) * D, min(BQ, sq - q0));
+  load_tile<D>(qs, DS, q + q_off + static_cast<long long>(q0) * D, min(BQ, sq - q0));
 
   // the softmax's row and its quarter of the columns
   const int srow = tid >> 2, spart = tid & 3;
@@ -139,8 +156,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const T* q, const T* k, 
     if (window > 0 && q0 - (k0 + BK - 1) >= window) continue;
     __syncthreads();                            // the last tile's K, V and P are spent
     const int kv_rows = min(BK, skv - k0);
-    load_tile<T, D>(ks, DS, k + kv_off + static_cast<long long>(k0) * D, kv_rows);
-    load_tile<T, D>(vs, D, v + kv_off + static_cast<long long>(k0) * D, kv_rows);
+    load_tile<D>(ks, DS, k + kv_off + static_cast<long long>(k0) * D, kv_rows);
+    load_tile<D>(vs, D, v + kv_off + static_cast<long long>(k0) * D, kv_rows);
     __syncthreads();
 
     // S = Q K^T: rows ty + 16 i, columns tx + 16 j
@@ -199,7 +216,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const T* q, const T* k, 
       for (int u = 0; u < BK / 4; ++u) {
         const float p = expf(row[spart + 4 * u] - m_new);
         sum += p;
-        row[spart + 4 * u] = round_to<T>(p);
+        row[spart + 4 * u] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -239,50 +256,611 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const T* q, const T* k, 
     const int r = ty + 16 * i;
     if (q0 + r >= sq) continue;
     const float l = corr_s[r];
-    T* o = out + q_off + static_cast<long long>(q0 + r) * D;
+    float* o = out + q_off + static_cast<long long>(q0 + r) * D;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+    for (int j = 0; j < NC; ++j) o[tx + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
                    int heads, int kv_heads, int sq, int skv, float scale, float softcap,
                    int causal, int window, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  constexpr int bytes = smem_bytes<D>();
   // above 48 KB only after this attribute; set on every launch, so every card has it
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + BQ - 1) / BQ, batch * heads);
-  flash_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), heads, kv_heads, sq, skv, scale, softcap, causal, window);
+  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), heads, kv_heads, sq, skv, scale, softcap, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_dim(int d, const void* q, const void* k, const void* v, void* out, int batch,
-                   int heads, int kv_heads, int sq, int skv, float scale, float softcap,
-                   int causal, int window, cudaStream_t s) {
+}  // namespace cuda_core
+
+// ---- bf16: the tensor-core kernel ------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BQ = 128;                 // query rows per block: two consumer warpgroups of 64
+constexpr int STAGES = 2;               // depth of the K / V ring
+constexpr int THREADS = 384;            // the producer warpgroup and two consumers
+constexpr int SLAB = 64;                // bf16 columns of a 128-byte swizzled row
+constexpr int ROW_BYTES = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DP>
+constexpr int kv_tile() { return DP == 256 ? 64 : 128; }
+
+// Shared memory of a launch: Q, the ring's K and V tiles, the mbarriers, and the slack that
+// aligns the tiles to 1024 bytes.
+template <int DP>
+struct Layout {
+  static constexpr int BK = kv_tile<DP>();
+  static constexpr int SLABS = DP / SLAB;
+  static constexpr int Q_SLAB = BQ * ROW_BYTES;
+  static constexpr int KV_SLAB = BK * ROW_BYTES;
+  static constexpr int Q_BYTES = SLABS * Q_SLAB;
+  static constexpr int KV_BYTES = SLABS * KV_SLAB;
+  static constexpr int BARRIERS = 1 + 4 * STAGES;   // q full; k and v full and empty a stage
+  static constexpr int BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARRIERS + 1024;
+};
+
+// A wgmma matrix descriptor of a tile in shared memory under the 128-byte swizzle: the start
+// address, the leading and stride byte offsets (16-byte units) and the layout type (1, 128B).
+// K-major (Q, K: rows of 64 columns): the 8-row groups lie 1024 bytes apart (stride), and the
+// leading offset is unused.  N-major (V read as B of P V): 64-column slabs lie lbo bytes apart
+// along N, 8-row groups along K 1024 bytes apart.
+__device__ __forceinline__ uint64_t descriptor(unsigned addr, unsigned lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup's wgmma are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin an accumulator's registers at this point, so the compiler moves no read or write of
+// them across the asynchronous wgmma's issue or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 64) += A B, A (64 x 16) and B (16 x 64) in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128) += A B, A (64 x 16) and B (16 x 128) in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) += A B, A (64 x 16) bf16 in registers, B (16 x 64) in shared memory N-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128) += A B, A (64 x 16) bf16 in registers, B (16 x 128) in shared memory N-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 256) += A B, A (64 x 16) bf16 in registers, B (16 x 256) in shared memory N-major.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
+  else wgmma_rs_n256(d, a, db, 1);
+}
+
+// 2^x by the SFU alone: results below 2^-126 flush to 0 (p there is below any bf16 output's
+// last place), and 2^-1.4e30, a masked score's, is 0.
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The named barriers by which the two consumer warpgroups take turns to issue their products
+// (0 is __syncthreads'): warpgroup c waits on TURN + c, and hands over on the other's.
+constexpr int TURN = 1;
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// What a consumer thread knows of its rows: the warpgroup's first row, the thread's rows r and
+// r + 8, its column pair cq, cq + 1 in each 8-column group, and the masking.
+struct Rows {
+  int row0, r, cq, skv, causal, window;
+  float scale, softcap;
+};
+
+// S = Q K^T of the warpgroup's 64 rows over one kv tile, issued and committed (not waited):
+// DP / 16 steps of 16 columns, 4 steps a 64-column slab, 32 bytes each.
+template <int DP>
+__device__ __forceinline__ void issue_scores(float (&s)[Layout<DP>::BK / 2], unsigned q_addr,
+                                             unsigned k_addr) {
+  using L = Layout<DP>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<L::BK>(s, descriptor(q_addr + (kk / 4) * L::Q_SLAB + (kk % 4) * 32, 16),
+                    descriptor(k_addr + (kk / 4) * L::KV_SLAB + (kk % 4) * 32, 16), kk > 0);
+  wgmma_commit();
+}
+
+// O += P V over one kv tile, issued and committed: BK / 16 steps of 16 kv rows (2048 bytes).
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
+                                         const uint32_t (&p)[Layout<DP>::BK / 16][4],
+                                         unsigned v_addr) {
+  using L = Layout<DP>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::BK / 16; ++kk)
+    wgmma_rs<DP>(o, p[kk], descriptor(v_addr + kk * 16 * ROW_BYTES, L::KV_SLAB));
+  wgmma_commit();
+}
+
+// The online softmax of one kv tile at column k0 on the S fragment: scale after the dot,
+// softcap before the mask, as the TPU kernel; the row max and sum over the quad.  Leaves
+// p = exp(s - m_new) in s, adds its unrounded row sums into l (after l *= corr) and returns
+// corr = exp(m_old - m_new) for the accumulator.  s[4 j + e] is row r + 8 (e / 2), column
+// k0 + 8 j + cq + e % 2.
+template <int BK>
+__device__ __forceinline__ void softmax(float (&s)[BK / 2], int k0, const Rows& w, float (&m)[2],
+                                        float (&l)[2], float (&corr)[2]) {
+  // whole-tile passes, each branch taken once a tile, so that the 64 elements' chains interleave
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] *= w.scale;
+  if (w.softcap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = w.softcap * tanhf(s[i] / w.softcap);
+  }
+  if (k0 + BK > w.skv || (w.causal && k0 + BK - 1 > w.row0) ||
+      (w.window > 0 && w.row0 + 63 - k0 >= w.window)) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = w.r + 8 * (e / 2), kp = k0 + 8 * j + w.cq + e % 2;
+        const bool valid = kp < w.skv && (!w.causal || qp >= kp) &&
+                           (w.window == 0 || qp - kp < w.window);
+        s[4 * j + e] = valid ? s[4 * j + e] : NEG_INF;
+      }
+  }
+  float mx[2] = {NEG_INF, NEG_INF}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    mx[h] = fmaxf(m[h], mx[h]);                 // m_new
+    corr[h] = exp2_sfu((m[h] - mx[h]) * LOG2E);
+    m[h] = mx[h];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    s[i] = exp2_sfu((s[i] - m[(i / 2) % 2]) * LOG2E);
+    sum[(i / 2) % 2] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = l[h] * corr[h] + sum[h];
+  }
+}
+
+// The accumulator's rows scaled by corr: o[4 j + e] is row r + 8 (e / 2).
+template <int DP>
+__device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e / 2];
+  fence_regs(o);
+}
+
+// p rounded to bf16 as the A fragments of P V: k-step kk is columns 16 kk .. 16 kk + 15, which
+// are s[8 kk .. 8 kk + 7] in the order the fragment wants.
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) p[kk][a] = pack_bf16(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1]);
+}
+
+// One block: q rows q0 .. q0 + 127 of head blockIdx.x, over kv tiles [t_lo, t_hi).  DP is
+// the instantiation's head_dim (d <= DP; columns past d arrive as zeros).
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* out, int heads,
+                    int kv_heads, int sq, int skv, int d, float scale, float softcap,
+                    int causal, int window) {
+  using L = Layout<DP>;
+  constexpr int BK = L::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ks = qs + L::Q_BYTES;
+  uint8_t* vs = ks + STAGES * L::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * L::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
+  const int bkv = b * kv_heads + h / (heads / kv_heads);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;      // the longest tiles first
+  const int q_last = min(q0 + BQ, sq) - 1;
+  int t_hi = (skv + BK - 1) / BK;
+  if (causal) t_hi = min(t_hi, q_last / BK + 1);
+  // tiles wholly below the window of the q tile's first row: no row of the tile needs them
+  int t_lo = 0;
+  if (window > 0 && q0 - window - BK + 1 >= 0) t_lo = (q0 - window - BK + 1) / BK + 1;
+  const int n = max(t_hi - t_lo, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s]);
+      mbar_init(&v_full[s]);
+      mbar_init(&k_empty[s], THREADS - 128);
+      mbar_init(&v_empty[s], THREADS - 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // the producer warpgroup: one thread issues every copy; tile i's K waits for the
+    // consumers to release tile i - STAGES's K (after its S), its V for that tile's V
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect(q_full, L::Q_BYTES);
+      for (int s = 0; s < L::SLABS; ++s)
+        tma_load(qs + s * L::Q_SLAB, &qmap, s * SLAB, q0, bh, q_full);
+      for (int i = 0; i < n; ++i) {
+        const int st = i % STAGES, k0 = (t_lo + i) * BK;
+        const unsigned parity = ((i / STAGES) & 1) ^ 1;
+        mbar_wait(&k_empty[st], parity);
+        mbar_expect(&k_full[st], L::KV_BYTES);
+        for (int s = 0; s < L::SLABS; ++s)
+          tma_load(ks + st * L::KV_BYTES + s * L::KV_SLAB, &kmap, s * SLAB, k0, bkv, &k_full[st]);
+        mbar_wait(&v_empty[st], parity);
+        mbar_expect(&v_full[st], L::KV_BYTES);
+        for (int s = 0; s < L::SLABS; ++s)
+          tma_load(vs + st * L::KV_BYTES + s * L::KV_SLAB, &vmap, s * SLAB, k0, bkv, &v_full[st]);
+      }
+    }
+  } else {
+    // a consumer warpgroup: q rows 64 c .. 64 c + 63 of the tile.  Iteration i issues tile
+    // i's S and then tile i - 1's P V, hands the turn to the other warpgroup, and runs tile
+    // i's softmax while its P V is in flight; the last tile's P V follows the loop.  Each
+    // warpgroup waits for its turn n times and the other hands it over n times.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
+    Rows w;
+    w.row0 = q0 + 64 * c;
+    w.r = w.row0 + 16 * (t / 32) + (t % 32) / 4;
+    w.cq = 2 * (t % 4);
+    w.skv = skv, w.causal = causal, w.window = window, w.scale = scale, w.softcap = softcap;
+    const unsigned q_addr = smem_addr(qs) + 64 * c * ROW_BYTES;
+    const unsigned k_base = smem_addr(ks), v_base = smem_addr(vs);
+
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+    uint32_t p[BK / 16][4];
+
+    mbar_wait(q_full, 0);
+    if (n > 0) {
+      float s[BK / 2];
+      mbar_wait(&k_full[0], 0);
+      issue_scores<DP>(s, q_addr, k_base);
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(&k_empty[0]);
+      softmax<BK>(s, t_lo * BK, w, m, l, corr);   // o is 0: corr has nothing to scale
+      pack_p<BK>(s, p);
+      if (c == 1) turn_pass(TURN);                // warpgroup 0 issues first
+    }
+    for (int i = 1; i < n; ++i) {
+      const int st = i % STAGES, pst = (i - 1) % STAGES;
+      float s[BK / 2];
+      rescale<DP>(o, corr);                      // before any wgmma of the turn is issued
+      turn_wait(TURN + c);
+      mbar_wait(&k_full[st], (i / STAGES) & 1);
+      issue_scores<DP>(s, q_addr, k_base + st * L::KV_BYTES);
+      mbar_wait(&v_full[pst], ((i - 1) / STAGES) & 1);
+      issue_pv<DP>(o, p, v_base + pst * L::KV_BYTES);
+      turn_pass(TURN + 1 - c);
+      wgmma_wait<1>();
+      fence_regs(s);
+      mbar_arrive(&k_empty[st]);
+      softmax<BK>(s, (t_lo + i) * BK, w, m, l, corr);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&v_empty[pst]);
+      pack_p<BK>(s, p);
+    }
+    if (n > 0) {
+      // the last tile's P V
+      const int pst = (n - 1) % STAGES;
+      rescale<DP>(o, corr);
+      turn_wait(TURN + c);
+      mbar_wait(&v_full[pst], ((n - 1) / STAGES) & 1);
+      issue_pv<DP>(o, p, v_base + pst * L::KV_BYTES);
+      if (c == 0) turn_pass(TURN + 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&v_empty[pst]);
+    }
+
+    // out = acc / max(l, 1e-30) in bf16; o[4 j + e] is row r + 8 (e / 2), column 8 j + cq + e % 2
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = w.r + 8 * hh;
+      if (row >= sq) continue;
+      const float lq = fmaxf(l[hh], 1e-30f);
+      __nv_bfloat16* dst = out + (static_cast<long long>(bh) * sq + row) * d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + w.cq;
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(o[4 * j + 2 * hh] / lq, o[4 * j + 2 * hh + 1] / lq);
+      }
+    }
+  }
+}
+
+// The 3-D map (d, s, planes) of a contiguous bf16 (planes, s, d) operand, read in boxes of
+// 64 columns x box_rows rows under the 128-byte swizzle; reads past its edges give zeros.
+bool make_map(CUtensorMap* map, const void* base, int d, int s, int planes, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {SLAB, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
+                   int heads, int kv_heads, int sq, int skv, int d, float scale, float softcap,
+                   int causal, int window, cudaStream_t stream) {
+  using L = Layout<DP>;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, d, sq, batch * heads, BQ) ||
+      !make_map(&kmap, k, d, skv, batch * kv_heads, L::BK) ||
+      !make_map(&vmap, v, d, skv, batch * kv_heads, L::BK))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * heads, (sq + BQ - 1) / BQ);
+  flash_tc_kernel<DP><<<grid, THREADS, L::BYTES, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), heads, kv_heads, sq, skv, d, scale,
+      softcap, causal, window);
+  return cudaGetLastError();
+}
+
+// The instantiation that runs head_dim d: the next larger of 64, 128, 256.
+constexpr int padded_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+}  // namespace tc
+
+bool supported(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 80 || d == 128 || d == 256;
+}
+
+cudaError_t launch_f32(int d, const void* q, const void* k, const void* v, void* out,
+                       int batch, int heads, int kv_heads, int sq, int skv, float scale,
+                       float softcap, int causal, int window, cudaStream_t s) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap,
-                           causal, window, s);
+      return cuda_core::launch<16>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+                                   softcap, causal, window, s);
     case 32:
-      return launch<T, 32>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap,
-                           causal, window, s);
+      return cuda_core::launch<32>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+                                   softcap, causal, window, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap,
-                           causal, window, s);
+      return cuda_core::launch<64>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+                                   softcap, causal, window, s);
+    case 80:
+      return cuda_core::launch<80>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+                                   softcap, causal, window, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap,
-                            causal, window, s);
+      return cuda_core::launch<128>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+                                    softcap, causal, window, s);
     case 256:
-      return launch<T, 256>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap,
-                            causal, window, s);
+      return cuda_core::launch<256>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+                                    softcap, causal, window, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_bf16(int d, const void* q, const void* k, const void* v, void* out,
+                        int batch, int heads, int kv_heads, int sq, int skv, float scale,
+                        float softcap, int causal, int window, cudaStream_t s) {
+  switch (tc::padded_dim(d)) {
+    case 64:
+      return tc::launch<64>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
+                            causal, window, s);
+    case 128:
+      return tc::launch<128>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
+                             causal, window, s);
+    default:
+      return tc::launch<256>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
+                             causal, window, s);
   }
 }
 
@@ -294,34 +872,44 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory a launch at head_dim d takes, in bytes (0 for an unsupported d).
-int flash_attention_smem_bytes(int d) {
+// Shared memory a launch at head_dim d and dtype (0 fp32, 1 bf16) takes, in bytes (0 for an
+// unsupported d or dtype).
+int flash_attention_smem_bytes(int d, int dtype) {
+  if (!supported(d)) return 0;
+  if (dtype == BF16) {
+    switch (tc::padded_dim(d)) {
+      case 64: return tc::Layout<64>::BYTES;
+      case 128: return tc::Layout<128>::BYTES;
+      default: return tc::Layout<256>::BYTES;
+    }
+  }
+  if (dtype != F32) return 0;
   switch (d) {
-    case 16: return smem_floats<16>() * 4;
-    case 32: return smem_floats<32>() * 4;
-    case 64: return smem_floats<64>() * 4;
-    case 128: return smem_floats<128>() * 4;
-    case 256: return smem_floats<256>() * 4;
-    default: return 0;
+    case 16: return cuda_core::smem_bytes<16>();
+    case 32: return cuda_core::smem_bytes<32>();
+    case 64: return cuda_core::smem_bytes<64>();
+    case 80: return cuda_core::smem_bytes<80>();
+    case 128: return cuda_core::smem_bytes<128>();
+    default: return cuda_core::smem_bytes<256>();
   }
 }
 
 // out (B, H, Sq, D) = attention of q (B, H, Sq, D) over k, v (B, Hkv, Skv, D), all contiguous,
-// 16-byte aligned and of one dtype (0 fp32, 1 bf16).  d in {16, 32, 64, 128, 256};
+// 16-byte aligned and of one dtype (0 fp32, 1 bf16).  d in {16, 32, 64, 80, 128, 256};
 // heads % kv_heads == 0; window 0 means none, softcap 0 means none.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int batch,
                            int heads, int kv_heads, int sq, int skv, int d, float scale,
                            float softcap, int causal, int window, int dtype, void* stream) {
   if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads || sq < 1 || skv < 1 ||
-      window < 0 || static_cast<long long>(batch) * heads > 65535)
+      window < 0 || static_cast<long long>(batch) * heads > 65535 || !supported(d))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == F32)
-    return by_dim<float>(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap,
-                         causal, window, s);
+    return launch_f32(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap, causal,
+                      window, s);
   if (dtype == BF16)
-    return by_dim<__nv_bfloat16>(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
-                                 softcap, causal, window, s);
+    return launch_bf16(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap, causal,
+                       window, s);
   return cudaErrorInvalidValue;
 }
 

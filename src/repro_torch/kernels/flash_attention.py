@@ -7,9 +7,10 @@ i and kv column j at position j (aligned at the top left, also when Skv
 > Sq).  Causal, sliding-window and softcap masking with the TPU kernel's
 finite mask value -1e30; fp32 accumulators; the output in q's dtype.
 On a CUDA tensor :func:`flash_attention` launches
-``csrc/flash_attention.cu`` or raises; on a CPU tensor it runs
-:func:`_flash_attention_plain`, which repeats the kernel's arithmetic
-(the online softmax over kv tiles of 64, ``p`` cast to v's dtype before
+``csrc/flash_attention.cu`` (bf16 on the tensor cores, fp32 on the CUDA
+cores) or raises; on a CPU tensor it runs :func:`_flash_attention_plain`,
+which repeats the kernel's arithmetic (the online softmax over the
+kernel's kv tiles, :func:`kv_tile`, ``p`` cast to v's dtype before
 ``P V``).  Forward-only, as the JAX kernel: an input that requires grad
 is refused.
 """
@@ -24,13 +25,23 @@ from ..core.strassen import ieee_fp32
 from . import _launch
 from ._launch import INT, PTR
 
-__all__ = ["flash_attention", "HEAD_DIMS", "NEG_INF"]
+__all__ = ["flash_attention", "HEAD_DIMS", "NEG_INF", "q_tile", "kv_tile"]
 
 NEG_INF = -1e30
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128, 256)
-#: the kernel's kv tile, which the plain version's online softmax follows
-BLOCK_KV = 64
+#: head dims the kernel takes (bf16 runs 16 and 32 as 64, and 80 as 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+
+
+def q_tile(dtype: torch.dtype) -> int:
+    """The kernel's q tile: 128 rows in bf16 (two warpgroups of 64), 64 in
+    fp32."""
+    return 128 if dtype == torch.bfloat16 else 64
+
+
+def kv_tile(dtype: torch.dtype, d: int) -> int:
+    """The kernel's kv tile, which the plain version's online softmax
+    follows: in bf16 128 rows, or 64 at head_dim 256; in fp32 64."""
+    return 64 if dtype != torch.bfloat16 or d > 128 else 128
 
 _ARGTYPES = (PTR,) * 4 + (INT,) * 6 + (ctypes.c_float,) * 2 \
     + (INT,) * 3
@@ -40,15 +51,17 @@ def _flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, window: int, scale: float,
                            softcap: float) -> torch.Tensor:
     """The kernel's arithmetic in torch: scores in fp32, scaled after the
-    dot, softcapped before the mask, an online softmax over kv tiles of
-    ``BLOCK_KV`` with ``p`` rounded to v's dtype before ``P V``.  The
-    kernel skips tiles that no row of its q tile needs; here every tile is
-    visited, which changes nothing (a wholly masked tile adds ``exp(-1e30
-    - m) = 0`` to a row that has seen a score, and a row's junk from a
-    masked first tile is wiped by its first score, as in the kernel)."""
+    dot, softcapped before the mask, an online softmax over the kernel's
+    kv tiles (:func:`kv_tile`) with ``p`` rounded to v's dtype before
+    ``P V``.  The kernel skips tiles that no row of its q tile needs; here
+    every tile is visited, which changes nothing (a wholly masked tile
+    adds ``exp(-1e30 - m) = 0`` to a row that has seen a score, and a
+    row's junk from a masked first tile is wiped by its first score, as in
+    the kernel)."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = h // hkv
+    bk = kv_tile(q.dtype, d)
     dev = q.device
     qg = q.float().reshape(b, hkv, g, sq, d)
     q_pos = torch.arange(sq, device=dev).view(sq, 1)
@@ -57,9 +70,9 @@ def _flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros_like(m)
     acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
     with ieee_fp32():
-        for k0 in range(0, skv, BLOCK_KV):
-            kb = k[:, :, None, k0:k0 + BLOCK_KV].float()
-            vb = v[:, :, None, k0:k0 + BLOCK_KV].float()
+        for k0 in range(0, skv, bk):
+            kb = k[:, :, None, k0:k0 + bk].float()
+            vb = v[:, :, None, k0:k0 + bk].float()
             s = (qg @ kb.transpose(-1, -2)) * scale
             if softcap > 0:
                 s = softcap * torch.tanh(s / softcap)
@@ -88,7 +101,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, H, Sq, D); k, v (B, Hkv, Skv, D); H % Hkv == 0; any Sq and
     Skv.  Returns (B, H, Sq, D) in q's dtype.  ``block_q`` and
     ``block_kv`` are the JAX signature's and are ignored: the kernel tiles
-    64 x 64 and masks the ragged edges itself."""
+    by :func:`q_tile` and :func:`kv_tile` and masks the ragged edges
+    itself."""
     _launch.refuse_grad("flash_attention", q, k, v)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _launch.check_dtype("flash_attention", name, x.dtype)

@@ -288,13 +288,13 @@ def flash_mha(q, k, v, *, causal=True, window=0, softcap=0.0, block_q=512,
               block_kv=512, device=None):
     """Flash attention with the (B, S, H, D) layout and any sequence
     lengths, via the flash-attention kernel (``kernels/flash_attention.py``),
-    which tiles 64 x 64 and masks the ragged edges itself, so nothing is
-    padded for it.  ``block_q`` changes nothing; ``block_kv`` (clamped to
-    Skv, at least 16) only decides what the JAX package's zero-padding of
-    kv to a block multiple changes: its padded kv columns lie past every
-    real query of a causal call with Sq <= Skv, but the rows past Skv see
-    them, so kv is padded there as in the JAX package; non-causal
-    attention with ragged kv is refused, as there."""
+    which tiles by ``q_tile`` and ``kv_tile`` and masks the ragged edges
+    itself, so nothing is padded for it.  ``block_q`` changes nothing;
+    ``block_kv`` (clamped to Skv, at least 16) only decides what the JAX
+    package's zero-padding of kv to a block multiple changes: its padded
+    kv columns lie past every real query of a causal call with Sq <= Skv,
+    but the rows past Skv see them, so kv is padded there as in the JAX
+    package; non-causal attention with ragged kv is refused, as there."""
     q, k, v = (_place(x, device) for x in (q, k, v))
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"flash_mha takes (B, S, H, D) q, k and v, got "

@@ -9,7 +9,7 @@ is held against this plain version on the card by ``chip_smoke.py``.
 Tolerances are the JAX suite's own (``rtol = atol``): 2e-5 in fp32,
 2e-2 in bf16, where ``p`` is rounded to bf16 before ``P V`` at blocks
 that differ between the two (the port's online softmax follows the CUDA
-kernel's kv tiles of 64).
+kernel's kv tiles: 64 in fp32, 128 in bf16, 64 at bf16 head_dim 256).
 """
 import importlib
 
@@ -115,6 +115,53 @@ def test_flash_mha_window_softcap_head_dim_256():
     _close(got, want, "float32")
 
 
+@pytest.mark.parametrize("b,sq,skv,h,hkv,kw", [
+    (1, 64, 64, 4, 4, {}),                              # causal
+    (2, 64, 64, 8, 2, {}),                              # GQA 4:1
+    (1, 72, 96, 4, 2, {}),                              # ragged Sq, Skv > Sq
+    (1, 80, 80, 4, 2, {"window": 24, "softcap": 30.0}),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_mha_head_dim_80_matches_jax(b, sq, skv, h, hkv, kw, dtype):
+    """head_dim 80 (zamba2-2.7b's), which the bf16 kernel runs as 128 with
+    zero columns past 80 and the fp32 kernel as itself."""
+    got, want = _both(_mk(b, sq, skv, h, hkv, 80, seed=11), dtype,
+                      causal=True, block_q=32, block_kv=32, **kw)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d", p_fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_at_each_kernel_tile_matches_ref(d, dtype):
+    """The plain version, whose online softmax follows the kernel's kv
+    tile for its dtype and head_dim, over more than one tile and a ragged
+    edge (Sq one tile and a half, Skv two and a half, a window reaching
+    back past a tile), against the JAX package's oracle on the same
+    (rounded) inputs."""
+    td = getattr(torch, dtype)
+    bk = p_fa.kv_tile(td, d)
+    q, k, v = (torch.from_numpy(x.transpose(0, 2, 1, 3).copy()).to(td)
+               for x in _mk(1, bk + bk // 2, 2 * bk + bk // 2, 4, 2, d,
+                            seed=d))
+    kw = dict(causal=True, window=bk + 8, softcap=0.0)
+    got = p_fa.flash_attention(q, k, v, **kw)
+    want = np.asarray(jax_ref(*(jnp.asarray(x.float().numpy())
+                                for x in (q, k, v)), **kw))
+    assert got.dtype == td
+    _close(got.float().numpy(), want, dtype)
+
+
+def test_kernel_tiles():
+    """The kernel's tiles, which the plain version and the planted faults
+    of the card's checks follow: bf16 q tiles of 128 rows and kv tiles of
+    128 (64 at head_dim 256), fp32 tiles of 64."""
+    assert [p_fa.kv_tile(torch.bfloat16, d) for d in p_fa.HEAD_DIMS] == \
+        [128, 128, 128, 128, 128, 64]
+    assert {p_fa.kv_tile(torch.float32, d) for d in p_fa.HEAD_DIMS} == {64}
+    assert (p_fa.q_tile(torch.bfloat16), p_fa.q_tile(torch.float32)) == \
+        (128, 64)
+
+
 @pytest.mark.parametrize("causal,window,softcap",
                          [(True, 0, 0.0), (True, 24, 0.0), (False, 0, 50.0)])
 def test_flash_attention_ref_matches_jax(causal, window, softcap):
@@ -129,7 +176,7 @@ def test_flash_attention_ref_matches_jax(causal, window, softcap):
 @pytest.mark.parametrize("window", [0, 40])
 def test_plain_version_matches_ref_at_kernel_level(window):
     """``flash_attention`` on (B, H, S, D), Skv > Sq and neither a
-    multiple of the kernel's tiles of 64, against the plain oracle."""
+    multiple of the kernel's fp32 tiles of 64, against the plain oracle."""
     q, k, v = (torch.from_numpy(x.transpose(0, 2, 1, 3).copy())
                for x in _mk(1, 96, 160, 4, 2, 16, seed=5))
     got = p_fa.flash_attention(q, k, v, window=window, block_q=32,
@@ -150,10 +197,10 @@ def test_non_causal_ragged_kv_raises_as_in_jax():
 
 @pytest.mark.parametrize("d", [8, 48, 96, 512])
 def test_unsupported_head_dim_is_refused(d):
-    """The kernel is instantiated for head_dim 16, 32, 64, 128 and 256;
-    any other size is refused on every device, before anything runs (the
-    JAX package's interpret mode takes any size, its TPU kernel a
-    lane-aligned one)."""
+    """The kernel takes head_dim 16, 32, 64, 80, 128 and 256; any other
+    size is refused on every device, before anything runs (the JAX
+    package's interpret mode takes any size, its TPU kernel a lane-aligned
+    one)."""
     qkv = _mk(1, 16, 16, 2, 2, d)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_mha(*(torch.from_numpy(x) for x in qkv), device="cpu")
@@ -174,7 +221,8 @@ def test_flash_mha_rows_past_ragged_kv_as_in_jax(sq, skv, block_kv, window):
 
 
 def test_wrapper_takes_any_lengths_and_ignores_blocks():
-    """The kernel tiles 64 x 64 and masks the ragged edges itself:
+    """The kernel tiles by ``q_tile`` and ``kv_tile`` and masks the ragged
+    edges itself:
     ``block_q`` and ``block_kv`` are the JAX signature's and change
     nothing, and Sq and Skv need not be multiples of them."""
     q, k, v = (torch.from_numpy(x.transpose(0, 2, 1, 3).copy())
