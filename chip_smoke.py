@@ -14,22 +14,26 @@ failure exits non-zero):
    time, and the registers and spills of every flash-attention
    instantiation;
 3. the leaf program's kernels against their plain torch versions on
-   the card (``leaf_program.cu`` for the gram kinds, ``leaf_products.cu``
-   for symm and matmul), one sub-phase per program kind, each over its
-   sweep at ragged shapes (tiles of 64), with bf16 operands, a bf16
-   output and a tile-aligned 1024^2 at 128: kernel vs plain <= 1e-5 of
-   max|out| (fp32 sums in another order; 2^-8 for a bf16 output), kernel
-   vs float64 <= 1e-4 (the JAX suite's bar for the deeper algebras), ring
-   depths 2-4 bit-equal to depth 1, every block tile of leaf_products
-   that divides the output tiles bit-equal to the default, and a depth
-   whose shared memory would exceed 227 KB refused:
+   the card (``leaf_products.cu`` for symm, matmul and the gram kinds of
+   the strassen gram, against ``_leaf_products_plain``;
+   ``leaf_program.cu`` for the dps gram, whose programs have transposed
+   destinations, against ``_leaf_program_plain``), one sub-phase per
+   program kind, each over its sweep at ragged shapes (tiles of 64), with
+   bf16 operands, a bf16 output and a tile-aligned 1024^2 at 128, each
+   launch counted on the library it should run: kernel vs plain <= 1e-5
+   of max|out| (fp32 sums in another order; 2^-8 for a bf16 output),
+   kernel vs float64 <= 1e-4 (the JAX suite's bar for the deeper
+   algebras), ring depths 2-4 bit-equal to depth 1, every block tile of
+   leaf_products that divides the output tiles bit-equal to the default,
+   and a depth whose shared memory would exceed 227 KB refused:
    3. ata, tril(A^t A), algebra x gram x levels 0-3 at 1000x777;
    3b. symm, X @ Sym and X @ (S + S^t) from a packed stack, algebra x
        levels 0-3 x diag_sym at X 1000x777 against a 16-tile stack;
    3c. aat, tril(A A^t), algebra x gram x levels 0-3 at 1000x777;
    3d. rank_k, C + tril(A^t A) seeded from a packed 16-tile stack,
-       algebra x gram x levels 0-3 at a 1000x777 chunk, and the update
-       written over its own seed;
+       algebra x gram x levels 0-3 at a 1000x777 chunk, a bf16 stack
+       under an fp32 output and the reverse, and the update written over
+       its own seed on each library;
    3e. matmul, op(A) op(B), levels 0-3 x the four (trans_a, trans_b)
        cases x {strassen, winograd, classical, bb322, bb422} at
        1000x777 @ 777x555;
@@ -58,11 +62,13 @@ failure exits non-zero):
        and an operand that requires grad refused;
 4. the main paths at n x n fp32 from ``--seed`` (the paper's n = 10000),
    each with the launch counts zeroed just before it and read just
-   after, checked against float64 on the card (<= 1e-4 of max|out|;
-   outputs stored in bf16 <= 2^-8), then each kernel configuration the
-   path ran held against the plain version on the same operands
-   (<= 1e-5):
-   4. ``ata(a)``, ``ata_full(a, levels="auto")``, ``ata(bf16 a)``;
+   after, by kind and by library, checked against float64 on the card
+   (<= 1e-4 of max|out|; outputs stored in bf16 <= 2^-8), then each
+   kernel configuration the path ran held against the plain version on
+   the same operands (<= 1e-5):
+   4. ``ata(a)``, ``ata_full(a, levels="auto")``, ``ata(bf16 a)`` (on
+      ``leaf_products.cu``) and ``ata(a, gram="dps")`` (on
+      ``leaf_program.cu``);
    4b. their backward, ``torch.autograd.grad`` through ``ata``,
        ``ata_full``, ``ata(bf16 a)`` and ``ops.ata_fused_packed``, dA
        against float64 ``A (S + S^t)``, and the peak memory of one
@@ -116,10 +122,11 @@ failure exits non-zero):
    (each leaf product once, or classical, whichever is less) at the fp32
    CUDA-core peak against its inputs and outputs once at HBM rate.  The
    kernels' own flops are printed beside the bounds and kept out of
-   them: the live-step flops of the gram kinds, which include the
-   per-destination recomputation, and each leaf product once for symm
-   and matmul, which are also timed at both block tiles with their
-   blocks, blocks an SM and waves on the 132 SMs.
+   them: each leaf product once (``product_flops``) for the kinds on
+   ``leaf_products.cu``, which are also timed at both block tiles with
+   their positions, blocks an SM and waves on the 132 SMs, and the
+   live-step flops, with the per-destination recomputation, for the dps
+   gram on ``leaf_program.cu``.
    The syrk, matmul, combine and transpose kernels are timed on the
    padded operands of the main path's ``ops`` calls, with ``ata`` and
    ``strassen_matmul`` end to end on kernel leaves beside their
@@ -158,12 +165,12 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-# the leaf program's kinds: the gram kinds run leaf_program.cu, symm and
-# matmul leaf_products.cu
-SOURCES = dict.fromkeys(("ata", "aat", "rank_k"),
-                        "src/repro_torch/kernels/csrc/leaf_program.cu") | \
-    dict.fromkeys(("symm", "matmul"),
-                  "src/repro_torch/kernels/csrc/leaf_products.cu")
+# the leaf program's libraries: leaf_products.cu runs every kind on the
+# main path (the gram kinds of the strassen gram among them),
+# leaf_program.cu the gram programs with transposed destinations (the dps
+# gram)
+PRODUCTS_SOURCE = "src/repro_torch/kernels/csrc/leaf_products.cu"
+PROGRAM_SOURCE = "src/repro_torch/kernels/csrc/leaf_program.cu"
 REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
             "src/repro/kernels/strassen_fused.py:533 (_pipelined_kernel), "
             "{} kind")
@@ -430,19 +437,26 @@ def main() -> int:
                       for d in k_flash.HEAD_DIMS))
 
     def plain(spec, left, right, out_dtype, seed=None):
-        return sf._leaf_program_plain(spec, sf._spec_tables(spec, left.device),
-                                      left, right, out_dtype, seed)
+        """The plain version of the kernel ``spec`` launches."""
+        return sf._plain(spec, left, right, out_dtype, seed)
+
+    def library(spec):
+        """The library ``spec`` runs on."""
+        return "leaf_products.cu" if sf._walks_ops(spec) \
+            else "leaf_program.cu"
 
     def reset_counts():
-        for counts in (sf.KERNEL_LAUNCHES, _launch.KERNEL_LAUNCHES):
+        for counts in (sf.KERNEL_LAUNCHES, sf.LIBRARY_LAUNCHES,
+                       _launch.KERNEL_LAUNCHES):
             for key in counts:
                 counts[key] = 0
 
     def read_counts(label):
         torch.cuda.synchronize()
         counts = {**sf.KERNEL_LAUNCHES, **_launch.KERNEL_LAUNCHES}
-        print(f"launches on {label}: {counts}")
-        return counts
+        by_library = {k: v for k, v in sf.LIBRARY_LAUNCHES.items() if v}
+        print(f"launches on {label}: {counts}; by library: {by_library}")
+        return counts | sf.LIBRARY_LAUNCHES
 
     refused = dict.fromkeys(("ata", "symm", "aat", "rank_k", "matmul"), 0)
 
@@ -462,40 +476,47 @@ def main() -> int:
             torch.cuda.synchronize()
             assert torch.equal(kd, k1), (label, depth)
 
-    def tiles_bit_equal(spec, left, right, out_dtype, k1, label):
+    def tiles_bit_equal(spec, left, right, out_dtype, k1, label, seed=None):
         """leaf_products: every block tile that divides the output tiles
         and fits gives the default tile's bits."""
-        if spec.kind not in ("symm", "matmul"):
+        if not sf._walks_ops(spec):
             return
         for tile in sf.PRODUCT_TILES:
             if spec.bi % tile or spec.bj % tile or sf.smem_bytes(
                     spec, left.element_size(), right.element_size(),
                     tile) > sf.SMEM_LIMIT_BYTES:
                 continue
-            kt = sf.leaf_program(spec, left, right, out_dtype, tile=tile)
+            kt = sf.leaf_program(spec, left, right, out_dtype, seed=seed,
+                                 tile=tile)
             torch.cuda.synchronize()
             assert torch.equal(kt, k1), (label, tile)
             tiles_checked[tile] += 1
 
     tiles_checked = dict.fromkeys(sf.PRODUCT_TILES, 0)
+    checked = {}            # launches held against plain, by library
 
     def check(spec, left, right, out_dtype, to_dense, want, label,
               seed=None):
-        """One counted launch against its plain version and float64, and
-        the ring depths against it."""
+        """One counted launch, on the library the spec's gram calls for,
+        against its plain version and float64, and the ring depths and
+        block tiles against it."""
         key = f"leaf_program/{spec.kind}"
-        before = sf.KERNEL_LAUNCHES[key]
+        lib_key = f"{library(spec)}/{spec.kind}"
+        before = sf.KERNEL_LAUNCHES[key], sf.LIBRARY_LAUNCHES[lib_key]
         k1 = sf.leaf_program(spec, left, right, out_dtype, seed=seed)
-        assert sf.KERNEL_LAUNCHES[key] == before + 1
+        assert (sf.KERNEL_LAUNCHES[key], sf.LIBRARY_LAUNCHES[lib_key]) == \
+            (before[0] + 1, before[1] + 1), (label, lib_key)
+        checked[lib_key] = checked.get(lib_key, 0) + 1
         depths_bit_equal(spec, left, right, out_dtype, k1, label, seed)
-        tiles_bit_equal(spec, left, right, out_dtype, k1, label)
+        tiles_bit_equal(spec, left, right, out_dtype, k1, label, seed)
         ref = plain(spec, left, right, f32, seed)
         e_plain = _rel(k1, ref.double())
         e64 = _rel(to_dense(k1), want)
         bar = 1e-5 if out_dtype == f32 else 2.0 ** -8
         print(f"  {label} {tuple(left.shape)} {left.dtype} x "
               f"{tuple(right.shape)} {right.dtype} -> {out_dtype} L"
-              f"{spec.levels} tmax={spec.tmax} n_c={spec.n_c}: vs plain "
+              f"{spec.levels} tmax={spec.tmax} n_c={spec.n_c} on "
+              f"{library(spec)}: vs plain "
               f"{e_plain:.2e} (<= {bar:.0e}), vs float64 {e64:.2e}")
         assert e_plain <= bar, (label, e_plain)
         assert e64 <= max(1e-4, bar), (label, e64)
@@ -509,7 +530,8 @@ def main() -> int:
         err = float((got - ref).abs().max())
         rel = _rel(got, ref.double())
         print(f"  {label}: {spec.kind} L{spec.levels} {tuple(left.shape)} "
-              f"{left.dtype} x {tuple(right.shape)} {right.dtype}, depth "
+              f"{left.dtype} x {tuple(right.shape)} {right.dtype} on "
+              f"{library(spec)}, depth "
               f"{spec.pipeline_depth} tmax={spec.tmax} n_c={spec.n_c} "
               f"n_k={spec.n_k}: kernel vs plain max|d| {err:.3e}, relative "
               f"{rel:.3e} (<= 1e-5)")
@@ -617,14 +639,24 @@ def main() -> int:
     check_rank_k(a.to(bf16), 16, 64, 2, "strassen", "strassen", 64)
     check_rank_k(a, 16, 64, 2, "strassen", "dps", 64, out_dtype=bf16,
                  stack_dtype=bf16)
-    spec, xp, stack, k1 = check_rank_k(randn(1024, 1024), 8, 128, 2,
-                                       "strassen", "strassen", 128)
-    # the donated update: the kernel writes over its own seed
-    inplace = stack.clone()
-    sf.leaf_program(spec, xp, xp, f32, seed=inplace, out=inplace)
-    torch.cuda.synchronize()
-    assert torch.equal(inplace, k1)
-    print("  the update written over its own seed equals the fresh one")
+    # the seed's dtype apart from the output's
+    check_rank_k(a, 16, 64, 2, "strassen", "strassen", 64, stack_dtype=bf16)
+    check_rank_k(a, 16, 64, 2, "strassen", "strassen", 64, out_dtype=bf16)
+    check_rank_k(a, 16, 64, 2, "strassen", "strassen", 64, out_dtype=bf16,
+                 stack_dtype=bf16)
+    # the donated update: the kernel writes over its own seed, on each
+    # library, and in bf16
+    for x, T, bn, gram, dt in ((randn(1024, 1024), 8, 128, "strassen", f32),
+                               (a, 16, 64, "dps", f32),
+                               (a, 16, 64, "strassen", bf16)):
+        spec, xp, stack, k1 = check_rank_k(x, T, bn, 2, "strassen", gram, bn,
+                                           out_dtype=dt, stack_dtype=dt)
+        inplace = stack.clone()
+        sf.leaf_program(spec, xp, xp, dt, seed=inplace, out=inplace)
+        torch.cuda.synchronize()
+        assert torch.equal(inplace, k1), (gram, dt)
+        print(f"  the update written over its own seed on "
+              f"{library(spec)} ({dt}) equals the fresh one")
 
     print("== 3e. leaf_program (matmul kind) against its plain version")
 
@@ -660,6 +692,12 @@ def main() -> int:
     print(f"leaf_products block tiles bit-equal to the default, launches per "
           f"tile: {tiles_checked}")
     assert all(tiles_checked.values()), tiles_checked
+    print(f"launches held against their plain version, by library: "
+          f"{checked}")
+    assert all(checked.get(f"leaf_products.cu/{k}") for k in
+               ("ata", "symm", "aat", "rank_k", "matmul")), checked
+    assert all(checked.get(f"leaf_program.cu/{k}") for k in
+               ("ata", "aat", "rank_k")), checked
 
     # -- 3f-3i. the single-purpose kernels ------------------------------------
     def counted_launch(name, fn):
@@ -874,30 +912,37 @@ def main() -> int:
     n = args.n
     depth = sf._resolve_pipeline_depth(None, dev)
     auto = min(ata_levels_for(n, n, DEFAULT_LEAF), AUTO_MAX_LEVELS)
-    print(f"== 4. main path: ata / ata_full at {n} x {n}")
+    print(f"== 4. main path: ata / ata_full at {n} x {n}, and ata with the "
+          f"dps gram")
     a = randn(n, n)
     ab = a.to(bf16)
     reset_counts()
     c = ata(a)
     full = ata_full(a, levels="auto")
     cb = ata(ab)
+    cd = ata(a, gram="dps")
     launches = read_counts("the main path")
-    assert launches[ATA] >= 3, launches
-    for out in (c, full, cb):
+    assert launches[ATA] >= 4, launches
+    # the strassen gram on leaf_products.cu, the dps gram on leaf_program.cu
+    assert launches["leaf_products.cu/ata"] >= 3, launches
+    assert launches["leaf_program.cu/ata"] >= 1, launches
+    for out in (c, full, cb, cd):
         assert out.shape == (n, n) and out.dtype == f32
         assert bool(torch.isfinite(out).all())
     a64 = a.double()
     want = a64.T @ a64
     e_c = _rel(c, torch.tril(want))
     e_full = _rel(full, want)
+    e_d = _rel(cd, torch.tril(want))
     del want
     ab64 = ab.double()
     e_b = _rel(cb, torch.tril(ab64.T @ ab64))
-    del ab64, a64, full, cb, c
+    del ab64, a64, full, cb, c, cd
     print(f"ata(a) L2 vs float64: {e_c:.3e}; ata_full(a, levels='auto') vs "
-          f"float64: {e_full:.3e}; ata(bf16 a) vs float64: {e_b:.3e} "
-          f"(each <= 1e-4 of max|C|)")
-    assert max(e_c, e_full, e_b) <= 1e-4
+          f"float64: {e_full:.3e}; ata(bf16 a) vs float64: {e_b:.3e}; "
+          f"ata(a, gram='dps') vs float64: {e_d:.3e} (each <= 1e-4 of "
+          f"max|C|)")
+    assert max(e_c, e_full, e_b, e_d) <= 1e-4
 
     # The main path's kernel configurations, each held against the plain
     # version on the same padded operand.  These launches come after the
@@ -911,6 +956,11 @@ def main() -> int:
                                    pipeline_depth=depth)
         max_abs_err = max(max_abs_err, main_vs_plain(label, spec, ap, ap))
         del ap
+    spec, ap = sf._prepare_ata(a, DEFAULT_LEVELS, "strassen", "dps",
+                               DEFAULT_BLOCK, DEFAULT_BLOCK,
+                               pipeline_depth=depth)
+    dps_err = main_vs_plain("ata(a, gram='dps')", spec, ap, ap)
+    del ap
 
     # -- 4b. the main path's backward --------------------------------------------
     print(f"== 4b. main path backward: dA of ata / ata_full / ata(bf16) / "
@@ -1010,6 +1060,8 @@ def main() -> int:
     rb = ata(ab, gram_of="rows")
     aat_launches = read_counts("the row-gram path")
     assert aat_launches[AAT] >= 3, aat_launches
+    assert aat_launches["leaf_products.cu/aat"] == aat_launches[AAT], \
+        aat_launches
     errs = []
     for out, x in ((r, a), (rw, aw), (rb, ab)):
         assert out.shape == (n, n) and out.dtype == f32
@@ -1046,6 +1098,8 @@ def main() -> int:
         stack = ops.rank_k_update(stack, a[i * rows:(i + 1) * rows])
     rk_launches = read_counts("the streamed update")
     assert rk_launches[RANK_K] >= chunks, rk_launches
+    assert rk_launches["leaf_products.cu/rank_k"] == rk_launches[RANK_K], \
+        rk_launches
     assert bool(torch.isfinite(stack).all())
     one = ops.ata_fused_packed(a)
     e_one = _rel(stack, one.double())
@@ -1504,7 +1558,10 @@ def main() -> int:
                                                       seed=seed))
         plain_ms, _ = _time_ms(lambda: plain(spec, left, right, f32, seed),
                                reps=1, warmup=0)
-        print(f"{spec.kind} kind L{spec.levels} {tuple(left.shape)} x "
+        gram = f" ({spec.gram} gram)" if spec.kind in ("ata", "aat",
+                                                        "rank_k") else ""
+        print(f"{spec.kind} kind{gram} on {library(spec)} "
+              f"L{spec.levels} {tuple(left.shape)} x "
               f"{tuple(right.shape)} depth {spec.pipeline_depth}: {ms:.3f} ms "
               f"(runs {runs}); depth 1: {ms1:.3f} ms (runs {runs1}); plain "
               f"executor, once: {plain_ms:.3f} ms")
@@ -1524,7 +1581,7 @@ def main() -> int:
             "operations" if ops_ms >= bytes_ms else "bytes"
 
     def bound(kind, flops_leaf, flops_classical, io_bytes, spec):
-        if kind in ("symm", "matmul"):
+        if sf._walks_ops(spec):
             own = sf.product_flops(spec)
             what = "the kernel's own flops (each leaf product once)"
         else:
@@ -1537,15 +1594,15 @@ def main() -> int:
               f"{own / PEAK_FP32_FLOPS * 1e3:.3f} ms")
         return roofline(kind, min(flops_leaf, flops_classical), io_bytes)
 
-    def tiles(spec, left, right):
+    def tiles(spec, left, right, seed=None):
         """leaf_products at each block tile: its time, blocks, blocks an SM
         holds at once and waves on the card's SMs."""
         out = {}
         for tile in sf.PRODUCT_TILES:
             shape = sf.products_launch_shape(spec, left.dtype, right.dtype,
                                              tile)
-            ms, runs = _time_ms(lambda: sf.leaf_program(spec, left, right,
-                                                        f32, tile=tile))
+            ms, runs = _time_ms(lambda: sf.leaf_program(
+                spec, left, right, f32, seed=seed, tile=tile))
             waves = shape["positions"] / (SMS * shape["blocks_per_sm"])
             print(f"  {spec.kind} tile {tile}: {ms:.3f} ms (runs {runs}); "
                   f"{shape['positions']} positions, {waves:.2f} waves at "
@@ -1564,10 +1621,13 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, **extra, "card": smi}
 
-    def entry(kind, *args, **extra):
-        return kernel_entry("leaf_program", SOURCES[kind],
-                            REPLACES.format(kind),
-                            *args, kind=kind, **extra)
+    def entry(spec, *args, **extra):
+        return kernel_entry(
+            "leaf_program",
+            PRODUCTS_SOURCE if sf._walks_ops(spec) else PROGRAM_SOURCE,
+            REPLACES.format(spec.kind), *args, kind=spec.kind,
+            **({"gram": spec.gram} if spec.kind in ("ata", "aat", "rank_k")
+               else {}), **extra)
 
     kernels = []
 
@@ -1576,20 +1636,40 @@ def main() -> int:
                                DEFAULT_BLOCK, DEFAULT_BLOCK,
                                pipeline_depth=depth)
     ms, ms1, plain_ms = time_kind(spec, ap, ap)
+    ata_tiles = tiles(spec, ap, ap)
     lib_ms, lib_runs = _time_ms(lambda: torch.tril(a.T @ a))
     e2e_ms, e2e_runs = _time_ms(lambda: ata(a))
     print(f"torch.tril(a.T @ a) fp32: {lib_ms:.3f} ms (runs {lib_runs}); "
           f"ata(a) end to end (pad, kernel, unpack to dense): {e2e_ms:.3f} "
           f"ms (runs {e2e_runs})")
     prog = compile_program("ata", spec.levels, spec.variant, gram=spec.gram)
-    bound_ms, bound_by = bound(
-        "ata", 2 * prog.mult_count(spec.n_k * spec.bc, spec.q_i * spec.bi),
-        n * n * (n + 1),
-        ap.numel() * ap.element_size() + spec.n_out * spec.bi * spec.bj * 4,
-        spec)
-    kernels.append(entry("ata", launches[ATA], max_abs_err, ms, plain_ms,
-                         bound_ms, bound_by, lib_ms, ms_depth1=ms1,
-                         ata_e2e_ms=e2e_ms, shape=[n, n]))
+    ata_least = 2 * prog.mult_count(spec.n_k * spec.bc, spec.q_i * spec.bi)
+    ata_io = (ap.numel() * ap.element_size()
+              + spec.n_out * spec.bi * spec.bj * 4)
+    bound_ms, bound_by = bound("ata", ata_least, n * n * (n + 1), ata_io,
+                               spec)
+    kernels.append(entry(spec, launches["leaf_products.cu/ata"],
+                         max_abs_err, ms, plain_ms, bound_ms, bound_by,
+                         lib_ms, ms_depth1=ms1, ata_e2e_ms=e2e_ms,
+                         product_flops=sf.product_flops(spec),
+                         tiles=ata_tiles, shape=[n, n]))
+    del ap
+    # the dps gram's ata, whose transposed destinations run
+    # leaf_program.cu: its own row, against the same function's bound
+    spec, ap = sf._prepare_ata(a, DEFAULT_LEVELS, "strassen", "dps",
+                               DEFAULT_BLOCK, DEFAULT_BLOCK,
+                               pipeline_depth=depth)
+    ms, ms1, plain_ms = time_kind(spec, ap, ap)
+    e2e_ms, e2e_runs = _time_ms(lambda: ata(a, gram="dps"))
+    print(f"ata(a, gram='dps') end to end: {e2e_ms:.3f} ms (runs "
+          f"{e2e_runs})")
+    bound_ms, bound_by = bound("ata (dps gram)", ata_least, n * n * (n + 1),
+                               ata_io, spec)
+    kernels.append(entry(spec, launches["leaf_program.cu/ata"], dps_err, ms,
+                         plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
+                         e2e_ms=e2e_ms,
+                         live_step_flops=sf.live_steps(spec) * 2 * spec.bi
+                         * spec.bj * spec.bc, shape=[n, n]))
     del ap
 
     # symm at the main path's backward: dA = A (S + S^t), levels 2
@@ -1620,7 +1700,7 @@ def main() -> int:
         xp.numel() * xp.element_size() + sp.numel() * sp.element_size()
         + M * N * 4, sspec)
     print(f"symm configurations checked on the backward: {symm_cfgs}")
-    kernels.append(entry("symm", bwd_launches[SYMM], symm_err, ms, plain_ms,
+    kernels.append(entry(sspec, bwd_launches[SYMM], symm_err, ms, plain_ms,
                          bound_ms, bound_by, lib_ms, ms_depth1=ms1,
                          bwd_e2e_ms=bwd_ms, peak_bwd_bytes=peaks,
                          product_flops=sf.product_flops(sspec),
@@ -1632,6 +1712,7 @@ def main() -> int:
                                DEFAULT_BLOCK, DEFAULT_BLOCK,
                                pipeline_depth=depth)
     ms, ms1, plain_ms = time_kind(spec, ap, ap)
+    aat_tiles = tiles(spec, ap, ap)
     lib_ms, lib_runs = _time_ms(lambda: torch.tril(a @ a.T))
     e2e_ms, e2e_runs = _time_ms(lambda: ata(a, gram_of="rows"))
     print(f"torch.tril(a @ a.T) fp32: {lib_ms:.3f} ms (runs {lib_runs}); "
@@ -1643,13 +1724,15 @@ def main() -> int:
         n * (n + 1) * n,
         ap.numel() * ap.element_size() + spec.n_out * spec.bi * spec.bj * 4,
         spec)
-    kernels.append(entry("aat", aat_launches[AAT], aat_err, ms, plain_ms,
+    kernels.append(entry(spec, aat_launches[AAT], aat_err, ms, plain_ms,
                          bound_ms, bound_by, lib_ms, ms_depth1=ms1,
-                         e2e_ms=e2e_ms, shape=[n, n]))
+                         e2e_ms=e2e_ms, product_flops=sf.product_flops(spec),
+                         tiles=aat_tiles, shape=[n, n]))
     del ap
 
     # rank_k: one chunk of the streamed update into the T-tile stack
     ms, ms1, plain_ms = time_kind(rk_spec, rk_x, rk_x, seed=stack)
+    rk_tiles = tiles(rk_spec, rk_x, rk_x, seed=stack)
     chunk_pad = n_pad - n
 
     def library_rank_k():
@@ -1668,9 +1751,10 @@ def main() -> int:
                             rk_spec.q_i * rk_spec.bi),
         rows * n * (n + 1),
         rk_x.numel() * rk_x.element_size() + 2 * stack_bytes, rk_spec)
-    kernels.append(entry("rank_k", rk_launches[RANK_K], rank_k_err, ms,
+    kernels.append(entry(rk_spec, rk_launches[RANK_K], rank_k_err, ms,
                          plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
-                         shape=[rows, n], stack_tiles=T))
+                         product_flops=sf.product_flops(rk_spec),
+                         tiles=rk_tiles, shape=[rows, n], stack_tiles=T))
     del rk_x, stack
 
     # matmul at the main path: a @ b and a^t @ b, levels 2
@@ -1700,7 +1784,7 @@ def main() -> int:
                             K // prog.blocks_k),
         2 * n * n * n,
         (ap.numel() + bp.numel()) * ap.element_size() + M * N * 4, spec)
-    kernels.append(entry("matmul", mm_launches[MATMUL], matmul_err, ms,
+    kernels.append(entry(spec, mm_launches[MATMUL], matmul_err, ms,
                          plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
                          ms_trans_a=t_ms, library_ms_trans_a=t_lib_ms,
                          trans_a_e2e_ms=e2e_ms,

@@ -1,21 +1,25 @@
-// leaf_products.cu — the symm and matmul kinds of the fused leaf program, each leaf product
-// computed once.
+// leaf_products.cu — the fused leaf program, each leaf product computed once: the symm and
+// matmul kinds, and the gram kinds (ata, aat, rank_k) whose program has no transposed
+// destination (every gram but dps).
 //
-// Replaces, for the symm and matmul kinds, both TPU kernels of the JAX package:
+// Replaces, for those kinds, both TPU kernels of the JAX package:
 //   src/repro/kernels/strassen_fused.py:474 _leaf_kernel       (pipeline_depth 1)
 //   src/repro/kernels/strassen_fused.py:533 _pipelined_kernel  (pipeline_depth >= 2)
-// (the gram kinds, ata, aat and rank_k, stay on csrc/leaf_program.cu).  It computes what they
-// compute: every destination block D of the dense output is
-//   D = sum over the leaf ops o that feed D, in op order, of sign[o, D] * P_o,
+// (a gram program with transposed destinations, the dps gram's, runs csrc/leaf_program.cu).
+// It computes what they compute: every destination block D of the output is
+//   D = seed + sum over the leaf ops o that feed D, in op order, of sign[o, D] * P_o,
 //   P_o = sum over K blocks k of op_L(sum_p lsgn[o,p] L_p)_k op_R(sum_q rsgn[o,q] R_q)_k,
-// with the signed operand sums formed in fp32 after upcasting.  The TPU kernel walks output
-// tiles and recomputes P_o for every destination it feeds (144 products for 49 ops at
-// levels 2); this kernel walks the ops and computes each P_o once per output position.
+// with the signed operand sums formed in fp32 after upcasting, and the seed the incoming
+// packed stack of rank_k (0 otherwise).  The TPU kernel walks output tiles and recomputes P_o
+// for every destination it feeds (144 products for 49 ops at levels 2 for symm and matmul, 48
+// for 38 for the strassen gram); this kernel walks the ops and computes each P_o once per
+// output position.
 //
 // The tables are the host's op-indexed lowering of the leaf program
 // (strassen_fused._op_tables): per op its left terms (row, col, coef), right terms (row, col,
-// coef, mirror) and destinations (leaf index, sign, flags: the op is the first or the last
-// to feed that destination).  How each side lies in memory is a field of the launch:
+// coef, mirror), destinations (leaf index, sign, flags: the op is the first or the last to
+// feed that destination) and whether every destination is a diagonal leaf block of a packed
+// output.  How each side lies in memory is a field of the launch:
 //
 //   kind    left tile as stored          right tile as stored
 //   matmul  K x i if trans_a, else i x K  j x K if trans_b, else K x j
@@ -24,17 +28,32 @@
 //                                         coordinates, mirrored when the term says so or
 //                                         gr < gc; a diagonal tile under diag_sym is tile +
 //                                         tile^t
+//   ata     K x i (A, read A^t)           K x j (A)
+//   rank_k  K x i                         K x j, seeded by the incoming stack
+//   aat     i x K (A)                     j x K (A again, read A^t)
+//
+// The gram kinds write the packed lower-triangular tile stack (out_tri): position (iq, jq) of
+// leaf destination (di, dj) is global tile (gi, gj) = (di q + iq, dj q + jq), stored at rows
+// (gi (gi + 1) / 2 + gj) bi of the (n_out bi, bj) stack.  A position with iq < jq holds no tile
+// of a diagonal leaf block: it writes nothing there and skips every op whose destinations are
+// all diagonal (the 16 syrk ops of 38 at levels 2), and those light positions are launched
+// last.  A diagonal tile (iq == jq of a diagonal leaf block) is computed and stored whole, as
+// the TPU kernel stores it.  The rank_k seed is read where an op first feeds a destination,
+// by the thread that then writes that element, so the seed may be the output (the in-place
+// update of ops.rank_k_update(donate=True)).
 //
 // What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): the leaf products, each
 // computed once, on the fp32 CUDA cores.  At n = 10000 (padded 10240, levels 2, 49 products
-// of 2560^3) that is 1.644e12 flops, 24.540 ms at 67 TFLOP/s; the inputs and the output once
-// are 1.3 GB, 0.4 ms at 3.35 TB/s.  What the design does about it:
+// of 2560^3) that is 1.644e12 flops for symm and matmul, 24.540 ms at 67 TFLOP/s, and 3080
+// tile products of 256^2 x 2560, 1.0335e12 flops, for ata and aat; the inputs and the output
+// once are 0.4-1.3 GB, 0.1-0.4 ms at 3.35 TB/s.  What the design does about it:
 //   * a block owns one output position, (iq, jq) inside a leaf block plus a TILE x TILE
 //     sub-tile of that output tile, at every leaf destination; it runs each op's whole K range
 //     once and adds sign * P_o into each destination of the op.  Only this block touches
 //     those elements, so the read-modify-write in global memory needs no atomics and is
-//     deterministic; an op's first contribution to a destination stores, its last rounds
-//     into the output type (a bf16 output accumulates in an fp32 workspace until then);
+//     deterministic; an op's first contribution to a destination stores (onto the seed, if
+//     any), its last rounds into the output type (a bf16 output accumulates in an fp32
+//     workspace until then);
 //   * the sum phase costs KC x TILE elements a term, the product KC x TILE^2 FMAs, so a
 //     larger TILE amortises it: TILE is a template parameter, 64 (4 x 4 outputs a thread) or
 //     128 (8 x 8 a thread), 256 threads either way;
@@ -47,13 +66,14 @@
 //     first while warps 4-7 multiply first, so the FMAs of one warp issue while its neighbour
 //     on the same scheduler waits on shared memory;
 //   * null terms (coefficient 0) fetch nothing; no register cap, so nothing spills.
-// Tensor cores (3xTF32, wgmma) are later work: no TF32 on this fp32 path.
+// The packed output, the seed and the skipped ops are fields of the launch, not template
+// parameters.  Tensor cores (3xTF32, wgmma) are later work: no TF32 on this fp32 path.
 //
 // Arithmetic, the same at every STAGES and every TILE: each element's signed sum runs in term
 // order as sum = sum + coef * x (no FMA contraction), and depth past the K block sums to 0;
 // the product of a K block accumulates by fmaf over its depth into one fp32 part, added into
 // P_o once per K block (the TPU kernel's one dot per grid step); then D = D + sign * P_o,
-// each rounded.
+// each rounded, D starting from the seed or from the first contribution.
 //
 // Interface: plain C, loaded with ctypes.  The launcher returns cudaGetLastError() after the
 // launch.
@@ -113,6 +133,7 @@ struct StepTerms {
 struct Ops {
   float* ws;            // fp32 accumulator of the output (the output itself when it is fp32)
   void* out;
+  const void* seed;     // rank_k: the incoming packed stack (may be out); else null
   const int* lrow;      // [n_ops, tmax]
   const int* lcol;
   const float* lsgn;
@@ -123,6 +144,7 @@ struct Ops {
   const int* dest;      // [n_ops, max_dests]: leaf destination index
   const float* dsgn;    //   its sign (0: an empty slot)
   const int* dflag;     //   FIRST | LAST
+  const int* odiag;     // [n_ops]: every destination of the op is a diagonal leaf block
   int n_ops, tmax, max_dests, n_k;
   int q_i, q_j;         // output tiles per leaf block along i and j
   int blocks_j;         // leaf blocks of the output along j
@@ -130,9 +152,51 @@ struct Ops {
   int left_trans;       // left tiles stored K x i (else i x K)
   int right_jk;         // dense right tiles stored j x K (else K x j)
   int diag_sym;
+  int out_tri;          // the output is the packed lower-triangular tile stack
+  int seed_bf16;        // the seed's element type (else fp32)
   int out_bf16;         // the output's element type (else fp32)
   int n_big;            // blocks that walk a whole position; the rest walk quarters
 };
+
+// Packed lower-triangular index -> (i, j), i >= j, row-major; a root estimate with the
+// integer correction of syrk._tri_decode.
+__device__ __forceinline__ void tri_decode(long long t, int& i, int& j) {
+  long long r = static_cast<long long>((sqrt(8.0 * static_cast<double>(t) + 1.0) - 1.0) * 0.5);
+  if ((r + 1) * (r + 2) / 2 <= t) ++r;
+  if (r * (r + 1) / 2 > t) --r;
+  i = static_cast<int>(r);
+  j = static_cast<int>(t - r * (r + 1) / 2);
+}
+
+// The output tile (iq, jq) of a leaf block at cell c of a launch.  A dense output walks the
+// cells row-major.  A packed one walks the q (q + 1) / 2 cells with iq >= jq first, in packed
+// order, then the q (q - 1) / 2 others, (iq, jq) = (j, i + 1) for the packed (i, j) of q - 1
+// rows: the light cells, which skip the ops that feed only diagonal leaf blocks, fill the
+// last waves.
+__device__ __forceinline__ void cell_of(const Ops& P, int c, int& iq, int& jq) {
+  if (!P.out_tri) {
+    iq = c / P.q_j;
+    jq = c % P.q_j;
+    return;
+  }
+  const int heavy = P.q_i * (P.q_i + 1) / 2;
+  if (c < heavy) {
+    tri_decode(c, iq, jq);
+    return;
+  }
+  int i, j;
+  tri_decode(c - heavy, i, j);
+  iq = j;
+  jq = i + 1;
+}
+
+__device__ __forceinline__ float4 load4(const void* base, long long at, bool bf16) {
+  if (!bf16) return *reinterpret_cast<const float4*>(static_cast<const float*>(base) + at);
+  const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(base) + at);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
 
 // A tri-stored right term at K block k, as _tri_term_coords decides it: the stored tile
 // (max, min) of the conceptual coordinates (gr, gc), mirrored when the term is mirrored or
@@ -196,7 +260,17 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   const int tx = tid % 16, ty = tid / 16;
   const int lane = tid % 32, warp = tid / 32;
   const int n_kc = (P.bc + KC - 1) / KC;
-  const int n_steps = P.n_ops * P.n_k * n_kc;
+  // A light position (iq < jq of a packed output) holds no tile of a diagonal leaf block: it
+  // walks only the ops that feed another destination.
+  const bool light = P.out_tri && iq < jq;
+  auto live_op = [&](int o) {
+    while (light && o < P.n_ops && P.odiag[o]) ++o;
+    return o;
+  };
+  int n_live = 0;
+  for (int o = live_op(0); o < P.n_ops; o = live_op(o + 1)) ++n_live;
+  const int n_steps = n_live * P.n_k * n_kc;
+  if (n_steps == 0) return;
 
   // Warp 0 starts the copies of step t into ring slot `slot`, lane p the left term p and
   // lane MAX_TERMS + p the right term p: one TMA box a live term (two for a diagonal tri term
@@ -390,9 +464,10 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
     }
   };
 
-  const long long ldo = static_cast<long long>(P.blocks_j) * P.q_j * P.bj;
+  const long long ldo = P.out_tri ? P.bj : static_cast<long long>(P.blocks_j) * P.q_j * P.bj;
   // After step t: the end of a K block adds its part into the op's product; the end of an op
-  // adds sign * product into each of its destinations, in table order.
+  // adds sign * product into each of its destinations, in table order, onto the seed where it
+  // is the first to feed one.
   auto finish_step = [&](const Step& t) {
     if (t.c != n_kc - 1) return;
 #pragma unroll
@@ -408,8 +483,19 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
       if (sg == 0.f) break;  // an op's destinations come first
       const int ld = P.dest[t.o * P.max_dests + d];
       const int flag = P.dflag[t.o * P.max_dests + d];
-      const long long row0 = (static_cast<long long>(ld / P.blocks_j) * P.q_i + iq) * P.bi + i0;
-      const long long col0 = (static_cast<long long>(ld % P.blocks_j) * P.q_j + jq) * P.bj + j0;
+      long long row0, col0;
+      if (P.out_tri) {  // tile (gi, gj) of the packed stack
+        int di, dj;
+        tri_decode(ld, di, dj);
+        if (light && di == dj) continue;  // above the diagonal: not stored
+        const long long gi = static_cast<long long>(di) * P.q_i + iq;
+        const long long gj = static_cast<long long>(dj) * P.q_j + jq;
+        row0 = (gi * (gi + 1) / 2 + gj) * P.bi + i0;
+        col0 = j0;
+      } else {
+        row0 = (static_cast<long long>(ld / P.blocks_j) * P.q_i + iq) * P.bi + i0;
+        col0 = (static_cast<long long>(ld % P.blocks_j) * P.q_j + jq) * P.bj + j0;
+      }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int oi = (i / 4) * 64 + ty * 4 + i % 4;
@@ -422,8 +508,11 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
           float v[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(sg, prod[i][4 * g + j]);
-          if (!(flag & FIRST)) {
-            const float4 w = *reinterpret_cast<const float4*>(P.ws + at);
+          if (!(flag & FIRST) || P.seed != nullptr) {
+            // read by the thread that writes the element, before it writes: the seed may be
+            // the output
+            const float4 w = flag & FIRST ? load4(P.seed, at, P.seed_bf16)
+                                          : *reinterpret_cast<const float4*>(P.ws + at);
             v[0] = __fadd_rn(w.x, v[0]);
             v[1] = __fadd_rn(w.y, v[1]);
             v[2] = __fadd_rn(w.z, v[2]);
@@ -445,18 +534,19 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   float* const sums = sum_base;     // [buffer][side][KC][LDS]
   auto lsum = [&](int s) { return sums + (s & 1) * 2 * G::SUM; };
   auto rsum = [&](int s) { return sums + (s & 1) * 2 * G::SUM + G::SUM; };
-  // The steps walked in order, op, then K block, then chunk: the next one copied into the
+  // The steps walked in order, live op, then K block, then chunk: the next one copied into the
   // ring, the next one summed and the next one multiplied.
   auto advance = [&](Step& t) {
     if (++t.c == n_kc) {
       t.c = 0;
       if (++t.k == P.n_k) {
         t.k = 0;
-        ++t.o;
+        t.o = live_op(t.o + 1);
       }
     }
   };
-  Step copy{0, 0, 0}, summed{0, 0, 0}, done{0, 0, 0};
+  const int first = live_op(0);
+  Step copy{first, 0, 0}, summed{first, 0, 0}, done{first, 0, 0};
   if (tid == 0) {
     for (int i = 0; i < STAGES; ++i) mbar_init(&full[i]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -509,10 +599,10 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   }
 }
 
-// Blocks below n_big walk one position each at TILE; past it (TILE 128 only) each of the
-// last positions is split into four quarters, walked at TILE / 2 with the half maps, so that
-// a ragged last wave of whole positions becomes a short one.  The arithmetic of an output
-// element does not depend on the tile.
+// Blocks below n_big walk one position each at TILE, in cell_of's order; past it (TILE 128
+// only) each of the last positions is split into four quarters, walked at TILE / 2 with the
+// half maps, so that a ragged last wave of whole positions becomes a short one.  The
+// arithmetic of an output element does not depend on the tile.
 template <typename Tl, typename Tr, bool TRI, int TILE, int STAGES>
 __global__ void __launch_bounds__(THREADS)
     leaf_products_kernel(const Ops P, const __grid_constant__ CUtensorMap lmap,
@@ -531,7 +621,8 @@ __global__ void __launch_bounds__(THREADS)
   pos /= n_sub_j;
   const int i0 = (pos % n_sub_i) * TILE;
   pos /= n_sub_i;
-  const int jq = pos % P.q_j, iq = pos / P.q_j;
+  int iq, jq;
+  cell_of(P, pos, iq, jq);
   if constexpr (TILE == 128) {
     if (quarter >= 0) {
       walk<Tl, Tr, TRI, TILE / 2, STAGES>(P, lmap_half, rmap_half, mmap_half, iq, jq,
@@ -663,25 +754,32 @@ const char* leaf_products_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// One bound symm or matmul program.  `left` / `right` are the padded operands, (l_rows,
-// l_cols) and (r_rows, r_cols) with row strides ldl / ldr, `out` the dense (blocks_i*q_i*bi,
-// blocks_j*q_j*bj) grid and `ws` its fp32 accumulator (out itself for an fp32 output).  The
-// tables are _op_tables' ten arrays.  left_trans: left tiles stored K x i.  right_layout: 0 K
-// x j, 1 j x K, 2 packed tri stack of (bj, bj) tiles (then bc == bj).  dtype codes: 0 fp32,
-// 1 bf16.  tile: 64 or 128, a block's sub-tile edge.  The operands' row strides and bases
-// are 16-byte aligned, their extents below 2^31.
-int leaf_products_launch(const void* left, const void* right, void* ws, void* out,
-                         const void* lrow, const void* lcol, const void* lsgn, const void* rrow,
-                         const void* rcol, const void* rsgn, const void* rtrn, const void* dest,
-                         const void* dsgn, const void* dflag, long long l_rows, long long l_cols,
-                         long long r_rows, long long r_cols, int n_ops, int tmax, int max_dests,
-                         int n_k, int q_i, int q_j, int blocks_j, int bi, int bj, int bc,
-                         int left_trans, int right_layout, int diag_sym, int l_dtype,
-                         int r_dtype, int out_dtype, int tile, int stages, void* stream) {
+// One bound program of a kind this library runs.  `left` / `right` are the padded operands,
+// (l_rows, l_cols) and (r_rows, r_cols), contiguous, `out` the dense
+// (blocks_i*q_i*bi, blocks_j*q_j*bj) grid or, with out_tri, the packed (n_out*bi, bj) stack,
+// and `ws` its fp32 accumulator (out itself for an fp32 output).  `seed`, with out_tri only,
+// is the incoming packed stack of rank_k or null; it may be out.  The tables are
+// _op_tables' eleven arrays.  left_trans: left tiles stored K x i.  right_layout: 0 K x j, 1
+// j x K, 2 packed tri stack of (bj, bj) tiles (then bc == bj).  dtype codes: 0 fp32, 1 bf16.
+// tile: 64 or 128, a block's sub-tile edge.  The operands' row strides and bases are 16-byte
+// aligned, their extents below 2^31.
+int leaf_products_launch(const void* left, const void* right, const void* seed, void* ws,
+                         void* out, const void* lrow, const void* lcol, const void* lsgn,
+                         const void* rrow, const void* rcol, const void* rsgn, const void* rtrn,
+                         const void* dest, const void* dsgn, const void* dflag,
+                         const void* odiag, long long l_rows, long long l_cols, long long r_rows,
+                         long long r_cols, int n_ops, int tmax, int max_dests, int n_k, int q_i,
+                         int q_j, int blocks_j, int bi, int bj, int bc, int left_trans,
+                         int right_layout, int diag_sym, int out_tri, int l_dtype, int r_dtype,
+                         int seed_dtype, int out_dtype, int tile, int stages, void* stream) {
   if (n_ops < 1 || tmax < 1 || tmax > MAX_TERMS || max_dests < 1 || n_k < 1 || q_i < 1 ||
       q_j < 1 || blocks_j < 1 || bi < 8 || bj < 8 || bc < 8 || right_layout < RIGHT_KJ ||
       right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
       (out_dtype != 0 && out_dtype != 1) || (out_dtype == 0 && ws != out) ||
+      odiag == nullptr ||
+      // a packed output: square tiles, a dense right side; a seed only onto a packed output
+      (out_tri && (right_layout == RIGHT_TRI || q_i != q_j || bi != bj)) ||
+      (seed != nullptr && (!out_tri || (seed_dtype != 0 && seed_dtype != 1))) ||
       l_rows >= (1LL << 31) || l_cols >= (1LL << 31) || r_rows >= (1LL << 31) ||
       r_cols >= (1LL << 31))
     return cudaErrorInvalidValue;
@@ -706,14 +804,16 @@ int leaf_products_launch(const void* left, const void* right, void* ws, void* ou
       return cudaErrorInvalidValue;
     if (!tri) m[2] = m[1];  // unread
   }
-  Ops P{static_cast<float*>(ws), out,
+  Ops P{static_cast<float*>(ws), out, seed,
         static_cast<const int*>(lrow), static_cast<const int*>(lcol),
         static_cast<const float*>(lsgn), static_cast<const int*>(rrow),
         static_cast<const int*>(rcol), static_cast<const float*>(rsgn),
         static_cast<const int*>(rtrn), static_cast<const int*>(dest),
         static_cast<const float*>(dsgn), static_cast<const int*>(dflag),
+        static_cast<const int*>(odiag),
         n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
-        left_trans, right_layout == RIGHT_JK, diag_sym, out_dtype == 1, 0};
+        left_trans, right_layout == RIGHT_JK, diag_sym, out_tri != 0, seed_dtype == 1,
+        out_dtype == 1, 0};
   const long long n_pos = static_cast<long long>(q_i) * q_j * ((bi + tile - 1) / tile) *
                           ((bj + tile - 1) / tile);
   const long long n_big = whole_positions(kernel, smem, tile, n_pos);

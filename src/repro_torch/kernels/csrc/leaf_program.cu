@@ -1,18 +1,24 @@
-// leaf_program.cu — the fused leaf-program kernel of the PyTorch port, the gram kinds.
+// leaf_program.cu — the fused leaf-program kernel of the PyTorch port, for the gram programs
+// with transposed destinations (the dps gram).
 //
-// Replaces both TPU kernels of the JAX package, for the ata, aat and rank_k kinds:
+// Replaces both TPU kernels of the JAX package, for the ata, aat and rank_k kinds of the dps
+// gram:
 //   src/repro/kernels/strassen_fused.py:474 _leaf_kernel       (pipeline_depth 1)
 //   src/repro/kernels/strassen_fused.py:533 _pipelined_kernel  (pipeline_depth >= 2)
-// (the symm and matmul kinds run csrc/leaf_products.cu, which computes each leaf product
-// once).  It computes what they compute: for every output tile,
+// Every other program, symm, matmul and the gram kinds of the strassen gram among them, runs
+// csrc/leaf_products.cu, which computes each leaf product once; a transposed destination
+// (72 of the dps gram's 184 contributions at levels 2) is a leaf product added transposed,
+// which its op walk does not express.  This kernel computes what the TPU kernels compute:
+// for every output tile,
 //   acc = seed + sum over contributions c, K blocks k of
 //           sign[ld, c] * op_L(sum_p lsgn[ld,c,p] L_p) op_R(sum_q rsgn[ld,c,q] R_q)
 // with the signed sums formed in fp32 after upcasting the operands, and the
 // tile stored once.  The eight tables are the host's lowering of the leaf
-// program (strassen_fused._program_tables).  The kinds differ only in how
-// each side's tiles lie in memory and whether a seed starts the sum (the JAX
-// _Spec's left_trans, right_trans, accumulate), and the kernel takes those per
-// side:
+// program (strassen_fused._program_tables), where a transposed destination
+// is already the straight contribution with its sides swapped.  The kinds
+// differ only in how each side's tiles lie in memory and whether a seed
+// starts the sum (the JAX _Spec's left_trans, right_trans, accumulate), and
+// the kernel takes those per side:
 //
 //   kind    left tile as stored   right tile as stored          seed
 //   ata     K x i (A, read A^t)   K x j (A)                     -
@@ -41,9 +47,8 @@
 //     the current one is summed and multiplied;
 //   * the kernel is held to 80 registers, 3 blocks an SM, so more warps hide
 //     the sum phase's shared-memory latency.
-// The gram kinds recompute a leaf product for every destination it feeds (48
-// contributions for 38 products at levels 2); computing each product once, as
-// leaf_products.cu does for symm and matmul, tensor cores (wgmma), TMA and
+// It recomputes a leaf product for every destination it feeds (184
+// contributions at levels 2 for the dps gram); tensor cores (wgmma), TMA and
 // warp specialisation are later work.
 //
 // Grid: x = output tile t, y = 64 x 64 sub-tile of the bi x bj tile.  256
@@ -416,7 +421,8 @@ const char* leaf_program_error_string(int err) {
 // packed (n_out*bi, bj) stack.  left_trans: left tiles stored K x i.
 // right_layout: 0 K x j, 1 j x K.  The packed tri right side (2) and a dense
 // output (out_tri 0) are the symm and matmul kinds', which leaf_products.cu
-// runs: both are refused, and rtrn, n_tj, blocks_j and diag_sym are ignored.
+// runs (as it runs every gram program without a transposed destination):
+// both are refused, and rtrn, n_tj, blocks_j and diag_sym are ignored.
 // dtype codes: 0 fp32, 1 bf16.  A chunk's column edge (bi or bc on the left,
 // bj or bc on the right) must be a multiple of 8.
 int leaf_program_launch(const void* left, const void* right, const void* seed, void* out,

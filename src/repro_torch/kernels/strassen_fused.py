@@ -2,20 +2,21 @@
 
 The port of the host side of ``repro/kernels/strassen_fused.py``.  A
 ``LeafProgram`` (``core/leaf_ir.py``) is bound to tile sizes
-(:class:`_Spec`) and run by :func:`leaf_program`.  The gram kinds (ata,
-aat, rank_k) are lowered to eight destination-indexed tables
-(:func:`_program_tables`), the symm and matmul kinds to ten op-indexed
-ones (:func:`_op_tables`), and each runs:
+(:class:`_Spec`) and run by :func:`leaf_program`.  Every program with no
+transposed destination — symm, matmul and the gram kinds (ata, aat,
+rank_k) of every gram but ``dps`` — is lowered to eleven op-indexed
+tables (:func:`_op_tables`); a ``dps`` gram program to eight
+destination-indexed ones (:func:`_program_tables`).  Each runs:
 
-* on a CUDA tensor, a hand-written kernel: ``csrc/leaf_program.cu`` for
-  the gram kinds (one thread block per (output tile, 64 x 64 sub-tile);
-  the contribution x K sweep loops inside the block behind a
-  ``pipeline_depth``-slot ``cp.async`` ring), ``csrc/leaf_products.cu``
-  for symm and matmul (one block per output position; the ops loop
+* on a CUDA tensor, a hand-written kernel: ``csrc/leaf_products.cu``
+  for the op tables (one thread block per output position; the ops loop
   inside it, each leaf product computed once and added into each of its
-  destinations);
+  destinations), ``csrc/leaf_program.cu`` for the ``dps`` gram (one
+  block per (output tile, 64 x 64 sub-tile); the contribution x K sweep
+  loops inside the block behind a ``pipeline_depth``-slot ``cp.async``
+  ring);
 * on a CPU tensor, the plain torch walk over the same tables
-  (:func:`_leaf_program_plain`, :func:`_leaf_products_plain`) — the
+  (:func:`_leaf_products_plain`, :func:`_leaf_program_plain`) — the
   counterpart of Pallas interpret mode, and the plain version each
   kernel is held against on the card.
 
@@ -64,7 +65,8 @@ __all__ = ["fused_ata", "fused_ata_packed", "fused_symm_matmul",
            "fused_aat", "fused_aat_packed", "fused_rank_k_update",
            "fused_matmul", "ata_traffic_model", "ata_bwd_traffic_model",
            "aat_traffic_model", "rank_k_traffic_model", "leaf_program",
-           "product_flops", "KERNEL_LAUNCHES", "MAX_OPERAND_TERMS",
+           "product_flops", "KERNEL_LAUNCHES", "LIBRARY_LAUNCHES",
+           "MAX_OPERAND_TERMS",
            "MAX_PIPELINE_DEPTH", "PRODUCT_TILES"]
 
 
@@ -91,8 +93,9 @@ _SUPPORTED_OPERAND_DTYPES = ("float8_e4m3fn", "float8_e5m2", "bfloat16",
 _PORTED_OPERAND_DTYPES = ("bfloat16", "float32")
 
 _KINDS = ("ata", "symm", "aat", "rank_k", "matmul")
-# the kinds with a dense output, run by csrc/leaf_products.cu
+# the kinds with a dense output; the gram kinds write a packed stack
 _PRODUCT_KINDS = ("symm", "matmul")
+_GRAM_KINDS = ("ata", "aat", "rank_k")
 
 # right-side layouts of the C interface: dense K x j, dense j x K (a
 # transposed right side), the packed tri stack (symm)
@@ -111,6 +114,12 @@ PRODUCT_TILES = (128, 64)
 #: the kernel is launched and nowhere else — a run reads it to show the
 #: main path went through it.
 KERNEL_LAUNCHES = {f"leaf_program/{kind}": 0 for kind in _KINDS}
+
+#: The same launches by the library that ran them: ``leaf_products.cu``
+#: for every kind, ``leaf_program.cu`` for the gram programs with
+#: transposed destinations (the ``dps`` gram).
+LIBRARY_LAUNCHES = {f"leaf_products.cu/{kind}": 0 for kind in _KINDS} | {
+    f"leaf_program.cu/{kind}": 0 for kind in _GRAM_KINDS}
 
 # (kind, variant, gram, requested, clamped) combinations already warned
 # about: the clamp warns exactly once per distinct clamp.
@@ -441,27 +450,28 @@ def _spec_tables(spec: _Spec, device) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _op_tables(kind: str, levels: int, variant: str, trans_a: bool = False,
-               trans_b: bool = False):
-    """The symm or matmul program as op-indexed tables, what
-    ``csrc/leaf_products.cu`` walks: per leaf op (``LeafProgram.ops``
-    order) its left terms ``lrow, lcol, lsgn`` and right terms ``rrow,
-    rcol, rsgn, rtrn`` (``[n_ops, tmax]``), and its destinations ``dest``
-    (leaf index), ``dsgn`` (sign) and ``dflag`` (``_FIRST``: no earlier op
-    feeds that destination; ``_LAST``: no later one does), ``[n_ops,
-    max_dests]`` in the op's order.  Empty slots carry coefficient or sign
-    0 and come last in their row, which the kernel counts on.  Since
-    ``by_dest`` sorts stably, a destination's contributions in op order
-    are exactly its slots in :func:`_program_tables`.
+def _op_tables(kind: str, levels: int, variant: str, gram: str = "strassen",
+               trans_a: bool = False, trans_b: bool = False):
+    """The program as op-indexed tables, what ``csrc/leaf_products.cu``
+    walks: per leaf op (``LeafProgram.ops`` order) its left terms ``lrow,
+    lcol, lsgn`` and right terms ``rrow, rcol, rsgn, rtrn`` (``[n_ops,
+    tmax]``), its destinations ``dest`` (leaf index), ``dsgn`` (sign) and
+    ``dflag`` (``_FIRST``: no earlier op feeds that destination;
+    ``_LAST``: no later one does), ``[n_ops, max_dests]`` in the op's
+    order, and ``odiag`` (``[n_ops]``, packed outputs only: every
+    destination of the op is a diagonal leaf block, so a position above
+    the diagonal of a leaf block skips it).  Empty slots carry
+    coefficient or sign 0 and come last in their row, which the kernel
+    counts on.  Since ``by_dest`` sorts stably, a destination's
+    contributions in op order are exactly its slots in
+    :func:`_program_tables`.
 
-    Only the gram kinds emit transposed destinations, so only symm and
-    matmul lower here; a destination that no op feeds is refused (the
-    kernel stores it first where an op first feeds it)."""
-    if kind not in _PRODUCT_KINDS:
-        raise ValueError(f"op tables lower the symm and matmul kinds, not "
-                         f"{kind!r}")
-    prog = compile_program(kind, levels, variant, trans_a=trans_a,
-                           trans_b=trans_b)
+    Symm, matmul and the gram kinds lower here.  A transposed
+    destination (the ``dps`` gram emits them) is refused: such programs
+    run ``csrc/leaf_program.cu``.  So is a destination that no op feeds
+    (the kernel stores it first where an op first feeds it)."""
+    prog = compile_program(kind, levels, variant, gram=gram,
+                           trans_a=trans_a, trans_b=trans_b)
     n_ops, tmax = len(prog.ops), prog.max_terms
     max_dests = max(len(op.dests) for op in prog.ops)
     lrow = np.zeros((n_ops, tmax), np.int32)
@@ -471,6 +481,8 @@ def _op_tables(kind: str, levels: int, variant: str, trans_a: bool = False,
     dest = np.zeros((n_ops, max_dests), np.int32)
     dflag = np.zeros_like(dest)
     dsgn = np.zeros((n_ops, max_dests), np.float32)
+    odiag = np.zeros(n_ops, np.int32)
+    tri = prog.out_spec.packing == "tri"
     last = {}
     for o, op in enumerate(prog.ops):
         for p, (r, c, sg, tr) in enumerate(op.left):
@@ -480,28 +492,45 @@ def _op_tables(kind: str, levels: int, variant: str, trans_a: bool = False,
             rrow[o, q], rcol[o, q], rsgn[o, q], rtrn[o, q] = r, c, sg, tr
         for d, (di, dj, sg, tr) in enumerate(op.dests):
             if tr:
-                raise ValueError(f"the {kind} program has a transposed "
-                                 "destination; only the gram kinds lower "
-                                 "those")
+                raise ValueError(
+                    f"the {kind} program (gram={gram!r}) has a transposed "
+                    "destination, which the op tables do not lower; the "
+                    "dps gram's programs run csrc/leaf_program.cu")
             ld = prog.dest_index(di, dj)
             dest[o, d], dsgn[o, d] = ld, sg
             if ld not in last:
                 dflag[o, d] |= _FIRST
             last[ld] = (o, d)
+        odiag[o] = tri and all(di == dj for di, dj, _, _ in op.dests)
     if len(last) != prog.n_dests():
         raise ValueError(f"{prog.n_dests() - len(last)} destinations of the "
                          f"{kind} program get no contribution")
     for o, d in last.values():
         dflag[o, d] |= _LAST
-    return lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag
+    return (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag,
+            odiag)
 
 
 @functools.lru_cache(maxsize=None)
-def _device_op_tables(kind: str, levels: int, variant: str, device: str,
-                      trans_a: bool = False, trans_b: bool = False):
+def _device_op_tables(kind: str, levels: int, variant: str, gram: str,
+                      device: str, trans_a: bool = False,
+                      trans_b: bool = False):
     """The op tables as tensors on ``device``, uploaded once."""
     return tuple(torch.from_numpy(t).to(device)
-                 for t in _op_tables(kind, levels, variant, trans_a, trans_b))
+                 for t in _op_tables(kind, levels, variant, gram, trans_a,
+                                     trans_b))
+
+
+def _walks_ops(spec: _Spec) -> bool:
+    """Whether ``spec``'s program runs on the op tables
+    (``csrc/leaf_products.cu``): every program but a gram program with a
+    transposed destination (the ``dps`` gram's), which runs
+    ``csrc/leaf_program.cu``."""
+    if spec.kind in _PRODUCT_KINDS:
+        return True
+    prog = compile_program(spec.kind, spec.levels, spec.variant,
+                           gram=spec.gram)
+    return not any(tr for op in prog.ops for _, _, _, tr in op.dests)
 
 
 # a re-registered algebra table must invalidate the lowered tables too —
@@ -556,10 +585,10 @@ def _tiles(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
 def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
                         right: torch.Tensor, out_dtype,
                         seed: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain torch version of the kernels.  The symm and matmul kinds
-    go to :func:`_leaf_products_plain` (``tables`` unused); the gram
-    kinds walk ``csrc/leaf_program.cu``'s way: the same tables, the same
-    walk (contributions, then K blocks), over every output tile at once.
+    """The plain torch version of ``csrc/leaf_program.cu``, which runs the
+    dps gram's programs (it takes any gram program): the same
+    destination-indexed tables, the same walk (contributions, then K
+    blocks), over every output tile at once.
 
     The accumulator starts from ``seed`` (the incoming stack of an
     accumulating program, upcast to fp32) or from zero.  Per
@@ -569,8 +598,9 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
     running sum; a transposed side flips its sum once.  Then it adds
     ``sign * (L @ R)`` where the sign is not 0.
     """
-    if spec.kind in _PRODUCT_KINDS:
-        return _leaf_products_plain(spec, left, right, out_dtype)
+    if spec.kind not in _GRAM_KINDS:
+        raise ValueError(f"leaf_program.cu runs the gram kinds, not "
+                         f"{spec.kind!r}")
     sign, lrow, lcol, lsgn, rrow, rcol, rsgn, _ = tables
     ld, gi, gj = _out_tiles(spec, left.device)
     iq, jq = gi % spec.q_i, gj % spec.q_j
@@ -618,37 +648,46 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
 
 
 def _spec_op_tables(spec: _Spec, device=None) -> tuple:
-    """The op tables of the symm or matmul program ``spec`` binds: numpy
-    arrays, or tensors on ``device``."""
-    key = (spec.kind, spec.levels, spec.variant)
+    """The op tables of the program ``spec`` binds: numpy arrays, or
+    tensors on ``device``."""
+    key = (spec.kind, spec.levels, spec.variant, spec.gram)
     if device is None:
         return _op_tables(*key, spec.trans_a, spec.trans_b)
     return _device_op_tables(*key, str(device), spec.trans_a, spec.trans_b)
 
 
 def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
-                         right: torch.Tensor, out_dtype) -> torch.Tensor:
+                         right: torch.Tensor, out_dtype,
+                         seed: torch.Tensor | None = None) -> torch.Tensor:
     """The plain torch version of ``csrc/leaf_products.cu``: the op
     tables, the kernel's walk, every output position at once.
 
     A position is an output tile ``(iq, jq)`` of a leaf block (the
     kernel's positions are its sub-tiles, which share the arithmetic).
-    Per op, per K block it forms each side's signed sum in fp32 for all
-    positions, term by term in table order (the tile upcast, mirrored
-    where a tri-stored term says so, ``tile + tile^t`` on a diagonal
-    tile under ``diag_sym``, times its coefficient, added to the running
-    sum; a transposed side flips its sum once) and adds one ``torch.bmm``
-    into the op's product.  Then it adds ``sign * product`` into each of
-    the op's destinations in table order, storing where the op is the
-    first to feed one.  So each leaf product is computed once:
-    ``n_ops * n_k`` bmm calls.
+    Per op, per K block it forms each side's signed sum in fp32 for the
+    op's positions, term by term in table order (the tile upcast,
+    mirrored where a tri-stored term says so, ``tile + tile^t`` on a
+    diagonal tile under ``diag_sym``, times its coefficient, added to the
+    running sum; a transposed side flips its sum once) and adds one
+    ``torch.bmm`` into the op's product.  Then it adds ``sign * product``
+    into each of the op's destinations in table order, storing (onto the
+    seed, the incoming packed stack of rank_k, where there is one) where
+    the op is the first to feed one.  So each leaf product is computed
+    once: ``n_ops * n_k`` bmm calls.
+
+    A packed output (the gram kinds) holds tile ``(iq, jq)`` of a
+    diagonal leaf block only where ``iq >= jq``: an op that feeds only
+    diagonal leaf blocks runs at those positions alone, as in the kernel,
+    and the packed stack is gathered from the positions at the end.
     """
-    lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag = \
-        _spec_op_tables(spec)
+    (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag,
+     odiag) = _spec_op_tables(spec)
     dev = left.device
     q_i, q_j, n_k = spec.q_i, spec.q_j, spec.n_k
     pos = torch.arange(q_i * q_j, device=dev)
-    iq, jq = pos // q_j, pos % q_j
+    every = (pos // q_j, pos % q_j, pos)
+    heavy = pos[pos // q_j >= pos % q_j]
+    heavy = (heavy // q_j, heavy % q_j, heavy)
     l_shape, r_shape = _operand_shapes(spec)
     ltiles = _tiles(left, *l_shape)
     rtiles = right.reshape(-1, *r_shape) if spec.right_tri \
@@ -664,14 +703,14 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
             acc = term if acc is None else acc + term
         return acc
 
-    def left_sum(o, k):
+    def left_sum(o, k, iq):
         def tile_of(_, r, c):
             return ltiles[r * n_k + k, c * q_i + iq] if spec.left_trans \
                 else ltiles[r * q_i + iq, c * n_k + k]
         acc = signed_sum(tile_of, lrow[o], lcol[o], lsgn[o])
         return acc.transpose(1, 2) if spec.left_trans else acc
 
-    def right_sum(o, k):
+    def right_sum(o, k, jq):
         def tile_of(p, r, c):
             if spec.right_tri:
                 # conceptual tile coords as _tri_term_coords; the stored
@@ -694,24 +733,48 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
         acc = signed_sum(tile_of, rrow[o], rcol[o], rsgn[o])
         return acc.transpose(1, 2) if spec.right_trans else acc
 
-    shape = (len(jq), spec.bi, spec.bj)
     n_dest = int(dest.max()) + 1          # _op_tables: every one is fed
-    acc = torch.empty((n_dest, *shape), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_dest, len(pos), spec.bi, spec.bj),
+                      dtype=torch.float32, device=dev)
+    start = None            # the seed at each (leaf destination, position)
+    if spec.out_tri:        # each stack tile: its leaf destination, position
+        ld, gi, gj = _out_tiles(spec, dev)
+        held = (ld, (gi % q_i) * q_j + gj % q_j)
+        if seed is not None:
+            start = torch.zeros_like(acc)
+            start[held] = seed.reshape(spec.n_out, spec.bi, spec.bj).float()
     with ieee_fp32():
         for o in range(len(lrow)):
-            prod = torch.zeros(shape, dtype=torch.float32, device=dev)
+            iq, jq, at = heavy if spec.out_tri and odiag[o] else every
+            prod = torch.zeros((len(at), spec.bi, spec.bj),
+                               dtype=torch.float32, device=dev)
             for k in range(n_k):
-                prod += torch.bmm(left_sum(o, k), right_sum(o, k))
+                prod += torch.bmm(left_sum(o, k, iq), right_sum(o, k, jq))
             for d in np.flatnonzero(dsgn[o]):
                 term = prod * float(dsgn[o, d])
+                ld_o = int(dest[o, d])
                 if dflag[o, d] & _FIRST:
-                    acc[dest[o, d]] = term
+                    acc[ld_o, at] = term if start is None \
+                        else start[ld_o, at] + term
                 else:
-                    acc[dest[o, d]] += term
+                    acc[ld_o, at] += term
+    if spec.out_tri:
+        return acc[held].reshape(_out_shape(spec)).to(out_dtype)
     blocks_i = acc.shape[0] // spec.blocks_j
     out = acc.reshape(blocks_i, spec.blocks_j, q_i, q_j, spec.bi, spec.bj) \
         .permute(0, 2, 4, 1, 3, 5)
     return out.reshape(_out_shape(spec)).to(out_dtype)
+
+
+def _plain(spec: _Spec, left: torch.Tensor, right: torch.Tensor, out_dtype,
+           seed: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of the kernel a CUDA tensor would launch for
+    ``spec`` (:func:`_walks_ops`): what :func:`leaf_program` runs on the
+    CPU, and what each kernel is held against on the card."""
+    if _walks_ops(spec):
+        return _leaf_products_plain(spec, left, right, out_dtype, seed)
+    return _leaf_program_plain(spec, _spec_tables(spec, left.device), left,
+                               right, out_dtype, seed)
 
 
 @functools.cache
@@ -734,7 +797,7 @@ def _lib() -> ctypes.CDLL:
 def _products_lib() -> ctypes.CDLL:
     lib = _build.library("leaf_products")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_products_launch.argtypes = [ptr] * 14 + [i64] * 4 + [i32] * 18 \
+    lib.leaf_products_launch.argtypes = [ptr] * 16 + [i64] * 4 + [i32] * 20 \
         + [ptr]
     lib.leaf_products_launch.restype = i32
     lib.leaf_products_smem_bytes.argtypes = [i32] * 6
@@ -756,7 +819,7 @@ def _products_smem(spec: _Spec, tile: int, left_bytes: int,
 
 
 def _products_tile(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
-    """The block tile a symm or matmul launch takes: the first of
+    """The block tile a ``leaf_products.cu`` launch takes: the first of
     ``PRODUCT_TILES`` that divides both output tile edges and fits in
     shared memory at this depth, else the smallest."""
     for tile in PRODUCT_TILES:
@@ -770,8 +833,9 @@ def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int,
                tile: int | None = None) -> int:
     """Dynamic shared memory one launch of ``spec`` needs, as its kernel
     lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``); for
-    symm and matmul at ``tile``, by default the one the launch takes."""
-    if spec.kind in _PRODUCT_KINDS:
+    ``leaf_products.cu`` at ``tile``, by default the one the launch
+    takes."""
+    if _walks_ops(spec):
         if tile is None:
             tile = _products_tile(spec, left_bytes, right_bytes)
         return _products_smem(spec, tile, left_bytes, right_bytes)
@@ -781,12 +845,12 @@ def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int,
 
 def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
                           tile: int | None = None) -> dict:
-    """How a symm or matmul launch of ``spec`` fills the current card: its
-    block tile, output positions (a tile x tile sub-tile each), the
-    positions walked whole (the rest, the ragged last wave's, are walked
-    in quarters, four blocks each), thread blocks, blocks an SM holds at
-    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared
-    memory a block."""
+    """How a ``leaf_products.cu`` launch of ``spec`` fills the current
+    card: its block tile, output positions (a tile x tile sub-tile each),
+    the positions walked whole (the rest, the ragged last wave's, are
+    walked in quarters, four blocks each), thread blocks, blocks an SM
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    and shared memory a block."""
     lb, rb = (torch.empty((), dtype=d).element_size()
               for d in (left_dtype, right_dtype))
     tile = _products_tile(spec, lb, rb) if tile is None else tile
@@ -803,12 +867,24 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
 
 
 def product_flops(spec: _Spec) -> int:
-    """Flops of a symm or matmul program with each leaf product computed
-    once at the padded leaf shapes (``2 * LeafProgram.mult_count``): the
-    work of ``csrc/leaf_products.cu``."""
-    if spec.kind not in _PRODUCT_KINDS:
-        raise ValueError(f"product_flops counts the symm and matmul kinds, "
-                         f"not {spec.kind!r}")
+    """Flops of ``csrc/leaf_products.cu`` on ``spec``, each leaf product
+    computed once at the padded leaf shapes.  Symm and matmul: ``2 *
+    LeafProgram.mult_count``.  The gram kinds: ``2 * bi * bj * n_k * bc``
+    a tile product, over the ``q (q + 1) / 2`` tiles of a diagonal leaf
+    block for an op that feeds only diagonal blocks (its diagonal tiles
+    whole) and over all ``q^2`` for the others.  A program with a
+    transposed destination (the dps gram) runs ``csrc/leaf_program.cu``
+    and is refused."""
+    if not _walks_ops(spec):
+        raise ValueError(f"the {spec.kind} program (gram={spec.gram!r}) "
+                         "has transposed destinations: it runs "
+                         "leaf_program.cu, which computes no product once")
+    if spec.kind in _GRAM_KINDS:
+        odiag = _spec_op_tables(spec)[-1]
+        q = spec.q_i
+        tiles = int(odiag.sum()) * q * (q + 1) // 2 \
+            + int((odiag == 0).sum()) * q * q
+        return tiles * 2 * spec.bi * spec.bj * spec.n_k * spec.bc
     prog = compile_program(spec.kind, spec.levels, spec.variant,
                            trans_a=spec.trans_a, trans_b=spec.trans_b)
     mb, nb = spec.q_i * spec.bi, spec.q_j * spec.bj
@@ -895,32 +971,36 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     B as stored (the transposes are the spec's).  ``seed`` is the
     incoming packed stack of ``rank_k``, which starts the accumulator.
     ``out``, where given, is the buffer written (it may be ``seed``: each
-    output element is read before it is written).  ``tile`` (symm and
-    matmul) is the kernel's block tile, one of ``PRODUCT_TILES``; by
+    output element is read before it is written).  ``tile`` is the block
+    tile of ``csrc/leaf_products.cu``, one of ``PRODUCT_TILES``; by
     default the first that divides the output tiles and fits.  Neither
     it nor ``spec.pipeline_depth`` changes a bit of the result.
 
     A CUDA tensor launches, on the current stream (no synchronisation),
-    ``csrc/leaf_program.cu`` for the gram kinds or
-    ``csrc/leaf_products.cu`` for symm and matmul, or raises; a CPU
-    tensor runs :func:`_leaf_program_plain`.  Returns the raw output
-    buffer in ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for
-    the gram kinds, the dense padded grid for symm and matmul.
+    ``csrc/leaf_products.cu`` for every program without a transposed
+    destination (symm, matmul, and the gram kinds of every gram but
+    ``dps``) or ``csrc/leaf_program.cu`` for a ``dps`` gram program
+    (:func:`_walks_ops`), or raises: a failure of one is never retried
+    on the other.  A CPU tensor runs the plain version of the same
+    kernel (:func:`_plain`).  Returns the raw output buffer in
+    ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for the gram
+    kinds, the dense padded grid for symm and matmul.  Each launch counts
+    in ``KERNEL_LAUNCHES`` by kind and in ``LIBRARY_LAUNCHES`` by the
+    library that ran it.
     """
     if spec.kind not in _KINDS:
         raise ValueError(f"unknown program kind {spec.kind!r}")
     if left.device != right.device:
         raise ValueError(f"operands on {left.device} and {right.device}")
     if left.device.type == "cpu":
-        tables = None if spec.kind in _PRODUCT_KINDS \
-            else _spec_tables(spec, left.device)
-        res = _leaf_program_plain(spec, tables, left, right, out_dtype, seed)
+        res = _plain(spec, left, right, out_dtype, seed)
         return res if out is None else out.copy_(res)
     if left.device.type != "cuda":
         raise ValueError(f"leaf_program runs on cuda or cpu, not "
                          f"{left.device}")
     _check_kernel_args(spec, left, right, out_dtype, seed, out)
-    if spec.kind in _PRODUCT_KINDS:
+    products = _walks_ops(spec)
+    if products:
         if tile is None:
             tile = _products_tile(spec, left.element_size(),
                                   right.element_size())
@@ -942,9 +1022,10 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                           device=left.device)
     with torch.cuda.device(left.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if spec.kind in _PRODUCT_KINDS:
+        if products:
             lib = _products_lib()
-            err = _launch_products(lib, spec, left, right, out, tile, stream)
+            err = _launch_products(lib, spec, left, right, seed, out, tile,
+                                   stream)
             error_string = lib.leaf_products_error_string
         else:
             lib = _lib()
@@ -966,10 +1047,12 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
         raise RuntimeError(f"leaf_program launch failed: CUDA error {err} "
                            f"({error_string(err).decode()})")
     KERNEL_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
+    library = "leaf_products" if products else "leaf_program"
+    LIBRARY_LAUNCHES[f"{library}.cu/{spec.kind}"] += 1
     return out
 
 
-def _launch_products(lib, spec: _Spec, left, right, out, tile: int,
+def _launch_products(lib, spec: _Spec, left, right, seed, out, tile: int,
                      stream) -> int:
     """One ``csrc/leaf_products.cu`` launch into ``out``; a bf16 output
     accumulates in an fp32 workspace of its size and is rounded once."""
@@ -980,13 +1063,16 @@ def _launch_products(lib, spec: _Spec, left, right, out, tile: int,
     right_layout = _RIGHT_TRI if spec.right_tri \
         else _RIGHT_JK if spec.right_trans else _RIGHT_KJ
     return lib.leaf_products_launch(
-        left.data_ptr(), right.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        *(t.data_ptr() for t in tables), *left.shape, *right.shape,
-        n_ops, spec.tmax, max_dests, spec.n_k, spec.q_i, spec.q_j,
-        spec.blocks_j, spec.bi, spec.bj, spec.bc, int(spec.left_trans),
-        right_layout, int(spec.diag_sym), _DTYPE_CODES[left.dtype],
-        _DTYPE_CODES[right.dtype], _DTYPE_CODES[out.dtype], tile,
-        spec.pipeline_depth, stream)
+        left.data_ptr(), right.data_ptr(),
+        None if seed is None else seed.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), *(t.data_ptr() for t in tables), *left.shape,
+        *right.shape, n_ops, spec.tmax, max_dests, spec.n_k, spec.q_i,
+        spec.q_j, spec.blocks_j, spec.bi, spec.bj, spec.bc,
+        int(spec.left_trans), right_layout, int(spec.diag_sym),
+        int(spec.out_tri), _DTYPE_CODES[left.dtype],
+        _DTYPE_CODES[right.dtype],
+        0 if seed is None else _DTYPE_CODES[seed.dtype],
+        _DTYPE_CODES[out.dtype], tile, spec.pipeline_depth, stream)
 
 
 # ---------------------------------------------------------------------------
@@ -1940,9 +2026,9 @@ def ata_bwd_traffic_model(
 def live_steps(spec: _Spec) -> int:
     """(tile, contribution, K block) steps with a nonzero sign, ``2 * bi *
     bj * bc`` flops each: the steps of the TPU kernel's walk, which
-    ``csrc/leaf_program.cu`` runs for the gram kinds.  For symm and
-    matmul they count the per-destination recomputation that
-    ``csrc/leaf_products.cu`` does not do (:func:`product_flops`)."""
+    ``csrc/leaf_program.cu`` runs for the dps gram.  They count the
+    per-destination recomputation that ``csrc/leaf_products.cu`` does
+    not do (:func:`product_flops`)."""
     sign = _program_tables(spec.kind, spec.levels, spec.variant,
                            spec.gram, spec.trans_a, spec.trans_b)[0]
     live_per_dest = torch.from_numpy((sign != 0).sum(axis=1))

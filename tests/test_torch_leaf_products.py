@@ -1,11 +1,13 @@
-"""The symm and matmul kinds' op walk, on the CPU.
+"""The op walk of the symm and matmul kinds, on the CPU, and the op
+tables of the gram kinds.
 
-``csrc/leaf_products.cu`` computes each leaf product of the symm and
-matmul programs once and adds it into each of its destinations.  It walks
-the op-indexed tables of ``strassen_fused._op_tables``; its plain version
-``_leaf_products_plain`` walks the same tables the same way.  Here the
-tables are held against the destination-indexed ones, slot for slot (and
-so against the JAX package's), the plain walk against the JAX package's
+``csrc/leaf_products.cu`` computes each leaf product of a program once and
+adds it into each of its destinations.  It walks the op-indexed tables of
+``strassen_fused._op_tables``; its plain version ``_leaf_products_plain``
+walks the same tables the same way.  Here the tables are held against the
+destination-indexed ones, slot for slot (and so against the JAX
+package's), for symm, matmul and the gram kinds; the refusal of the dps
+gram's transposed destinations; the plain walk against the JAX package's
 float64 ``interpret_program`` and the float64 product at ragged shapes
 down to levels 3, its ``torch.bmm`` calls are counted (one per op and K
 block), and ``product_flops`` against ``mult_count``.  Tolerances are the
@@ -51,13 +53,14 @@ def _rel(got, want):
     return np.abs(got - want).max() / max(np.abs(want).max(), 1.0)
 
 
-def _slot_tables(kind, levels, variant, trans_a=False, trans_b=False):
+def _slot_tables(kind, levels, variant, trans_a=False, trans_b=False,
+                 gram="strassen"):
     """The destination-indexed tables re-derived from the op tables: each
     destination's slots are the ops that feed it, in op order."""
-    prog = sf.compile_program(kind, levels, variant, trans_a=trans_a,
-                              trans_b=trans_b)
-    (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn,
-     dflag) = sf._op_tables(kind, levels, variant, trans_a, trans_b)
+    prog = sf.compile_program(kind, levels, variant, gram=gram,
+                              trans_a=trans_a, trans_b=trans_b)
+    (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag,
+     _odiag) = sf._op_tables(kind, levels, variant, gram, trans_a, trans_b)
     n_dest, n_c, tmax = prog.n_dests(), prog.max_contributions, \
         prog.max_terms
     sign = np.zeros((n_dest, n_c), np.float32)
@@ -104,15 +107,40 @@ def test_op_tables_rederive_program_tables(variant, kind, trans_a, trans_b,
         kind, levels, variant, "strassen", trans_a, trans_b))
 
 
+@pytest.mark.parametrize("levels", LEVELS)
+@pytest.mark.parametrize("kind", ["ata", "aat", "rank_k"])
+@pytest.mark.parametrize("variant", ["strassen", "winograd", "classical"])
+def test_gram_op_tables_rederive_program_tables(variant, kind, levels):
+    """The strassen gram's programs lower to op tables, slot for slot the
+    destination tables; every syrk op feeds only diagonal leaf blocks
+    (``odiag``) and every mm op only off-diagonal ones, so a position
+    above a leaf block's diagonal skips exactly the syrk ops."""
+    got = _slot_tables(kind, levels, variant)
+    _assert_tables_equal(got, sf._program_tables(kind, levels, variant))
+    _assert_tables_equal(got, jax_sf._program_tables(kind, levels, variant))
+    prog = sf.compile_program(kind, levels, variant)
+    odiag = sf._op_tables(kind, levels, variant)[-1]
+    assert odiag.dtype == np.int32 and odiag.shape == (len(prog.ops),)
+    for op, diag in zip(prog.ops, odiag):
+        on_diag = [di == dj for di, dj, _, _ in op.dests]
+        assert bool(diag) == all(on_diag) == (op.kind == "syrk")
+        assert any(on_diag) == (op.kind == "syrk")
+
+
 def test_op_tables_refuse_gram_kinds():
+    """Only the transposed destinations of the dps gram are refused; the
+    message names the gram and the kernel that runs it."""
     for kind in ("ata", "aat", "rank_k"):
-        with pytest.raises(ValueError, match="symm and matmul"):
-            sf._op_tables(kind, 1, "strassen")
+        sf._op_tables(kind, 1, "strassen")
+        with pytest.raises(ValueError,
+                           match="transposed destination.*dps gram.*"
+                                 "leaf_program.cu"):
+            sf._op_tables(kind, 1, "strassen", "dps")
 
 
 def test_op_tables_follow_algebra_changes():
     sf._op_tables("matmul", 1, "strassen")
-    sf._device_op_tables("matmul", 1, "strassen", "cpu")
+    sf._device_op_tables("matmul", 1, "strassen", "strassen", "cpu")
     assert sf._op_tables.cache_info().currsize > 0
     assert sf._device_op_tables.cache_info().currsize > 0
     sf.leaf_ir.register_algebra("strassen",
@@ -221,11 +249,18 @@ def test_product_flops_is_mult_count(case):
 
 
 def test_product_flops_refuses_gram_kinds():
-    geo = sf._ata_geometry(64, 64, 1, "strassen", 8, 8)
+    """A dps gram program, whose transposed destinations run
+    ``leaf_program.cu``, has no product flops; the strassen gram's has."""
+    geo = sf._ata_geometry(64, 64, 1, "strassen", 8, 8, gram="dps")
     spec = sf._bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
                     q_j=geo["nbt"], n_k=geo["n_k"], bi=8, bj=8, bc=8)
-    with pytest.raises(ValueError, match="symm and matmul"):
+    assert spec.gram == "dps" and not sf._walks_ops(spec)
+    with pytest.raises(ValueError, match="transposed destinations"):
         sf.product_flops(spec)
+    plain = sf._bind(sf.compile_program("ata", 1, "strassen"),
+                     n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
+                     q_j=geo["nbt"], n_k=geo["n_k"], bi=8, bj=8, bc=8)
+    assert sf._walks_ops(plain) and sf.product_flops(plain) > 0
 
 
 @pytest.mark.parametrize("kind", ["symm", "matmul"])
