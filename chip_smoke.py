@@ -13,19 +13,19 @@ failure exits non-zero):
    source, one ``nvcc`` each, all started together, each one's build
    time, and the registers and spills of every flash-attention
    instantiation;
-3. the leaf program's kernels against their plain torch versions on
-   the card (``leaf_products.cu`` for symm, matmul and the gram kinds of
-   the strassen gram, against ``_leaf_products_plain``;
-   ``leaf_program.cu`` for the dps gram, whose programs have transposed
-   destinations, against ``_leaf_program_plain``), one sub-phase per
-   program kind, each over its sweep at ragged shapes (tiles of 64), with
-   bf16 operands, a bf16 output and a tile-aligned 1024^2 at 128, each
-   launch counted on the library it should run: kernel vs plain <= 1e-5
-   of max|out| (fp32 sums in another order; 2^-8 for a bf16 output),
-   kernel vs float64 <= 1e-4 (the JAX suite's bar for the deeper
-   algebras), ring depths 2-4 bit-equal to depth 1, every block tile of
-   leaf_products that divides the output tiles bit-equal to the default,
-   and a depth whose shared memory would exceed 227 KB refused:
+3. the leaf program's kernel, ``leaf_products.cu``, against its plain
+   torch version ``_leaf_products_plain`` on the card, for every kind
+   and both grams (the dps gram's programs, whose destinations may be
+   transposed, in pair mode), one sub-phase per program kind, each over
+   its sweep at ragged shapes (tiles of 64), with bf16 operands, a bf16
+   output and a tile-aligned 1024^2 at 128, each launch counted: kernel
+   vs plain <= 1e-5 of max|out| (fp32 sums in another order; 2^-8 for a
+   bf16 output) and bit-equal for the dps gram, the gram kinds also
+   against the TPU kernel's destination walk ``_leaf_program_plain``
+   (<= 1e-5), kernel vs float64 <= 1e-4 (the JAX suite's bar for the
+   deeper algebras), ring depths 1-4 at block tiles 64 and 128 bit-equal
+   to the default launch, and a depth and tile whose shared memory would
+   exceed 227 KB refused:
    3. ata, tril(A^t A), algebra x gram x levels 0-3 at 1000x777;
    3b. symm, X @ Sym and X @ (S + S^t) from a packed stack, algebra x
        levels 0-3 x diag_sym at X 1000x777 against a 16-tile stack;
@@ -33,7 +33,7 @@ failure exits non-zero):
    3d. rank_k, C + tril(A^t A) seeded from a packed 16-tile stack,
        algebra x gram x levels 0-3 at a 1000x777 chunk, a bf16 stack
        under an fp32 output and the reverse, and the update written over
-       its own seed on each library;
+       its own seed for each gram, in fp32 and bf16;
    3e. matmul, op(A) op(B), levels 0-3 x the four (trans_a, trans_b)
        cases x {strassen, winograd, classical, bb322, bb422} at
        1000x777 @ 777x555;
@@ -66,9 +66,9 @@ failure exits non-zero):
    (<= 1e-4 of max|out|; outputs stored in bf16 <= 2^-8), then each
    kernel configuration the path ran held against the plain version on
    the same operands (<= 1e-5):
-   4. ``ata(a)``, ``ata_full(a, levels="auto")``, ``ata(bf16 a)`` (on
-      ``leaf_products.cu``) and ``ata(a, gram="dps")`` (on
-      ``leaf_program.cu``);
+   4. ``ata(a)``, ``ata_full(a, levels="auto")``, ``ata(bf16 a)`` and
+      ``ata(a, gram="dps")``, each on ``leaf_products.cu`` (the last in
+      pair mode, also held against the destination walk);
    4b. their backward, ``torch.autograd.grad`` through ``ata``,
        ``ata_full``, ``ata(bf16 a)`` and ``ops.ata_fused_packed``, dA
        against float64 ``A (S + S^t)``, and the peak memory of one
@@ -121,12 +121,12 @@ failure exits non-zero):
    versions once, and each kind's bound: the least flops of its function
    (each leaf product once, or classical, whichever is less) at the fp32
    CUDA-core peak against its inputs and outputs once at HBM rate.  The
-   kernels' own flops are printed beside the bounds and kept out of
-   them: each leaf product once (``product_flops``) for the kinds on
-   ``leaf_products.cu``, which are also timed at both block tiles with
-   their positions, blocks an SM and waves on the 132 SMs, and the
-   live-step flops, with the per-destination recomputation, for the dps
-   gram on ``leaf_program.cu``.
+   kernel's own flops are printed beside the bounds and kept out of
+   them: each leaf product once (``product_flops``), every kind also
+   timed at both block tiles with its positions, blocks, blocks an SM
+   and waves on the 132 SMs; the dps gram's ata, aat and rank_k in pair
+   mode beside the strassen gram's, with the TPU walk's live-step flops
+   (the per-destination recomputation) printed for comparison.
    The syrk, matmul, combine and transpose kernels are timed on the
    padded operands of the main path's ``ops`` calls, with ``ata`` and
    ``strassen_matmul`` end to end on kernel leaves beside their
@@ -165,12 +165,8 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-# the leaf program's libraries: leaf_products.cu runs every kind on the
-# main path (the gram kinds of the strassen gram among them),
-# leaf_program.cu the gram programs with transposed destinations (the dps
-# gram)
+# the leaf program's library: leaf_products.cu runs every kind and gram
 PRODUCTS_SOURCE = "src/repro_torch/kernels/csrc/leaf_products.cu"
-PROGRAM_SOURCE = "src/repro_torch/kernels/csrc/leaf_program.cu"
 REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
             "src/repro/kernels/strassen_fused.py:533 (_pipelined_kernel), "
             "{} kind")
@@ -178,8 +174,8 @@ REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
 SMS = 132
 # the bf16 tensor-core peak (dense), for flash attention's bound
 PEAK_BF16_FLOPS = 989e12
-LIBRARIES = ("leaf_program", "leaf_products", "syrk", "matmul", "combine",
-             "transpose", "flash_attention")
+LIBRARIES = ("leaf_products", "syrk", "matmul", "combine", "transpose",
+             "flash_attention")
 # the single-purpose kernels: their sources and the TPU kernels they replace
 KERNELS = {
     "syrk": ("src/repro_torch/kernels/csrc/syrk.cu",
@@ -259,15 +255,18 @@ def _time_ms(fn, reps=5, warmup=2):
 
 
 def _ptxas_summary(report: str) -> list:
-    """Registers and spills of ``leaf_products`` per right-side layout and
-    block tile from ``nvcc -Xptxas -v`` (the kernel's template arguments
-    after the two element types: a packed tri right side, the tile)."""
+    """Registers and spills of ``leaf_products`` per right-side layout,
+    block tile and mode from ``nvcc -Xptxas -v`` (the kernel's template
+    arguments after the two element types: a packed tri right side, the
+    tile, the ring depth, pair mode)."""
     stats, kind = {}, None
     for line in report.splitlines():
-        found = re.search(r"leaf_products_kernelI.*?Lb(\d)ELi(\d+)E", line)
+        found = re.search(
+            r"leaf_products_kernelI.*?Lb(\d)ELi(\d+)ELi\d+ELb(\d)E", line)
         if found:
             kind = (f"{'tri' if found.group(1) == '1' else 'dense'} right "
-                    f"side, tile {found.group(2)}")
+                    f"side, tile {found.group(2)}"
+                    f"{', pair mode' if found.group(3) == '1' else ''}")
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
         if kind and (regs or spill):
@@ -436,14 +435,17 @@ def main() -> int:
           + ", ".join(f"{d}: {smem(d, 0)} / {smem(d, 1)} B"
                       for d in k_flash.HEAD_DIMS))
 
-    def plain(spec, left, right, out_dtype, seed=None):
-        """The plain version of the kernel ``spec`` launches."""
-        return sf._plain(spec, left, right, out_dtype, seed)
+    plain = sf._leaf_products_plain
 
-    def library(spec):
-        """The library ``spec`` runs on."""
-        return "leaf_products.cu" if sf._walks_ops(spec) \
-            else "leaf_program.cu"
+    def destination_walk(spec, left, right, seed=None):
+        """The TPU kernel's own walk (a gram kind), the oracle the op walk
+        is held against."""
+        return sf._leaf_program_plain(spec, sf._spec_tables(spec, dev), left,
+                                      right, f32, seed)
+
+    def mode(spec):
+        """How leaf_products.cu walks ``spec``."""
+        return "pair mode" if sf._pairs(spec) else "one position a block"
 
     def reset_counts():
         for counts in (sf.KERNEL_LAUNCHES, sf.LIBRARY_LAUNCHES,
@@ -460,65 +462,66 @@ def main() -> int:
 
     refused = dict.fromkeys(("ata", "symm", "aat", "rank_k", "matmul"), 0)
 
-    def depths_bit_equal(spec, left, right, out_dtype, k1, label, seed=None):
-        """Depths 2-4 give depth 1's bits; an over-budget depth raises."""
-        for depth in (2, 3, 4):
+    def depths_tiles_bit_equal(spec, left, right, out_dtype, k1, label,
+                               seed=None):
+        """Depths 1-4 at block tiles 64 and 128 (the sub-tiles ragged where
+        the tile does not divide the output tile) give the default
+        launch's bits; a depth and tile over budget raise."""
+        for depth in range(1, sf.MAX_PIPELINE_DEPTH + 1):
             deep = dataclasses.replace(spec, pipeline_depth=depth)
-            if sf.smem_bytes(deep, left.element_size(),
-                             right.element_size()) > sf.SMEM_LIMIT_BYTES:
-                try:
-                    sf.leaf_program(deep, left, right, out_dtype, seed=seed)
-                except ValueError:
-                    refused[spec.kind] += 1
-                    continue
-                raise AssertionError(f"{label}: depth {depth} over budget ran")
-            kd = sf.leaf_program(deep, left, right, out_dtype, seed=seed)
-            torch.cuda.synchronize()
-            assert torch.equal(kd, k1), (label, depth)
-
-    def tiles_bit_equal(spec, left, right, out_dtype, k1, label, seed=None):
-        """leaf_products: every block tile that divides the output tiles
-        and fits gives the default tile's bits."""
-        if not sf._walks_ops(spec):
-            return
-        for tile in sf.PRODUCT_TILES:
-            if spec.bi % tile or spec.bj % tile or sf.smem_bytes(
-                    spec, left.element_size(), right.element_size(),
-                    tile) > sf.SMEM_LIMIT_BYTES:
-                continue
-            kt = sf.leaf_program(spec, left, right, out_dtype, seed=seed,
-                                 tile=tile)
-            torch.cuda.synchronize()
-            assert torch.equal(kt, k1), (label, tile)
-            tiles_checked[tile] += 1
+            for tile in sf.PRODUCT_TILES:
+                if sf.smem_bytes(deep, left.element_size(),
+                                 right.element_size(),
+                                 tile) > sf.SMEM_LIMIT_BYTES:
+                    try:
+                        sf.leaf_program(deep, left, right, out_dtype,
+                                        seed=seed, tile=tile)
+                    except ValueError:
+                        refused[spec.kind] += 1
+                        continue
+                    raise AssertionError(f"{label}: depth {depth} tile "
+                                         f"{tile} over budget ran")
+                kd = sf.leaf_program(deep, left, right, out_dtype, seed=seed,
+                                     tile=tile)
+                torch.cuda.synchronize()
+                assert torch.equal(kd, k1), (label, depth, tile)
+                tiles_checked[tile] += 1
 
     tiles_checked = dict.fromkeys(sf.PRODUCT_TILES, 0)
-    checked = {}            # launches held against plain, by library
+    checked = {}            # launches held against plain, by kind and mode
 
     def check(spec, left, right, out_dtype, to_dense, want, label,
               seed=None):
-        """One counted launch, on the library the spec's gram calls for,
-        against its plain version and float64, and the ring depths and
-        block tiles against it."""
+        """One counted launch against its plain version (bit for bit in
+        pair mode), the destination walk (a gram kind) and float64, and
+        the ring depths and block tiles against it."""
         key = f"leaf_program/{spec.kind}"
-        lib_key = f"{library(spec)}/{spec.kind}"
+        lib_key = f"leaf_products.cu/{spec.kind}"
         before = sf.KERNEL_LAUNCHES[key], sf.LIBRARY_LAUNCHES[lib_key]
         k1 = sf.leaf_program(spec, left, right, out_dtype, seed=seed)
         assert (sf.KERNEL_LAUNCHES[key], sf.LIBRARY_LAUNCHES[lib_key]) == \
             (before[0] + 1, before[1] + 1), (label, lib_key)
-        checked[lib_key] = checked.get(lib_key, 0) + 1
-        depths_bit_equal(spec, left, right, out_dtype, k1, label, seed)
-        tiles_bit_equal(spec, left, right, out_dtype, k1, label, seed)
-        ref = plain(spec, left, right, f32, seed)
+        checked_key = f"{spec.kind}, {mode(spec)}"
+        checked[checked_key] = checked.get(checked_key, 0) + 1
+        depths_tiles_bit_equal(spec, left, right, out_dtype, k1, label, seed)
+        ref = plain(spec, left, right, out_dtype, seed)
+        equal = torch.equal(k1, ref)
         e_plain = _rel(k1, ref.double())
         e64 = _rel(to_dense(k1), want)
         bar = 1e-5 if out_dtype == f32 else 2.0 ** -8
-        print(f"  {label} {tuple(left.shape)} {left.dtype} x "
-              f"{tuple(right.shape)} {right.dtype} -> {out_dtype} L"
-              f"{spec.levels} tmax={spec.tmax} n_c={spec.n_c} on "
-              f"{library(spec)}: vs plain "
-              f"{e_plain:.2e} (<= {bar:.0e}), vs float64 {e64:.2e}")
+        line = (f"  {label} {tuple(left.shape)} {left.dtype} x "
+                f"{tuple(right.shape)} {right.dtype} -> {out_dtype} L"
+                f"{spec.levels} tmax={spec.tmax} n_c={spec.n_c} in "
+                f"{mode(spec)}: vs plain {e_plain:.2e} (<= {bar:.0e}, "
+                f"bit-equal {equal}), vs float64 {e64:.2e}")
+        if spec.kind in ("ata", "aat", "rank_k"):
+            e_walk = _rel(k1.float(), destination_walk(
+                spec, left, right, seed).double())
+            line += f", vs the destination walk {e_walk:.2e}"
+            assert e_walk <= max(1e-5, bar), (label, e_walk)
+        print(line)
         assert e_plain <= bar, (label, e_plain)
+        assert equal or not sf._pairs(spec), (label, "pair mode bits")
         assert e64 <= max(1e-4, bar), (label, e64)
         return k1
 
@@ -530,8 +533,8 @@ def main() -> int:
         err = float((got - ref).abs().max())
         rel = _rel(got, ref.double())
         print(f"  {label}: {spec.kind} L{spec.levels} {tuple(left.shape)} "
-              f"{left.dtype} x {tuple(right.shape)} {right.dtype} on "
-              f"{library(spec)}, depth "
+              f"{left.dtype} x {tuple(right.shape)} {right.dtype} in "
+              f"{mode(spec)}, depth "
               f"{spec.pipeline_depth} tmax={spec.tmax} n_c={spec.n_c} "
               f"n_k={spec.n_k}: kernel vs plain max|d| {err:.3e}, relative "
               f"{rel:.3e} (<= 1e-5)")
@@ -566,8 +569,11 @@ def main() -> int:
                 for levels in range(4):
                     check_ata(a, levels, variant, gram, 64)
     check_ata(a.to(bf16), 2, "strassen", "strassen", 64)
+    check_ata(a.to(bf16), 2, "strassen", "dps", 64)
     check_ata(a, 2, "strassen", "dps", 64, out_dtype=bf16)
-    check_ata(randn(1024, 1024), 2, "strassen", "strassen", 128)
+    x = randn(1024, 1024)
+    for gram in ("strassen", "dps"):
+        check_ata(x, 2, "strassen", gram, 128)
 
     print("== 3b. leaf_program (symm kind) against its plain version")
 
@@ -613,7 +619,8 @@ def main() -> int:
                     check_aat(a, levels, variant, gram, 64)
     check_aat(a.to(bf16), 2, "strassen", "strassen", 64)
     check_aat(a, 2, "strassen", "dps", 64, out_dtype=bf16)
-    check_aat(randn(1024, 1024), 2, "strassen", "strassen", 128)
+    for gram in ("strassen", "dps"):
+        check_aat(x, 2, "strassen", gram, 128)
 
     print("== 3d. leaf_program (rank_k kind) against its plain version")
 
@@ -639,24 +646,28 @@ def main() -> int:
     check_rank_k(a.to(bf16), 16, 64, 2, "strassen", "strassen", 64)
     check_rank_k(a, 16, 64, 2, "strassen", "dps", 64, out_dtype=bf16,
                  stack_dtype=bf16)
+    check_rank_k(a, 16, 64, 2, "strassen", "dps", 64, stack_dtype=bf16)
+    check_rank_k(a, 16, 64, 2, "strassen", "dps", 64, out_dtype=bf16)
     # the seed's dtype apart from the output's
     check_rank_k(a, 16, 64, 2, "strassen", "strassen", 64, stack_dtype=bf16)
     check_rank_k(a, 16, 64, 2, "strassen", "strassen", 64, out_dtype=bf16)
     check_rank_k(a, 16, 64, 2, "strassen", "strassen", 64, out_dtype=bf16,
                  stack_dtype=bf16)
-    # the donated update: the kernel writes over its own seed, on each
-    # library, and in bf16
-    for x, T, bn, gram, dt in ((randn(1024, 1024), 8, 128, "strassen", f32),
-                               (a, 16, 64, "dps", f32),
-                               (a, 16, 64, "strassen", bf16)):
-        spec, xp, stack, k1 = check_rank_k(x, T, bn, 2, "strassen", gram, bn,
-                                           out_dtype=dt, stack_dtype=dt)
+    # the donated update: the kernel writes over its own seed, for each
+    # gram, in fp32 and bf16
+    for xr, T, bn, gram, dt in ((x, 8, 128, "strassen", f32),
+                                (x, 8, 128, "dps", f32),
+                                (a, 16, 64, "dps", f32),
+                                (a, 16, 64, "dps", bf16),
+                                (a, 16, 64, "strassen", bf16)):
+        spec, xp, stack, k1 = check_rank_k(xr, T, bn, 2, "strassen", gram,
+                                           bn, out_dtype=dt, stack_dtype=dt)
         inplace = stack.clone()
         sf.leaf_program(spec, xp, xp, dt, seed=inplace, out=inplace)
         torch.cuda.synchronize()
         assert torch.equal(inplace, k1), (gram, dt)
-        print(f"  the update written over its own seed on "
-              f"{library(spec)} ({dt}) equals the fresh one")
+        print(f"  the update written over its own seed in {mode(spec)} "
+              f"({gram} gram, {dt}) equals the fresh one")
 
     print("== 3e. leaf_program (matmul kind) against its plain version")
 
@@ -685,18 +696,18 @@ def main() -> int:
     check_matmul(1000, 777, 555, 2, "bb322", False, True, 64,
                  out_dtype=bf16)
     check_matmul(1024, 1024, 1024, 2, "strassen", False, False, 128)
-    del a
-    print(f"depths over {sf.SMEM_LIMIT_BYTES} B of shared memory refused "
-          f"with ValueError, per kind: {refused}")
+    del a, x
+    print(f"depths and tiles over {sf.SMEM_LIMIT_BYTES} B of shared memory "
+          f"refused with ValueError, per kind: {refused}")
     assert all(refused.values()), refused
-    print(f"leaf_products block tiles bit-equal to the default, launches per "
-          f"tile: {tiles_checked}")
+    print(f"ring depths and block tiles bit-equal to the default launch, "
+          f"launches per tile: {tiles_checked}")
     assert all(tiles_checked.values()), tiles_checked
-    print(f"launches held against their plain version, by library: "
+    print(f"launches held against their plain version, by kind and mode: "
           f"{checked}")
-    assert all(checked.get(f"leaf_products.cu/{k}") for k in
+    assert all(checked.get(f"{k}, one position a block") for k in
                ("ata", "symm", "aat", "rank_k", "matmul")), checked
-    assert all(checked.get(f"leaf_program.cu/{k}") for k in
+    assert all(checked.get(f"{k}, pair mode") for k in
                ("ata", "aat", "rank_k")), checked
 
     # -- 3f-3i. the single-purpose kernels ------------------------------------
@@ -920,12 +931,19 @@ def main() -> int:
     c = ata(a)
     full = ata_full(a, levels="auto")
     cb = ata(ab)
+    before = sf.LIBRARY_LAUNCHES["leaf_products.cu/ata"]
     cd = ata(a, gram="dps")
+    dps_launches = sf.LIBRARY_LAUNCHES["leaf_products.cu/ata"] - before
     launches = read_counts("the main path")
     assert launches[ATA] >= 4, launches
-    # the strassen gram on leaf_products.cu, the dps gram on leaf_program.cu
-    assert launches["leaf_products.cu/ata"] >= 3, launches
-    assert launches["leaf_program.cu/ata"] >= 1, launches
+    # both grams on leaf_products.cu: ata(a, gram="dps") launched it once
+    assert launches["leaf_products.cu/ata"] == launches[ATA], launches
+    assert dps_launches == 1, dps_launches
+    assert set(sf.LIBRARY_LAUNCHES) == {
+        f"leaf_products.cu/{k}" for k in
+        ("ata", "symm", "aat", "rank_k", "matmul")}, sf.LIBRARY_LAUNCHES
+    print(f"ata(a, gram='dps') launched leaf_products.cu/ata "
+          f"{dps_launches} time")
     for out in (c, full, cb, cd):
         assert out.shape == (n, n) and out.dtype == f32
         assert bool(torch.isfinite(out).all())
@@ -960,7 +978,13 @@ def main() -> int:
                                DEFAULT_BLOCK, DEFAULT_BLOCK,
                                pipeline_depth=depth)
     dps_err = main_vs_plain("ata(a, gram='dps')", spec, ap, ap)
-    del ap
+    got = sf.leaf_program(spec, ap, ap, f32)
+    same = torch.equal(got, plain(spec, ap, ap, f32))
+    e_walk = _rel(got, destination_walk(spec, ap, ap).double())
+    print(f"  ata(a, gram='dps') in {mode(spec)}: bit-equal to the plain "
+          f"version {same}; vs the destination walk {e_walk:.3e} (<= 1e-5)")
+    assert same and e_walk <= 1e-5, (same, e_walk)
+    del ap, got
 
     # -- 4b. the main path's backward --------------------------------------------
     print(f"== 4b. main path backward: dA of ata / ata_full / ata(bf16) / "
@@ -1560,7 +1584,7 @@ def main() -> int:
                                reps=1, warmup=0)
         gram = f" ({spec.gram} gram)" if spec.kind in ("ata", "aat",
                                                         "rank_k") else ""
-        print(f"{spec.kind} kind{gram} on {library(spec)} "
+        print(f"{spec.kind} kind{gram} in {mode(spec)} "
               f"L{spec.levels} {tuple(left.shape)} x "
               f"{tuple(right.shape)} depth {spec.pipeline_depth}: {ms:.3f} ms "
               f"(runs {runs}); depth 1: {ms1:.3f} ms (runs {runs1}); plain "
@@ -1581,17 +1605,11 @@ def main() -> int:
             "operations" if ops_ms >= bytes_ms else "bytes"
 
     def bound(kind, flops_leaf, flops_classical, io_bytes, spec):
-        if sf._walks_ops(spec):
-            own = sf.product_flops(spec)
-            what = "the kernel's own flops (each leaf product once)"
-        else:
-            own = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
-            what = ("the kernel's live-step flops (with the per-destination "
-                    "recomputation)")
+        own = sf.product_flops(spec)
         print(f"{kind}: the least flops are min(leaf products once "
               f"{flops_leaf:.4e}, classical {flops_classical:.4e}); not in "
-              f"the bound, {what} {own:.4e} -> "
-              f"{own / PEAK_FP32_FLOPS * 1e3:.3f} ms")
+              f"the bound, the kernel's own flops (each leaf product once) "
+              f"{own:.4e} -> {own / PEAK_FP32_FLOPS * 1e3:.3f} ms")
         return roofline(kind, min(flops_leaf, flops_classical), io_bytes)
 
     def tiles(spec, left, right, seed=None):
@@ -1604,11 +1622,13 @@ def main() -> int:
             ms, runs = _time_ms(lambda: sf.leaf_program(
                 spec, left, right, f32, seed=seed, tile=tile))
             waves = shape["positions"] / (SMS * shape["blocks_per_sm"])
-            print(f"  {spec.kind} tile {tile}: {ms:.3f} ms (runs {runs}); "
-                  f"{shape['positions']} positions, {waves:.2f} waves at "
-                  f"{shape['blocks_per_sm']} blocks an SM on {SMS} SMs, "
+            print(f"  {spec.kind} ({spec.gram} gram) tile {tile}: {ms:.3f} ms "
+                  f"(runs {runs}); {shape['positions']} positions, "
+                  f"{waves:.2f} waves at {shape['blocks_per_sm']} blocks an "
+                  f"SM on {SMS} SMs, "
                   f"{shape['positions'] - shape['whole_positions']} of them "
-                  f"walked in quarters, {shape['blocks']} blocks, "
+                  f"walked in quarters, {shape['blocks']} blocks"
+                  f"{' of mirror pairs' if shape['pair'] else ''}, "
                   f"{shape['smem_bytes']} B of shared memory a block")
             out[tile] = {"ms": ms, "waves": waves, **shape}
         return out
@@ -1623,9 +1643,8 @@ def main() -> int:
 
     def entry(spec, *args, **extra):
         return kernel_entry(
-            "leaf_program",
-            PRODUCTS_SOURCE if sf._walks_ops(spec) else PROGRAM_SOURCE,
-            REPLACES.format(spec.kind), *args, kind=spec.kind,
+            "leaf_program", PRODUCTS_SOURCE, REPLACES.format(spec.kind),
+            *args, kind=spec.kind,
             **({"gram": spec.gram} if spec.kind in ("ata", "aat", "rank_k")
                else {}), **extra)
 
@@ -1654,23 +1673,42 @@ def main() -> int:
                          product_flops=sf.product_flops(spec),
                          tiles=ata_tiles, shape=[n, n]))
     del ap
-    # the dps gram's ata, whose transposed destinations run
-    # leaf_program.cu: its own row, against the same function's bound
+    # the dps gram's ata, whose transposed destinations run in pair mode:
+    # its own row, against the same function's bound; its aat and rank_k
+    # timed beside it
     spec, ap = sf._prepare_ata(a, DEFAULT_LEVELS, "strassen", "dps",
                                DEFAULT_BLOCK, DEFAULT_BLOCK,
                                pipeline_depth=depth)
     ms, ms1, plain_ms = time_kind(spec, ap, ap)
+    dps_tiles = tiles(spec, ap, ap)
     e2e_ms, e2e_runs = _time_ms(lambda: ata(a, gram="dps"))
     print(f"ata(a, gram='dps') end to end: {e2e_ms:.3f} ms (runs "
           f"{e2e_runs})")
+    live = sf.live_steps(spec) * 2 * spec.bi * spec.bj * spec.bc
+    print(f"ata (dps gram): the TPU kernel's walk would do {live:.4e} "
+          f"live-step flops, each product once per destination it feeds")
     bound_ms, bound_by = bound("ata (dps gram)", ata_least, n * n * (n + 1),
                                ata_io, spec)
-    kernels.append(entry(spec, launches["leaf_program.cu/ata"], dps_err, ms,
-                         plain_ms, bound_ms, bound_by, lib_ms, ms_depth1=ms1,
-                         e2e_ms=e2e_ms,
-                         live_step_flops=sf.live_steps(spec) * 2 * spec.bi
-                         * spec.bj * spec.bc, shape=[n, n]))
     del ap
+    dspec, dap = sf._prepare_aat(a, DEFAULT_LEVELS, "strassen", "dps",
+                                 DEFAULT_BLOCK, DEFAULT_BLOCK,
+                                 pipeline_depth=depth)
+    aat_dps_ms, aat_dps_ms1, _ = time_kind(dspec, dap, dap)
+    del dap
+    rk_dps, rk_dps_x = sf._prepare_rank_k(stack, chunk, DEFAULT_LEVELS,
+                                          "strassen", "dps", DEFAULT_BLOCK,
+                                          pipeline_depth=depth)
+    rk_dps_ms, rk_dps_ms1, _ = time_kind(rk_dps, rk_dps_x, rk_dps_x,
+                                         seed=stack)
+    kernels.append(entry(spec, dps_launches, dps_err, ms, plain_ms, bound_ms,
+                         bound_by, lib_ms, ms_depth1=ms1, e2e_ms=e2e_ms,
+                         product_flops=sf.product_flops(spec),
+                         live_step_flops=live, tiles=dps_tiles,
+                         aat_ms=aat_dps_ms, aat_ms_depth1=aat_dps_ms1,
+                         rank_k_ms=rk_dps_ms, rank_k_ms_depth1=rk_dps_ms1,
+                         rank_k_product_flops=sf.product_flops(rk_dps),
+                         shape=[n, n]))
+    del rk_dps_x
 
     # symm at the main path's backward: dA = A (S + S^t), levels 2
     sspec, xp, sp = sf._prepare_symm(a, s_main, DEFAULT_LEVELS, "strassen",

@@ -1,8 +1,7 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
 - strassen_fused: the leaf-program executor (``csrc/leaf_products.cu``
-                  for every kind, ``csrc/leaf_program.cu`` for the gram
-                  programs of the dps gram) behind
+                  for every kind and every gram) behind
                   ``ops.ata_fused[_packed]``, ``ops.symm_matmul``,
                   ``ops.aat_fused[_packed]``, ``ops.rank_k_update`` and
                   ``ops.matmul_fused``

@@ -2,23 +2,23 @@
 
 The port of the host side of ``repro/kernels/strassen_fused.py``.  A
 ``LeafProgram`` (``core/leaf_ir.py``) is bound to tile sizes
-(:class:`_Spec`) and run by :func:`leaf_program`.  Every program with no
-transposed destination — symm, matmul and the gram kinds (ata, aat,
-rank_k) of every gram but ``dps`` — is lowered to eleven op-indexed
-tables (:func:`_op_tables`); a ``dps`` gram program to eight
-destination-indexed ones (:func:`_program_tables`).  Each runs:
+(:class:`_Spec`) and run by :func:`leaf_program`.  Every program — symm,
+matmul and the gram kinds (ata, aat, rank_k) of every gram — is lowered
+to twelve op-indexed tables (:func:`_op_tables`) and runs:
 
-* on a CUDA tensor, a hand-written kernel: ``csrc/leaf_products.cu``
-  for the op tables (one thread block per output position; the ops loop
-  inside it, each leaf product computed once and added into each of its
-  destinations), ``csrc/leaf_program.cu`` for the ``dps`` gram (one
-  block per (output tile, 64 x 64 sub-tile); the contribution x K sweep
-  loops inside the block behind a ``pipeline_depth``-slot ``cp.async``
-  ring);
+* on a CUDA tensor, the hand-written kernel ``csrc/leaf_products.cu``:
+  one thread block per output position, the ops looping inside it, each
+  leaf product computed once and added into each of its destinations.
+  A program with transposed destinations (the ``dps`` gram's) runs it
+  in pair mode: a block owns a position and its mirror, and adds each
+  product straight into one and transposed into the other;
 * on a CPU tensor, the plain torch walk over the same tables
-  (:func:`_leaf_products_plain`, :func:`_leaf_program_plain`) — the
-  counterpart of Pallas interpret mode, and the plain version each
-  kernel is held against on the card.
+  (:func:`_leaf_products_plain`) — the counterpart of Pallas interpret
+  mode, and the plain version the kernel is held against on the card.
+
+The TPU kernel's own walk, destination by destination over the
+destination-indexed tables (:func:`_program_tables`), stays as a CPU
+oracle (:func:`_leaf_program_plain`).
 
 The program kinds, each with its entry point and its autograd:
 
@@ -101,9 +101,11 @@ _GRAM_KINDS = ("ata", "aat", "rank_k")
 # transposed right side), the packed tri stack (symm)
 _RIGHT_KJ, _RIGHT_JK, _RIGHT_TRI = 0, 1, 2
 
-# destination flags of the op tables: the op is the first / the last to
-# feed that leaf destination
+# destination flags of the op tables: the op's slot is the first / the
+# last to feed that leaf destination, for an element on or below its leaf
+# block's diagonal; shifted left by _UPPER, for an element above it
 _FIRST, _LAST = 1, 2
+_UPPER = 2
 
 #: Block tiles of ``csrc/leaf_products.cu`` (a thread block's TILE x TILE
 #: sub-tile of an output tile), in the order the launch prefers them: the
@@ -115,11 +117,9 @@ PRODUCT_TILES = (128, 64)
 #: main path went through it.
 KERNEL_LAUNCHES = {f"leaf_program/{kind}": 0 for kind in _KINDS}
 
-#: The same launches by the library that ran them: ``leaf_products.cu``
-#: for every kind, ``leaf_program.cu`` for the gram programs with
-#: transposed destinations (the ``dps`` gram).
-LIBRARY_LAUNCHES = {f"leaf_products.cu/{kind}": 0 for kind in _KINDS} | {
-    f"leaf_program.cu/{kind}": 0 for kind in _GRAM_KINDS}
+#: The same launches by the library that ran them, ``leaf_products.cu``
+#: for every kind.
+LIBRARY_LAUNCHES = {f"leaf_products.cu/{kind}": 0 for kind in _KINDS}
 
 # (kind, variant, gram, requested, clamped) combinations already warned
 # about: the clamp warns exactly once per distinct clamp.
@@ -455,21 +455,29 @@ def _op_tables(kind: str, levels: int, variant: str, gram: str = "strassen",
     """The program as op-indexed tables, what ``csrc/leaf_products.cu``
     walks: per leaf op (``LeafProgram.ops`` order) its left terms ``lrow,
     lcol, lsgn`` and right terms ``rrow, rcol, rsgn, rtrn`` (``[n_ops,
-    tmax]``), its destinations ``dest`` (leaf index), ``dsgn`` (sign) and
-    ``dflag`` (``_FIRST``: no earlier op feeds that destination;
-    ``_LAST``: no later one does), ``[n_ops, max_dests]`` in the op's
-    order, and ``odiag`` (``[n_ops]``, packed outputs only: every
-    destination of the op is a diagonal leaf block, so a position above
-    the diagonal of a leaf block skips it).  Empty slots carry
-    coefficient or sign 0 and come last in their row, which the kernel
-    counts on.  Since ``by_dest`` sorts stably, a destination's
-    contributions in op order are exactly its slots in
+    tmax]``), its destinations in the op's order (``[n_ops, max_dests]``):
+    ``dest`` (leaf index), ``dsgn`` (sign), ``dflag`` and ``dtrn`` (the
+    destination takes the op's product transposed, which only the gram
+    kinds' ``dps`` programs emit), and ``odiag`` (``[n_ops]``, packed
+    outputs only: every destination of the op is a straight one on a
+    diagonal leaf block, so a position above the diagonal of a leaf block
+    skips it).  Empty slots carry coefficient or sign 0 and come last in
+    their row, which the kernel counts on.
+
+    The order in which an element ``(r, c)`` of a leaf block (in the leaf
+    block's coordinates) takes its contributions: the ops in op order;
+    within an op, where ``r >= c`` its straight slots then its transposed
+    ones, where ``r < c`` the transposed ones first, each in table order.
+    ``dflag`` marks a slot ``_FIRST`` (no earlier contribution feeds that
+    destination) and ``_LAST`` (no later one does) in the order of an
+    element on or below the diagonal, and the same shifted left by
+    ``_UPPER`` in the order of an element above it.  Since ``by_dest``
+    sorts stably, a destination's slots in op order, the transposed ones
+    with their sides swapped, are exactly its slots in
     :func:`_program_tables`.
 
-    Symm, matmul and the gram kinds lower here.  A transposed
-    destination (the ``dps`` gram emits them) is refused: such programs
-    run ``csrc/leaf_program.cu``.  So is a destination that no op feeds
-    (the kernel stores it first where an op first feeds it)."""
+    A destination that no op feeds is refused (the kernel stores where a
+    destination is first fed)."""
     prog = compile_program(kind, levels, variant, gram=gram,
                            trans_a=trans_a, trans_b=trans_b)
     n_ops, tmax = len(prog.ops), prog.max_terms
@@ -479,11 +487,10 @@ def _op_tables(kind: str, levels: int, variant: str, gram: str = "strassen",
     lsgn = np.zeros((n_ops, tmax), np.float32)
     rsgn = np.zeros_like(lsgn)
     dest = np.zeros((n_ops, max_dests), np.int32)
-    dflag = np.zeros_like(dest)
+    dflag, dtrn = np.zeros_like(dest), np.zeros_like(dest)
     dsgn = np.zeros((n_ops, max_dests), np.float32)
     odiag = np.zeros(n_ops, np.int32)
     tri = prog.out_spec.packing == "tri"
-    last = {}
     for o, op in enumerate(prog.ops):
         for p, (r, c, sg, tr) in enumerate(op.left):
             assert tr == 0, "per-term left transposes are not lowered"
@@ -491,24 +498,30 @@ def _op_tables(kind: str, levels: int, variant: str, gram: str = "strassen",
         for q, (r, c, sg, tr) in enumerate(op.right):
             rrow[o, q], rcol[o, q], rsgn[o, q], rtrn[o, q] = r, c, sg, tr
         for d, (di, dj, sg, tr) in enumerate(op.dests):
-            if tr:
-                raise ValueError(
-                    f"the {kind} program (gram={gram!r}) has a transposed "
-                    "destination, which the op tables do not lower; the "
-                    "dps gram's programs run csrc/leaf_program.cu")
-            ld = prog.dest_index(di, dj)
-            dest[o, d], dsgn[o, d] = ld, sg
-            if ld not in last:
-                dflag[o, d] |= _FIRST
-            last[ld] = (o, d)
-        odiag[o] = tri and all(di == dj for di, dj, _, _ in op.dests)
+            if tr and kind not in _GRAM_KINDS:
+                raise ValueError(f"the {kind} program has a transposed "
+                                 "destination; only the gram kinds take one")
+            dest[o, d], dsgn[o, d], dtrn[o, d] = prog.dest_index(di, dj), \
+                sg, tr
+        odiag[o] = tri and all(di == dj and not tr
+                               for di, dj, _, tr in op.dests)
+    for shift, first_trn in ((0, 0), (_UPPER, 1)):
+        last = {}
+        for o, op in enumerate(prog.ops):
+            for trn in (first_trn, 1 - first_trn):
+                for d in range(len(op.dests)):
+                    if dtrn[o, d] != trn:
+                        continue
+                    if dest[o, d] not in last:
+                        dflag[o, d] |= _FIRST << shift
+                    last[dest[o, d]] = (o, d)
+        for o, d in last.values():
+            dflag[o, d] |= _LAST << shift
     if len(last) != prog.n_dests():
         raise ValueError(f"{prog.n_dests() - len(last)} destinations of the "
                          f"{kind} program get no contribution")
-    for o, d in last.values():
-        dflag[o, d] |= _LAST
     return (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag,
-            odiag)
+            dtrn, odiag)
 
 
 @functools.lru_cache(maxsize=None)
@@ -519,18 +532,6 @@ def _device_op_tables(kind: str, levels: int, variant: str, gram: str,
     return tuple(torch.from_numpy(t).to(device)
                  for t in _op_tables(kind, levels, variant, gram, trans_a,
                                      trans_b))
-
-
-def _walks_ops(spec: _Spec) -> bool:
-    """Whether ``spec``'s program runs on the op tables
-    (``csrc/leaf_products.cu``): every program but a gram program with a
-    transposed destination (the ``dps`` gram's), which runs
-    ``csrc/leaf_program.cu``."""
-    if spec.kind in _PRODUCT_KINDS:
-        return True
-    prog = compile_program(spec.kind, spec.levels, spec.variant,
-                           gram=spec.gram)
-    return not any(tr for op in prog.ops for _, _, _, tr in op.dests)
 
 
 # a re-registered algebra table must invalidate the lowered tables too —
@@ -585,10 +586,12 @@ def _tiles(x: torch.Tensor, r: int, c: int) -> torch.Tensor:
 def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
                         right: torch.Tensor, out_dtype,
                         seed: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain torch version of ``csrc/leaf_program.cu``, which runs the
-    dps gram's programs (it takes any gram program): the same
-    destination-indexed tables, the same walk (contributions, then K
-    blocks), over every output tile at once.
+    """The TPU kernel's own walk, in plain torch: a CPU oracle that the op
+    walk (:func:`_leaf_products_plain`, ``csrc/leaf_products.cu``) is held
+    against.  It takes any gram program, over the destination-indexed
+    tables (:func:`_program_tables`), and walks output tiles the TPU
+    kernel's way (contributions, then K blocks), over every output tile
+    at once, recomputing a leaf product for every destination it feeds.
 
     The accumulator starts from ``seed`` (the incoming stack of an
     accumulating program, upcast to fp32) or from zero.  Per
@@ -599,7 +602,7 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
     ``sign * (L @ R)`` where the sign is not 0.
     """
     if spec.kind not in _GRAM_KINDS:
-        raise ValueError(f"leaf_program.cu runs the gram kinds, not "
+        raise ValueError(f"the destination walk takes the gram kinds, not "
                          f"{spec.kind!r}")
     sign, lrow, lcol, lsgn, rrow, rcol, rsgn, _ = tables
     ld, gi, gj = _out_tiles(spec, left.device)
@@ -670,17 +673,22 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
     diagonal tile under ``diag_sym``, times its coefficient, added to the
     running sum; a transposed side flips its sum once) and adds one
     ``torch.bmm`` into the op's product.  Then it adds ``sign * product``
-    into each of the op's destinations in table order, storing (onto the
-    seed, the incoming packed stack of rank_k, where there is one) where
-    the op is the first to feed one.  So each leaf product is computed
-    once: ``n_ops * n_k`` bmm calls.
+    into each of the op's destinations, storing (onto the seed, the
+    incoming packed stack of rank_k, where there is one) where the slot
+    is the first to feed one.  A transposed destination (the ``dps``
+    gram's) takes at ``(iq, jq)`` the transpose of the product at the
+    mirror position ``(jq, iq)``, in :func:`_op_tables`' element order:
+    an element on or below its leaf block's diagonal takes an op's
+    straight slots first, one above it the transposed ones.  So each leaf
+    product is computed once: ``n_ops * n_k`` bmm calls.
 
     A packed output (the gram kinds) holds tile ``(iq, jq)`` of a
     diagonal leaf block only where ``iq >= jq``: an op that feeds only
-    diagonal leaf blocks runs at those positions alone, as in the kernel,
-    and the packed stack is gathered from the positions at the end.
+    diagonal leaf blocks, straight, runs at those positions alone, as in
+    the kernel, and the packed stack is gathered from the positions at
+    the end.
     """
-    (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag,
+    (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag, dtrn,
      odiag) = _spec_op_tables(spec)
     dev = left.device
     q_i, q_j, n_k = spec.q_i, spec.q_j, spec.n_k
@@ -692,6 +700,16 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
     ltiles = _tiles(left, *l_shape)
     rtiles = right.reshape(-1, *r_shape) if spec.right_tri \
         else _tiles(right, *r_shape)
+    if dtrn.any():      # a gram program: square positions and tiles
+        iq, jq, _ = every
+        mirror = jq * q_j + iq
+        # the elements of each position on or below the leaf block's
+        # diagonal
+        lower = torch.where(
+            (iq == jq)[:, None, None],
+            torch.ones(spec.bi, spec.bj, dtype=torch.bool,
+                       device=dev).tril(),
+            (iq > jq)[:, None, None])
 
     def signed_sum(tile_of, rows, cols, coefs):
         acc = None
@@ -743,6 +761,18 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
         if seed is not None:
             start = torch.zeros_like(acc)
             start[held] = seed.reshape(spec.n_out, spec.bi, spec.bj).float()
+
+    def add(o, d, at, term, flag, where=None):
+        """Slot d of op o adds ``term`` at positions ``at``, onto the seed
+        where ``flag`` says it is the first; only ``where`` if given."""
+        ld = int(dest[o, d])
+        if flag & _FIRST:
+            new = term if start is None else start[ld, at] + term
+        else:
+            new = acc[ld, at] + term
+        acc[ld, at] = new if where is None \
+            else torch.where(where, new, acc[ld, at])
+
     with ieee_fp32():
         for o in range(len(lrow)):
             iq, jq, at = heavy if spec.out_tri and odiag[o] else every
@@ -750,14 +780,23 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
                                dtype=torch.float32, device=dev)
             for k in range(n_k):
                 prod += torch.bmm(left_sum(o, k, iq), right_sum(o, k, jq))
-            for d in np.flatnonzero(dsgn[o]):
-                term = prod * float(dsgn[o, d])
-                ld_o = int(dest[o, d])
-                if dflag[o, d] & _FIRST:
-                    acc[ld_o, at] = term if start is None \
-                        else start[ld_o, at] + term
-                else:
-                    acc[ld_o, at] += term
+            slots = np.flatnonzero(dsgn[o])
+            if not dtrn[o].any():
+                for d in slots:
+                    add(o, d, at, prod * float(dsgn[o, d]), dflag[o, d])
+                continue
+            # both halves of each position in their own order: straight
+            # slots first on and below the diagonal, transposed above
+            prod_t = prod[mirror].transpose(1, 2)
+            straight = [d for d in slots if not dtrn[o, d]]
+            mirrored = [d for d in slots if dtrn[o, d]]
+            for half, order in ((lower, straight + mirrored),
+                                (~lower, mirrored + straight)):
+                shift = 0 if half is lower else _UPPER
+                for d in order:
+                    term = (prod_t if dtrn[o, d] else prod) \
+                        * float(dsgn[o, d])
+                    add(o, d, at, term, dflag[o, d] >> shift, half)
     if spec.out_tri:
         return acc[held].reshape(_out_shape(spec)).to(out_dtype)
     blocks_i = acc.shape[0] // spec.blocks_j
@@ -766,43 +805,16 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
     return out.reshape(_out_shape(spec)).to(out_dtype)
 
 
-def _plain(spec: _Spec, left: torch.Tensor, right: torch.Tensor, out_dtype,
-           seed: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain version of the kernel a CUDA tensor would launch for
-    ``spec`` (:func:`_walks_ops`): what :func:`leaf_program` runs on the
-    CPU, and what each kernel is held against on the card."""
-    if _walks_ops(spec):
-        return _leaf_products_plain(spec, left, right, out_dtype, seed)
-    return _leaf_program_plain(spec, _spec_tables(spec, left.device), left,
-                               right, out_dtype, seed)
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("leaf_program")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_program_launch.argtypes = [ptr] * 12 + [i64] * 2 + [i32] * 20 \
-        + [ptr]
-    lib.leaf_program_launch.restype = i32
-    lib.leaf_program_smem_bytes.argtypes = [i32] * 4
-    lib.leaf_program_smem_bytes.restype = ctypes.c_size_t
-    lib.leaf_program_max_contributions.argtypes = []
-    lib.leaf_program_max_contributions.restype = i32
-    lib.leaf_program_error_string.argtypes = [i32]
-    lib.leaf_program_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 @functools.cache
 def _products_lib() -> ctypes.CDLL:
     lib = _build.library("leaf_products")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_products_launch.argtypes = [ptr] * 16 + [i64] * 4 + [i32] * 20 \
+    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 21 \
         + [ptr]
     lib.leaf_products_launch.restype = i32
-    lib.leaf_products_smem_bytes.argtypes = [i32] * 6
+    lib.leaf_products_smem_bytes.argtypes = [i32] * 7
     lib.leaf_products_smem_bytes.restype = ctypes.c_size_t
-    lib.leaf_products_blocks_per_sm.argtypes = [i32] * 6
+    lib.leaf_products_blocks_per_sm.argtypes = [i32] * 7
     lib.leaf_products_blocks_per_sm.restype = i32
     lib.leaf_products_whole_positions.argtypes = [i32] * 6 + [i64]
     lib.leaf_products_whole_positions.restype = i64
@@ -815,7 +827,7 @@ def _products_smem(spec: _Spec, tile: int, left_bytes: int,
                    right_bytes: int) -> int:
     return _products_lib().leaf_products_smem_bytes(
         int(spec.right_tri), spec.tmax, tile, left_bytes, right_bytes,
-        spec.pipeline_depth)
+        spec.pipeline_depth, int(_pairs(spec)))
 
 
 def _products_tile(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
@@ -831,16 +843,18 @@ def _products_tile(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
 
 def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int,
                tile: int | None = None) -> int:
-    """Dynamic shared memory one launch of ``spec`` needs, as its kernel
-    lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``); for
-    ``leaf_products.cu`` at ``tile``, by default the one the launch
-    takes."""
-    if _walks_ops(spec):
-        if tile is None:
-            tile = _products_tile(spec, left_bytes, right_bytes)
-        return _products_smem(spec, tile, left_bytes, right_bytes)
-    return _lib().leaf_program_smem_bytes(spec.tmax, left_bytes, right_bytes,
-                                          spec.pipeline_depth)
+    """Dynamic shared memory one ``leaf_products.cu`` launch of ``spec``
+    needs at ``tile``, by default the one the launch takes, as its kernel
+    lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``)."""
+    if tile is None:
+        tile = _products_tile(spec, left_bytes, right_bytes)
+    return _products_smem(spec, tile, left_bytes, right_bytes)
+
+
+def _pairs(spec: _Spec) -> bool:
+    """Whether ``leaf_products.cu`` runs ``spec`` in pair mode: its
+    program has a transposed destination (the ``dps`` gram's)."""
+    return bool(_spec_op_tables(spec)[10].any())
 
 
 def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
@@ -848,9 +862,11 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
     """How a ``leaf_products.cu`` launch of ``spec`` fills the current
     card: its block tile, output positions (a tile x tile sub-tile each),
     the positions walked whole (the rest, the ragged last wave's, are
-    walked in quarters, four blocks each), thread blocks, blocks an SM
-    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and shared memory a block."""
+    walked in quarters, four blocks each; in pair mode none), thread
+    blocks (in pair mode one a mirror pair of positions and one a
+    position that is its own mirror), blocks an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared memory
+    a block."""
     lb, rb = (torch.empty((), dtype=d).element_size()
               for d in (left_dtype, right_dtype))
     tile = _products_tile(spec, lb, rb) if tile is None else tile
@@ -859,10 +875,17 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
     lib = _products_lib()
     codes = (_DTYPE_CODES[left_dtype], _DTYPE_CODES[right_dtype],
              int(spec.right_tri), spec.tmax, tile, spec.pipeline_depth)
-    whole = lib.leaf_products_whole_positions(*codes, positions)
-    return {"tile": tile, "positions": positions, "whole_positions": whole,
-            "blocks": whole + 4 * (positions - whole),
-            "blocks_per_sm": lib.leaf_products_blocks_per_sm(*codes),
+    pair = _pairs(spec)
+    if pair:            # square: Q sub-tiles along a leaf block's edge
+        side = spec.q_i * -(-spec.bi // tile)
+        whole, blocks = positions, side * (side + 1) // 2
+    else:
+        whole = lib.leaf_products_whole_positions(*codes, positions)
+        blocks = whole + 4 * (positions - whole)
+    return {"tile": tile, "pair": pair, "positions": positions,
+            "whole_positions": whole, "blocks": blocks,
+            "blocks_per_sm": lib.leaf_products_blocks_per_sm(*codes,
+                                                             int(pair)),
             "smem_bytes": _products_smem(spec, tile, lb, rb)}
 
 
@@ -871,14 +894,10 @@ def product_flops(spec: _Spec) -> int:
     computed once at the padded leaf shapes.  Symm and matmul: ``2 *
     LeafProgram.mult_count``.  The gram kinds: ``2 * bi * bj * n_k * bc``
     a tile product, over the ``q (q + 1) / 2`` tiles of a diagonal leaf
-    block for an op that feeds only diagonal blocks (its diagonal tiles
-    whole) and over all ``q^2`` for the others.  A program with a
-    transposed destination (the dps gram) runs ``csrc/leaf_program.cu``
-    and is refused."""
-    if not _walks_ops(spec):
-        raise ValueError(f"the {spec.kind} program (gram={spec.gram!r}) "
-                         "has transposed destinations: it runs "
-                         "leaf_program.cu, which computes no product once")
+    block for an op that feeds only diagonal blocks, straight (its
+    diagonal tiles whole), and over all ``q^2`` for the others — every op
+    of a ``dps`` program among them, whose transposed destinations take
+    the product at the mirror position."""
     if spec.kind in _GRAM_KINDS:
         odiag = _spec_op_tables(spec)[-1]
         q = spec.q_i
@@ -976,40 +995,30 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     default the first that divides the output tiles and fits.  Neither
     it nor ``spec.pipeline_depth`` changes a bit of the result.
 
-    A CUDA tensor launches, on the current stream (no synchronisation),
-    ``csrc/leaf_products.cu`` for every program without a transposed
-    destination (symm, matmul, and the gram kinds of every gram but
-    ``dps``) or ``csrc/leaf_program.cu`` for a ``dps`` gram program
-    (:func:`_walks_ops`), or raises: a failure of one is never retried
-    on the other.  A CPU tensor runs the plain version of the same
-    kernel (:func:`_plain`).  Returns the raw output buffer in
-    ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for the gram
-    kinds, the dense padded grid for symm and matmul.  Each launch counts
-    in ``KERNEL_LAUNCHES`` by kind and in ``LIBRARY_LAUNCHES`` by the
-    library that ran it.
+    A CUDA tensor launches ``csrc/leaf_products.cu``, on the current
+    stream (no synchronisation), or raises; a CPU tensor runs its plain
+    version (:func:`_leaf_products_plain`).  Returns the raw output buffer
+    in ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for the gram
+    kinds, the dense padded grid for symm and matmul; a bf16 output
+    accumulates in an fp32 workspace of its size and is rounded once.
+    Each launch counts in ``KERNEL_LAUNCHES`` by kind and in
+    ``LIBRARY_LAUNCHES`` by the library that ran it.
     """
     if spec.kind not in _KINDS:
         raise ValueError(f"unknown program kind {spec.kind!r}")
     if left.device != right.device:
         raise ValueError(f"operands on {left.device} and {right.device}")
     if left.device.type == "cpu":
-        res = _plain(spec, left, right, out_dtype, seed)
+        res = _leaf_products_plain(spec, left, right, out_dtype, seed)
         return res if out is None else out.copy_(res)
     if left.device.type != "cuda":
         raise ValueError(f"leaf_program runs on cuda or cpu, not "
                          f"{left.device}")
     _check_kernel_args(spec, left, right, out_dtype, seed, out)
-    products = _walks_ops(spec)
-    if products:
-        if tile is None:
-            tile = _products_tile(spec, left.element_size(),
-                                  right.element_size())
-        elif tile not in PRODUCT_TILES:
-            raise ValueError(f"tile must be one of {PRODUCT_TILES}, got "
-                             f"{tile}")
-    elif spec.n_c > _lib().leaf_program_max_contributions():
-        raise ValueError(f"{spec.n_c} contribution slots exceed the "
-                         f"kernel's {_lib().leaf_program_max_contributions()}")
+    if tile is None:
+        tile = _products_tile(spec, left.element_size(), right.element_size())
+    elif tile not in PRODUCT_TILES:
+        raise ValueError(f"tile must be one of {PRODUCT_TILES}, got {tile}")
     smem = smem_bytes(spec, left.element_size(), right.element_size(), tile)
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
@@ -1020,59 +1029,33 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     if out is None:
         out = torch.empty(_out_shape(spec), dtype=out_dtype,
                           device=left.device)
-    with torch.cuda.device(left.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if products:
-            lib = _products_lib()
-            err = _launch_products(lib, spec, left, right, seed, out, tile,
-                                   stream)
-            error_string = lib.leaf_products_error_string
-        else:
-            lib = _lib()
-            err = lib.leaf_program_launch(
-                left.data_ptr(), right.data_ptr(),
-                None if seed is None else seed.data_ptr(), out.data_ptr(),
-                *(t.data_ptr() for t in _spec_tables(spec, left.device)),
-                left.shape[1], right.shape[1], spec.n_out, spec.n_c,
-                spec.n_k, spec.tmax, spec.q_i, spec.q_j, spec.n_tj,
-                spec.blocks_j, spec.bi, spec.bj, spec.bc,
-                int(spec.left_trans),
-                _RIGHT_JK if spec.right_trans else _RIGHT_KJ,
-                int(spec.out_tri), int(spec.diag_sym),
-                _DTYPE_CODES[left.dtype], _DTYPE_CODES[right.dtype],
-                0 if seed is None else _DTYPE_CODES[seed.dtype],
-                _DTYPE_CODES[out.dtype], spec.pipeline_depth, stream)
-            error_string = lib.leaf_program_error_string
-    if err:
-        raise RuntimeError(f"leaf_program launch failed: CUDA error {err} "
-                           f"({error_string(err).decode()})")
-    KERNEL_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
-    library = "leaf_products" if products else "leaf_program"
-    LIBRARY_LAUNCHES[f"{library}.cu/{spec.kind}"] += 1
-    return out
-
-
-def _launch_products(lib, spec: _Spec, left, right, seed, out, tile: int,
-                     stream) -> int:
-    """One ``csrc/leaf_products.cu`` launch into ``out``; a bf16 output
-    accumulates in an fp32 workspace of its size and is rounded once."""
-    tables = _spec_op_tables(spec, left.device)
     ws = out if out.dtype == torch.float32 else torch.empty(
         out.shape, dtype=torch.float32, device=out.device)
+    tables = _spec_op_tables(spec, left.device)
     n_ops, max_dests = tables[7].shape
     right_layout = _RIGHT_TRI if spec.right_tri \
         else _RIGHT_JK if spec.right_trans else _RIGHT_KJ
-    return lib.leaf_products_launch(
-        left.data_ptr(), right.data_ptr(),
-        None if seed is None else seed.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), *(t.data_ptr() for t in tables), *left.shape,
-        *right.shape, n_ops, spec.tmax, max_dests, spec.n_k, spec.q_i,
-        spec.q_j, spec.blocks_j, spec.bi, spec.bj, spec.bc,
-        int(spec.left_trans), right_layout, int(spec.diag_sym),
-        int(spec.out_tri), _DTYPE_CODES[left.dtype],
-        _DTYPE_CODES[right.dtype],
-        0 if seed is None else _DTYPE_CODES[seed.dtype],
-        _DTYPE_CODES[out.dtype], tile, spec.pipeline_depth, stream)
+    lib = _products_lib()
+    with torch.cuda.device(left.device):
+        err = lib.leaf_products_launch(
+            left.data_ptr(), right.data_ptr(),
+            None if seed is None else seed.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), *(t.data_ptr() for t in tables), *left.shape,
+            *right.shape, n_ops, spec.tmax, max_dests, spec.n_k, spec.q_i,
+            spec.q_j, spec.blocks_j, spec.bi, spec.bj, spec.bc,
+            int(spec.left_trans), right_layout, int(spec.diag_sym),
+            int(spec.out_tri), int(_pairs(spec)), _DTYPE_CODES[left.dtype],
+            _DTYPE_CODES[right.dtype],
+            0 if seed is None else _DTYPE_CODES[seed.dtype],
+            _DTYPE_CODES[out.dtype], tile, spec.pipeline_depth,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"leaf_program launch failed: CUDA error {err} "
+            f"({lib.leaf_products_error_string(err).decode()})")
+    KERNEL_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
+    LIBRARY_LAUNCHES[f"leaf_products.cu/{spec.kind}"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2026,9 +2009,9 @@ def ata_bwd_traffic_model(
 def live_steps(spec: _Spec) -> int:
     """(tile, contribution, K block) steps with a nonzero sign, ``2 * bi *
     bj * bc`` flops each: the steps of the TPU kernel's walk, which
-    ``csrc/leaf_program.cu`` runs for the dps gram.  They count the
-    per-destination recomputation that ``csrc/leaf_products.cu`` does
-    not do (:func:`product_flops`)."""
+    :func:`_leaf_program_plain` follows.  They count the per-destination
+    recomputation that ``csrc/leaf_products.cu`` does not do
+    (:func:`product_flops`)."""
     sign = _program_tables(spec.kind, spec.levels, spec.variant,
                            spec.gram, spec.trans_a, spec.trans_b)[0]
     live_per_dest = torch.from_numpy((sign != 0).sum(axis=1))

@@ -1,13 +1,12 @@
 """The gram kinds (ata, aat, rank_k) on the op walk, on the CPU.
 
-A gram program with no transposed destination (every gram but dps) runs
-``csrc/leaf_products.cu`` on the card: each leaf product computed once
-per output position, written into the packed lower-triangular stack, a
-position above a leaf block's diagonal skipping the ops that feed only
-diagonal blocks, and rank_k's incoming stack read where an op first feeds
-a destination.  Its plain version ``_leaf_products_plain`` walks the same
-tables the same way; a dps program stays on ``leaf_program.cu`` and its
-plain version ``_leaf_program_plain``.
+A gram program of either gram runs ``csrc/leaf_products.cu`` on the card:
+each leaf product computed once per output position, written into the
+packed lower-triangular stack, a position above a leaf block's diagonal
+skipping the ops that feed only diagonal blocks, and rank_k's incoming
+stack read where an op first feeds a destination.  Its plain version
+``_leaf_products_plain`` walks the same tables the same way (the dps
+gram's transposed destinations: tests/test_torch_dps_products.py).
 
 Here: which plain version ``leaf_program`` runs for which gram; the new
 walk against the destination walk over algebra x levels 0-3, with fp32
@@ -96,17 +95,17 @@ def _case(*args, **kw):
 @pytest.mark.parametrize("kind", KINDS)
 def test_leaf_program_routes_by_gram(monkeypatch, kind):
     """On the CPU ``leaf_program`` runs the plain version of the kernel the
-    card would launch: the op walk for the strassen gram, the destination
-    walk for dps, whose programs have transposed destinations."""
+    card would launch: the op walk for either gram, for dps in pair mode,
+    whose programs have transposed destinations."""
     ran = []
     for name in ("_leaf_products_plain", "_leaf_program_plain"):
         fn = getattr(sf, name)
         monkeypatch.setattr(sf, name, lambda *a, _fn=fn, _name=name, **kw:
                             ran.append(_name) or _fn(*a, **kw))
     for gram, want in (("strassen", "_leaf_products_plain"),
-                       ("dps", "_leaf_program_plain")):
+                       ("dps", "_leaf_products_plain")):
         spec, ap, seed = _case(kind, 2, gram=gram)
-        assert sf._walks_ops(spec) == (gram == "strassen")
+        assert sf._pairs(spec) == (gram == "dps")
         ran.clear()
         sf.leaf_program(spec, ap, ap, torch.float32, seed=seed)
         assert ran == [want], (gram, ran)
@@ -116,8 +115,8 @@ def test_leaf_program_routes_by_gram(monkeypatch, kind):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_op_walk_matches_destination_walk(variant, kind, levels):
-    """The new walk against ``_leaf_program_plain``, the plain version of
-    ``leaf_program.cu``, on the same tables' program: 1e-5 of max|out|."""
+    """The new walk against ``_leaf_program_plain``, the TPU kernel's
+    destination walk, on the same tables' program: 1e-5 of max|out|."""
     spec, ap, seed = _case(kind, levels, variant, seed=levels)
     got = sf._leaf_products_plain(spec, ap, ap, torch.float32, seed)
     want = sf._leaf_program_plain(spec, sf._spec_tables(spec, "cpu"), ap, ap,

@@ -6,11 +6,11 @@ adds it into each of its destinations.  It walks the op-indexed tables of
 ``strassen_fused._op_tables``; its plain version ``_leaf_products_plain``
 walks the same tables the same way.  Here the tables are held against the
 destination-indexed ones, slot for slot (and so against the JAX
-package's), for symm, matmul and the gram kinds; the refusal of the dps
-gram's transposed destinations; the plain walk against the JAX package's
-float64 ``interpret_program`` and the float64 product at ragged shapes
-down to levels 3, its ``torch.bmm`` calls are counted (one per op and K
-block), and ``product_flops`` against ``mult_count``.  Tolerances are the
+package's), for symm, matmul and the gram kinds; the dps gram's
+transposed destinations lowered as flagged slots; the plain walk against
+the JAX package's float64 ``interpret_program`` and the float64 product
+at ragged shapes down to levels 3, its ``torch.bmm`` calls are counted
+(one per op and K block), and ``product_flops`` against ``mult_count``.  Tolerances are the
 JAX suite's: 1e-5 of max|out| in fp32 (tests/test_leaf_ir.py), the
 product and the oracles differing only in summation order.  The CUDA
 kernel is held against this plain version on the card by
@@ -56,10 +56,13 @@ def _rel(got, want):
 def _slot_tables(kind, levels, variant, trans_a=False, trans_b=False,
                  gram="strassen"):
     """The destination-indexed tables re-derived from the op tables: each
-    destination's slots are the ops that feed it, in op order."""
+    destination's slots are the ops that feed it, in op order, a
+    transposed slot with its sides swapped; and the first/last flags
+    checked against the element order (an op's straight slots first on
+    and below a leaf block's diagonal, its transposed ones first above)."""
     prog = sf.compile_program(kind, levels, variant, gram=gram,
                               trans_a=trans_a, trans_b=trans_b)
-    (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag,
+    (lrow, lcol, lsgn, rrow, rcol, rsgn, rtrn, dest, dsgn, dflag, dtrn,
      _odiag) = sf._op_tables(kind, levels, variant, gram, trans_a, trans_b)
     n_dest, n_c, tmax = prog.n_dests(), prog.max_contributions, \
         prog.max_terms
@@ -71,18 +74,24 @@ def _slot_tables(kind, levels, variant, trans_a=False, trans_b=False,
     for o in range(len(lrow)):
         for d in np.flatnonzero(dsgn[o]):
             ld, s = dest[o, d], slots[dest[o, d]]
-            # the first slot of a destination stores, its last rounds
-            assert bool(dflag[o, d] & sf._FIRST) == (s == 0)
             sign[ld, s] = dsgn[o, d]
-            for t, src in zip(out[1:], (lrow, lcol, lsgn, rrow, rcol, rsgn,
-                                        rtrn)):
+            sides = (rrow, rcol, rsgn, lrow, lcol, lsgn) if dtrn[o, d] \
+                else (lrow, lcol, lsgn, rrow, rcol, rsgn)
+            for t, src in zip(out[1:7], sides):
                 t[ld, s] = src[o]
+            # the swapped right side is the op's left, which has no mirrors
+            out[7][ld, s] = 0 if dtrn[o, d] else rtrn[o]
             slots[ld] += 1
-    for o in range(len(lrow)):
-        for d in np.flatnonzero(dsgn[o]):
-            assert bool(dflag[o, d] & sf._LAST) == \
-                (sum(dest[p, e] == dest[o, d] for p in range(o + 1, len(lrow))
-                     for e in np.flatnonzero(dsgn[p])) == 0)
+    for shift, first_trn in ((0, 0), (sf._UPPER, 1)):
+        order = [(o, d) for o in range(len(lrow))
+                 for trn in (first_trn, 1 - first_trn)
+                 for d in np.flatnonzero(dsgn[o]) if dtrn[o, d] == trn]
+        for flag, walk in ((sf._FIRST, order), (sf._LAST, order[::-1])):
+            seen = set()
+            for o, d in walk:
+                assert bool((dflag[o, d] >> shift) & flag) == \
+                    (dest[o, d] not in seen)
+                seen.add(dest[o, d])
     return tuple(out)
 
 
@@ -128,14 +137,20 @@ def test_gram_op_tables_rederive_program_tables(variant, kind, levels):
 
 
 def test_op_tables_refuse_gram_kinds():
-    """Only the transposed destinations of the dps gram are refused; the
-    message names the gram and the kernel that runs it."""
+    """The dps gram's op tables lower, with transposed slots (``dtrn``)
+    and no op that skips the positions above a leaf block's diagonal; the
+    strassen gram's have none, and their flags are the same in both
+    halves of a leaf block."""
     for kind in ("ata", "aat", "rank_k"):
-        sf._op_tables(kind, 1, "strassen")
-        with pytest.raises(ValueError,
-                           match="transposed destination.*dps gram.*"
-                                 "leaf_program.cu"):
-            sf._op_tables(kind, 1, "strassen", "dps")
+        tables = sf._op_tables(kind, 1, "strassen")
+        dflag, dtrn = tables[9], tables[10]
+        assert not dtrn.any()
+        np.testing.assert_array_equal(dflag & 3, dflag >> sf._UPPER)
+        dps = sf._op_tables(kind, 1, "strassen", "dps")
+        dsgn, dtrn, odiag = dps[8], dps[10], dps[11]
+        assert dtrn.dtype == np.int32 and dtrn.shape == dsgn.shape
+        assert dtrn.any() and not dtrn[dsgn == 0].any()
+        assert not odiag.any()
 
 
 def test_op_tables_follow_algebra_changes():
@@ -249,18 +264,20 @@ def test_product_flops_is_mult_count(case):
 
 
 def test_product_flops_refuses_gram_kinds():
-    """A dps gram program, whose transposed destinations run
-    ``leaf_program.cu``, has no product flops; the strassen gram's has."""
+    """A dps gram program, whose transposed destinations take the product
+    at the mirror position, counts every op at all q^2 positions; the
+    strassen gram's skips the diagonal-only ops above the diagonal."""
     geo = sf._ata_geometry(64, 64, 1, "strassen", 8, 8, gram="dps")
     spec = sf._bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
                     q_j=geo["nbt"], n_k=geo["n_k"], bi=8, bj=8, bc=8)
-    assert spec.gram == "dps" and not sf._walks_ops(spec)
-    with pytest.raises(ValueError, match="transposed destinations"):
-        sf.product_flops(spec)
+    assert spec.gram == "dps" and sf._pairs(spec)
+    q, n_ops = spec.q_i, len(geo["plan"].ops)
+    assert sf.product_flops(spec) == n_ops * q * q * 2 * 8 ** 3 * spec.n_k
     plain = sf._bind(sf.compile_program("ata", 1, "strassen"),
                      n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
                      q_j=geo["nbt"], n_k=geo["n_k"], bi=8, bj=8, bc=8)
-    assert sf._walks_ops(plain) and sf.product_flops(plain) > 0
+    assert not sf._pairs(plain) and 0 < sf.product_flops(plain) \
+        < 6 * q * q * 2 * 8 ** 3 * spec.n_k
 
 
 @pytest.mark.parametrize("kind", ["symm", "matmul"])
