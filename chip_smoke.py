@@ -12,7 +12,7 @@ failure exits non-zero):
 2. build: every kernel library of ``src/repro_torch/kernels/csrc`` from
    source, one ``nvcc`` each, all started together, each one's build
    time, and the registers and spills of every flash-attention
-   instantiation;
+   instantiation and, by block tile, of the syrk and matmul ones;
 3. the leaf program's kernel, ``leaf_products.cu``, against its plain
    torch version ``_leaf_products_plain`` on the card, for every kind
    and both grams (the dps gram's programs, whose destinations may be
@@ -39,11 +39,12 @@ failure exits non-zero):
        1000x777 @ 777x555;
    3f-3i. the syrk, matmul, combine and transpose kernels against their
        plain versions over ragged shapes (tests/test_kernels.py's and
-       1000x777[x555]) x blocks 8, 32, 40, 128, 256 x fp32 and bf16
-       (transpose also int32): syrk and matmul <= 1e-5 of max|out| of
-       the plain version (2^-8 for a bf16 output) and <= 1e-4 against
-       float64; combine and transpose ``torch.equal``; what the wrappers
-       refuse on the card;
+       1000x777[x555]) x blocks 8, 32, 40, 128, 256 (and 136, 200 at
+       1000x777[x555]) x fp32 and bf16 (transpose also int32): syrk and
+       matmul at both block tiles of their core (64 and 128), the two
+       bit-equal, <= 1e-5 of max|out| of the plain version (2^-8 for a
+       bf16 output) and <= 1e-4 against float64; combine and transpose
+       ``torch.equal``; what the wrappers refuse on the card;
    3j. the flash_attention kernel (bf16 on the tensor cores, fp32 on the
        CUDA cores) against its plain version on (B, H, S, D) operands:
        tests/test_flash_attention.py's grid, windows 16 and 48, softcap
@@ -128,7 +129,9 @@ failure exits non-zero):
    mode beside the strassen gram's, with the TPU walk's live-step flops
    (the per-destination recomputation) printed for comparison.
    The syrk, matmul, combine and transpose kernels are timed on the
-   padded operands of the main path's ``ops`` calls, with ``ata`` and
+   padded operands of the main path's ``ops`` calls (syrk and matmul at
+   both block tiles, each launch's shape printed, and at the recursion's
+   2560 leaf with its own bound and library call), with ``ata`` and
    ``strassen_matmul`` end to end on kernel leaves beside their
    ``torch.matmul`` leaves and the fused path.  flash_attention is timed
    at the serving prefill, q (1, 16, 2048, 128) over k/v (1, 2, 2048,
@@ -223,8 +226,10 @@ SHAPES_SYRK = [(64, 64), (128, 32), (96, 96), (100, 40), (33, 65),
 SHAPES_2D = [(64, 64), (32, 96), (100, 50), (256, 256), (257, 65),
              (1000, 777)]
 # the JAX suite's 32, the main path's 256, and edges that are not
-# multiples of the kernels' 64 x 64 sub-tile or 16-deep chunk
+# multiples of the syrk and matmul core's 64 or 128 sub-tile or 16-deep
+# chunk; at the 1000x777[x555] shape also edges ragged at tile 128
 BLOCKS = (8, 32, 40, 128, 256)
+WIDE_BLOCKS = (136, 200)
 
 
 def _rel(got, want) -> float:
@@ -322,6 +327,27 @@ def _ptxas_flash(report: str) -> list:
     return [f"{k}: {v['regs']} registers, {v['spill']} B of spill stores"
             for k, v in stats.items()] + [
         f"wgmma serialized by ptxas (C7514): {report.count('C7514')} times"]
+
+
+def _ptxas_tiles(report: str, kernel: str) -> list:
+    """Instantiations, registers and spills of the syrk or matmul kernel
+    by block tile (its first template argument) from ``nvcc -Xptxas
+    -v``."""
+    stats, tile = {}, None
+    for line in report.splitlines():
+        found = re.search(rf"{kernel}_kernelILi(\d+)E", line)
+        if found:
+            tile = int(found.group(1))
+            stats.setdefault(tile, {"regs": [], "spill": [0]})
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if tile is not None and regs:
+            stats[tile]["regs"].append(int(regs.group(1)))
+        if tile is not None and spill:
+            stats[tile]["spill"].append(int(spill.group(1)))
+    return [f"tile {t}: {len(v['regs'])} instantiations, {min(v['regs'])}-"
+            f"{max(v['regs'])} registers, spill stores up to "
+            f"{max(v['spill'])} B" for t, v in sorted(stats.items())]
 
 
 def _ptxas_registers(report: str) -> str:
@@ -425,7 +451,12 @@ def main() -> int:
     for line in _ptxas_summary(reports["leaf_products"] or ""):
         print(f"  leaf_products {line}")
     for name in LIBRARIES:
-        if name not in ("leaf_products", "flash_attention"):
+        if name in ("syrk", "matmul"):
+            lines = _ptxas_tiles(reports[name] or "", name)
+            assert reports[name] is None or len(lines) == 2, (name, lines)
+            for line in lines:
+                print(f"  {name} {line}")
+        elif name not in ("leaf_products", "flash_attention"):
             print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
     for line in _ptxas_flash(reports["flash_attention"] or ""):
         print(f"  flash_attention {line}")
@@ -734,39 +765,61 @@ def main() -> int:
             f"{max(e for _, e in v):.2e}"
             for dt, v in errs.items())
 
-    print("== 3f. syrk against its plain version")
+    def both_tiles(name, fn):
+        """One counted launch at each block tile of the core, the two
+        bit-equal; returns the result."""
+        got = {t: counted_launch(name, lambda: fn(tile=t))
+               for t in _launch.PRODUCT_TILES}
+        assert torch.equal(got[64], got[128]), (name, "tiles 64 and 128")
+        return got[64]
+
+    def sweep_blocks(shape):
+        return BLOCKS + WIDE_BLOCKS if shape[0] == 1000 else BLOCKS
+
+    print("== 3f. syrk against its plain version, at tiles 64 and 128 "
+          "(bit-equal)")
     for m, k in SHAPES_SYRK:
         errs = {}
-        for blk in BLOCKS:
+        for blk in sweep_blocks((m, k)):
             for dt, out_dt in ((f32, f32), (bf16, bf16), (bf16, f32),
                                (f32, bf16)):
                 xp = ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
-                got = counted_launch("syrk", lambda: k_syrk.syrk_packed(
-                    xp, bk=blk, bn=blk, out_dtype=out_dt))
+                got = both_tiles("syrk", lambda tile: k_syrk.syrk_packed(
+                    xp, bk=blk, bn=blk, out_dtype=out_dt, tile=tile))
                 x64 = xp.double()
                 product_errors(errs, got,
                                k_syrk._syrk_packed_plain(xp, blk, f32),
                                pack_tril_blocks(x64.T @ x64, blk))
-        print(f"  {m} x {k}, blocks {BLOCKS}, fp32 and bf16 in: "
-              f"{error_summary(errs)}")
+        print(f"  {m} x {k}, blocks {sweep_blocks((m, k))}, fp32 and bf16 "
+              f"in: {error_summary(errs)}")
 
-    print("== 3g. matmul against its plain version")
+    print("== 3g. matmul against its plain version, at tiles 64 and 128 "
+          "(bit-equal)")
     for m, k, n_ in SHAPES_MM:
         errs = {}
-        for blk in BLOCKS:
+        for blk in sweep_blocks((m, k, n_)):
             for dta, dtb, out_dt in ((f32, f32, None), (bf16, bf16, None),
                                      (bf16, f32, None), (bf16, bf16, f32),
                                      (f32, f32, bf16)):
                 xp = ops._pad_to(randn(m, k, dtype=dta), (blk, blk))
                 yp = ops._pad_to(randn(k, n_, dtype=dtb), (blk, blk))
-                got = counted_launch("matmul", lambda: k_matmul.matmul_padded(
-                    xp, yp, bm=blk, bk=blk, bn=blk, out_dtype=out_dt))
+                got = both_tiles("matmul", lambda tile: k_matmul
+                                 .matmul_padded(xp, yp, bm=blk, bk=blk,
+                                                bn=blk, out_dtype=out_dt,
+                                                tile=tile))
                 assert got.dtype == (out_dt or torch.promote_types(dta, dtb))
                 product_errors(errs, got,
                                k_matmul._matmul_padded_plain(xp, yp, f32),
                                xp.double() @ yp.double())
-        print(f"  {m} x {k} x {n_}, blocks {BLOCKS}, fp32, bf16 and mixed "
-              f"in: {error_summary(errs)}")
+        print(f"  {m} x {k} x {n_}, blocks {sweep_blocks((m, k, n_))}, fp32, "
+              f"bf16 and mixed in: {error_summary(errs)}")
+    # what the wrappers pick at the wide blocks (1000x777, padded)
+    for name, shape in (("syrk", k_syrk.syrk_launch_shape(
+            816, bn=136, a_dtype=f32, out_dtype=f32)),
+            ("matmul", k_matmul.matmul_launch_shape(
+                1000, 600, bm=200, bn=200, a_dtype=f32, b_dtype=f32,
+                out_dtype=f32))):
+        print(f"  {name} default launch at the wide blocks: {shape}")
 
     print("== 3h. combine against its plain version (torch.equal)")
     for m, k in SHAPES_2D:
@@ -1849,10 +1902,46 @@ def main() -> int:
             0.0 if name in ("combine", "transpose") else leaf_err[name], ms,
             plain_ms, bound_ms, bound_by, lib_ms, **extra))
 
+    def tile_times(label, launch, shape_of):
+        """The kernel at each block tile of its core: its time and launch
+        shape (``*_launch_shape``); returns the default tile and both."""
+        default = shape_of(None)["tile"]
+        out = {}
+        for tile in _launch.PRODUCT_TILES:
+            shape = shape_of(tile)
+            t_ms, runs = _time_ms(lambda: launch(tile))
+            print(f"  {label} tile {tile}"
+                  f"{' (the default)' if tile == default else ''}: "
+                  f"{t_ms:.3f} ms (runs {runs}); {shape['blocks']} blocks "
+                  f"({shape['tiles']} tiles x {shape['sub_tiles']} "
+                  f"sub-tiles), {shape['blocks_per_sm']} blocks an SM, "
+                  f"{shape['waves']:.2f} waves on {shape['sms']} SMs, "
+                  f"{shape['smem_bytes']} B of shared memory a block")
+            out[tile] = {"ms": t_ms, **shape}
+        return default, out
+
+    def leaf_row(name, label, launch, flops, io_bytes, library, shape_of,
+                 launches, shape):
+        """The kernel at the recursion's leaf: its time against its own
+        bound and library call (timed only), at both tiles; ``launches``:
+        the path's leaves of this shape, as phase 4f asserted them."""
+        t_ms, runs = _time_ms(lambda: launch(None))
+        l_ms, l_runs = _time_ms(library[1])
+        print(f"{name} kernel at the recursion's leaf {label}: {t_ms:.3f} ms "
+              f"(runs {runs}); {library[0]}: {l_ms:.3f} ms (runs {l_runs})")
+        b_ms, b_by = roofline(f"{name} at the leaf", flops, io_bytes)
+        tile, by_tile = tile_times(f"{name} leaf", launch, shape_of)
+        return {"shape": shape, "leaf_launches": launches, "ms": t_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+                "tile": tile, "tiles": by_tile}
+
     B = DEFAULT_BLOCK
     ap, bp = ops._pad_to(a, (B, B)), ops._pad_to(b, (B, B))
     N = ap.shape[0]
     T = N // B
+    leaf = ops._pad_to(a[:hs, :hs], (B, B))
+    leaf_b = ops._pad_to(b[:hs, :hs], (B, B))
+    NL = leaf.shape[0]
     # syrk: ops.syrk(a), the kernel on the padded A; the least flops are
     # those of tril(A^t A), each input and output moved once
     ms, plain_ms, lib_ms = time_kernel(
@@ -1861,26 +1950,44 @@ def main() -> int:
         lambda: k_syrk._syrk_packed_plain(ap, B, f32),
         ("torch.tril(a.T @ a) on the same padded A",
          lambda: torch.tril(ap.T @ ap)))
-    leaf = ops._pad_to(a[:hs, :hs], (B, B))
-    leaf_ms, _ = _time_ms(lambda: k_syrk.syrk_packed(leaf, bk=B, bn=B))
-    print(f"syrk kernel at the recursion's leaf {tuple(leaf.shape)}: "
-          f"{leaf_ms:.3f} ms")
+    tile, by_tile = tile_times(
+        "syrk", lambda t: k_syrk.syrk_packed(ap, bk=B, bn=B, tile=t),
+        lambda t: k_syrk.syrk_launch_shape(N, bn=B, a_dtype=f32,
+                                           out_dtype=f32, tile=t))
+    syrk_leaf = leaf_row(
+        "syrk", f"{tuple(leaf.shape)}",
+        lambda t: k_syrk.syrk_packed(leaf, bk=B, bn=B, tile=t),
+        hs * hs * (hs + 1), (leaf.numel() + tri_count(NL // B) * B * B) * 4,
+        ("torch.tril(leaf.T @ leaf)", lambda: torch.tril(leaf.T @ leaf)),
+        lambda t: k_syrk.syrk_launch_shape(NL, bn=B, a_dtype=f32,
+                                           out_dtype=f32, tile=t),
+        s_leaves, list(leaf.shape))
     single("syrk", ms, plain_ms, lib_ms, n * n * (n + 1),
-           (ap.numel() + tri_count(T) * B * B) * 4, leaf_ms=leaf_ms,
-           shape=list(ap.shape))
+           (ap.numel() + tri_count(T) * B * B) * 4, tile=tile, tiles=by_tile,
+           leaf=syrk_leaf, shape=list(ap.shape))
     # matmul: ops.matmul(a, b), the kernel on the padded operands
     ms, plain_ms, lib_ms = time_kernel(
         f"matmul kernel {tuple(ap.shape)} @ {tuple(bp.shape)} (blocks {B})",
         lambda: k_matmul.matmul_padded(ap, bp, bm=B, bk=B, bn=B),
         lambda: k_matmul._matmul_padded_plain(ap, bp, f32),
         ("a @ b on the same padded operands", lambda: ap @ bp))
-    leaf_b = ops._pad_to(b[:hs, :hs], (B, B))
-    leaf_ms, _ = _time_ms(lambda: k_matmul.matmul_padded(
-        leaf, leaf_b, bm=B, bk=B, bn=B))
-    print(f"matmul kernel at the recursion's leaf {tuple(leaf.shape)} @ "
-          f"{tuple(leaf_b.shape)}: {leaf_ms:.3f} ms")
+    tile, by_tile = tile_times(
+        "matmul",
+        lambda t: k_matmul.matmul_padded(ap, bp, bm=B, bk=B, bn=B, tile=t),
+        lambda t: k_matmul.matmul_launch_shape(
+            N, N, bm=B, bn=B, a_dtype=f32, b_dtype=f32, out_dtype=f32,
+            tile=t))
+    matmul_leaf = leaf_row(
+        "matmul", f"{tuple(leaf.shape)} @ {tuple(leaf_b.shape)}",
+        lambda t: k_matmul.matmul_padded(leaf, leaf_b, bm=B, bk=B, bn=B,
+                                         tile=t),
+        2 * hs ** 3, 3 * NL * NL * 4, ("leaf @ leaf_b", lambda: leaf @ leaf_b),
+        lambda t: k_matmul.matmul_launch_shape(
+            NL, NL, bm=B, bn=B, a_dtype=f32, b_dtype=f32, out_dtype=f32,
+            tile=t),
+        m_leaves + 7 ** DEFAULT_LEVELS, [NL, NL, NL])
     single("matmul", ms, plain_ms, lib_ms, 2 * n * n * n, 3 * N * N * 4,
-           leaf_ms=leaf_ms, shape=[N, N, N])
+           tile=tile, tiles=by_tile, leaf=matmul_leaf, shape=[N, N, N])
     del leaf, leaf_b
     # combine: the seven padded products of one Strassen level
     mp = [ops._pad_to(x, (B, B)) for x in prods]

@@ -5,13 +5,16 @@ each one library ``csrc/<name>.cu`` with one plain-C entry
 ``<name>_launch(..., stream)`` that returns ``cudaGetLastError()``.
 Their wrappers check their arguments here, refuse inputs that require
 grad (these kernels have no backward), launch on the current stream,
-raise on an error and count the launch.  Nothing here builds or loads a
-library at import time.
+raise on an error and count the launch.  The syrk and matmul kernels
+share one tile product (``csrc/tile_product.cuh``); its grid arithmetic
+and the choice of its block tile are here, in pure Python.  Nothing here
+builds or loads a library at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -26,6 +29,16 @@ KERNEL_LAUNCHES = {"syrk": 0, "matmul": 0, "combine": 0, "transpose": 0,
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 PTR, INT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: Block tiles of ``csrc/tile_product.cuh``, the core of the syrk and
+#: matmul kernels: the edge of the output sub-tile one thread block of 256
+#: computes (8 x 8 outputs a thread at 128, 4 x 4 at 64).
+PRODUCT_TILES = (128, 64)
+
+#: Issue cost of one k step of a thread at each tile, in FMA slots: 64
+#: FFMAs at 128; at 64, 16 FFMAs behind 8 shared-memory words, which an SM
+#: delivers at 32 a clock against 128 FMA lanes, so 32.
+STEP_COST = {128: 64, 64: 32}
 
 
 def refuse_grad(kernel: str, *xs: torch.Tensor) -> None:
@@ -71,16 +84,63 @@ def check_pointer(kernel: str, name: str, x: torch.Tensor) -> None:
                          f"aligned {name}")
 
 
+def sub_tile(index: int, bm: int, bn: int, tile: int):
+    """Sub-tile ``index`` of a (bm, bn) output tile at ``tile``, as the
+    kernels decode ``blockIdx.y`` (``tile_product::sub_tile``): its origin
+    (i0, j0) and valid extent (i_lim, j_lim), row-major over
+    ``ceil(bn / tile)`` columns of sub-tiles."""
+    n_sub_j = -(-bn // tile)
+    i0, j0 = (index // n_sub_j) * tile, (index % n_sub_j) * tile
+    return i0, j0, min(tile, bm - i0), min(tile, bn - j0)
+
+
+def product_grid(n_tiles: int, bm: int, bn: int, blocks_per_sm: dict,
+                 sms: int, tile: int | None = None) -> dict:
+    """How a launch of the tile product over ``n_tiles`` (bm, bn) output
+    tiles fills ``sms`` SMs, at ``tile`` or, by default, at the tile the
+    wrappers choose; ``blocks_per_sm`` maps each tile to the blocks an SM
+    holds at once (0 or less: it cannot launch).
+
+    The choice: the least ``ceil(blocks / sms) * STEP_COST[tile]``, the
+    busiest SM's blocks at a block's k-step cost (the SM's FMA or shared-
+    memory issue rate shared among its resident blocks); ties go to the
+    larger tile.  Pure arithmetic: the CPU tests run it."""
+    def shape(t):
+        per_sm = blocks_per_sm[t]
+        sub = -(-bm // t) * -(-bn // t)
+        blocks = n_tiles * sub
+        return {"tile": t, "sub_tiles": sub, "tiles": n_tiles,
+                "blocks": blocks, "blocks_per_sm": per_sm, "sms": sms,
+                "waves": blocks / (sms * per_sm) if per_sm > 0 else math.inf,
+                "cost": math.ceil(blocks / sms) * STEP_COST[t]}
+
+    if tile is not None:
+        check_tile("tile product", tile)
+        return shape(tile)
+    fits = [shape(t) for t in PRODUCT_TILES if blocks_per_sm[t] > 0]
+    if not fits:
+        raise RuntimeError(f"no tile of {PRODUCT_TILES} can launch: "
+                           f"blocks an SM {blocks_per_sm}")
+    return min(fits, key=lambda s: s["cost"])
+
+
+def check_tile(kernel: str, tile) -> None:
+    if tile is not None and tile not in PRODUCT_TILES:
+        raise ValueError(f"the {kernel} kernel takes tile None or one of "
+                         f"{PRODUCT_TILES}, got {tile}")
+
+
 @functools.cache
+def entry(name: str, fn: str, argtypes: tuple, restype=INT):
+    """The C function ``fn`` of library ``name``, typed."""
+    f = getattr(_build.library(name), fn)
+    f.argtypes, f.restype = list(argtypes), restype
+    return f
+
+
 def _entry(name: str, argtypes: tuple):
-    lib = _build.library(name)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [*argtypes, PTR]
-    fn.restype = INT
-    err_string = getattr(lib, f"{name}_error_string")
-    err_string.argtypes = [INT]
-    err_string.restype = ctypes.c_char_p
-    return fn, err_string
+    return (entry(name, f"{name}_launch", (*argtypes, PTR)),
+            entry(name, f"{name}_error_string", (INT,), ctypes.c_char_p))
 
 
 def launch(name: str, argtypes: tuple, *args, device: torch.device) -> None:

@@ -3,11 +3,14 @@
 The port of ``repro/kernels/matmul.py``.  :func:`matmul_padded` takes
 shapes already padded to block multiples (``ops.matmul`` pads).  On a
 CUDA tensor it launches ``csrc/matmul.cu`` (fp32 FMA on the CUDA cores,
-an fp32 accumulator over the K blocks, no TF32) or raises; on a CPU
+an fp32 accumulator over K, no TF32) or raises; on a CPU
 tensor it runs :func:`_matmul_padded_plain`.  Forward-only, as the JAX
-kernel: an input that requires grad is refused.
+kernel: an input that requires grad is refused.  The kernel's block tile
+(128 or 64) is chosen per launch by :func:`matmul_launch_shape`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,9 +18,44 @@ from ..core.strassen import ieee_fp32
 from . import _launch
 from ._launch import INT, LONG, PTR
 
-__all__ = ["matmul_padded"]
+__all__ = ["matmul_padded", "matmul_launch_shape"]
 
-_ARGTYPES = (PTR, PTR, PTR, LONG, LONG, LONG) + (INT,) * 6
+_ARGTYPES = (PTR, PTR, PTR, LONG, LONG, LONG) + (INT,) * 7
+
+
+@functools.cache
+def _blocks_per_sm(a_dtype, b_dtype, out_dtype, tile: int) -> int:
+    codes = _launch.DTYPE_CODES
+    got = _launch.entry("matmul", "matmul_blocks_per_sm", (INT,) * 4)(
+        codes[a_dtype], codes[b_dtype], codes[out_dtype], tile)
+    if got < 0:
+        raise RuntimeError(f"matmul: occupancy query failed at tile {tile}")
+    return got
+
+
+def _grid(m: int, n: int, bm: int, bn: int, blocks_per_sm: dict, sms: int,
+          tile: int | None = None) -> dict:
+    """The launch's grid on (m, k) @ (k, n) for given blocks an SM: the
+    pure arithmetic of :func:`matmul_launch_shape`."""
+    return _launch.product_grid((m // bm) * (n // bn), bm, bn,
+                                blocks_per_sm, sms, tile)
+
+
+def matmul_launch_shape(m: int, n: int, *, bm: int, bn: int, a_dtype,
+                        b_dtype, out_dtype, tile: int | None = None,
+                        device=None) -> dict:
+    """How a ``csrc/matmul.cu`` launch on (m, k) @ (k, n) fills the card:
+    its block tile (by default the one the wrapper picks), sub-tiles an
+    output tile, output tiles, thread blocks, blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves on the
+    card's SMs and shared memory a block (``_launch.product_grid``)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    per_sm = {t: _blocks_per_sm(a_dtype, b_dtype, out_dtype, t)
+              for t in _launch.PRODUCT_TILES}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shape = _grid(m, n, bm, bn, per_sm, sms, tile)
+    smem = _launch.entry("matmul", "matmul_smem_bytes", (INT,))
+    return {**shape, "smem_bytes": smem(shape["tile"])}
 
 
 def _matmul_padded_plain(a: torch.Tensor, b: torch.Tensor,
@@ -27,13 +65,16 @@ def _matmul_padded_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 def matmul_padded(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256,
-                  bk: int = 256, bn: int = 256,
-                  out_dtype=None) -> torch.Tensor:
+                  bk: int = 256, bn: int = 256, out_dtype=None,
+                  tile: int | None = None) -> torch.Tensor:
     """``a @ b`` for shapes already padded to (bm, bk) / (bk, bn)
     multiples; fp32 or bf16 operands, the result in ``out_dtype``
-    (default ``torch.promote_types(a.dtype, b.dtype)``)."""
+    (default ``torch.promote_types(a.dtype, b.dtype)``).  ``tile``: the
+    kernel's block tile, one of ``_launch.PRODUCT_TILES``, by default
+    :func:`matmul_launch_shape`'s; no tile changes a bit."""
     _launch.refuse_grad("matmul", a, b)
     _launch.check_blocks("matmul", bm=bm, bk=bk, bn=bn)
+    _launch.check_tile("matmul", tile)
     _launch.check_dtype("matmul", "a", a.dtype)
     _launch.check_dtype("matmul", "b", b.dtype)
     out_dtype = torch.promote_types(a.dtype, b.dtype) if out_dtype is None \
@@ -53,9 +94,12 @@ def matmul_padded(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256,
         return _matmul_padded_plain(a, b, out_dtype)
     _launch.check_pointer("matmul", "a", a)
     _launch.check_pointer("matmul", "b", b)
+    tile = matmul_launch_shape(m, n, bm=bm, bn=bn, a_dtype=a.dtype,
+                               b_dtype=b.dtype, out_dtype=out_dtype,
+                               tile=tile, device=device)["tile"]
     out = torch.empty((m, n), dtype=out_dtype, device=device)
     codes = _launch.DTYPE_CODES
     _launch.launch("matmul", _ARGTYPES, a.data_ptr(), b.data_ptr(),
                    out.data_ptr(), m, k, n, bm, bk, bn, codes[a.dtype],
-                   codes[b.dtype], codes[out_dtype], device=device)
+                   codes[b.dtype], codes[out_dtype], tile, device=device)
     return out

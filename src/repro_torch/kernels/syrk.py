@@ -5,11 +5,15 @@ stack of the ``T(T+1)/2`` lower-triangular ``(bn, bn)`` tiles, row-major
 over the triangle (the layout of ``core/symmetry.pack_tril_blocks``),
 diagonal tiles stored whole; upper tiles are never computed.  On a CUDA
 tensor it launches ``csrc/syrk.cu`` (fp32 FMA, an fp32 accumulator over
-the K blocks, no TF32) or raises; on a CPU tensor it runs
+K, no TF32) or raises; on a CPU tensor it runs
 :func:`_syrk_packed_plain`, which walks the kernel's grid in torch.
 Forward-only, as the JAX kernel: an input that requires grad is refused.
+The kernel's block tile (128 or 64) is chosen per launch by
+:func:`syrk_launch_shape`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,9 +21,45 @@ from ..core.strassen import ieee_fp32
 from . import _launch
 from ._launch import INT, LONG, PTR
 
-__all__ = ["syrk_packed"]
+__all__ = ["syrk_packed", "syrk_launch_shape"]
 
-_ARGTYPES = (PTR, PTR, LONG, LONG, INT, INT, INT, INT)
+_ARGTYPES = (PTR, PTR, LONG, LONG) + (INT,) * 5
+
+
+@functools.cache
+def _blocks_per_sm(a_dtype, out_dtype, tile: int) -> int:
+    codes = _launch.DTYPE_CODES
+    got = _launch.entry("syrk", "syrk_blocks_per_sm", (INT,) * 3)(
+        codes[a_dtype], codes[out_dtype], tile)
+    if got < 0:
+        raise RuntimeError(f"syrk: occupancy query failed at tile {tile}")
+    return got
+
+
+def _grid(n: int, bn: int, blocks_per_sm: dict, sms: int,
+          tile: int | None = None) -> dict:
+    """The launch's grid on an (M, n) A for given blocks an SM: the pure
+    arithmetic of :func:`syrk_launch_shape`, over the T(T+1)/2 packed
+    tiles, T = n / bn."""
+    t_blocks = n // bn
+    return _launch.product_grid(t_blocks * (t_blocks + 1) // 2, bn, bn,
+                                blocks_per_sm, sms, tile)
+
+
+def syrk_launch_shape(n: int, *, bn: int, a_dtype, out_dtype,
+                      tile: int | None = None, device=None) -> dict:
+    """How a ``csrc/syrk.cu`` launch on an (M, n) A fills the card: its
+    block tile (by default the one the wrapper picks), sub-tiles a packed
+    tile, packed tiles (T(T+1)/2, T = n / bn), thread blocks, blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves on the
+    card's SMs and shared memory a block (``_launch.product_grid``)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    per_sm = {t: _blocks_per_sm(a_dtype, out_dtype, t)
+              for t in _launch.PRODUCT_TILES}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shape = _grid(n, bn, per_sm, sms, tile)
+    smem = _launch.entry("syrk", "syrk_smem_bytes", (INT,))
+    return {**shape, "smem_bytes": smem(shape["tile"])}
 
 
 def _tri_decode(t):
@@ -51,15 +91,18 @@ def _syrk_packed_plain(a: torch.Tensor, bn: int,
 
 
 def syrk_packed(a: torch.Tensor, *, bk: int = 256, bn: int = 256,
-                out_dtype=None) -> torch.Tensor:
+                out_dtype=None, tile: int | None = None) -> torch.Tensor:
     """Packed lower-triangular block stack of ``a.T @ a``.
 
     ``a``: (M, N) with M % bk == 0, N % bn == 0 (``ops.syrk`` pads), fp32
     or bf16.  Returns (T(T+1)/2 * bn, bn) with T = N // bn, in
-    ``out_dtype`` (default ``a.dtype``).
+    ``out_dtype`` (default ``a.dtype``).  ``tile``: the kernel's block
+    tile, one of ``_launch.PRODUCT_TILES``, by default
+    :func:`syrk_launch_shape`'s; no tile changes a bit.
     """
     _launch.refuse_grad("syrk", a)
     _launch.check_blocks("syrk", bk=bk, bn=bn)
+    _launch.check_tile("syrk", tile)
     _launch.check_dtype("syrk", "a", a.dtype)
     out_dtype = a.dtype if out_dtype is None else out_dtype
     _launch.check_dtype("syrk", "the output", out_dtype)
@@ -72,10 +115,12 @@ def syrk_packed(a: torch.Tensor, *, bk: int = 256, bn: int = 256,
     if device.type == "cpu":
         return _syrk_packed_plain(a, bn, out_dtype)
     _launch.check_pointer("syrk", "a", a)
+    tile = syrk_launch_shape(n, bn=bn, a_dtype=a.dtype, out_dtype=out_dtype,
+                             tile=tile, device=device)["tile"]
     t_blocks = n // bn
     out = torch.empty((t_blocks * (t_blocks + 1) // 2 * bn, bn),
                       dtype=out_dtype, device=device)
     codes = _launch.DTYPE_CODES
     _launch.launch("syrk", _ARGTYPES, a.data_ptr(), out.data_ptr(), m, n, bk,
-                   bn, codes[a.dtype], codes[out_dtype], device=device)
+                   bn, codes[a.dtype], codes[out_dtype], tile, device=device)
     return out

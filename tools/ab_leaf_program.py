@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the leaf program's kernel in two checkouts of the port on one card.
+"""Time the leaf program's kernel, and the syrk and matmul kernels, in two
+checkouts of the port on one card.
 
     python3 tools/ab_leaf_program.py --parent DIR [--change DIR] [--rounds 2]
+                                     [--cases ata,syrk,...]
 
 Each checkout is a directory holding ``src/repro_torch`` (unpack the
 parent with ``git archive <commit> | tar -x -C DIR`` into a directory
@@ -13,9 +15,13 @@ on the main path's padded operands at n = 10000, seed 0, levels 2, tiles
 of 256, at the default pipeline depth and block tile: the ata, aat and
 rank_k kinds (one 2500-row chunk into a 40-tile stack) of the strassen
 gram, the symm kind (the backward's X @ (S + S^t)), the matmul kind, and
-ata of the dps gram.  A time is the median of 5 CUDA-event timings after
-2 warm-ups; the summary gives each side's median over its processes and
-the change over the parent.  It prints the card's name and power limit.
+ata of the dps gram; and ``syrk_packed`` and ``matmul_padded`` (blocks of
+256, the default block tile) on the padded 10240^2 A (and B) of
+``ops.syrk(a)`` and ``ops.matmul(a, b)`` and on the reference recursion's
+2560^2 leaf (``syrk_leaf``, ``matmul_leaf``).  ``--cases`` picks some of
+them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
+summary gives each side's median over its processes and the change over
+the parent.  It prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -26,14 +32,22 @@ import statistics
 import subprocess
 import sys
 
-CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps")
+CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps", "syrk",
+         "syrk_leaf", "matmul_padded", "matmul_leaf")
+# the single-purpose kernels' cases, and their libraries
+SINGLE = ("syrk", "syrk_leaf", "matmul_padded", "matmul_leaf")
 
 
-def _time_side(root: pathlib.Path) -> dict:
+def _time_side(root: pathlib.Path, cases: tuple) -> dict:
     sys.path.insert(0, str(root / "src"))
+    import importlib
+
     import torch
+    import torch.nn.functional as F
     from repro_torch.core.symmetry import pack_tril_blocks
     from repro_torch.kernels import strassen_fused as sf
+    k_syrk, k_matmul = (importlib.import_module(f"repro_torch.kernels.{m}")
+                        for m in ("syrk", "matmul"))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, f32 = torch.device("cuda"), torch.float32
@@ -56,8 +70,23 @@ def _time_side(root: pathlib.Path) -> dict:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def padded(x):
+        return F.pad(x, (0, -x.shape[1] % block, 0, -x.shape[0] % block))
+
     out = {}
-    for case in CASES:
+    for case in (c for c in cases if c in SINGLE):
+        big = case in ("syrk", "matmul_padded")
+        x = padded(a if big else a[:n // 4, :n // 4].contiguous())
+        if case.startswith("syrk"):
+            out[case] = timed(lambda: k_syrk.syrk_packed(x, bk=block,
+                                                         bn=block))
+        else:
+            y = padded(torch.randn(x.shape, generator=gen, device=dev))
+            out[case] = timed(lambda: k_matmul.matmul_padded(
+                x, y, bm=block, bk=block, bn=block))
+            del y
+        del x
+    for case in (c for c in cases if c not in SINGLE):
         seed = None
         gram = "dps" if case == "ata_dps" else "strassen"
         if case in ("ata", "ata_dps"):
@@ -90,7 +119,7 @@ def _time_side(root: pathlib.Path) -> dict:
         out[case] = timed(lambda: sf.leaf_program(spec, left, right, f32,
                                                   seed=seed))
         del left, right
-    return out
+    return {case: out[case] for case in cases}
 
 
 def _run(args: list) -> str:
@@ -107,16 +136,21 @@ def main() -> int:
     ap.add_argument("--change", type=pathlib.Path,
                     default=pathlib.Path(__file__).resolve().parents[1])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help="comma-separated, of " + ", ".join(CASES))
     ap.add_argument("--time", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--build", type=pathlib.Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    cases = tuple(args.cases.split(","))
+    if not set(cases) <= set(CASES):
+        ap.error(f"--cases: unknown {sorted(set(cases) - set(CASES))}")
     if args.time is not None:
-        print(json.dumps(_time_side(args.time.resolve())))
+        print(json.dumps(_time_side(args.time.resolve(), cases)))
         return 0
     if args.build is not None:
         sys.path.insert(0, str(args.build.resolve() / "src"))
         from repro_torch.kernels import _build
-        for name in ("leaf_products", "leaf_program"):
+        for name in ("leaf_products", "leaf_program", "syrk", "matmul"):
             if (_build.CSRC / f"{name}.cu").exists():
                 _build.build(name)
         return 0
@@ -137,12 +171,13 @@ def main() -> int:
     runs = {side: [] for side in sides}
     for r in range(args.rounds):
         for side in ("parent", "change", "change", "parent"):
-            times = json.loads(_run(["--time", str(sides[side])]))
+            times = json.loads(_run(["--time", str(sides[side]),
+                                     "--cases", args.cases]))
             runs[side].append(times)
             print(f"round {r} {side}: " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in times.items()), flush=True)
     summary = {}
-    for case in CASES:
+    for case in cases:
         med = {side: statistics.median(t[case] for t in runs[side])
                for side in sides}
         summary[case] = {**med, "change_over_parent":
