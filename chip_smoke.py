@@ -12,8 +12,11 @@ failure exits non-zero):
 2. build: every kernel library of ``src/repro_torch/kernels/csrc`` from
    source, one ``nvcc`` each, all started together, each one's build
    time, and the registers and spills of every flash-attention
-   instantiation and, by block tile, of the syrk and matmul ones;
-3. the leaf program's kernel, ``leaf_products.cu``, against its plain
+   instantiation, by block tile of the syrk and matmul ones, and of the
+   leaf program's three libraries by operand type, accumulator, layout,
+   tile and mode;
+3. the leaf program's kernel, ``leaf_products.cuh`` (``leaf_products.cu``
+   for fp32 and bf16 operands; ``_lowp`` and ``_acc`` below), against its plain
    torch version ``_leaf_products_plain`` on the card, for every kind
    and both grams (the dps gram's programs, whose destinations may be
    transposed, in pair mode), one sub-phase per program kind, each over
@@ -45,6 +48,20 @@ failure exits non-zero):
        bit-equal, <= 1e-5 of max|out| of the plain version (2^-8 for a
        bf16 output) and <= 1e-4 against float64; combine and transpose
        ``torch.equal``; what the wrappers refuse on the card;
+   3k. the precision axes, ``leaf_products_lowp.cu`` (fp16, fp8 e4m3fn
+       and e5m2 operand tiles) and ``leaf_products_acc.cu`` (a bf16 or
+       fp64 accumulator) and fp64 operands stored as fp32, over every kind
+       and both grams at 1000x777 (levels 2, tiles of 64; ata and aat
+       also at 1024^2 and tiles of 128), pair mode, fp8 at block edges of
+       40 (row strides of 8 mod 16 bytes, widened), fp64 and fp16 seeds
+       and outputs: kernel vs plain <= 1e-5 of max|out| (2^-7 for the
+       bf16 accumulator; the fp64 accumulator bit-equal, and on K blocks
+       whose parts are 1 and 2^-30 in turn exactly 2 + 2^-29 where the
+       fp32 one gives 2), vs the destination walk likewise, vs the
+       float64 product of the quantized operands <= 1e-4 (the bf16
+       accumulator: within 1.5x the destination walk's own error), every
+       requested ring depth and both block tiles bit-equal (the ring depth
+       that ran printed);
    3j. the flash_attention kernel (bf16 on the tensor cores, fp32 on the
        CUDA cores) against its plain version on (B, H, S, D) operands:
        tests/test_flash_attention.py's grid, windows 16 and 48, softcap
@@ -116,6 +133,19 @@ failure exits non-zero):
        decode tick of 4 slots under ``torch.profiler``, the wall time,
        the device's kernel time, its busy share, the flash kernel's time
        and share, and the top kernels;
+   4i. the precision axes at n x n: ``ata(a, operand_dtype=...)`` for
+       e4m3fn, e5m2 and fp16, and ``ops.rank_k_update`` streaming e4m3fn
+       chunks, each within 1e-4 of the float64 product of the quantized
+       operands and passing ``repro_torch.gram.verify.verify_gram`` at
+       ``default_rtol``; ``ata(a, acc_dtype="bfloat16")`` within 1.5x the
+       destination walk's error against float64, ``ata(fp64 a,
+       acc_dtype="float64")`` in fp64; ``ata`` on fp64 and fp16 input and
+       into an fp16 output; ``ata(a, out_dtype=bf16, sr_seed=7)`` twice
+       (the same bits), with seed 8 (other bits) and through a backward
+       (the fp32 core's gradient, exactly); an input past e4m3fn's range
+       (NaN once quantized) whose NaNs in the kernel's output lie where
+       the plain version's do; each configuration then against its plain
+       version (the fp64 accumulator bit-equal);
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -139,7 +169,12 @@ failure exits non-zero):
    only), by events and as device time (20 calls in a CUDA graph,
    replayed), and at that prefill's first 512 and 1024 rows over the
    same cache; its bound is 4 D flops for each unmasked (q, k) pair at the
-   bf16 tensor-core peak against q, k, v and o once at HBM rate.
+   bf16 tensor-core peak against q, k, v and o once at HBM rate.  The
+   precision axes' libraries at their main-path shapes: the ata kind on
+   e4m3fn, e5m2 and fp16 tiles and the rank_k kind on an e4m3fn chunk
+   (``leaf_products_lowp``), ata with a bf16 and an fp64 accumulator
+   (``leaf_products_acc``), each bound counting the stored bytes at
+   their own element size and the kind's yardstick beside it.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
@@ -168,8 +203,10 @@ import numpy as np
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
-# the leaf program's library: leaf_products.cu runs every kind and gram
-PRODUCTS_SOURCE = "src/repro_torch/kernels/csrc/leaf_products.cu"
+# the leaf program's kernel, built as three libraries (one translation unit
+# each): leaf_products.cu runs every kind and gram on fp32 and bf16 tiles,
+# _lowp on fp16 and fp8 ones, _acc with a bf16 or fp64 accumulator
+PRODUCTS_SOURCE = "src/repro_torch/kernels/csrc/leaf_products.cuh"
 REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
             "src/repro/kernels/strassen_fused.py:533 (_pipelined_kernel), "
             "{} kind")
@@ -177,8 +214,8 @@ REPLACES = ("src/repro/kernels/strassen_fused.py:474 (_leaf_kernel) and "
 SMS = 132
 # the bf16 tensor-core peak (dense), for flash attention's bound
 PEAK_BF16_FLOPS = 989e12
-LIBRARIES = ("leaf_products", "syrk", "matmul", "combine", "transpose",
-             "flash_attention")
+LIBRARIES = ("leaf_products", "leaf_products_lowp", "leaf_products_acc",
+             "syrk", "matmul", "combine", "transpose", "flash_attention")
 # the single-purpose kernels: their sources and the TPU kernels they replace
 KERNELS = {
     "syrk": ("src/repro_torch/kernels/csrc/syrk.cu",
@@ -259,30 +296,69 @@ def _time_ms(fn, reps=5, warmup=2):
     return statistics.median(times), times
 
 
-def _ptxas_summary(report: str) -> list:
-    """Registers and spills of ``leaf_products`` per right-side layout,
-    block tile and mode from ``nvcc -Xptxas -v`` (the kernel's template
-    arguments after the two element types: a packed tri right side, the
-    tile, the ring depth, pair mode)."""
-    stats, kind = {}, None
+_TYPE_NAMES = {"f": "fp32", "d": "fp64", "__nv_bfloat16": "bf16",
+               "__half": "fp16", "__nv_fp8_e4m3": "e4m3fn",
+               "__nv_fp8_e5m2": "e5m2"}
+
+
+def _leaf_instantiation(mangled: str):
+    """(operand types, accumulator, tri right side, tile, ring depth, pair
+    mode) of a ``leaf_products`` kernel from its mangled name
+    (``leaf_products_kernel<Tl, Tr, TRI, TILE, STAGES, PAIRS>`` or
+    ``leaf_products_acc_kernel<Tl, Tr, Acc, ...>``), or None.  A
+    substitution (``S1_``) names the class type named last."""
+    found = re.search(r"leaf_products(_acc)?_kernelI(.*?)Lb(\d)ELi(\d+)ELi"
+                      r"(\d)ELb(\d)E", mangled)
+    if not found:
+        return None
+    args, types, last = found.group(2), [], None
+    while args:
+        if args[0] in "fd":
+            types.append(_TYPE_NAMES[args[0]])
+            args = args[1:]
+        elif args[0] == "S":
+            types.append(last)
+            args = args[args.index("_") + 1:]
+        else:
+            digits = re.match(r"\d+", args).group(0)
+            name = args[len(digits):len(digits) + int(digits)]
+            last = _TYPE_NAMES.get(name, name)
+            types.append(last)
+            args = args[len(digits) + int(digits):]
+    acc = types[2] if found.group(1) else "fp32"
+    return (f"{types[0]}/{types[1]}", acc, found.group(3) == "1",
+            int(found.group(4)), int(found.group(5)), found.group(6) == "1")
+
+
+def _ptxas_summary(report: str, by_depth: bool = False) -> list:
+    """Registers and spills of a ``leaf_products`` library from ``nvcc
+    -Xptxas -v``, one line per operand types, accumulator, right-side
+    layout, block tile and mode: the ring depths together, or each alone
+    (``by_depth``)."""
+    stats, key = {}, None
     for line in report.splitlines():
-        found = re.search(
-            r"leaf_products_kernelI.*?Lb(\d)ELi(\d+)ELi\d+ELb(\d)E", line)
-        if found:
-            kind = (f"{'tri' if found.group(1) == '1' else 'dense'} right "
-                    f"side, tile {found.group(2)}"
-                    f"{', pair mode' if found.group(3) == '1' else ''}")
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            inst = _leaf_instantiation(entry.group(1))
+            key = None if inst is None else (inst[0], inst[1], inst[2],
+                                             inst[3], inst[5],
+                                             inst[4] if by_depth else None)
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if kind and (regs or spill):
-            entry = stats.setdefault(kind, {"regs": [], "spill": [0]})
+        if key and (regs or spill):
+            entry = stats.setdefault(key, {"regs": [], "spill": [0]})
             if regs:
                 entry["regs"].append(int(regs.group(1)))
             if spill:
                 entry["spill"].append(int(spill.group(1)))
-    return [f"{k}: {len(v['regs'])} instantiations, {min(v['regs'])}-"
-            f"{max(v['regs'])} registers, spill stores up to "
-            f"{max(v['spill'])} B" for k, v in stats.items()]
+    return [f"{types} tiles, {acc} accumulator, "
+            f"{'tri' if tri else 'dense'} right side, tile {tile}"
+            f"{', pair mode' if pair else ''}"
+            f"{f', ring depth {depth}' if depth else ''}: {len(v['regs'])} "
+            f"instantiation(s), {min(v['regs'])}-{max(v['regs'])} registers, "
+            f"spill stores up to {max(v['spill'])} B"
+            for (types, acc, tri, tile, pair, depth), v in
+            sorted(stats.items(), key=lambda kv: str(kv[0]))]
 
 
 def _device_ms(fn, n=20):
@@ -389,6 +465,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
     from repro_torch.core import ata, ata_full, ata_levels_for, strassen_matmul
@@ -448,15 +525,20 @@ def main() -> int:
           f"cached, in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{name} {secs:.1f} s" for name, (_, secs)
                       in built.items()) + ")")
-    for line in _ptxas_summary(reports["leaf_products"] or ""):
-        print(f"  leaf_products {line}")
+    for name in sf.PRODUCT_LIBRARIES:
+        # each instantiation of the precision axes' libraries on its own line
+        lines = _ptxas_summary(reports[name] or "",
+                               by_depth=name != "leaf_products")
+        print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
+        for line in lines:
+            print(f"    {line}")
     for name in LIBRARIES:
         if name in ("syrk", "matmul"):
             lines = _ptxas_tiles(reports[name] or "", name)
             assert reports[name] is None or len(lines) == 2, (name, lines)
             for line in lines:
                 print(f"  {name} {line}")
-        elif name not in ("leaf_products", "flash_attention"):
+        elif name not in (*sf.PRODUCT_LIBRARIES, "flash_attention"):
             print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
     for line in _ptxas_flash(reports["flash_attention"] or ""):
         print(f"  flash_attention {line}")
@@ -498,12 +580,12 @@ def main() -> int:
         """Depths 1-4 at block tiles 64 and 128 (the sub-tiles ragged where
         the tile does not divide the output tile) give the default
         launch's bits; a depth and tile over budget raise."""
+        stored = [torch.empty((), dtype=t).element_size() for t in
+                  sf._kernel_types(left.dtype, right.dtype, spec.acc_dtype)]
         for depth in range(1, sf.MAX_PIPELINE_DEPTH + 1):
             deep = dataclasses.replace(spec, pipeline_depth=depth)
             for tile in sf.PRODUCT_TILES:
-                if sf.smem_bytes(deep, left.element_size(),
-                                 right.element_size(),
-                                 tile) > sf.SMEM_LIMIT_BYTES:
+                if sf.smem_bytes(deep, *stored, tile) > sf.SMEM_LIMIT_BYTES:
                     try:
                         sf.leaf_program(deep, left, right, out_dtype,
                                         seed=seed, tile=tile)
@@ -972,6 +1054,218 @@ def main() -> int:
     print("  head_dim 48, a transposed view and an operand that requires "
           "grad are refused, nothing launched")
 
+    # -- 3k. the precision axes ----------------------------------------------
+    print("== 3k. leaf_program's precision axes (fp16, fp8 and fp64 operand "
+          "tiles, bf16 and fp64 accumulators) against its plain version")
+    precision_checked = {}      # launches by library, kind and mode
+    bars = {"float32": 1e-5, "bfloat16": 2.0 ** -7, "float64": 1e-5}
+    out_bars = {bf16: 2.0 ** -8, torch.float16: 2.0 ** -10}
+
+    def library_of(spec, left, right):
+        return sf._products_library(spec.acc_dtype, sf._kernel_types(
+            left.dtype, right.dtype, spec.acc_dtype)[0])
+
+    def check_precision(spec, left, right, to_dense, want, label,
+                        out_dtype=f32, seed=None):
+        """One counted launch of a precision branch against its plain
+        version, the destination walk (a gram kind) and the float64
+        product of its quantized operands, and every requested ring depth
+        and both block tiles against it."""
+        lib = library_of(spec, left, right)
+        key = f"{lib}.cu/{spec.kind}"
+        before = sf.LIBRARY_LAUNCHES[key]
+        k1 = sf.leaf_program(spec, left, right, out_dtype, seed=seed)
+        assert sf.LIBRARY_LAUNCHES[key] == before + 1, (label, key)
+        ck = f"{lib}: {spec.kind}, {mode(spec)}"
+        precision_checked[ck] = precision_checked.get(ck, 0) + 1
+        depths_tiles_bit_equal(spec, left, right, out_dtype, k1, label, seed)
+        ref = plain(spec, left, right, out_dtype, seed)
+        bar = max(bars[spec.acc_dtype], out_bars.get(out_dtype, 0.0))
+        e_plain = _rel(k1, ref.double())
+        e64 = _rel(to_dense(k1), want)
+        line = (f"  {label} {spec.kind} L{spec.levels} {tuple(left.shape)} "
+                f"{left.dtype} x {tuple(right.shape)} {right.dtype}, "
+                f"{spec.acc_dtype} accumulator -> {out_dtype}, in "
+                f"{mode(spec)} on {lib}, ring depth {sf.ring_depth(spec)}: "
+                f"vs plain {e_plain:.2e} (<= {bar:.1e}, bit-equal "
+                f"{torch.equal(k1, ref)}), vs float64 {e64:.2e}")
+        oracle = ref            # whose error a bf16 accumulator is held to
+        if spec.kind in ("ata", "aat", "rank_k"):
+            oracle = sf._leaf_program_plain(spec, sf._spec_tables(spec, dev),
+                                            left, right, torch.float64, seed)
+            e_walk = _rel(k1, oracle)
+            line += f", vs the destination walk {e_walk:.2e}"
+            assert e_walk <= bar, (label, e_walk)
+        if spec.acc_dtype == "bfloat16":
+            e_ref = _rel(to_dense(oracle), want)
+            line += f" (the {'walk' if oracle is not ref else 'plain'}'s " \
+                    f"{e_ref:.2e})"
+            assert e64 <= 1.5 * e_ref, (label, e64, e_ref)
+        else:
+            assert e64 <= max(1e-4, bar), (label, e64)
+        print(line)
+        assert e_plain <= bar, (label, e_plain)
+        # the fp64 accumulator's parts add in one order in both: any fp32
+        # step would show as a change of bits, not of error
+        assert spec.acc_dtype != "float64" or torch.equal(k1, ref), label
+        return k1
+
+    def q64(x, od):
+        """The float64 values of ``x`` as the kernel stores them."""
+        return sf._stored(x, od).double()
+
+    a = randn(1000, 777)
+    x = randn(1024, 1024)
+    T, bs = 16, 64
+    low = torch.tril(randn(T * bs, T * bs))
+    stack = pack_tril_blocks(low, bs)
+    b = randn(1000, 555)
+    fp16, e4m3, e5m2, fp64 = (torch.float16, torch.float8_e4m3fn,
+                              torch.float8_e5m2, torch.float64)
+    precision = ((fp16, "float32"), (e4m3, "float32"), (e5m2, "float32"),
+                 (fp64, "float32"), (None, "bfloat16"), (None, "float64"),
+                 (e4m3, "bfloat16"), (fp16, "float64"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for od, acc in precision:
+            tag = f"{str(od).removeprefix('torch.')} tiles"
+            aq = q64(a, od)
+            for gram in ("strassen", "dps"):
+                spec, ap = sf._prepare_ata(a, 2, "strassen", gram, 64, 64,
+                                           operand_dtype=od, acc_dtype=acc)
+                check_precision(spec, ap, ap, tril_dense(777, ap.shape[1], 64),
+                                torch.tril(aq.T @ aq), f"{tag}, {gram}")
+                spec, ap = sf._prepare_aat(a, 2, "strassen", gram, 64, 64,
+                                           operand_dtype=od, acc_dtype=acc)
+                check_precision(spec, ap, ap,
+                                tril_dense(1000, ap.shape[0], 64),
+                                torch.tril(aq @ aq.T), f"{tag}, {gram}")
+                spec, ap = sf._prepare_rank_k(stack, a, 2, "strassen", gram,
+                                              64, operand_dtype=od,
+                                              acc_dtype=acc)
+                a_pad = F.pad(aq, (0, T * bs - 777))
+                check_precision(spec, ap, ap, tril_dense(T * bs, T * bs, bs),
+                                low.double() + torch.tril(a_pad.T @ a_pad),
+                                f"{tag}, {gram}", seed=stack)
+            spec, xp, sp = sf._prepare_symm(a, stack, 2, "strassen", 64, True,
+                                            operand_dtype=od, acc_dtype=acc)
+            lq = q64(low, od)
+            check_precision(spec, xp, sp, lambda k: k[:1000],
+                            F.pad(aq, (0, T * bs - 777)) @ (lq + lq.T), tag)
+            spec, ap, bp = sf._prepare_matmul(a, b, 2, "strassen", 64, 64, 64,
+                                              True, False, operand_dtype=od,
+                                              acc_dtype=acc)
+            check_precision(spec, ap, bp, lambda c: c[:777, :555],
+                            aq.T @ q64(b, od), f"{tag}, a^t b")
+        # tiles of 128 (the main path's), both grams
+        for od, acc in ((e4m3, "float32"), (None, "bfloat16"),
+                        (None, "float64")):
+            xq = q64(x, od)
+            for gram in ("strassen", "dps"):
+                spec, xp = sf._prepare_ata(x, 2, "strassen", gram, 128, 128,
+                                           operand_dtype=od, acc_dtype=acc)
+                check_precision(spec, xp, xp, tril_dense(1024, 1024, 128),
+                                torch.tril(xq.T @ xq),
+                                f"{str(od).removeprefix('torch.')} tiles, "
+                                f"{gram}, tile 128")
+        # fp8 at block edges of 40: row strides 8 mod 16 bytes, widened
+        a760 = randn(500, 760)
+        low5 = torch.tril(randn(200, 200))
+        stack5 = pack_tril_blocks(low5, 40)
+        for od in (e4m3, e5m2):
+            tag = f"{str(od).removeprefix('torch.')} tiles, block 40"
+            aq = q64(a760, od)
+            for levels in (0, 2):
+                spec, ap = sf._prepare_ata(a760, levels, "strassen",
+                                           "strassen", 40, 40,
+                                           operand_dtype=od)
+                check_precision(spec, ap, ap,
+                                tril_dense(760, ap.shape[1], 40),
+                                torch.tril(aq.T @ aq), tag)
+            xs = a760[:, :200]
+            xq = q64(xs, od)
+            lq = q64(low5, od)
+            spec, xp, sp = sf._prepare_symm(xs, stack5, 0, "strassen", 40,
+                                            True, operand_dtype=od)
+            check_precision(spec, xp, sp, lambda k: k[:500],
+                            xq @ (lq + lq.T), tag)
+            spec, xp = sf._prepare_rank_k(stack5, xs, 0, "strassen", "dps",
+                                          40, operand_dtype=od)
+            check_precision(spec, xp, xp, tril_dense(200, 200, 40),
+                            low5.double() + torch.tril(xq.T @ xq), tag,
+                            seed=stack5)
+            spec, ap, bp = sf._prepare_matmul(a760[:, :440], a760[:440, :280],
+                                              0, "strassen", 40, 40, 40,
+                                              operand_dtype=od)
+            check_precision(spec, ap, bp, lambda c: c[:500, :280],
+                            q64(a760[:, :440], od) @ q64(a760[:440, :280], od),
+                            tag)
+        # fp64 and fp16 inputs, seeds and outputs
+        a64_, a16 = a.double(), a.half()
+        spec, ap = sf._prepare_ata(a64_, 2, "strassen", "dps", 64, 64)
+        aq = q64(a64_, None)
+        check_precision(spec, ap, ap, tril_dense(777, ap.shape[1], 64),
+                        torch.tril(aq.T @ aq), "fp64 input", out_dtype=fp64)
+        spec, ap = sf._prepare_ata(a16, 2, "strassen", "strassen", 64, 64)
+        aq = a16.double()
+        check_precision(spec, ap, ap, tril_dense(777, ap.shape[1], 64),
+                        torch.tril(aq.T @ aq), "fp16 input")
+        spec, ap = sf._prepare_ata(a, 2, "strassen", "strassen", 64, 64)
+        check_precision(spec, ap, ap, tril_dense(777, ap.shape[1], 64),
+                        torch.tril(a.double().T @ a.double()),
+                        "fp16 output", out_dtype=fp16)
+        for sd, acc in ((fp64, "float32"), (fp64, "float64"),
+                        (fp16, "float32"), (fp16, "bfloat16")):
+            st = stack.to(sd)
+            spec, ap = sf._prepare_rank_k(st, a, 2, "strassen", "dps", 64,
+                                          acc_dtype=acc)
+            a_pad = F.pad(a.double(), (0, T * bs - 777))
+            k1 = check_precision(
+                spec, ap, ap, tril_dense(T * bs, T * bs, bs),
+                low.to(sd).double() + torch.tril(a_pad.T @ a_pad),
+                f"{str(sd).removeprefix('torch.')} stack", out_dtype=sd,
+                seed=st)
+            inplace = st.clone()
+            sf.leaf_program(spec, ap, ap, sd, seed=inplace, out=inplace)
+            torch.cuda.synchronize()
+            assert torch.equal(inplace, k1), (sd, acc)
+        # K blocks whose parts are 1 and 2^-30 in turn: an fp64 accumulator
+        # keeps every 2^-30, an fp32 one loses them all
+        parts = torch.zeros(4 * 64, 128, device=dev)
+        parts[0::128], parts[64::128] = 1.0, 2.0 ** -15
+        stack0 = torch.zeros(3 * 64, 64, dtype=fp64, device=dev)
+        kept = {}
+        for gram in ("strassen", "dps"):
+            for acc, value in (("float64", 2 + 2.0 ** -29), ("float32", 2.0)):
+                for kind in ("ata", "aat", "rank_k"):
+                    seed = stack0 if kind == "rank_k" else None
+                    if kind == "ata":
+                        spec, pp = sf._prepare_ata(parts, 1, "strassen", gram,
+                                                   64, 64, acc_dtype=acc)
+                    elif kind == "aat":
+                        spec, pp = sf._prepare_aat(parts.T.contiguous(), 1,
+                                                   "strassen", gram, 64, 64,
+                                                   acc_dtype=acc)
+                    else:
+                        spec, pp = sf._prepare_rank_k(stack0, parts, 1,
+                                                      "strassen", gram, 64,
+                                                      acc_dtype=acc)
+                    got = sf.leaf_program(spec, pp, pp, fp64, seed=seed)
+                    ref = plain(spec, pp, pp, fp64, seed)
+                    assert torch.equal(got, ref), (gram, acc, kind)
+                    assert bool((got == value).all()), (gram, acc, kind)
+                    kept[f"{kind}, {gram}, {acc}"] = f"{float(got[0, 0])!r}"
+        print(f"  K block parts of 1 and 2^-30 in turn, fp64 output, bit-equal "
+              f"to plain: {kept}")
+    del a, x, b, stack, low
+    print(f"precision branches held against their plain version, by library, "
+          f"kind and mode: {precision_checked}")
+    for lib in ("leaf_products_lowp", "leaf_products_acc"):
+        assert all(precision_checked.get(f"{lib}: {k}, one position a block")
+                   for k in ("ata", "symm", "aat", "rank_k", "matmul")), lib
+        assert all(precision_checked.get(f"{lib}: {k}, pair mode")
+                   for k in ("ata", "aat", "rank_k")), lib
+
     # -- 4. main paths ----------------------------------------------------------
     n = args.n
     depth = sf._resolve_pipeline_depth(None, dev)
@@ -993,7 +1287,7 @@ def main() -> int:
     assert launches["leaf_products.cu/ata"] == launches[ATA], launches
     assert dps_launches == 1, dps_launches
     assert set(sf.LIBRARY_LAUNCHES) == {
-        f"leaf_products.cu/{k}" for k in
+        f"{lib}.cu/{k}" for lib in sf.PRODUCT_LIBRARIES for k in
         ("ata", "symm", "aat", "rank_k", "matmul")}, sf.LIBRARY_LAUNCHES
     print(f"ata(a, gram='dps') launched leaf_products.cu/ata "
           f"{dps_launches} time")
@@ -1623,6 +1917,161 @@ def main() -> int:
     prof_decode = profiled("decode tick, 4 live slots", four.step)
     del one, four, params
 
+    # -- 4i. the precision axes ----------------------------------------------
+    print(f"== 4i. main path: the precision axes at {n} x {n}: quantized "
+          f"operands, bf16 and fp64 accumulators, fp64 and fp16 input and "
+          f"output, stochastic rounding")
+    from repro_torch.gram.verify import default_rtol, verify_gram
+    fp16, e4m3, e5m2, fp64 = (torch.float16, torch.float8_e4m3fn,
+                              torch.float8_e5m2, torch.float64)
+    a64 = a.double()
+    a_nan = a.clone()
+    a_nan[n // 3, (2 * n) // 3] = 500.0     # past e4m3fn's 464: NaN
+    gb = randn(n, n, dtype=bf16)            # a cotangent for the bf16 output
+    reset_counts()
+    quant = {od: ata(a, operand_dtype=od) for od in (e4m3, e5m2, fp16)}
+    stack8 = torch.zeros(T * (T + 1) // 2 * DEFAULT_BLOCK, DEFAULT_BLOCK,
+                         device=dev)
+    for i in range(chunks):
+        stack8 = ops.rank_k_update(stack8, a[i * rows:(i + 1) * rows],
+                                   operand_dtype=e4m3)
+    c_nan = ata(a_nan, operand_dtype=e4m3)
+    c_bf = ata(a, acc_dtype="bfloat16")
+    c_f64 = ata(a64, acc_dtype="float64")
+    c_in64, c_in16 = ata(a64), ata(a.half())
+    c_out16 = ata(a, out_dtype=fp16)
+    sr = [ata(a, out_dtype=bf16, sr_seed=seed) for seed in (7, 7, 8)]
+    xa = a.clone().requires_grad_()
+    (g_sr,) = torch.autograd.grad(ata(xa, out_dtype=bf16, sr_seed=7), xa, gb)
+    xa = a.clone().requires_grad_()
+    (g_core,) = torch.autograd.grad(ata(xa), xa, gb.float())
+    del xa
+    prec_launches = read_counts("the precision axes")
+    for key, least in (("leaf_products_lowp.cu/ata", 5),
+                       ("leaf_products_lowp.cu/rank_k", chunks),
+                       ("leaf_products_acc.cu/ata", 2),
+                       ("leaf_products.cu/ata", 7)):
+        assert prec_launches[key] >= least, (key, prec_launches)
+    assert prec_launches[SYMM] >= 2, prec_launches
+    # each quantized path against the float64 product of its quantized
+    # operands, and the Freivalds guard against the original A
+    quant_errs = {}
+    for od, out in [*quant.items(), ("rank_k", None)]:
+        if od == "rank_k":
+            od, out = e4m3, torch.tril(unpack_tril_blocks(
+                stack8, n_pad, DEFAULT_BLOCK, symmetrize=False))[:n, :n]
+            label = "rank_k_update(e4m3fn chunks)"
+        else:
+            label = f"ata(a, operand_dtype={str(od).removeprefix('torch.')})"
+        aq = sf._quantize(a, od).double()
+        err = _rel(out, torch.tril(aq.T @ aq))
+        del aq
+        verdict = verify_gram(a, out, probes=2, full=False,
+                              rtol=default_rtol(od))
+        quant_errs[label] = err
+        print(f"  {label}: {out.dtype}, vs float64 of the quantized A "
+              f"{err:.3e} (<= 1e-4); verify_gram at default_rtol "
+              f"{default_rtol(od):.2e}: ok={verdict.ok}, Freivalds error "
+              f"{verdict.max_rel_err:.3e}")
+        assert out.shape == (n, n) and out.dtype == f32
+        assert err <= 1e-4 and verdict.ok, (label, err, verdict)
+    del quant, out
+    want = torch.tril(a64.T @ a64)
+    e_bf, e_f64 = _rel(c_bf, want), _rel(c_f64, want)
+    e_in64, e_out16 = _rel(c_in64, want), _rel(c_out16, want)
+    ah = a.half().double()
+    e_in16 = _rel(c_in16, torch.tril(ah.T @ ah))
+    del ah
+    # the bf16 accumulator against the TPU kernel's own order (the
+    # destination walk, on the card) at the same rounding points
+    bspec, bap = sf._prepare_ata(a, DEFAULT_LEVELS, "strassen", "strassen",
+                                 DEFAULT_BLOCK, DEFAULT_BLOCK,
+                                 pipeline_depth=depth, acc_dtype="bfloat16")
+    walk = sf._leaf_program_plain(bspec, sf._spec_tables(bspec, dev), bap, bap,
+                                  fp64)
+    e_walk = _rel(tril_dense(n, n_pad, DEFAULT_BLOCK)(walk), want)
+    del walk, want
+    print(f"  ata(a, acc_dtype='bfloat16'): vs float64 {e_bf:.3e}, the "
+          f"destination walk's in bf16 {e_walk:.3e} (<= 1.5x); ata(fp64 a, "
+          f"acc_dtype='float64') -> {c_f64.dtype}: {e_f64:.3e} (<= 1e-5); "
+          f"ata(fp64 a) -> {c_in64.dtype}: {e_in64:.3e}; ata(fp16 a) -> "
+          f"{c_in16.dtype}: {e_in16:.3e} (<= 1e-4); ata(a, out_dtype=fp16) "
+          f"-> {c_out16.dtype}: {e_out16:.3e} (<= 2^-10)")
+    assert c_bf.dtype == f32 and e_bf <= 1.5 * e_walk, (e_bf, e_walk)
+    assert c_f64.dtype == fp64 and e_f64 <= 1e-5, e_f64
+    assert c_in64.dtype == fp64 and c_in16.dtype == f32 and \
+        c_out16.dtype == fp16
+    assert max(e_in64, e_in16) <= 1e-4 and e_out16 <= 2.0 ** -10
+    del c_bf, c_f64, c_in64, c_in16, c_out16
+    # stochastic rounding: the same seed the same bits, another seed not,
+    # every element a bf16 neighbour of the fp32 result; straight-through
+    sr_equal, sr_other = torch.equal(sr[0], sr[1]), torch.equal(sr[0], sr[2])
+    core = ata(a)
+    ulp = (sr[0].float() - core).abs().max() / core.abs().max()
+    del core
+    print(f"  ata(a, out_dtype=bf16, sr_seed=7) twice: bit-equal {sr_equal}; "
+          f"with sr_seed=8: bit-equal {sr_other}; max|sr - fp32| of max|C| "
+          f"{float(ulp):.3e} (<= 2^-7); its gradient equals the fp32 core's "
+          f"{torch.equal(g_sr, g_core)}")
+    assert all(x.dtype == bf16 for x in sr) and sr_equal and not sr_other
+    assert float(ulp) <= 2.0 ** -7 and torch.equal(g_sr, g_core)
+    del sr, g_sr, g_core
+    # the NaN of an input past e4m3fn's range, spread by the signed sums:
+    # the kernel's NaNs lie where the plain version's do
+    nspec, nap = sf._prepare_ata(a_nan, DEFAULT_LEVELS, "strassen",
+                                 "strassen", DEFAULT_BLOCK, DEFAULT_BLOCK,
+                                 pipeline_depth=depth, operand_dtype=e4m3)
+    p_nan = tril_dense(n, n_pad, DEFAULT_BLOCK)(plain(nspec, nap, nap, f32))
+    same_nans = torch.equal(torch.isnan(c_nan), torch.isnan(p_nan))
+    n_nans = int(torch.isnan(c_nan).sum())
+    fin = ~torch.isnan(p_nan)
+    e_fin = _rel(c_nan[fin], p_nan[fin].double())
+    print(f"  ata(a with {float(a_nan[n // 3, (2 * n) // 3])} at "
+          f"({n // 3}, {(2 * n) // 3}), operand_dtype=e4m3fn): {n_nans} NaNs "
+          f"of {n * n}, in the plain version's elements {same_nans}; the rest "
+          f"vs plain {e_fin:.3e}")
+    assert same_nans and 0 < n_nans < n * n and e_fin <= 1e-5
+    del c_nan, p_nan, fin, nap, a_nan
+    # each configuration of the path against its plain version, uncounted
+
+    def vs_plain(label, spec, left, right, bar, seed=None, out_dtype=f32):
+        """The kernel against its plain version; ``bar=0`` asks for
+        their bits to be equal."""
+        got = sf.leaf_program(spec, left, right, out_dtype, seed=seed)
+        ref = plain(spec, left, right, out_dtype, seed)
+        err = float((got - ref).abs().max())
+        rel = _rel(got, ref.double())
+        print(f"  {label}: {spec.kind} L{spec.levels} {tuple(left.shape)} "
+              f"{left.dtype}, {spec.acc_dtype} accumulator -> {out_dtype}, "
+              f"on {library_of(spec, left, right)}, ring depth "
+              f"{sf.ring_depth(spec)}: kernel vs plain max|d| {err:.3e}, "
+              f"relative {rel:.3e} "
+              f"({'bit-equal' if bar == 0 else f'<= {bar:.1e}'})")
+        assert torch.equal(got, ref) if bar == 0 else rel <= bar, (label, rel)
+        return err
+
+    prec_specs = {}
+    for od in (e4m3, e5m2, fp16):
+        prec_specs[od] = sf._prepare_ata(a, DEFAULT_LEVELS, "strassen",
+                                         "strassen", DEFAULT_BLOCK,
+                                         DEFAULT_BLOCK, pipeline_depth=depth,
+                                         operand_dtype=od)
+    lowp_err = max(vs_plain(f"ata, {od}", *prec_specs[od], prec_specs[od][1],
+                            1e-5) for od in prec_specs)
+    rk8_spec, rk8_x = sf._prepare_rank_k(stack8, chunk, DEFAULT_LEVELS,
+                                         "strassen", "strassen", DEFAULT_BLOCK,
+                                         pipeline_depth=depth,
+                                         operand_dtype=e4m3)
+    lowp_err = max(lowp_err, vs_plain("rank_k_update, e4m3fn chunk", rk8_spec,
+                                      rk8_x, rk8_x, 1e-5, seed=stack8))
+    acc_err = vs_plain("ata, bf16 accumulator", bspec, bap, bap, 2.0 ** -7)
+    fspec, fap = sf._prepare_ata(a64, DEFAULT_LEVELS, "strassen", "strassen",
+                                 DEFAULT_BLOCK, DEFAULT_BLOCK,
+                                 pipeline_depth=depth, acc_dtype="float64")
+    acc_err = max(acc_err, vs_plain("ata(fp64 a), fp64 accumulator", fspec,
+                                    fap, fap, 0, out_dtype=fp64))
+    del a64
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
     print(f"card: {smi}")
@@ -1697,7 +2146,7 @@ def main() -> int:
     def entry(spec, *args, **extra):
         return kernel_entry(
             "leaf_program", PRODUCTS_SOURCE, REPLACES.format(spec.kind),
-            *args, kind=spec.kind,
+            *args, kind=spec.kind, library="leaf_products",
             **({"gram": spec.gram} if spec.kind in ("ata", "aat", "rank_k")
                else {}), **extra)
 
@@ -1826,11 +2275,11 @@ def main() -> int:
     rk_tiles = tiles(rk_spec, rk_x, rk_x, seed=stack)
     chunk_pad = n_pad - n
 
-    def library_rank_k():
+    def library_rank_k(st):
         g = torch.tril(chunk.T @ chunk)
-        return stack + pack_tril_blocks(F.pad(g, (0, chunk_pad, 0, chunk_pad)),
-                                        DEFAULT_BLOCK)
-    lib_ms, lib_runs = _time_ms(library_rank_k)
+        return st + pack_tril_blocks(F.pad(g, (0, chunk_pad, 0, chunk_pad)),
+                                     DEFAULT_BLOCK)
+    lib_ms, lib_runs = _time_ms(lambda: library_rank_k(stack))
     print(f"torch.tril(c.T @ c) plus the packed add fp32: {lib_ms:.3f} ms "
           f"(runs {lib_runs})")
     prog = compile_program("rank_k", rk_spec.levels, rk_spec.variant,
@@ -2102,7 +2551,72 @@ def main() -> int:
                         "decode_tick": prof_decode}}))
     del fq, fk, fv, got, want
 
+    # The precision axes' libraries at their main-path shapes (phase 4i):
+    # each bound counts the stored operand bytes at their own element size;
+    # the yardstick is the kind's own, torch.tril(a.T @ a) in fp32.
+    lib_ms, lib_runs = _time_ms(lambda: torch.tril(a.T @ a))
+    print(f"torch.tril(a.T @ a) fp32: {lib_ms:.3f} ms (runs {lib_runs})")
+
+    def branch(label, spec, left, fp32_ms, seed=None):
+        """A branch's time (depth as the main path runs it) and over its
+        kind's fp32 one, its plain version's once, its launch shape and its
+        bound."""
+        ms, runs = _time_ms(lambda: sf.leaf_program(spec, left, left, f32,
+                                                    seed=seed))
+        plain_ms, _ = _time_ms(lambda: plain(spec, left, left, f32, seed),
+                               reps=1, warmup=0)
+        shape = sf.products_launch_shape(spec, left.dtype, left.dtype)
+        io = left.numel() * left.element_size() \
+            + spec.n_out * spec.bi * spec.bj * 4 \
+            + (0 if seed is None else seed.numel() * seed.element_size())
+        prog = compile_program(spec.kind, spec.levels, spec.variant,
+                               gram=spec.gram)
+        least = 2 * prog.mult_count(spec.n_k * spec.bc, spec.q_i * spec.bi)
+        classical = (rows if spec.kind == "rank_k" else n) * n * (n + 1)
+        bound_ms, bound_by = bound(f"{label}", least, classical, io, spec)
+        print(f"{label}: {ms:.3f} ms (runs {runs}); plain version, once: "
+              f"{plain_ms:.3f} ms; {shape['library']}, tile {shape['tile']}, "
+              f"ring depth {shape['ring_depth']}, {shape['blocks']} blocks, "
+              f"{shape['blocks_per_sm']} an SM, {shape['smem_bytes']} B of "
+              f"shared memory a block")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "ms_over_fp32_kind": ms / fp32_ms,
+                "launch_shape": shape}
+
+    ata_ms, rk_ms = kernels[0]["ms"], kernels[4]["ms"]
+    lowp = {str(od).removeprefix("torch."): branch(
+        f"ata kind on {str(od).removeprefix('torch.')} tiles",
+        *prec_specs[od], ata_ms) for od in prec_specs}
+    rk_lib, _ = _time_ms(lambda: library_rank_k(stack8))
+    lowp["rank_k, float8_e4m3fn chunk"] = {
+        **branch("rank_k kind on an e4m3fn chunk", rk8_spec, rk8_x, rk_ms,
+                 seed=stack8), "library_ms": rk_lib}
+    row = lowp["float8_e4m3fn"]
+    kernels.append(kernel_entry(
+        "leaf_program", PRODUCTS_SOURCE,
+        REPLACES.format("ata"), prec_launches["leaf_products_lowp.cu/ata"],
+        lowp_err, row["ms"], row["plain_ms"], row["bound_ms"],
+        row["bound_by"], row["library_ms"], kind="ata", gram="strassen",
+        library="leaf_products_lowp", operand_dtype="float8_e4m3fn",
+        rank_k_launches=prec_launches["leaf_products_lowp.cu/rank_k"],
+        branches=lowp, shape=[n, n]))
+    acc = {"bfloat16": branch("ata kind, bf16 accumulator", bspec, bap,
+                              ata_ms),
+           "float64": branch("ata kind (fp64 input), fp64 accumulator", fspec,
+                             fap, ata_ms)}
+    row = acc["bfloat16"]
+    kernels.append(kernel_entry(
+        "leaf_program", PRODUCTS_SOURCE,
+        REPLACES.format("ata"), prec_launches["leaf_products_acc.cu/ata"],
+        acc_err, row["ms"], row["plain_ms"], row["bound_ms"],
+        row["bound_by"], row["library_ms"], kind="ata", gram="strassen",
+        library="leaf_products_acc", acc_dtype="bfloat16", branches=acc,
+        quantized_vs_float64=quant_errs, shape=[n, n]))
+    del bap, fap, prec_specs, rk8_x, stack8
+
     # -- 6. summary -------------------------------------------------------------
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,7 +71,7 @@ def ata(
     """Lower triangle of ``a.T @ a`` via the paper's ATA recursion.
 
     Args:
-      a: (m, n) tensor, fp32 or bf16.
+      a: (m, n) tensor: fp32, bf16, fp16 or fp64.
       gram_of: ``"cols"`` (default, ``tril(a.T @ a)``, (n, n)) or
         ``"rows"`` (``tril(a @ a.T)``, (m, m)).  The row gram runs the aat
         kind of the kernel on the fused path (bm = bk = ``block``) and
@@ -103,11 +103,20 @@ def ata(
       pipeline_depth: ``cp.async`` ring depth of the fused kernel, 1-4;
         None = 2 on the card, 1 on the CPU.  Every depth gives the same
         bits.
-      operand_dtype: None, fp32 or bf16 — the stored operand tiles; the
-        kernel upcasts to fp32 before the signed sums.  Others are
-        ROADMAP Queue 1 #6.
-      acc_dtype: fp32 (default) only; others are ROADMAP Queue 1 #6.
-      sr_seed: stochastic rounding, ROADMAP Queue 1 #6 — must be None.
+      operand_dtype: quantize A once to this dtype (fp8 e4m3fn or e5m2,
+        bf16, fp16, fp32, fp64), as ``jnp.astype`` rounds; the fused
+        kernel stores its tiles so and upcasts them to fp32 before the
+        signed sums (an fp64 tile is fp32 arithmetic, so it is stored as
+        fp32).  ``None`` keeps A's own dtype (fp64 stored as fp32).  The
+        reference path quantizes, then recurses in the promoted dtype.
+      acc_dtype: the fused kernel's accumulator: fp32 (default), bf16 or
+        fp64, rounded where the JAX package's VMEM accumulator is (each
+        K block's product).  The reference path ignores it.
+      sr_seed: with a bf16 ``out_dtype``, the fused path computes in fp32
+        and rounds the result stochastically under this seed
+        (deterministic per seed and device, unbiased; the bits differ
+        from the JAX package's threefry ones).  The reference path
+        ignores it.
       device: where to run; None means ``"cuda"``.  A CPU tensor is
         moved to the card unless ``device="cpu"``.  Without a card and
         without ``device="cpu"`` this raises ``RuntimeError``.
@@ -127,17 +136,14 @@ def ata(
     m, n = a.shape
     if levels == "auto":
         levels = min(ata_levels_for(m, n, leaf), AUTO_MAX_LEVELS)
-    out_dtype = (torch.promote_types(a.dtype, torch.float32)
-                 if out_dtype is None else out_dtype)
+    out_dtype = sf._promoted(a.dtype) if out_dtype is None else out_dtype
     op_dt = sf._resolve_operand_dtype(operand_dtype)
-    sf._resolve_acc_dtype(acc_dtype)
-    sf._resolve_sr_seed(sr_seed)
     mode = resolve_mode(mode, base_syrk, base_matmul, device=a.device)
     if mode != "fused" and op_dt is not None:
         # Reference oracle for quantized operands: quantize once, then
         # recurse in the promoted compute dtype (the fused kernel upcasts
         # quantized tiles to fp32 before every signed sum / product).
-        a = a.to(op_dt).to(torch.promote_types(a.dtype, torch.float32))
+        a = sf._quantize(a, op_dt).to(sf._promoted(a.dtype))
     if gram_of == "rows":
         if mode == "fused":
             return ops.aat_fused(a, levels=levels, variant=variant,

@@ -28,6 +28,16 @@ KERNEL_LAUNCHES = {"syrk": 0, "matmul": 0, "combine": 0, "transpose": 0,
 # dtype codes of the C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: Element types of ``csrc/leaf_products*.cu`` (its ``Dtype``): operand
+#: tiles (the first five), the seed stack and the output (fp32, bf16, fp16,
+#: fp64).  An fp64 operand is stored as fp32 before the launch.
+LEAF_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                    torch.float8_e4m3fn: 3, torch.float8_e5m2: 4,
+                    torch.float64: 5}
+
+#: Accumulators of ``csrc/leaf_products*.cu`` (its ``AccCode``), by name.
+ACC_CODES = {"float32": 0, "bfloat16": 1, "float64": 2}
+
 PTR, INT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 #: Block tiles of ``csrc/tile_product.cuh``, the core of the syrk and

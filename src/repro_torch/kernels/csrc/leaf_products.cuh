@@ -1,0 +1,1248 @@
+// leaf_products.cuh — the fused leaf program, each leaf product computed once: every kind
+// (ata, aat, rank_k of every gram, symm, matmul), every operand type and accumulator.
+//
+// The kernel's body and its plain C interface, shared by three libraries, one translation
+// unit each so that their builds run side by side; each defines select() and ring_depth()
+// over its own instantiations:
+//   leaf_products.cu       fp32 and bf16 operand tiles, fp32 accumulator (the main path)
+//   leaf_products_lowp.cu  fp16, fp8 e4m3fn and fp8 e5m2 operand tiles, fp32 accumulator
+//   leaf_products_acc.cu   a bf16 or fp64 accumulator, over fp32, bf16, fp16 and fp8 tiles
+//
+// Replaces both TPU kernels of the JAX package:
+//   src/repro/kernels/strassen_fused.py:474 _leaf_kernel       (pipeline_depth 1)
+//   src/repro/kernels/strassen_fused.py:533 _pipelined_kernel  (pipeline_depth >= 2)
+// It computes what they compute: every destination block D of the output is
+//   D = seed + sum over the leaf ops o that feed D, in op order, of sign[o, D] * P_o (or P_o^t),
+//   P_o = sum over K blocks k of op_L(sum_p lsgn[o,p] L_p)_k op_R(sum_q rsgn[o,q] R_q)_k,
+// with the signed operand sums formed in fp32 after upcasting, and the seed the incoming
+// packed stack of rank_k (0 otherwise).  The TPU kernel walks output tiles and recomputes P_o
+// for every destination it feeds (144 products for 49 ops at levels 2 for symm and matmul, 48
+// for 38 for the strassen gram, 184 for 31 for the dps gram); this kernel walks the ops and
+// computes each P_o once per output position.
+//
+// The tables are the host's op-indexed lowering of the leaf program
+// (strassen_fused._op_tables): per op its left terms (row, col, coef), right terms (row, col,
+// coef, mirror), destinations (leaf index, sign, flags: the slot is the first or the last to
+// feed that destination, in the order of an element on or below its leaf block's diagonal and,
+// two bits up, of one above it; transposed: the destination takes P_o^t) and whether every
+// destination is a straight one on a diagonal leaf block of a packed output.  How each side
+// lies in memory is a field of the launch:
+//
+//   kind    left tile as stored          right tile as stored
+//   matmul  K x i if trans_a, else i x K  j x K if trans_b, else K x j
+//   symm    i x K (X)                     packed lower-triangular stack of S: the stored tile
+//                                         (max(gr, gc), min(gr, gc)) of a term's conceptual
+//                                         coordinates, mirrored when the term says so or
+//                                         gr < gc; a diagonal tile under diag_sym is tile +
+//                                         tile^t
+//   ata     K x i (A, read A^t)           K x j (A)
+//   rank_k  K x i                         K x j, seeded by the incoming stack
+//   aat     i x K (A)                     j x K (A again, read A^t)
+//
+// The gram kinds write the packed lower-triangular tile stack (out_tri): position (iq, jq) of
+// leaf destination (di, dj) is global tile (gi, gj) = (di q + iq, dj q + jq), stored at rows
+// (gi (gi + 1) / 2 + gj) bi of the (n_out bi, bj) stack.  A position with iq < jq holds no tile
+// of a diagonal leaf block: it writes nothing there and skips every op that feeds only
+// diagonal blocks, straight (the 16 syrk ops of 38 at levels 2 of the strassen gram).  A
+// diagonal tile (iq == jq of a diagonal leaf block) is computed and stored whole, as the TPU
+// kernel stores it.  The rank_k seed is read where a slot first feeds an element, by the
+// thread that then writes that element, so the seed may be the output (the in-place update of
+// ops.rank_k_update(donate=True)).
+//
+// A transposed destination (the dps gram's: 72 of its 184 at levels 2) takes at position
+// (iq, jq) the transpose of the op's product at the mirror position (jq, iq): both sides of a
+// gram kind read the same A the same way.  Where the tables have one, the launch runs in pair
+// mode: a block owns a TILE x TILE sub-tile S on or below the diagonal of the leaf blocks (in
+// their coordinates) and its mirror S^t, in every destination.  It walks each op once at S and
+// once at S^t; P(S) goes straight into S and transposed into S^t, P(S^t) straight into S^t
+// and transposed into S.  An element on or below the diagonal so takes an op's straight slots
+// first, one above it the transposed ones first: the order strassen_fused._op_tables fixes
+// and _leaf_products_plain follows.  A sub-tile that is its own mirror (on the diagonal) is
+// walked once and written in two passes, one barrier apart, since the partner of an element
+// is held by another thread.  Transposed writes are per element (a thread's 4-wide row is a
+// column there); staging them through shared memory is later work.  Pair mode does not split
+// the ragged last wave into quarters.
+//
+// What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): the leaf products, each
+// computed once, on the fp32 CUDA cores.  At n = 10000 (padded 10240, levels 2, 49 products
+// of 2560^3) that is 1.644e12 flops for symm and matmul, 24.540 ms at 67 TFLOP/s; 3080 tile
+// products of 256^2 x 2560, 1.0335e12 flops, for the strassen gram's ata and aat, and 3100,
+// 1.0402e12 flops, for the dps gram's; the inputs and the output once are 0.4-1.3 GB, 0.1-0.4
+// ms at 3.35 TB/s.  What the design does about it:
+//   * a block owns one output position (a mirror pair in pair mode), (iq, jq) inside a leaf
+//     block plus a TILE x TILE sub-tile of that output tile, at every leaf destination; it runs
+//     each op's whole K range once and adds sign * P_o into each destination of the op.  Only
+//     this block touches those elements, so the read-modify-write in global memory needs no
+//     atomics and is deterministic; a slot's first contribution to an element stores (onto the
+//     seed, if any), its last rounds into the output type (an output of another type than the
+//     accumulator accumulates in a workspace of the accumulator's type until then);
+//   * the sum phase costs KC x TILE elements a term, the product KC x TILE^2 FMAs, so a
+//     larger TILE amortises it: TILE is a template parameter, 64 (4 x 4 outputs a thread) or
+//     128 (8 x 8 a thread), 256 threads either way;
+//   * the raw chunks travel by TMA (cp.async.bulk.tensor), one box a term and chunk, into a
+//     STAGES-deep ring of shared-memory slots, each with an mbarrier that counts its bytes.
+//     A slot holds the widest op's terms a side; in pair mode GROUP, and a chunk of an op with
+//     more takes several slots in turn, summed into the same buffer, so that a slot does not
+//     cost every op the widest one's memory (the dps gram's 8 terms at levels 2, which 7 of its
+//     31 ops have).  Warp 0 issues a step's boxes, one lane a term;
+//   * the signed sums go to a padded ([KC][TILE + 4]), double-buffered shared buffer, so one
+//     barrier a step separates summing step s from multiplying step s - 1, and warps 0-3 sum
+//     first while warps 4-7 multiply first, so the FMAs of one warp issue while its neighbour
+//     on the same scheduler waits on shared memory;
+//   * null terms (coefficient 0) fetch nothing; no register cap.
+// The packed output, the seed, the output's type and the skipped ops are fields of the launch,
+// not template parameters.  Pair mode is one (a dense right side, both sides of one type), so
+// that the one-position walk, which issues about as many instructions as the card can (the
+// product is 1024 FFMAs a step a thread), carries none of its per-step work; so are the
+// operand types and the accumulator.  Tensor cores (3xTF32, wgmma) are later work: no TF32 on
+// this fp32 path.
+//
+// Arithmetic, the same at every STAGES, every TILE and in either mode: each stored element is
+// widened to fp32 (exact from bf16, fp16 and fp8) and each element's signed sum runs in term
+// order as sum = sum + coef * x (no FMA contraction), carried from one ring slot of a chunk to
+// the next through the sum buffer, and depth past the K block sums to 0; the product of a K
+// block accumulates by fmaf over its depth into one fp32 part (the TPU kernel's one dot per
+// grid step).  Then, by the accumulator Acc:
+//   fp32       the part is added into P_o once per K block, and D = D + sign * P_o once per
+//              op, each rounded, D starting from the seed or from the first contribution;
+//   bf16, fp64 the TPU kernel's rounding points: at the end of each K block, sign * part is
+//              rounded to Acc and added into each destination of the op, the sum rounded to
+//              Acc (acc += contrib.astype(acc)), K block by K block, op by op; D starts from
+//              the seed rounded to Acc.  The workspace is then of type Acc, and a block that
+//              owns a sub-tile that is its own mirror walks its op twice (as a pair does), so
+//              that an element takes every K block of a straight slot before those of a
+//              transposed one whatever the tile.
+// The seed is cast into the accumulator's type where it is read, and the output is cast from
+// the accumulator once, where the last slot feeding an element ends: fp64 goes through fp32 to
+// a narrower type, as torch's .to() does.
+//
+// Interface: plain C, loaded with ctypes.  The launcher returns cudaGetLastError() after the
+// launch.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "tma.cuh"
+
+namespace {
+
+using namespace tma;
+
+constexpr int KC = 16;             // contraction depth per chunk
+constexpr int THREADS = 256;       // 16 x 16 threads
+constexpr int MAX_TERMS = 8;       // terms a side: strassen_fused.MAX_OPERAND_TERMS
+constexpr int GROUP = 4;           // terms a side a ring slot holds
+constexpr int FIRST = 1;           // destination flags of the tables (shifted by UPPER for an
+constexpr int LAST = 2;            // element above its leaf block's diagonal)
+constexpr int UPPER = 2;
+
+// What a block walks: one position, a mirror pair of positions, or a position that is its own
+// mirror (the last two in pair mode).
+enum Mode { SINGLE = 0, PAIR = 1, SELF = 2 };
+
+// How the right side's tiles lie: dense K x j, dense j x K, or the packed tri stack of symm.
+enum RightLayout { RIGHT_KJ = 0, RIGHT_JK = 1, RIGHT_TRI = 2 };
+
+template <int TILE>
+struct Geometry {
+  static constexpr int CHUNK = KC * TILE;        // elements of one raw chunk
+  static constexpr int LDS = TILE + 4;           // padded row of a summed chunk
+  static constexpr int SUM = KC * LDS;           // floats of one summed chunk
+  static constexpr int R = TILE / 16;            // outputs a thread owns along each axis
+  static constexpr int XQ = TILE / 32;           // x groups of a thread's summed elements
+};
+
+// Raw chunks each right term holds in a ring slot: a tri term on a diagonal tile under
+// diag_sym reads the stored chunk and its mirror.
+__host__ __device__ constexpr int right_chunks(bool tri) { return tri ? 2 : 1; }
+
+// Element types of the C interface (strassen_fused's dtype codes): operand tiles, the seed and
+// the output.  An fp64 operand is stored as fp32 by the wrapper: the TPU kernel upcasts every
+// tile to fp32 before any arithmetic.
+enum Dtype { F32 = 0, BF16 = 1, F16 = 2, E4M3 = 3, E5M2 = 4, F64 = 5 };
+// Accumulators.
+enum AccCode { ACC_F32 = 0, ACC_BF16 = 1, ACC_F64 = 2 };
+
+__host__ __device__ constexpr int elem_bytes(int code) {
+  return code == F64 ? 8 : code == F32 ? 4 : code == BF16 || code == F16 ? 2 : 1;
+}
+
+// A stored element widened to fp32: exact for every operand type.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E5M2)));
+}
+
+// fp32 rounded to the accumulator's type, and a sum rounded in it.
+template <typename Acc>
+__device__ __forceinline__ Acc from_f32(float x) {
+  if constexpr (std::is_same_v<Acc, __nv_bfloat16>) return __float2bfloat16_rn(x);
+  else return static_cast<Acc>(x);
+}
+__device__ __forceinline__ float acc_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double acc_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ __nv_bfloat16 acc_add(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+
+// A chunk of the walk: item u (op u / 2 at the block's position, or at its mirror where u is
+// odd), K block k, chunk c of the K block.  A step is one ring slot g of the chunk's ng.
+struct Chunk {
+  int u, k, c;
+};
+struct Step : Chunk {
+  int g, ng;
+};
+
+// What the sum phase needs of a step, left in shared memory with the step's ring slot by the
+// warp that starts its copies: each side's live terms, their coefficients and, for a tri
+// right side, whether each term reads its tile mirrored and whether it is a diagonal tile;
+// whether the step is its chunk's first ring slot and its last.
+struct StepTerms {
+  float lc[MAX_TERMS], rc[MAX_TERMS];
+  int mirrored[MAX_TERMS], diag[MAX_TERMS];
+  int n_l, n_r;
+  int first, last;
+};
+
+// One bound op-indexed program (strassen_fused._Spec and _op_tables); the operands are the
+// launch's tensor maps.
+struct Ops {
+  void* ws;             // the accumulator's workspace, of its type (the output itself when the
+                        //   output is of that type)
+  void* out;
+  const void* seed;     // rank_k: the incoming packed stack (may be out); else null
+  const int* lrow;      // [n_ops, tmax]
+  const int* lcol;
+  const float* lsgn;
+  const int* rrow;      // [n_ops, tmax]
+  const int* rcol;
+  const float* rsgn;
+  const int* rtrn;      // tri right side: the per-term mirror
+  const int* dest;      // [n_ops, max_dests]: leaf destination index
+  const float* dsgn;    //   its sign (0: an empty slot)
+  const int* dflag;     //   FIRST | LAST, on or below the diagonal; << UPPER, above it
+  const int* dtrn;      //   the destination takes the product transposed
+  const int* odiag;     // [n_ops]: every destination of the op is a straight one on a diagonal
+                        //   leaf block
+  int n_ops, tmax, max_dests, n_k;
+  int q_i, q_j;         // output tiles per leaf block along i and j
+  int blocks_j;         // leaf blocks of the output along j
+  int bi, bj, bc;       // output tile edges, contraction tile edge
+  int left_trans;       // left tiles stored K x i (else i x K)
+  int right_jk;         // dense right tiles stored j x K (else K x j)
+  int diag_sym;
+  int out_tri;          // the output is the packed lower-triangular tile stack
+  int group;            // terms a side a ring slot holds: slot_terms(tmax, pair mode)
+  int seed_code;        // the seed's element type (a Dtype)
+  int out_cast;         // the output is not the workspace: the last slot casts into it
+  int n_big;            // blocks that walk a whole position; the rest walk quarters
+  int out_code;         // the output's element type (a Dtype)
+  int l_pitch, r_pitch; // fp8 sides: the stored columns of one tile (its width rounded up to
+                        //   16; the rest zeros)
+};
+
+// Packed lower-triangular index -> (i, j), i >= j, row-major; a root estimate with the
+// integer correction of syrk._tri_decode.
+__device__ __forceinline__ void tri_decode(long long t, int& i, int& j) {
+  long long r = static_cast<long long>((sqrt(8.0 * static_cast<double>(t) + 1.0) - 1.0) * 0.5);
+  if ((r + 1) * (r + 2) / 2 <= t) ++r;
+  if (r * (r + 1) / 2 > t) --r;
+  i = static_cast<int>(r);
+  j = static_cast<int>(t - r * (r + 1) / 2);
+}
+
+// The output tile (iq, jq) of a leaf block at cell c of a launch.  A dense output walks the
+// cells row-major.  A packed one walks the q (q + 1) / 2 cells with iq >= jq first, in packed
+// order, then the q (q - 1) / 2 others, (iq, jq) = (j, i + 1) for the packed (i, j) of q - 1
+// rows: the light cells, which skip the ops that feed only diagonal leaf blocks, fill the
+// last waves.
+__device__ __forceinline__ void cell_of(const Ops& P, int c, int& iq, int& jq) {
+  if (!P.out_tri) {
+    iq = c / P.q_j;
+    jq = c % P.q_j;
+    return;
+  }
+  const int heavy = P.q_i * (P.q_i + 1) / 2;
+  if (c < heavy) {
+    tri_decode(c, iq, jq);
+    return;
+  }
+  int i, j;
+  tri_decode(c - heavy, i, j);
+  iq = j;
+  jq = i + 1;
+}
+
+// Four seed elements of type `code` (fp32, bf16, fp16, fp64) as fp32, at a multiple of 4.
+__device__ __forceinline__ float4 load4(const void* base, long long at, int code) {
+  if (code == F32) return *reinterpret_cast<const float4*>(static_cast<const float*>(base) + at);
+  if (code == F64) {
+    const double2* p = reinterpret_cast<const double2*>(static_cast<const double*>(base) + at);
+    const double2 lo = p[0], hi = p[1];
+    return make_float4(__double2float_rn(lo.x), __double2float_rn(lo.y),
+                       __double2float_rn(hi.x), __double2float_rn(hi.y));
+  }
+  const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const char*>(base) + 2 * at);
+  if (code == BF16) {
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// A tri-stored right term at K block k, as _tri_term_coords decides it: the stored tile
+// (max, min) of the conceptual coordinates (gr, gc), mirrored when the term is mirrored or
+// gr < gc, doubled into tile + tile^t when it lies on the diagonal under diag_sym.
+struct TriTerm {
+  long long row;        // first stack row of the stored tile
+  bool mirrored, diag;
+};
+
+__device__ __forceinline__ TriTerm tri_term(const Ops& P, int rrow, int rcol, bool trn, int k,
+                                            int jq) {
+  const long long gr = static_cast<long long>(rrow) * P.q_j + (trn ? jq : k);
+  const long long gc = static_cast<long long>(rcol) * P.q_j + (trn ? k : jq);
+  const long long fr = gr > gc ? gr : gc;
+  const long long fc = gr > gc ? gc : gr;
+  return {(fr * (fr + 1) / 2 + fc) * P.bj, trn || gr < gc, P.diag_sym != 0 && gr == gc};
+}
+
+// Terms a side a ring slot holds.
+constexpr int slot_terms(int tmax, bool pair) { return pair && tmax > GROUP ? GROUP : tmax; }
+
+size_t smem_bytes(bool right_tri, int tmax, int tile, int left_bytes, int right_bytes,
+                  int stages, bool pair) {
+  const size_t chunk = static_cast<size_t>(KC) * tile;
+  return static_cast<size_t>(stages) * slot_terms(tmax, pair) * chunk *
+             (left_bytes + right_chunks(right_tri) * right_bytes)  // raw rings
+         + 2 * 2 * static_cast<size_t>(KC) * (tile + 4) * sizeof(float)  // summed, 2 buffers
+         + static_cast<size_t>(stages) * (sizeof(StepTerms) + sizeof(uint64_t));  // per slot
+}
+
+// One seed element of type `code` (fp32, bf16, fp16, fp64) in the accumulator's type: fp64
+// rounded to fp32 first where the accumulator is narrower (as torch's .to() and the plain
+// version round it).
+template <typename Acc>
+__device__ __forceinline__ Acc load_seed(const void* base, long long at, int code) {
+  if (code == F64) {
+    const double v = static_cast<const double*>(base)[at];
+    if constexpr (std::is_same_v<Acc, double>) return v;
+    else return from_f32<Acc>(__double2float_rn(v));
+  }
+  const float v = code == F32    ? static_cast<const float*>(base)[at]
+                  : code == BF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(base)[at])
+                                 : __half2float(static_cast<const __half*>(base)[at]);
+  return from_f32<Acc>(v);
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&lo);
+  raw.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+// Four fp32 values cast into output elements of type `code` (bf16, fp16, fp64; fp32 output is
+// the workspace), at a multiple of 4.
+__device__ __forceinline__ void store4(void* out, long long at, int code, float a, float b,
+                                       float c, float d) {
+  if (code == BF16) {
+    store4(static_cast<__nv_bfloat16*>(out) + at, a, b, c, d);
+  } else if (code == F16) {
+    __half2 lo = __floats2half2_rn(a, b), hi = __floats2half2_rn(c, d);
+    uint2 raw;
+    raw.x = *reinterpret_cast<unsigned*>(&lo);
+    raw.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<__half*>(out) + at) = raw;
+  } else {
+    double2* p = reinterpret_cast<double2*>(static_cast<double*>(out) + at);
+    p[0] = make_double2(a, b);
+    p[1] = make_double2(c, d);
+  }
+}
+// An accumulated value cast into an output element of type `code` (fp32, bf16, fp16, fp64);
+// fp64 goes through fp32 to a narrower type, as torch's .to() does.
+__device__ __forceinline__ void store1(void* out, long long at, int code, float v) {
+  switch (code) {
+    case F32: static_cast<float*>(out)[at] = v; break;
+    case BF16: static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16_rn(v); break;
+    case F16: static_cast<__half*>(out)[at] = __float2half_rn(v); break;
+    default: static_cast<double*>(out)[at] = v;
+  }
+}
+__device__ __forceinline__ void store1(void* out, long long at, int code, __nv_bfloat16 v) {
+  if (code == BF16) static_cast<__nv_bfloat16*>(out)[at] = v;
+  else store1(out, at, code, __bfloat162float(v));
+}
+__device__ __forceinline__ void store1(void* out, long long at, int code, double v) {
+  if (code == F64) static_cast<double*>(out)[at] = v;
+  else store1(out, at, code, __double2float_rn(v));
+}
+// One block's walk of every op at one position: output tile (iq, jq) of a leaf block,
+// TILE x TILE sub-tile (i0, j0) of it; in PAIR mode also at its mirror, tile (jq, iq),
+// sub-tile (j0, i0).  The three operand maps are the left side's, the right side's and, for a
+// tri right side, the mirrored read of the same stack (boxes TILE x KC where the stored box is
+// KC x TILE).  PAIRS: the pair-mode instantiation, whose ring slots hold GROUP terms a side
+// (a chunk of an op with more takes several slots in turn); elsewhere a slot holds tmax.  Acc:
+// the accumulator's type (float, __nv_bfloat16 or double).
+template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, int STAGES, bool PAIRS>
+__device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
+                                     const CUtensorMap& rmap, const CUtensorMap& mmap, int iq,
+                                     int jq, int i0, int j0, int mode) {
+  using G = Geometry<TILE>;
+  constexpr int RC = right_chunks(TRI);
+  constexpr int R = G::R, XQ = G::XQ, LDS = G::LDS, CHUNK = G::CHUNK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tmax = P.tmax, gw = P.group;
+  Tl* lring = reinterpret_cast<Tl*>(smem);
+  const size_t lring_bytes = static_cast<size_t>(STAGES) * gw * CHUNK * sizeof(Tl);
+  Tr* rring = reinterpret_cast<Tr*>(smem + lring_bytes);
+  float* sum_base = reinterpret_cast<float*>(
+      smem + lring_bytes + static_cast<size_t>(STAGES) * gw * RC * CHUNK * sizeof(Tr));
+  StepTerms* terms = reinterpret_cast<StepTerms*>(sum_base + 2 * 2 * G::SUM);  // [STAGES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(terms + STAGES);                 // [STAGES]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int lane = tid % 32, warp = tid / 32;
+  const int n_kc = (P.bc + KC - 1) / KC;
+  // An accumulator other than fp32 takes each K block's part where it ends (PER_K).
+  constexpr bool PER_K = !std::is_same_v<Acc, float>;
+  // The items walked, u = 2 o + m: op o at the block's position (m = 0) or at its mirror
+  // (m = 1, PAIR mode; also SELF under PER_K, the mirror being the position itself).  A
+  // position above the diagonal of a leaf block (iq < jq of a packed output) holds no tile of
+  // a diagonal leaf block: there the ops that feed only diagonal blocks, straight, are skipped.
+  const int end = 2 * P.n_ops;
+  auto live_item = [&](int u) {
+    for (; u < end; ++u) {
+      const bool mirror = u & 1;
+      if (mirror && (PER_K ? mode == SINGLE : mode != PAIR)) continue;
+      const bool light = P.out_tri && (mirror ? jq < iq : iq < jq);
+      if (!(light && P.odiag[u >> 1])) break;
+    }
+    return u;
+  };
+  const Chunk first = {live_item(0), 0, 0};
+  if (first.u == end) return;
+
+  // Warp 0 starts the copies of step t into ring slot `slot`, lane p the left term g gw + p
+  // and lane MAX_TERMS + p the right one: one TMA box a live term (two for a diagonal tri term
+  // under diag_sym), all counted on the slot's mbarrier, and leaves the step's terms with the
+  // slot.  A box is KC x TILE or TILE x KC as the side lies in memory; rows or columns past
+  // the edge of the output tile are other tiles' data and reach only outputs that are never
+  // stored, and depth past the K block is masked in the sum phase.
+  const bool right_side = lane >= MAX_TERMS;
+  const int p = lane % MAX_TERMS;
+  // The ring slots one chunk of item u takes, found by warp 0's lanes together: its op's
+  // wider side over the slot's terms (a side's live terms come first).
+  auto groups_of = [&](int u) {
+    const bool live = u < end && lane < 2 * MAX_TERMS && p < tmax &&
+                      (right_side ? P.rsgn : P.lsgn)[(u >> 1) * tmax + p] != 0.f;
+    const unsigned bits = __ballot_sync(0xffffffffu, live);
+    const int n = max(__popc(bits & ((1u << MAX_TERMS) - 1)), __popc(bits >> MAX_TERMS));
+    return (n + gw - 1) / gw;
+  };
+  int term_key = -1, term_row = 0, term_col = 0;  // the issuing lane's term, read once a slot
+  bool term_trn = false;
+  float coef = 0.f;
+  auto start_copies = [&](const Step& t, int slot) {
+    const int kc = t.c * KC;
+    const bool mirror = t.u & 1;
+    const int wi = mirror ? jq : iq, wj = mirror ? iq : jq;
+    const int wi0 = mirror ? j0 : i0, wj0 = mirror ? i0 : j0;
+    const int key = (t.u >> 1) * MAX_TERMS + t.g;
+    if (key != term_key) {
+      term_key = key;
+      const int term = t.g * gw + p;
+      const int at = (t.u >> 1) * tmax + term;
+      coef = lane < 2 * MAX_TERMS && p < gw && term < tmax ? (right_side ? P.rsgn : P.lsgn)[at]
+                                                           : 0.f;
+      if (coef != 0.f) {
+        term_row = (right_side ? P.rrow : P.lrow)[at];
+        term_col = (right_side ? P.rcol : P.lcol)[at];
+        term_trn = right_side && P.rtrn[at] != 0;
+      }
+    }
+    // a side's live terms come first, so its count is its lanes with a coefficient
+    const unsigned live = __ballot_sync(0xffffffffu, coef != 0.f);
+    TriTerm tt{0, false, false};
+    if constexpr (TRI)
+      if (right_side && coef != 0.f) tt = tri_term(P, term_row, term_col, term_trn, t.k, wj);
+    const unsigned bytes =
+        coef == 0.f ? 0u
+                    : (right_side ? (tt.diag ? 2 : 1) * CHUNK * sizeof(Tr) : CHUNK * sizeof(Tl));
+    const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
+    StepTerms& st = terms[slot];
+    if (lane == 0) {
+      st.n_l = __popc(live & ((1u << MAX_TERMS) - 1));
+      st.n_r = __popc(live >> MAX_TERMS);
+      if constexpr (PAIRS) {
+        st.first = t.g == 0;
+        st.last = t.g == t.ng - 1;
+      }
+    }
+    if (coef != 0.f && !right_side) st.lc[p] = coef;
+    if (coef != 0.f && right_side) {
+      st.rc[p] = coef;
+      st.mirrored[p] = tt.mirrored;  // read for a tri right side only
+      st.diag[p] = tt.diag;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_expect(&full[slot], total);
+    __syncwarp();
+    if (coef == 0.f) return;
+    // A box's first column must lie on 16 bytes: an fp8 side whose tiles are not 16 columns
+    // wide is stored with each tile's columns padded to its pitch (l_pitch, r_pitch).
+    if (!right_side) {
+      Tl* dst = lring + (static_cast<size_t>(slot) * gw + p) * CHUNK;
+      const int lr = term_row, lc = term_col;
+      if (P.left_trans) {  // K x i: rows (lrow*n_k + k)*bc + kc.., cols (lcol*q_i + wi)*bi + wi0..
+        const int pitch = sizeof(Tl) == 1 ? P.l_pitch : P.bi;
+        tma_load(dst, &lmap, (lc * P.q_i + wi) * pitch + wi0, (lr * P.n_k + t.k) * P.bc + kc,
+                 &full[slot]);
+      } else {  // i x K: rows (lrow*q_i + wi)*bi + wi0.., cols (lcol*n_k + k)*bc + kc..
+        const int pitch = sizeof(Tl) == 1 ? P.l_pitch : P.bc;
+        tma_load(dst, &lmap, (lc * P.n_k + t.k) * pitch + kc, (lr * P.q_i + wi) * P.bi + wi0,
+                 &full[slot]);
+      }
+      return;
+    }
+    Tr* dst = rring + (static_cast<size_t>(slot) * gw + p) * RC * CHUNK;
+    if constexpr (TRI) {
+      if (!tt.mirrored || tt.diag)  // stored rows kc.., cols wj0..
+        tma_load(dst, &rmap, wj0, static_cast<int>(tt.row) + kc, &full[slot]);
+      if (tt.mirrored || tt.diag)   // stored rows wj0.., cols kc..
+        tma_load(dst + CHUNK, &mmap, kc, static_cast<int>(tt.row) + wj0, &full[slot]);
+    } else {
+      const int rr = term_row, rc = term_col;
+      if (P.right_jk) {  // j x K: rows (rrow*q_j + wj)*bj + wj0.., cols (rcol*n_k + k)*bc + kc..
+        const int pitch = sizeof(Tr) == 1 ? P.r_pitch : P.bc;
+        tma_load(dst, &rmap, (rc * P.n_k + t.k) * pitch + kc, (rr * P.q_j + wj) * P.bj + wj0,
+                 &full[slot]);
+      } else {  // K x j: rows (rrow*n_k + k)*bc + kc.., cols (rcol*q_j + wj)*bj + wj0..
+        const int pitch = sizeof(Tr) == 1 ? P.r_pitch : P.bj;
+        tma_load(dst, &rmap, (rc * P.q_j + wj) * pitch + wj0, (rr * P.n_k + t.k) * P.bc + kc,
+                 &full[slot]);
+      }
+    }
+  };
+
+  // Each thread sums the elements (kk, x) of the KC x TILE chunk with x = lane + 32 q and
+  // kk = (2 warp + h + lane / 2) % KC, h in {0, 1}: a warp's 32 lanes hit 32 banks where a
+  // chunk is read as it lies KC x TILE ([kk][x]), where it lies TILE x KC ([x][kk], kk skewed
+  // by lane / 2) and where the sum is written ([kk][x] in rows of TILE + 4).  Ownership is
+  // fixed for the whole kernel, so each element sums its terms in table order, and a chunk's
+  // later ring slot reads back what this thread left in the buffer.
+  int kk_of[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) kk_of[h] = (warp * 2 + h + (lane >> 1)) % KC;
+
+  // Returns whether the step was its chunk's last ring slot.
+  auto sum_phase = [&](const Chunk& t, int slot, float* lsum, float* rsum) {
+    const StepTerms& st = terms[slot];
+    const Tl* lslot = lring + static_cast<size_t>(slot) * gw * CHUNK;
+    const Tr* rslot = rring + static_cast<size_t>(slot) * gw * RC * CHUNK;
+    float l[2][XQ], r[2][XQ];
+    if (!PAIRS || st.first) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < XQ; ++q) l[h][q] = r[h][q] = 0.f;
+    } else {  // a chunk's later ring slot: carry on from what this thread left
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < XQ; ++q) {
+          l[h][q] = lsum[kk_of[h] * LDS + lane + 32 * q];
+          r[h][q] = rsum[kk_of[h] * LDS + lane + 32 * q];
+        }
+    }
+    for (int p = 0; p < st.n_l; ++p) {
+      const float cl = st.lc[p];
+      const Tl* src = lslot + p * CHUNK;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < XQ; ++q) {
+          const int x = lane + 32 * q;
+          const int at = P.left_trans ? kk_of[h] * TILE + x : x * KC + kk_of[h];
+          l[h][q] = __fadd_rn(l[h][q], __fmul_rn(cl, to_f32(src[at])));
+        }
+    }
+    if constexpr (TRI) {
+      // Right element (kk, j): stored[kk][j] in the stored chunk, stored[j][kk] in the
+      // mirrored one; a term reads one of them, or both on a diagonal tile, the same for all
+      // its elements, so the choice is one branch a term.
+      for (int p = 0; p < st.n_r; ++p) {
+        const float cr = st.rc[p];
+        const bool mirrored = st.mirrored[p], diag = st.diag[p];
+        const Tr* sto = rslot + p * RC * CHUNK;
+        const Tr* mi = sto + CHUNK;
+        if (diag) {  // tile + tile^t, in the order the term reads it
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < XQ; ++q) {
+              const int x = lane + 32 * q;
+              const float sv = to_f32(sto[kk_of[h] * TILE + x]);
+              const float mv = to_f32(mi[x * KC + kk_of[h]]);
+              const float v = mirrored ? __fadd_rn(mv, sv) : __fadd_rn(sv, mv);
+              r[h][q] = __fadd_rn(r[h][q], __fmul_rn(cr, v));
+            }
+        } else if (mirrored) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < XQ; ++q)
+              r[h][q] = __fadd_rn(r[h][q],
+                                  __fmul_rn(cr, to_f32(mi[(lane + 32 * q) * KC + kk_of[h]])));
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int q = 0; q < XQ; ++q)
+              r[h][q] = __fadd_rn(r[h][q],
+                                  __fmul_rn(cr, to_f32(sto[kk_of[h] * TILE + lane + 32 * q])));
+        }
+      }
+    } else {
+      for (int p = 0; p < st.n_r; ++p) {
+        const float cr = st.rc[p];
+        const Tr* src = rslot + p * CHUNK;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int q = 0; q < XQ; ++q) {
+            const int x = lane + 32 * q;
+            const int at = P.right_jk ? x * KC + kk_of[h] : kk_of[h] * TILE + x;
+            r[h][q] = __fadd_rn(r[h][q], __fmul_rn(cr, to_f32(src[at])));
+          }
+      }
+    }
+    // depth past the K block (the box's next K block, or zeros past the operand) sums to 0
+    const int k_lim = P.bc - t.c * KC;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) {
+        const bool live = kk_of[h] < k_lim;
+        lsum[kk_of[h] * LDS + lane + 32 * q] = live ? l[h][q] : 0.f;
+        rsum[kk_of[h] * LDS + lane + 32 * q] = live ? r[h][q] : 0.f;
+      }
+    return !PAIRS || st.last != 0;
+  };
+
+  // This thread's outputs: rows 64 a + 4 ty + i, columns 64 b + 4 tx + j of the sub-tile.
+  float part[R][R], prod[R][R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) part[i][j] = prod[i][j] = 0.f;
+
+  auto multiply = [&](const float* lsum, const float* rsum) {
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      float a[R], b[R];
+#pragma unroll
+      for (int g = 0; g < R / 4; ++g) {
+        const float4 av = *reinterpret_cast<const float4*>(lsum + kk * LDS + g * 64 + ty * 4);
+        const float4 bv = *reinterpret_cast<const float4*>(rsum + kk * LDS + g * 64 + tx * 4);
+        a[4 * g] = av.x; a[4 * g + 1] = av.y; a[4 * g + 2] = av.z; a[4 * g + 3] = av.w;
+        b[4 * g] = bv.x; b[4 * g + 1] = bv.y; b[4 * g + 2] = bv.z; b[4 * g + 3] = bv.w;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
+    }
+  };
+
+  const long long ldo = P.out_tri ? P.bj : static_cast<long long>(P.blocks_j) * P.q_j * P.bj;
+  // The first output row and column of sub-tile (p0i, p0j) of position (pi, pj) of leaf
+  // destination ld; false where the output holds none (above the diagonal of a diagonal leaf
+  // block of a packed output).
+  auto origin = [&](int ld, int pi, int pj, int p0i, int p0j, long long& row0,
+                    long long& col0) {
+    if (P.out_tri) {  // tile (gi, gj) of the packed stack
+      int di, dj;
+      tri_decode(ld, di, dj);
+      if (di == dj && pi < pj) return false;
+      const long long gi = static_cast<long long>(di) * P.q_i + pi;
+      const long long gj = static_cast<long long>(dj) * P.q_j + pj;
+      row0 = (gi * (gi + 1) / 2 + gj) * P.bi + p0i;
+      col0 = p0j;
+    } else {
+      row0 = (static_cast<long long>(ld / P.blocks_j) * P.q_i + pi) * P.bi + p0i;
+      col0 = (static_cast<long long>(ld % P.blocks_j) * P.q_j + pj) * P.bj + p0j;
+    }
+    return true;
+  };
+  // Output element `at` takes v (sign times the op's product, or under PER_K times one K
+  // block's part): onto the seed where the slot is the first to feed it, else onto what it
+  // holds, rounded in the accumulator's type; cast into the output where the slot is the last,
+  // unless the output is the workspace.  The seed is read by the thread that writes the
+  // element, before it writes: the seed may be the output.
+  auto put1 = [&](long long at, float v, int flag) {
+    Acc* const ws = static_cast<Acc*>(P.ws);
+    if constexpr (PER_K) {
+      const Acc term = from_f32<Acc>(v);
+      const Acc d = !(flag & FIRST) ? acc_add(ws[at], term)
+                    : P.seed != nullptr
+                        ? acc_add(load_seed<Acc>(P.seed, at, P.seed_code), term)
+                        : term;
+      if ((flag & LAST) && P.out_cast)
+        store1(P.out, at, P.out_code, d);
+      else
+        ws[at] = d;
+    } else {
+      if (!(flag & FIRST) || P.seed != nullptr)
+        v = __fadd_rn(flag & FIRST ? load_seed<float>(P.seed, at, P.seed_code) : ws[at], v);
+      if ((flag & LAST) && P.out_cast)
+        store1(P.out, at, P.out_code, v);
+      else
+        ws[at] = v;
+    }
+  };
+  auto put4 = [&](long long at, float v[4], int flag) {
+    if constexpr (PER_K) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) put1(at + j, v[j], flag);
+    } else {
+      float* const ws = static_cast<float*>(P.ws);
+      if (!(flag & FIRST) || P.seed != nullptr) {
+        const float4 w = flag & FIRST ? load4(P.seed, at, P.seed_code)
+                                      : *reinterpret_cast<const float4*>(ws + at);
+        v[0] = __fadd_rn(w.x, v[0]);
+        v[1] = __fadd_rn(w.y, v[1]);
+        v[2] = __fadd_rn(w.z, v[2]);
+        v[3] = __fadd_rn(w.w, v[3]);
+      }
+      if ((flag & LAST) && P.out_cast)
+        store4(P.out, at, P.out_code, v[0], v[1], v[2], v[3]);
+      else
+        store4(ws + at, v[0], v[1], v[2], v[3]);
+    }
+  };
+  // Adds sign * val into each destination of item t's op, where `keep` holds of the slots'
+  // FIRST and LAST flags (under PER_K they hold only at an op's first and last K block).  The
+  // walked sub-tile W (the mirror when the item is) takes the straight slots, in the order of
+  // its half (below the diagonal unless it is the mirror), and the other sub-tile of the pair
+  // the transposed ones, in the order of the other half.  A SELF sub-tile takes in a first
+  // pass what comes first for each element and, after a barrier, the rest; under PER_K its op
+  // is walked twice, the first walk making the first pass and the mirror walk the second.
+  auto write_dests = [&](const Chunk& t, const float (&val)[R][R], int keep) {
+    const int o = t.u >> 1;
+    const bool mirror = t.u & 1;
+    const int wi = mirror ? jq : iq, wj = mirror ? iq : jq;
+    const int wi0 = mirror ? j0 : i0, wj0 = mirror ? i0 : j0;
+    const int w_shift = mirror ? UPPER : 0;
+#pragma unroll 1
+    for (int run = 0; run < (mode == SELF && !PER_K ? 2 : 1); ++run) {
+      const int pass = PER_K ? static_cast<int>(mirror) : run;
+      if (run) __syncthreads();  // the first pass's writes, seen by the second's readers
+      for (int d = 0; d < P.max_dests; ++d) {
+        const int at_d = o * P.max_dests + d;
+        const float sg = P.dsgn[at_d];
+        if (sg == 0.f) break;  // an op's destinations come first
+        const int flags = P.dflag[at_d];
+        // only pair mode has transposed slots (and the compiler drops their writes elsewhere)
+        const bool trn = mode != SINGLE && P.dtrn[at_d] != 0;
+        long long row0, col0;  // of W, or of the other sub-tile for a transposed slot
+        if (!(trn ? origin(P.dest[at_d], wj, wi, wj0, wi0, row0, col0)
+                  : origin(P.dest[at_d], wi, wj, wi0, wj0, row0, col0)))
+          continue;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int x = (i / 4) * 64 + ty * 4 + i % 4;
+          if (wi0 + x >= P.bi) continue;
+#pragma unroll
+          for (int g = 0; g < R / 4; ++g) {
+            const int y = g * 64 + tx * 4;
+            if (wj0 + y >= P.bj) continue;  // bj is a multiple of 8: all 4 columns are in
+            float v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(sg, val[i][4 * g + j]);
+            if (mode != SELF && !trn) {
+              put4((row0 + x) * ldo + col0 + y, v, (flags >> w_shift) & keep);
+              continue;
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              // element (x, y + j) of W goes straight there, transposed to (y + j, x)
+              const long long at =
+                  trn ? (row0 + y + j) * ldo + col0 + x : (row0 + x) * ldo + col0 + y + j;
+              if (mode != SELF) {
+                put1(at, v[j], (flags >> (UPPER - w_shift)) & keep);
+                continue;
+              }
+              // the target lies on or below the diagonal: straight first, else transposed
+              const bool lower = trn ? y + j >= x : x >= y + j;
+              if ((lower == trn) == (pass == 1))
+                put1(at, v[j], (flags >> (lower ? 0 : UPPER)) & keep);
+            }
+          }
+        }
+      }
+    }
+  };
+  // After step t, the last ring slot of its chunk.  An fp32 accumulator adds the part of a K
+  // block that ends into the item's product, and at the end of the item sign * product into
+  // each destination of its op; under PER_K each K block's sign * part goes into them.
+  auto finish_step = [&](const Chunk& t) {
+    if (t.c != n_kc - 1) return;
+    if constexpr (PER_K) {
+      write_dests(t, part, (t.k == 0 ? FIRST : 0) | (t.k == P.n_k - 1 ? LAST : 0));
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) part[i][j] = 0.f;
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        prod[i][j] = __fadd_rn(prod[i][j], part[i][j]);
+        part[i][j] = 0.f;
+      }
+    if (t.k != P.n_k - 1) return;
+    write_dests(t, prod, FIRST | LAST);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) prod[i][j] = 0.f;
+  };
+
+  float* const sums = sum_base;     // [buffer][side][KC][LDS]
+  auto lsum = [&](int b) { return sums + b * 2 * G::SUM; };
+  auto rsum = [&](int b) { return sums + b * 2 * G::SUM + G::SUM; };
+  // The chunks walked in order, live item, then K block, then chunk; warp 0 copies each
+  // chunk's ring slots in turn.
+  auto advance = [&](Chunk& t) {
+    if (++t.c < n_kc) return;
+    t.c = 0;
+    if (++t.k < P.n_k) return;
+    t.k = 0;
+    t.u = live_item(t.u + 1);
+  };
+  Step copy{first, 0, 1};
+  auto advance_copy = [&]() {  // warp 0's lanes together
+    if constexpr (PAIRS) {
+      if (++copy.g < copy.ng) return;
+      copy.g = 0;
+      const int u = copy.u;
+      advance(copy);
+      if (copy.u != u) copy.ng = groups_of(copy.u);
+    } else {
+      advance(copy);
+    }
+  };
+  if constexpr (PAIRS)
+    if (warp == 0) copy.ng = groups_of(first.u);
+  Chunk summed = first;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The sum buffer a chunk's slots sum into alternates chunk by chunk.
+  int buf = 0;
+  if constexpr (STAGES == 1) {
+    // Load, then compute: the copy of step s starts once step s - 1's chunks are summed
+    // (the barrier after the sum phase); the sums are double-buffered, so summing step s
+    // overlaps nobody's multiply of the chunk before in the same buffer.
+    for (int s = 0; summed.u < end; ++s) {
+      if (warp == 0) {
+        start_copies(copy, 0);
+        advance_copy();
+      }
+      __syncthreads();  // the step's terms, left by warp 0
+      mbar_wait(&full[0], s & 1);
+      const bool last = sum_phase(summed, 0, lsum(buf), rsum(buf));
+      __syncthreads();
+      if (last) {
+        multiply(lsum(buf), rsum(buf));
+        finish_step(summed);
+        buf ^= 1;
+        advance(summed);
+      }
+    }
+  } else {
+    // STAGES - 1 steps in flight.  Iteration s sums step s and multiplies the chunk that
+    // step s - 1 completed, if it did, between one pair of barriers: the sums are
+    // double-buffered, and the slot refilled in iteration s, (s - 1) % STAGES, was last read
+    // by the sum phase of iteration s - 1.  Slot s % STAGES holds step s in its
+    // (s / STAGES)-th phase.
+    const bool sum_first = warp < 4;
+    if (warp == 0)
+      for (int s = 0; s < STAGES - 1 && copy.u < end; ++s) {
+        start_copies(copy, s);
+        advance_copy();
+      }
+    Chunk done = summed;  // the chunk completed in the iteration before, in buffer buf ^ 1
+    bool done_chunk = false;
+    for (int s = 0; summed.u < end || done_chunk; ++s) {
+      const bool live = summed.u < end;
+      if (live) mbar_wait(&full[s % STAGES], (s / STAGES) & 1);
+      __syncthreads();
+      if (warp == 0 && copy.u < end) {
+        start_copies(copy, (s + STAGES - 1) % STAGES);
+        advance_copy();
+      }
+      // warps 0-3 sum first, 4-7 multiply first: each warp scheduler holds one of each, so
+      // one's FMAs issue while the other waits on shared memory
+      bool last = false;
+      if (live && sum_first) last = sum_phase(summed, s % STAGES, lsum(buf), rsum(buf));
+      if (done_chunk) multiply(lsum(buf ^ 1), rsum(buf ^ 1));
+      if (live && !sum_first) last = sum_phase(summed, s % STAGES, lsum(buf), rsum(buf));
+      if (done_chunk) finish_step(done);
+      done_chunk = last;
+      if (last) {
+        done = summed;
+        buf ^= 1;
+        advance(summed);
+      }
+    }
+  }
+}
+
+// Blocks below n_big walk one position each at TILE, in cell_of's order; past it (TILE 128
+// only) each of the last positions is split into four quarters, walked at TILE / 2 with the
+// half maps, so that a ragged last wave of whole positions becomes a short one.  In pair mode
+// (a dense right side) a block walks a mirror pair: sub-tile (I, J) of a leaf block's side of
+// Q sub-tiles, I > J, and its mirror (J, I), in packed order, then the Q sub-tiles (I, I) that
+// are their own mirrors, which walk half as much (as much under PER_K), last.  Pair mode is its
+// own instantiation (PAIRS), so the one-position walk keeps none of its code.  The arithmetic
+// of an output element depends neither on the tile nor on the mode.
+template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, int STAGES, bool PAIRS>
+__device__ __forceinline__ void run(const Ops& P, const CUtensorMap& lmap,
+                                    const CUtensorMap& rmap, const CUtensorMap& mmap,
+                                    const CUtensorMap& lmap_half, const CUtensorMap& rmap_half,
+                                    const CUtensorMap& mmap_half) {
+  const int n_sub_i = (P.bi + TILE - 1) / TILE, n_sub_j = (P.bj + TILE - 1) / TILE;
+  int iq, jq, i0, j0, mode = SINGLE;
+  if constexpr (PAIRS) {  // square tiles: n_sub_i == n_sub_j
+    const int side = P.q_i * n_sub_i;
+    const int n_two = side * (side - 1) / 2;
+    int I, J = static_cast<int>(blockIdx.x) - n_two;
+    if (J < 0) {
+      tri_decode(blockIdx.x, I, J);
+      ++I;
+      mode = PAIR;
+    } else {
+      I = J;
+      mode = SELF;
+    }
+    iq = I / n_sub_i;
+    i0 = (I % n_sub_i) * TILE;
+    jq = J / n_sub_i;
+    j0 = (J % n_sub_i) * TILE;
+  } else {
+    int pos = blockIdx.x, quarter = -1;
+    if (pos >= P.n_big) {
+      quarter = (pos - P.n_big) % 4;
+      pos = P.n_big + (pos - P.n_big) / 4;
+    }
+    j0 = (pos % n_sub_j) * TILE;
+    pos /= n_sub_j;
+    i0 = (pos % n_sub_i) * TILE;
+    pos /= n_sub_i;
+    cell_of(P, pos, iq, jq);
+    if constexpr (TILE == 128) {
+      if (quarter >= 0) {
+        walk<Tl, Tr, Acc, TRI, TILE / 2, STAGES, false>(
+            P, lmap_half, rmap_half, mmap_half, iq, jq, i0 + (quarter / 2) * (TILE / 2),
+            j0 + (quarter % 2) * (TILE / 2), SINGLE);
+        return;
+      }
+    }
+  }
+  walk<Tl, Tr, Acc, TRI, TILE, STAGES, PAIRS>(P, lmap, rmap, mmap, iq, jq, i0, j0, mode);
+}
+
+// The kernel with an fp32 accumulator.
+template <typename Tl, typename Tr, bool TRI, int TILE, int STAGES, bool PAIRS>
+__global__ void __launch_bounds__(THREADS)
+    leaf_products_kernel(const Ops P, const __grid_constant__ CUtensorMap lmap,
+                         const __grid_constant__ CUtensorMap rmap,
+                         const __grid_constant__ CUtensorMap mmap,
+                         const __grid_constant__ CUtensorMap lmap_half,
+                         const __grid_constant__ CUtensorMap rmap_half,
+                         const __grid_constant__ CUtensorMap mmap_half) {
+  run<Tl, Tr, float, TRI, TILE, STAGES, PAIRS>(P, lmap, rmap, mmap, lmap_half, rmap_half,
+                                               mmap_half);
+}
+
+// The kernel with a bf16 or fp64 accumulator.  One block an SM is all it asks for, so that
+// ptxas gives the per-K-block writes of the tile-64 pair mode the registers they need rather
+// than spill to fit two.
+template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, int STAGES, bool PAIRS>
+__global__ void __launch_bounds__(THREADS, 1)
+    leaf_products_acc_kernel(const Ops P, const __grid_constant__ CUtensorMap lmap,
+                             const __grid_constant__ CUtensorMap rmap,
+                             const __grid_constant__ CUtensorMap mmap,
+                             const __grid_constant__ CUtensorMap lmap_half,
+                             const __grid_constant__ CUtensorMap rmap_half,
+                             const __grid_constant__ CUtensorMap mmap_half) {
+  run<Tl, Tr, Acc, TRI, TILE, STAGES, PAIRS>(P, lmap, rmap, mmap, lmap_half, rmap_half,
+                                             mmap_half);
+}
+
+using KernelFn = void (*)(const Ops, const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                          const CUtensorMap, const CUtensorMap, const CUtensorMap);
+
+// What each library defines over its own instantiations: the kernel of a launch (null for
+// arguments it has no instantiation for: another library's or none), and the ring depth that
+// runs for a requested one (1-4).
+KernelFn select(int l_dtype, int r_dtype, int acc, bool tri, bool pair, int tile, int stages);
+int ring_depth(int stages);
+
+// The instantiations of one operand pair and accumulator, for select(): every ring depth, or
+// only FIXED where it is not 0 (depth changes no bit).
+template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, int STAGES, bool PAIRS>
+KernelFn kernel_of() {
+  if constexpr (std::is_same_v<Acc, float>)
+    return leaf_products_kernel<Tl, Tr, TRI, TILE, STAGES, PAIRS>;
+  else
+    return leaf_products_acc_kernel<Tl, Tr, Acc, TRI, TILE, STAGES, PAIRS>;
+}
+
+template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, bool PAIRS, int FIXED>
+KernelFn by_stages(int stages) {
+  if constexpr (FIXED != 0) {
+    return kernel_of<Tl, Tr, Acc, TRI, TILE, FIXED, PAIRS>();
+  } else {
+    switch (stages) {
+      case 1: return kernel_of<Tl, Tr, Acc, TRI, TILE, 1, PAIRS>();
+      case 2: return kernel_of<Tl, Tr, Acc, TRI, TILE, 2, PAIRS>();
+      case 3: return kernel_of<Tl, Tr, Acc, TRI, TILE, 3, PAIRS>();
+      case 4: return kernel_of<Tl, Tr, Acc, TRI, TILE, 4, PAIRS>();
+      default: return nullptr;
+    }
+  }
+}
+
+template <typename Tl, typename Tr, typename Acc, bool TRI, bool PAIRS, int FIXED>
+KernelFn by_tile(int tile, int stages) {
+  if (tile == 64) return by_stages<Tl, Tr, Acc, TRI, 64, PAIRS, FIXED>(stages);
+  if (tile == 128) return by_stages<Tl, Tr, Acc, TRI, 128, PAIRS, FIXED>(stages);
+  return nullptr;
+}
+
+// Pair mode is instantiated only where it can run: a gram kind's one operand, a dense right
+// side.
+template <typename Tl, typename Tr, typename Acc, int FIXED = 0>
+KernelFn by_layout(bool tri, bool pair, int tile, int stages) {
+  if (!pair)
+    return tri ? by_tile<Tl, Tr, Acc, true, false, FIXED>(tile, stages)
+               : by_tile<Tl, Tr, Acc, false, false, FIXED>(tile, stages);
+  if constexpr (std::is_same_v<Tl, Tr>)
+    if (!tri) return by_tile<Tl, Tr, Acc, false, true, FIXED>(tile, stages);
+  return nullptr;
+}
+
+// The kernel for a launch, its dynamic shared memory raised to what it needs.
+cudaError_t prepare(KernelFn kernel, size_t smem) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The 2-D map of a row-major (rows, cols) operand of element type `code` with row stride ld
+// (elements), read in boxes of box_rows x box_cols; reads past its edge give zeros.  Both fp8
+// types travel as bytes.
+bool make_map(CUtensorMap* map, const void* base, int code, long long rows, long long cols,
+              long long ld, int box_rows, int box_cols) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const CUtensorMapDataType type = code == F32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : code == BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : code == F16  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                  : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes(code)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// How many of n_pos positions a launch walks whole: all of them, unless the last wave of whole
+// positions is ragged and its positions, split into quarters (TILE 128 only), fit in one wave;
+// then the positions of the full waves.  -1 for arguments no kernel takes.
+long long whole_positions(KernelFn kernel, size_t smem, int tile, long long n_pos) {
+  if (prepare(kernel, smem) != cudaSuccess) return -1;
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem) !=
+          cudaSuccess)
+    return -1;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  const long long tail = wave > 0 ? n_pos % wave : 0;
+  return tile == 128 && tail > 0 && 4 * tail <= wave ? n_pos - tail : n_pos;
+}
+
+// The operand types a launch takes, the seed's and the output's, and the accumulator's type as
+// a Dtype.
+bool operand_code(int code) { return code >= F32 && code <= E5M2; }
+bool value_code(int code) { return code == F32 || code == BF16 || code == F16 || code == F64; }
+int acc_dtype(int acc) { return acc == ACC_BF16 ? BF16 : acc == ACC_F64 ? F64 : F32; }
+
+}  // namespace
+
+extern "C" {
+
+// The ring depth this library runs for a requested one (1-4): the request itself, or one depth
+// for every request where depth changes no bit and one instantiation serves.
+int leaf_products_ring_depth(int stages) { return ring_depth(stages); }
+
+// Dynamic shared memory one launch needs (the wrapper refuses > 227 KB).  right_tri: the
+// right side is a packed tri stack; left_bytes / right_bytes: operand element sizes; pair:
+// the launch runs in pair mode.
+size_t leaf_products_smem_bytes(int right_tri, int tmax, int tile, int left_bytes,
+                                int right_bytes, int stages, int pair) {
+  return smem_bytes(right_tri != 0, tmax, tile, left_bytes, right_bytes, ring_depth(stages),
+                    pair != 0);
+}
+
+// Thread blocks of one launch an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or -1 for arguments no kernel of this library takes.  pair: the launch runs in pair mode.
+int leaf_products_blocks_per_sm(int l_dtype, int r_dtype, int acc, int right_tri, int tmax,
+                                int tile, int stages, int pair) {
+  if (!operand_code(l_dtype) || !operand_code(r_dtype)) return -1;
+  const KernelFn kernel = select(l_dtype, r_dtype, acc, right_tri != 0, pair != 0, tile, stages);
+  const size_t smem = smem_bytes(right_tri != 0, tmax, tile, elem_bytes(l_dtype),
+                                 elem_bytes(r_dtype), ring_depth(stages), pair != 0);
+  if (prepare(kernel, smem) != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// The positions a launch of n_pos positions walks whole (whole_positions); the other n_pos
+// minus that many are walked in quarters, four blocks each.
+long long leaf_products_whole_positions(int l_dtype, int r_dtype, int acc, int right_tri,
+                                        int tmax, int tile, int stages, long long n_pos) {
+  if (!operand_code(l_dtype) || !operand_code(r_dtype)) return -1;
+  const size_t smem = smem_bytes(right_tri != 0, tmax, tile, elem_bytes(l_dtype),
+                                 elem_bytes(r_dtype), ring_depth(stages), false);
+  return whole_positions(select(l_dtype, r_dtype, acc, right_tri != 0, false, tile, stages),
+                         smem, tile, n_pos);
+}
+
+const char* leaf_products_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// One bound program of a kind this library runs.  `left` / `right` are the padded operands,
+// (l_rows, l_cols) and (r_rows, r_cols), contiguous (a stored row may be wider than the
+// operand: zero columns the wrapper adds so that an fp8 row stride is a multiple of 16 bytes),
+// `out` the dense (blocks_i*q_i*bi, blocks_j*q_j*bj) grid or, with out_tri, the packed
+// (n_out*bi, bj) stack, and `ws` its accumulator's workspace, of the accumulator's type (out
+// itself where the output is of that type).  `seed`, with out_tri only, is the incoming packed
+// stack of rank_k or null; it may be out.  The tables are _op_tables' twelve arrays.
+// left_trans: left tiles stored K x i.  right_layout: 0 K x j, 1 j x K, 2 packed tri stack of
+// (bj, bj) tiles (then bc == bj).  pair: the tables have a transposed destination (a packed
+// output, a dense right side).  dtype codes (Dtype): operands fp32, bf16, fp16, fp8 e4m3fn or
+// e5m2; the seed and the output fp32, bf16, fp16 or fp64.  acc (AccCode): fp32, bf16,
+// fp64.
+// l_pitch / r_pitch: an fp8 dense side's stored columns per tile along its rows (the tile's
+// width, bi or bc on the left and bj or bc on the right, rounded up to 16, zeros past it), so
+// that every box starts on 16 bytes; read for fp8 sides only.
+// tile: 64 or 128, a block's sub-tile edge.  stages: the requested ring depth
+// (leaf_products_ring_depth says which runs).  The operands' row strides and bases are 16-byte
+// aligned, their extents below 2^31.
+int leaf_products_launch(const void* left, const void* right, const void* seed, void* ws,
+                         void* out, const void* lrow, const void* lcol, const void* lsgn,
+                         const void* rrow, const void* rcol, const void* rsgn, const void* rtrn,
+                         const void* dest, const void* dsgn, const void* dflag,
+                         const void* dtrn, const void* odiag, long long l_rows, long long l_cols,
+                         long long r_rows, long long r_cols, int n_ops, int tmax, int max_dests,
+                         int n_k, int q_i, int q_j, int blocks_j, int bi, int bj, int bc,
+                         int left_trans, int right_layout, int diag_sym, int out_tri, int pair,
+                         int l_dtype, int r_dtype, int seed_dtype, int out_dtype, int acc,
+                         int l_pitch, int r_pitch, int tile, int stages, void* stream) {
+  if (n_ops < 1 || tmax < 1 || tmax > MAX_TERMS || max_dests < 1 || n_k < 1 || q_i < 1 ||
+      q_j < 1 || blocks_j < 1 || bi < 8 || bj < 8 || bc < 8 || right_layout < RIGHT_KJ ||
+      right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
+      !operand_code(l_dtype) || !operand_code(r_dtype) || !value_code(out_dtype) ||
+      (ws == out && out_dtype != acc_dtype(acc)) || odiag == nullptr || dtrn == nullptr ||
+      // a packed output: square tiles, a dense right side; a seed, or pair mode, only there
+      (out_tri && (right_layout == RIGHT_TRI || q_i != q_j || bi != bj)) || (pair && !out_tri) ||
+      (seed != nullptr && (!out_tri || !value_code(seed_dtype))) ||
+      (elem_bytes(l_dtype) == 1 && (l_pitch % 16 || l_pitch < (left_trans ? bi : bc))) ||
+      (elem_bytes(r_dtype) == 1 && right_layout != RIGHT_TRI &&
+       (r_pitch % 16 || r_pitch < (right_layout == RIGHT_JK ? bc : bj))) ||
+      l_rows >= (1LL << 31) || l_cols >= (1LL << 31) || r_rows >= (1LL << 31) ||
+      r_cols >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  const bool tri = right_layout == RIGHT_TRI;
+  const KernelFn kernel = select(l_dtype, r_dtype, acc, tri, pair != 0, tile, stages);
+  const size_t smem = smem_bytes(tri, tmax, tile, elem_bytes(l_dtype), elem_bytes(r_dtype),
+                                 ring_depth(stages), pair != 0);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // Boxes as each side lies: KC deep along K, TILE wide along i or j; the half maps read the
+  // quarters' TILE / 2 wide boxes.
+  CUtensorMap maps[2][3];
+  const bool r_kx = right_layout != RIGHT_JK;  // K x j rows, or the stored read of a stack
+  for (int half = 0; half < 2; ++half) {
+    const int w = tile >> half;
+    CUtensorMap* m = maps[half];
+    if (!make_map(&m[0], left, l_dtype, l_rows, l_cols, l_cols, left_trans ? KC : w,
+                  left_trans ? w : KC) ||
+        !make_map(&m[1], right, r_dtype, r_rows, r_cols, r_cols, r_kx ? KC : w,
+                  r_kx ? w : KC) ||
+        (tri && !make_map(&m[2], right, r_dtype, r_rows, r_cols, r_cols, w, KC)))
+      return cudaErrorInvalidValue;
+    if (!tri) m[2] = m[1];  // unread
+  }
+  Ops P{ws, out, seed,
+        static_cast<const int*>(lrow), static_cast<const int*>(lcol),
+        static_cast<const float*>(lsgn), static_cast<const int*>(rrow),
+        static_cast<const int*>(rcol), static_cast<const float*>(rsgn),
+        static_cast<const int*>(rtrn), static_cast<const int*>(dest),
+        static_cast<const float*>(dsgn), static_cast<const int*>(dflag),
+        static_cast<const int*>(dtrn), static_cast<const int*>(odiag),
+        n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
+        left_trans, right_layout == RIGHT_JK, diag_sym, out_tri != 0, slot_terms(tmax, pair),
+        seed_dtype, ws != out, 0, out_dtype, l_pitch, r_pitch};
+  const long long n_pos = static_cast<long long>(q_i) * q_j * ((bi + tile - 1) / tile) *
+                          ((bj + tile - 1) / tile);
+  // pair mode: one block a mirror pair of sub-tiles and one a sub-tile on the diagonal
+  const long long side = static_cast<long long>(q_i) * ((bi + tile - 1) / tile);
+  const long long n_big = pair ? side * (side + 1) / 2 : whole_positions(kernel, smem, tile, n_pos);
+  const long long blocks = pair ? n_big : n_big + 4 * (n_pos - n_big);
+  if (n_big < 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  P.n_big = static_cast<int>(n_big);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      P, maps[0][0], maps[0][1], maps[0][2], maps[1][0], maps[1][1], maps[1][2]);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

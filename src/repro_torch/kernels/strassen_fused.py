@@ -6,12 +6,16 @@ The port of the host side of ``repro/kernels/strassen_fused.py``.  A
 matmul and the gram kinds (ata, aat, rank_k) of every gram — is lowered
 to twelve op-indexed tables (:func:`_op_tables`) and runs:
 
-* on a CUDA tensor, the hand-written kernel ``csrc/leaf_products.cu``:
+* on a CUDA tensor, the hand-written kernel ``csrc/leaf_products.cuh``:
   one thread block per output position, the ops looping inside it, each
   leaf product computed once and added into each of its destinations.
   A program with transposed destinations (the ``dps`` gram's) runs it
   in pair mode: a block owns a position and its mirror, and adds each
-  product straight into one and transposed into the other;
+  product straight into one and transposed into the other.  Three
+  libraries build it (:data:`PRODUCT_LIBRARIES`): fp32 and bf16 operand
+  tiles with an fp32 accumulator (``leaf_products.cu``, the main path),
+  fp16 and fp8 tiles (``leaf_products_lowp.cu``), and a bf16 or fp64
+  accumulator (``leaf_products_acc.cu``);
 * on a CPU tensor, the plain torch walk over the same tables
   (:func:`_leaf_products_plain`) — the counterpart of Pallas interpret
   mode, and the plain version the kernel is held against on the card.
@@ -37,6 +41,14 @@ The program kinds, each with its entry point and its autograd:
   is read (:func:`fused_matmul`); its backward is two more matmul
   launches.
 
+The precision axes are the JAX package's: ``operand_dtype`` stores the
+padded operands quantized once (:func:`_quantize`, ``jnp.astype``'s
+rounding bit for bit; an fp64 operand is stored as fp32, the type the
+TPU kernel computes in), every tile is widened to fp32 before the signed
+sums, ``acc_dtype`` picks the accumulator (fp32, or bf16 / fp64 rounded
+at the TPU kernel's points), and ``sr_seed`` rounds a bf16 output
+stochastically after the fact (:func:`stochastic_round_bf16`).
+
 The analytic traffic models share the executor's geometry, so they
 cannot drift from the padding and clamping it runs.
 """
@@ -58,15 +70,15 @@ from ..core.leaf_ir import LeafProgram, compile_program
 from ..core.strassen import ieee_fp32
 from ..core.symmetry import tri_coords, unpack_tril_blocks
 from . import _build
-from ._launch import DTYPE_CODES as _DTYPE_CODES
+from ._launch import ACC_CODES, LEAF_DTYPE_CODES
 from .ops import _place
 
 __all__ = ["fused_ata", "fused_ata_packed", "fused_symm_matmul",
            "fused_aat", "fused_aat_packed", "fused_rank_k_update",
            "fused_matmul", "ata_traffic_model", "ata_bwd_traffic_model",
            "aat_traffic_model", "rank_k_traffic_model", "leaf_program",
-           "product_flops", "KERNEL_LAUNCHES", "LIBRARY_LAUNCHES",
-           "MAX_OPERAND_TERMS",
+           "product_flops", "stochastic_round_bf16", "KERNEL_LAUNCHES",
+           "LIBRARY_LAUNCHES", "MAX_OPERAND_TERMS", "PRODUCT_LIBRARIES",
            "MAX_PIPELINE_DEPTH", "PRODUCT_TILES"]
 
 
@@ -86,11 +98,24 @@ MAX_PIPELINE_DEPTH = 4
 # Shared memory one thread block may use on Hopper (227 KB).
 SMEM_LIMIT_BYTES = 232_448
 
-# Operand-tile storage dtypes the JAX executor takes; the port runs
-# fp32 and bf16 tiles, the rest are ROADMAP Queue 1 #6.
+# Operand-tile storage dtypes the JAX executor takes, all of them run by
+# the kernel (fp64 stored as fp32)
 _SUPPORTED_OPERAND_DTYPES = ("float8_e4m3fn", "float8_e5m2", "bfloat16",
                              "float16", "float32", "float64")
-_PORTED_OPERAND_DTYPES = ("bfloat16", "float32")
+
+# Accumulators, by name
+_ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float64": torch.float64}
+
+# What jnp.astype stores for a NaN, by type: the quiet NaN with the
+# input's sign (torch keeps other payloads)
+_NAN_BITS = {torch.float8_e4m3fn: 0x7F, torch.float8_e5m2: 0x7E,
+             torch.float16: 0x7E00, torch.bfloat16: 0x7FC0}
+# The same-width integer type of each, to write those bits
+_BITS_OF = {1: torch.uint8, 2: torch.int16}
+# e4m3fn has no inf: jnp.astype gives NaN where the nearest-even value
+# passes 448 (the largest finite one), i.e. beyond the tie at 464
+_E4M3_TIE = 464.0
 
 _KINDS = ("ata", "symm", "aat", "rank_k", "matmul")
 # the kinds with a dense output; the gram kinds write a packed stack
@@ -117,9 +142,15 @@ PRODUCT_TILES = (128, 64)
 #: main path went through it.
 KERNEL_LAUNCHES = {f"leaf_program/{kind}": 0 for kind in _KINDS}
 
-#: The same launches by the library that ran them, ``leaf_products.cu``
-#: for every kind.
-LIBRARY_LAUNCHES = {f"leaf_products.cu/{kind}": 0 for kind in _KINDS}
+#: The libraries of ``csrc/leaf_products.cuh``: fp32 and bf16 operand
+#: tiles with an fp32 accumulator, fp16 and fp8 tiles, and a bf16 or fp64
+#: accumulator (:func:`_products_library` picks one).
+PRODUCT_LIBRARIES = ("leaf_products", "leaf_products_lowp",
+                     "leaf_products_acc")
+
+#: The same launches by the library that ran them.
+LIBRARY_LAUNCHES = {f"{lib}.cu/{kind}": 0 for lib in PRODUCT_LIBRARIES
+                    for kind in _KINDS}
 
 # (kind, variant, gram, requested, clamped) combinations already warned
 # about: the clamp warns exactly once per distinct clamp.
@@ -144,30 +175,124 @@ def _resolve_operand_dtype(operand_dtype):
         raise ValueError(
             f"operand_dtype={name!r} is not a supported operand-tile "
             f"storage dtype; pick one of {_SUPPORTED_OPERAND_DTYPES}")
-    if name not in _PORTED_OPERAND_DTYPES:
-        raise NotImplementedError(
-            f"operand_dtype={name!r} is not ported yet (ROADMAP Queue 1 "
-            f"#6); the port takes {_PORTED_OPERAND_DTYPES}")
     return getattr(torch, name)
 
 
 def _resolve_acc_dtype(acc_dtype):
     name = "float32" if acc_dtype is None else _dtype_name(acc_dtype)
-    if name not in ("float32", "bfloat16", "float64"):
+    if name not in _ACC_DTYPES:
         raise ValueError(f"acc_dtype={name!r}: the accumulator must be "
                          "float32 (default), bfloat16 or float64")
-    if name != "float32":
-        raise NotImplementedError(
-            f"acc_dtype={name!r} is not ported yet (ROADMAP Queue 1 #6); "
-            "the kernel accumulates in float32")
     return name
 
 
-def _resolve_sr_seed(sr_seed):
-    if sr_seed is not None:
-        raise NotImplementedError(
-            "sr_seed (stochastically rounded bf16 output) is not ported yet "
-            "(ROADMAP Queue 1 #6)")
+def _resolve_sr_seed(sr_seed, out_dtype):
+    """Validate the stochastic-rounding knob: SR only targets bf16
+    outputs (the accumulator is rounded once, on store)."""
+    if sr_seed is None:
+        return None
+    if out_dtype != torch.bfloat16:
+        raise ValueError(
+            "sr_seed (stochastic rounding) requires out_dtype=bfloat16, "
+            f"got {_dtype_name(out_dtype)}")
+    return int(sr_seed)
+
+
+def _promoted(*dtypes) -> torch.dtype:
+    """The JAX package's default output type, ``promote_types(..., f32)``:
+    fp64 stays, anything narrower (fp8 included, which torch does not
+    promote) gives fp32."""
+    return torch.float64 if torch.float64 in dtypes else torch.float32
+
+
+def _quantize(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` stored as ``dtype``, as ``jnp.astype`` rounds it, bit for bit:
+    to nearest even, a NaN stored as JAX stores it, and for e4m3fn (no
+    inf) a NaN where the nearest-even value passes 448 or ``x`` is not
+    finite, where torch's ``.to`` saturates.  ``float64`` is stored as
+    fp32: the TPU kernel upcasts every tile to fp32 before any
+    arithmetic, so the round trip through fp64 computes the same.  Plain
+    torch: the JAX package quantizes outside any kernel."""
+    if dtype == torch.float64 or dtype == torch.float32:
+        return x.to(torch.float64).to(torch.float32)
+    q = x.to(dtype)
+    if dtype not in _NAN_BITS:
+        return q
+    bad = torch.isnan(x)
+    if dtype == torch.float8_e4m3fn:
+        bad |= ~torch.isfinite(x) | (x.abs() > _E4M3_TIE)
+    if not bool(bad.any()):
+        return q
+    size = q.element_size()
+    pos = _NAN_BITS[dtype]
+    neg = pos | 1 << (8 * size - 1)
+    if size == 2:           # as a signed int16
+        neg -= 1 << 16
+    bits_t = _BITS_OF[size]
+    nan = torch.where(torch.signbit(x), neg, pos).to(bits_t)
+    return torch.where(bad, nan, q.view(bits_t)).view(dtype)
+
+
+def _stored(x: torch.Tensor, operand_dtype) -> torch.Tensor:
+    """A padded operand as the kernel stores it: quantized to
+    ``operand_dtype`` where one is given, else as it is, an fp64 one as
+    fp32 (the tiles' arithmetic is fp32 either way)."""
+    if operand_dtype is not None:
+        return _quantize(x, operand_dtype)
+    return x.to(torch.float32) if x.dtype == torch.float64 else x
+
+
+# ---------------------------------------------------------------------------
+# Stochastic rounding: fp32 -> bf16 with probability proportional to the
+# truncated fraction, so E[SR(x)] == x.  A post-pass on the executor's fp32
+# output, as in the JAX package; gradients pass straight through.
+# ---------------------------------------------------------------------------
+
+class _SrApply(torch.autograd.Function):
+    """``xf`` (fp32) rounded to bf16 by adding the 16-bit ``bits`` below
+    the bf16 mantissa boundary and truncating, as the JAX package's
+    ``_sr_apply`` does in uint32: a round-up with probability (low 16
+    bits) / 2^16, carries rippling into the exponent.  Non-finite values
+    round to nearest.  Backward: straight through, the cotangent as
+    fp32."""
+
+    @staticmethod
+    def forward(ctx, xf, bits):
+        # uint32 arithmetic in int64: torch's int32 would overflow and its
+        # >> is arithmetic, which would break on the sign bit
+        u = xf.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        rounded = ((u + bits.to(torch.int64)) >> 16) & 0xFFFF
+        sr = torch.where(rounded >= 1 << 15, rounded - (1 << 16), rounded) \
+            .to(torch.int16).view(torch.bfloat16)
+        return torch.where(torch.isfinite(xf), sr,
+                           _quantize(xf, torch.bfloat16))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.float32), None
+
+
+_sr_apply = _SrApply.apply
+
+
+def stochastic_round_bf16(x: torch.Tensor,
+                          generator: torch.Generator) -> torch.Tensor:
+    """Stochastically round ``x`` to bfloat16: unbiased, and deterministic
+    per ``generator`` state and device (the bits are 16-bit draws from
+    it, not the JAX package's threefry bits); non-finite entries round to
+    nearest.  The executor applies this on its fp32 output when
+    ``sr_seed`` is set, with a generator on the output's device seeded
+    with it."""
+    xf = x.to(torch.float32)
+    bits = torch.randint(0, 1 << 16, xf.shape, generator=generator,
+                         device=xf.device, dtype=torch.int32)
+    return _sr_apply(xf, bits)
+
+
+def _sr_round(x: torch.Tensor, sr_seed: int) -> torch.Tensor:
+    """The post-pass of an entry point given ``sr_seed``."""
+    gen = torch.Generator(device=x.device).manual_seed(sr_seed)
+    return stochastic_round_bf16(x, gen)
 
 
 def _resolve_pipeline_depth(pipeline_depth, device: torch.device) -> int:
@@ -593,13 +718,14 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
     kernel's way (contributions, then K blocks), over every output tile
     at once, recomputing a leaf product for every destination it feeds.
 
-    The accumulator starts from ``seed`` (the incoming stack of an
-    accumulating program, upcast to fp32) or from zero.  Per
-    (contribution, K block) step it gathers each term's tile for all
+    The accumulator, of ``spec.acc_dtype``, starts from ``seed`` (the
+    incoming stack of an accumulating program, cast to it) or from zero.
+    Per (contribution, K block) step it gathers each term's tile for all
     output tiles and forms the signed sums in fp32, term by term in
     table order: the tile upcast, times its coefficient, added to the
     running sum; a transposed side flips its sum once.  Then it adds
-    ``sign * (L @ R)`` where the sign is not 0.
+    ``sign * (L @ R)``, computed in fp32 and rounded to the accumulator's
+    type, where the sign is not 0 (``acc += contrib.astype(acc)``).
     """
     if spec.kind not in _GRAM_KINDS:
         raise ValueError(f"the destination walk takes the gram kinds, not "
@@ -635,18 +761,19 @@ def _leaf_program_plain(spec: _Spec, tables, left: torch.Tensor,
             acc = add(acc, tile * rsgn[ld, c, p][:, None, None])
         return acc.transpose(1, 2) if spec.right_trans else acc
 
+    acc_t = _ACC_DTYPES[spec.acc_dtype]
     if seed is None:
-        acc = torch.zeros((spec.n_out, spec.bi, spec.bj),
-                          dtype=torch.float32, device=left.device)
+        acc = torch.zeros((spec.n_out, spec.bi, spec.bj), dtype=acc_t,
+                          device=left.device)
     else:           # the incoming packed stack of rank_k, a tri output
-        acc = seed.reshape(spec.n_out, spec.bi, spec.bj).to(torch.float32,
+        acc = seed.reshape(spec.n_out, spec.bi, spec.bj).to(acc_t,
                                                             copy=True)
     with ieee_fp32():
         for c in range(spec.n_c):
             sgn = sign[ld, c][:, None, None]
             for k in range(spec.n_k):
                 contrib = sgn * torch.bmm(left_sum(c, k), right_sum(c, k))
-                acc += torch.where(sgn != 0, contrib, 0.0)
+                acc += torch.where(sgn != 0, contrib, 0.0).to(acc_t)
     return acc.reshape(_out_shape(spec)).to(out_dtype)
 
 
@@ -662,7 +789,7 @@ def _spec_op_tables(spec: _Spec, device=None) -> tuple:
 def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
                          right: torch.Tensor, out_dtype,
                          seed: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain torch version of ``csrc/leaf_products.cu``: the op
+    """The plain torch version of ``csrc/leaf_products.cuh``: the op
     tables, the kernel's walk, every output position at once.
 
     A position is an output tile ``(iq, jq)`` of a leaf block (the
@@ -681,6 +808,13 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
     an element on or below its leaf block's diagonal takes an op's
     straight slots first, one above it the transposed ones.  So each leaf
     product is computed once: ``n_ops * n_k`` bmm calls.
+
+    The accumulator is of ``spec.acc_dtype``.  An fp32 one takes each
+    op's product once, as above; a bf16 or fp64 one takes each K block's
+    ``sign * part`` rounded to its type, the sum rounded in it, K block
+    by K block (every K block of a slot before the next slot of an
+    element), where the kernel does (``acc += contrib.astype(acc)``), the
+    seed cast to it first.
 
     A packed output (the gram kinds) holds tile ``(iq, jq)`` of a
     diagonal leaf block only where ``iq >= jq``: an op that feeds only
@@ -752,20 +886,23 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
         return acc.transpose(1, 2) if spec.right_trans else acc
 
     n_dest = int(dest.max()) + 1          # _op_tables: every one is fed
-    acc = torch.zeros((n_dest, len(pos), spec.bi, spec.bj),
-                      dtype=torch.float32, device=dev)
+    acc_t = _ACC_DTYPES[spec.acc_dtype]
+    acc = torch.zeros((n_dest, len(pos), spec.bi, spec.bj), dtype=acc_t,
+                      device=dev)
     start = None            # the seed at each (leaf destination, position)
     if spec.out_tri:        # each stack tile: its leaf destination, position
         ld, gi, gj = _out_tiles(spec, dev)
         held = (ld, (gi % q_i) * q_j + gj % q_j)
         if seed is not None:
             start = torch.zeros_like(acc)
-            start[held] = seed.reshape(spec.n_out, spec.bi, spec.bj).float()
+            start[held] = seed.reshape(spec.n_out, spec.bi, spec.bj).to(acc_t)
 
     def add(o, d, at, term, flag, where=None):
-        """Slot d of op o adds ``term`` at positions ``at``, onto the seed
-        where ``flag`` says it is the first; only ``where`` if given."""
+        """Slot d of op o adds ``term`` (fp32, rounded to the accumulator's
+        type) at positions ``at``, onto the seed where ``flag`` says it is
+        the first; only ``where`` if given."""
         ld = int(dest[o, d])
+        term = term.to(acc_t)
         if flag & _FIRST:
             new = term if start is None else start[ld, at] + term
         else:
@@ -776,27 +913,37 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
     with ieee_fp32():
         for o in range(len(lrow)):
             iq, jq, at = heavy if spec.out_tri and odiag[o] else every
-            prod = torch.zeros((len(at), spec.bi, spec.bj),
-                               dtype=torch.float32, device=dev)
-            for k in range(n_k):
-                prod += torch.bmm(left_sum(o, k, iq), right_sum(o, k, jq))
+            parts = [torch.bmm(left_sum(o, k, iq), right_sum(o, k, jq))
+                     for k in range(n_k)]
+            if acc_t == torch.float32:      # the op's product, once
+                prod = torch.zeros_like(parts[0])
+                for part in parts:
+                    prod += part
+                terms = [(prod, _FIRST | _LAST)]
+            else:   # each K block's part; a slot's flags hold at its ends
+                terms = [(part, (_FIRST if k == 0 else 0)
+                          | (_LAST if k == n_k - 1 else 0))
+                         for k, part in enumerate(parts)]
             slots = np.flatnonzero(dsgn[o])
             if not dtrn[o].any():
                 for d in slots:
-                    add(o, d, at, prod * float(dsgn[o, d]), dflag[o, d])
+                    for val, keep in terms:
+                        add(o, d, at, val * float(dsgn[o, d]),
+                            dflag[o, d] & keep)
                 continue
             # both halves of each position in their own order: straight
             # slots first on and below the diagonal, transposed above
-            prod_t = prod[mirror].transpose(1, 2)
             straight = [d for d in slots if not dtrn[o, d]]
             mirrored = [d for d in slots if dtrn[o, d]]
             for half, order in ((lower, straight + mirrored),
                                 (~lower, mirrored + straight)):
                 shift = 0 if half is lower else _UPPER
                 for d in order:
-                    term = (prod_t if dtrn[o, d] else prod) \
-                        * float(dsgn[o, d])
-                    add(o, d, at, term, dflag[o, d] >> shift, half)
+                    for val, keep in terms:
+                        if dtrn[o, d]:
+                            val = val[mirror].transpose(1, 2)
+                        add(o, d, at, val * float(dsgn[o, d]),
+                            (dflag[o, d] >> shift) & keep, half)
     if spec.out_tri:
         return acc[held].reshape(_out_shape(spec)).to(out_dtype)
     blocks_i = acc.shape[0] // spec.blocks_j
@@ -805,33 +952,83 @@ def _leaf_products_plain(spec: _Spec, left: torch.Tensor,
     return out.reshape(_out_shape(spec)).to(out_dtype)
 
 
+# The operand types the kernel stores (an fp64 operand is stored as fp32),
+# and the mixed pairs leaf_products.cu takes besides same-type ones
+_OPERAND_TYPES = (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float8_e4m3fn, torch.float8_e5m2)
+_MIXED_PAIRS = {(torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.float32)}
+# The types the seed and the output may have
+_VALUE_TYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+
+
 @functools.cache
-def _products_lib() -> ctypes.CDLL:
-    lib = _build.library("leaf_products")
+def _products_lib(name: str = "leaf_products") -> ctypes.CDLL:
+    """One library of ``csrc/leaf_products.cuh`` (``PRODUCT_LIBRARIES``),
+    built at first use; all three share the C interface."""
+    lib = _build.library(name)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 21 \
+    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 24 \
         + [ptr]
     lib.leaf_products_launch.restype = i32
     lib.leaf_products_smem_bytes.argtypes = [i32] * 7
     lib.leaf_products_smem_bytes.restype = ctypes.c_size_t
-    lib.leaf_products_blocks_per_sm.argtypes = [i32] * 7
+    lib.leaf_products_blocks_per_sm.argtypes = [i32] * 8
     lib.leaf_products_blocks_per_sm.restype = i32
-    lib.leaf_products_whole_positions.argtypes = [i32] * 6 + [i64]
+    lib.leaf_products_whole_positions.argtypes = [i32] * 7 + [i64]
     lib.leaf_products_whole_positions.restype = i64
+    lib.leaf_products_ring_depth.argtypes = [i32]
+    lib.leaf_products_ring_depth.restype = i32
     lib.leaf_products_error_string.argtypes = [i32]
     lib.leaf_products_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _kernel_types(left_dtype, right_dtype, acc_dtype: str):
+    """The types the kernel stores a launch's two sides in: fp64 as fp32,
+    and a pair no library instantiates (fp16 beside fp32, say, or a mixed
+    pair under a bf16 or fp64 accumulator) both as fp32.  Each is exact
+    and changes no bit: every tile is widened to fp32 before any
+    arithmetic."""
+    lt, rt = (torch.float32 if t == torch.float64 else t
+              for t in (left_dtype, right_dtype))
+    if lt == rt and lt in _OPERAND_TYPES:
+        return lt, rt
+    if acc_dtype == "float32" and (lt, rt) in _MIXED_PAIRS:
+        return lt, rt
+    return torch.float32, torch.float32
+
+
+def _products_library(acc_dtype: str, left_dtype) -> str:
+    """The library that runs a launch whose left side is stored as
+    ``left_dtype`` (after :func:`_kernel_types`)."""
+    if acc_dtype != "float32":
+        return "leaf_products_acc"
+    if left_dtype in (torch.float16, torch.float8_e4m3fn,
+                      torch.float8_e5m2):
+        return "leaf_products_lowp"
+    return "leaf_products"
+
+
+def ring_depth(spec: _Spec) -> int:
+    """The ring depth a launch of ``spec`` runs at: its
+    ``pipeline_depth``, except that a bf16 or fp64 accumulator runs one
+    depth for every request (depth changes no bit; one instantiation
+    serves)."""
+    lib = _products_library(spec.acc_dtype, torch.float32)
+    return _products_lib(lib).leaf_products_ring_depth(spec.pipeline_depth)
+
+
 def _products_smem(spec: _Spec, tile: int, left_bytes: int,
                    right_bytes: int) -> int:
-    return _products_lib().leaf_products_smem_bytes(
+    lib = _products_library(spec.acc_dtype, torch.float32)
+    return _products_lib(lib).leaf_products_smem_bytes(
         int(spec.right_tri), spec.tmax, tile, left_bytes, right_bytes,
         spec.pipeline_depth, int(_pairs(spec)))
 
 
 def _products_tile(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
-    """The block tile a ``leaf_products.cu`` launch takes: the first of
+    """The block tile a ``leaf_products`` launch takes: the first of
     ``PRODUCT_TILES`` that divides both output tile edges and fits in
     shared memory at this depth, else the smallest."""
     for tile in PRODUCT_TILES:
@@ -843,7 +1040,7 @@ def _products_tile(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
 
 def smem_bytes(spec: _Spec, left_bytes: int, right_bytes: int,
                tile: int | None = None) -> int:
-    """Dynamic shared memory one ``leaf_products.cu`` launch of ``spec``
+    """Dynamic shared memory one ``leaf_products`` launch of ``spec``
     needs at ``tile``, by default the one the launch takes, as its kernel
     lays it out (the wrapper refuses more than ``SMEM_LIMIT_BYTES``)."""
     if tile is None:
@@ -859,22 +1056,26 @@ def _pairs(spec: _Spec) -> bool:
 
 def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
                           tile: int | None = None) -> dict:
-    """How a ``leaf_products.cu`` launch of ``spec`` fills the current
-    card: its block tile, output positions (a tile x tile sub-tile each),
+    """How a ``leaf_products`` launch of ``spec`` on operands of these
+    types fills the current card: the library that runs it, the types it
+    stores them as, its ring depth, its block tile, output positions (a
+    tile x tile sub-tile each),
     the positions walked whole (the rest, the ragged last wave's, are
     walked in quarters, four blocks each; in pair mode none), thread
     blocks (in pair mode one a mirror pair of positions and one a
     position that is its own mirror), blocks an SM holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared memory
     a block."""
-    lb, rb = (torch.empty((), dtype=d).element_size()
-              for d in (left_dtype, right_dtype))
+    lt, rt = _kernel_types(left_dtype, right_dtype, spec.acc_dtype)
+    lb, rb = (torch.empty((), dtype=d).element_size() for d in (lt, rt))
     tile = _products_tile(spec, lb, rb) if tile is None else tile
     positions = spec.q_i * spec.q_j * -(-spec.bi // tile) \
         * -(-spec.bj // tile)
-    lib = _products_lib()
-    codes = (_DTYPE_CODES[left_dtype], _DTYPE_CODES[right_dtype],
-             int(spec.right_tri), spec.tmax, tile, spec.pipeline_depth)
+    name = _products_library(spec.acc_dtype, lt)
+    lib = _products_lib(name)
+    codes = (LEAF_DTYPE_CODES[lt], LEAF_DTYPE_CODES[rt],
+             ACC_CODES[spec.acc_dtype], int(spec.right_tri), spec.tmax, tile,
+             spec.pipeline_depth)
     pair = _pairs(spec)
     if pair:            # square: Q sub-tiles along a leaf block's edge
         side = spec.q_i * -(-spec.bi // tile)
@@ -882,7 +1083,9 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
     else:
         whole = lib.leaf_products_whole_positions(*codes, positions)
         blocks = whole + 4 * (positions - whole)
-    return {"tile": tile, "pair": pair, "positions": positions,
+    return {"library": name, "types": (str(lt), str(rt)),
+            "ring_depth": lib.leaf_products_ring_depth(spec.pipeline_depth),
+            "tile": tile, "pair": pair, "positions": positions,
             "whole_positions": whole, "blocks": blocks,
             "blocks_per_sm": lib.leaf_products_blocks_per_sm(*codes,
                                                              int(pair)),
@@ -927,10 +1130,11 @@ def _operand_extents(spec: _Spec):
     return left, (cols_j, k_len) if spec.right_trans else (k_len, cols_j)
 
 
-def _check_buffer(name: str, x: torch.Tensor, want, device) -> None:
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"leaf_program takes float32 or bfloat16 tensors, "
-                        f"got {x.dtype} for the {name}")
+def _check_buffer(name: str, x: torch.Tensor, want, device,
+                  types=_VALUE_TYPES) -> None:
+    if x.dtype not in types:
+        raise TypeError(f"leaf_program takes a {name} of "
+                        f"{', '.join(str(t) for t in types)}, got {x.dtype}")
     if x.device != device:
         raise ValueError(f"the {name} lies on {x.device}, not {device}")
     if x.ndim != 2 or tuple(x.shape) != tuple(want):
@@ -943,12 +1147,14 @@ def _check_buffer(name: str, x: torch.Tensor, want, device) -> None:
 
 def _check_kernel_args(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                        out_dtype, seed, out) -> None:
-    if out_dtype not in _DTYPE_CODES:
-        raise TypeError(f"leaf_program writes float32 or bfloat16, got "
+    if out_dtype not in _VALUE_TYPES:
+        raise TypeError(f"leaf_program writes "
+                        f"{', '.join(str(t) for t in _VALUE_TYPES)}, got "
                         f"{out_dtype}")
     for name, x, want in zip(("left operand", "right operand"),
                              (left, right), _operand_extents(spec)):
-        _check_buffer(name, x, want, left.device)
+        _check_buffer(name, x, want, left.device, (*_OPERAND_TYPES,
+                                                   torch.float64))
     if spec.kind in ("ata", "aat", "rank_k"):
         if right.data_ptr() != left.data_ptr():
             raise ValueError(f"the {spec.kind} kernel reads one operand: "
@@ -978,6 +1184,27 @@ def _check_kernel_args(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                              f"{out_dtype}")
 
 
+def _tma_layout(x: torch.Tensor, edge: int | None):
+    """``x`` as a TMA map reads an fp8 side: every box starts on 16 bytes
+    and every row is a multiple of 16 bytes long.  ``edge`` is the width
+    of one tile along ``x``'s rows (None for a packed tri stack, whose
+    boxes start on 16-column boundaries already); each tile's columns
+    are widened to ``pitch``, the edge rounded up to 16, with zeros,
+    which the kernel reads only where it reads past a tile's edge
+    (outputs it never stores, or depth it masks).  Returns ``(stored x,
+    pitch)``; any other type passes as it is."""
+    if x.element_size() != 1:
+        return x, edge or x.shape[1]
+    raw = x.view(torch.uint8)
+    if edge is None:
+        return F.pad(raw, (0, -x.shape[1] % 16)).view(x.dtype), x.shape[1]
+    pitch = -(-edge // 16) * 16
+    if pitch != edge:
+        raw = F.pad(raw.reshape(x.shape[0], -1, edge),
+                    (0, pitch - edge)).reshape(x.shape[0], -1)
+    return raw.view(x.dtype), pitch
+
+
 def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                  out_dtype, seed: torch.Tensor | None = None,
                  out: torch.Tensor | None = None,
@@ -991,16 +1218,25 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     incoming packed stack of ``rank_k``, which starts the accumulator.
     ``out``, where given, is the buffer written (it may be ``seed``: each
     output element is read before it is written).  ``tile`` is the block
-    tile of ``csrc/leaf_products.cu``, one of ``PRODUCT_TILES``; by
+    tile of ``csrc/leaf_products.cuh``, one of ``PRODUCT_TILES``; by
     default the first that divides the output tiles and fits.  Neither
-    it nor ``spec.pipeline_depth`` changes a bit of the result.
+    it nor ``spec.pipeline_depth`` changes a bit of the result (a bf16 or
+    fp64 accumulator runs one ring depth for every request:
+    :func:`ring_depth`).
 
-    A CUDA tensor launches ``csrc/leaf_products.cu``, on the current
-    stream (no synchronisation), or raises; a CPU tensor runs its plain
-    version (:func:`_leaf_products_plain`).  Returns the raw output buffer
-    in ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for the gram
-    kinds, the dense padded grid for symm and matmul; a bf16 output
-    accumulates in an fp32 workspace of its size and is rounded once.
+    The operands are fp32, bf16, fp16, fp8 (e4m3fn, e5m2) or fp64 (stored
+    as fp32); a pair of types no library instantiates is stored as fp32
+    (:func:`_kernel_types`, exact).  The seed and the output are fp32,
+    bf16, fp16 or fp64; the accumulator is ``spec.acc_dtype``.
+
+    A CUDA tensor launches ``csrc/leaf_products.cuh`` from the library
+    :func:`_products_library` picks, on the current stream (no
+    synchronisation), or raises; a CPU tensor runs its plain version
+    (:func:`_leaf_products_plain`).  Returns the raw output buffer in
+    ``out_dtype``: the packed stack ``(n_out * bi, bj)`` for the gram
+    kinds, the dense padded grid for symm and matmul; an output of
+    another type than the accumulator accumulates in a workspace of the
+    accumulator's type and is cast once by the kernel.
     Each launch counts in ``KERNEL_LAUNCHES`` by kind and in
     ``LIBRARY_LAUNCHES`` by the library that ran it.
     """
@@ -1015,6 +1251,13 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
         raise ValueError(f"leaf_program runs on cuda or cpu, not "
                          f"{left.device}")
     _check_kernel_args(spec, left, right, out_dtype, seed, out)
+    one = right is left
+    lt, rt = _kernel_types(left.dtype, right.dtype, spec.acc_dtype)
+    left, l_pitch = _tma_layout(left.to(lt),
+                                spec.bi if spec.left_trans else spec.bc)
+    right, r_pitch = (left, l_pitch) if one else _tma_layout(
+        right.to(rt), None if spec.right_tri
+        else spec.bc if spec.right_trans else spec.bj)
     if tile is None:
         tile = _products_tile(spec, left.element_size(), right.element_size())
     elif tile not in PRODUCT_TILES:
@@ -1029,13 +1272,15 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     if out is None:
         out = torch.empty(_out_shape(spec), dtype=out_dtype,
                           device=left.device)
-    ws = out if out.dtype == torch.float32 else torch.empty(
-        out.shape, dtype=torch.float32, device=out.device)
+    acc_t = _ACC_DTYPES[spec.acc_dtype]
+    ws = out if out.dtype == acc_t else torch.empty(
+        out.shape, dtype=acc_t, device=out.device)
     tables = _spec_op_tables(spec, left.device)
     n_ops, max_dests = tables[7].shape
     right_layout = _RIGHT_TRI if spec.right_tri \
         else _RIGHT_JK if spec.right_trans else _RIGHT_KJ
-    lib = _products_lib()
+    name = _products_library(spec.acc_dtype, left.dtype)
+    lib = _products_lib(name)
     with torch.cuda.device(left.device):
         err = lib.leaf_products_launch(
             left.data_ptr(), right.data_ptr(),
@@ -1044,17 +1289,18 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
             *right.shape, n_ops, spec.tmax, max_dests, spec.n_k, spec.q_i,
             spec.q_j, spec.blocks_j, spec.bi, spec.bj, spec.bc,
             int(spec.left_trans), right_layout, int(spec.diag_sym),
-            int(spec.out_tri), int(_pairs(spec)), _DTYPE_CODES[left.dtype],
-            _DTYPE_CODES[right.dtype],
-            0 if seed is None else _DTYPE_CODES[seed.dtype],
-            _DTYPE_CODES[out.dtype], tile, spec.pipeline_depth,
+            int(spec.out_tri), int(_pairs(spec)),
+            LEAF_DTYPE_CODES[left.dtype], LEAF_DTYPE_CODES[right.dtype],
+            0 if seed is None else LEAF_DTYPE_CODES[seed.dtype],
+            LEAF_DTYPE_CODES[out.dtype], ACC_CODES[spec.acc_dtype], l_pitch,
+            r_pitch, tile, spec.pipeline_depth,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"leaf_program launch failed: CUDA error {err} "
             f"({lib.leaf_products_error_string(err).decode()})")
     KERNEL_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
-    LIBRARY_LAUNCHES[f"leaf_products.cu/{spec.kind}"] += 1
+    LIBRARY_LAUNCHES[f"{name}.cu/{spec.kind}"] += 1
     return out
 
 
@@ -1083,21 +1329,24 @@ def _ata_config(a, device, *, levels, variant, gram, bk, bn, out_dtype, bwd,
                 pipeline_depth, operand_dtype, acc_dtype, sr_seed,
                 kind="ata"):
     """Place ``a`` and resolve the knobs of the gram kinds (for aat,
-    ``bn`` is the output tile edge bm); returns ``(a, config)``."""
+    ``bn`` is the output tile edge bm); returns ``(a, config, sr)``, the
+    config's output fp32 where ``sr`` (the resolved ``sr_seed``) asks for
+    the stochastic rounding post-pass."""
     a = _place(a, device)
     if a.ndim != 2:
         raise ValueError(f"fused {kind} expects a matrix, got shape "
                          f"{tuple(a.shape)}")
-    _resolve_sr_seed(sr_seed)
+    depth = _resolve_pipeline_depth(pipeline_depth, a.device)
+    op_dt = _resolve_operand_dtype(operand_dtype)
+    acc_dt = _resolve_acc_dtype(acc_dtype)
+    out_dtype = _promoted(a.dtype) if out_dtype is None else out_dtype
+    sr = _resolve_sr_seed(sr_seed, out_dtype)
     cfg = _AtaConfig(
         levels=levels, variant=variant, gram=gram, bk=bk, bn=bn,
-        out_dtype=(torch.promote_types(a.dtype, torch.float32)
-                   if out_dtype is None else out_dtype),
-        bwd=_resolve_bwd(bwd),
-        pipeline_depth=_resolve_pipeline_depth(pipeline_depth, a.device),
-        operand_dtype=_resolve_operand_dtype(operand_dtype),
-        acc_dtype=_resolve_acc_dtype(acc_dtype))
-    return a, cfg
+        out_dtype=torch.float32 if sr is not None else out_dtype,
+        bwd=_resolve_bwd(bwd), pipeline_depth=depth, operand_dtype=op_dt,
+        acc_dtype=acc_dt)
+    return a, cfg, sr
 
 
 def fused_ata_packed(
@@ -1136,17 +1385,23 @@ def fused_ata_packed(
 
     ``device=None`` runs on the card; a CPU tensor is moved there unless
     ``device="cpu"``, which runs the plain executor.  ``pipeline_depth``
-    is the kernel's ring depth (None = 2 on the card, 1 on the CPU);
-    ``operand_dtype`` (None, fp32 or bf16) the stored operand tiles of
-    the forward.  ``acc_dtype`` other than fp32 and ``sr_seed`` are
-    ROADMAP Queue 1 #6.
+    is the kernel's ring depth (None = 2 on the card, 1 on the CPU).
+    Precision, as in the JAX package: ``operand_dtype`` (fp8 e4m3fn or
+    e5m2, bf16, fp16, fp32, fp64) quantizes the padded A once, stored so
+    in the forward's tiles, each widened to fp32 before the signed sums;
+    ``acc_dtype`` (fp32 by default, bf16, fp64) is the accumulator;
+    ``sr_seed`` (with a bf16 ``out_dtype``) computes the stack in fp32
+    and rounds it stochastically, deterministic per seed and device
+    (:func:`stochastic_round_bf16`, a straight-through gradient).  The
+    backward runs on the unquantized A, in fp32.
     """
-    a, cfg = _ata_config(
+    a, cfg, sr = _ata_config(
         a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bn,
         out_dtype=out_dtype, bwd=bwd, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed)
     n_pad = _ata_geometry(*a.shape, levels, variant, bk, bn, gram=gram)["N"]
-    return _FusedAtaPacked.apply(a, cfg), n_pad
+    packed = _FusedAtaPacked.apply(a, cfg)
+    return (packed if sr is None else _sr_round(packed, sr)), n_pad
 
 
 def _prepare_ata(a, levels, variant, gram, bk, bn, pipeline_depth=1,
@@ -1161,10 +1416,9 @@ def _prepare_ata(a, levels, variant, gram, bk, bn, pipeline_depth=1,
     M, N = geo["M"], geo["N"]
     if (M, N) != (m, n):
         a = F.pad(a, (0, N - n, 0, M - m))
-    if operand_dtype is not None:
-        # operand tiles are stored (and copied) at this precision; every
-        # sum upcasts to fp32
-        a = a.to(operand_dtype)
+    # the quantization step, once after padding: operand tiles are stored
+    # (and copied) at this precision; every sum upcasts to fp32
+    a = _stored(a, operand_dtype)
     spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
                  q_j=geo["nbt"], n_k=geo["n_k"], bi=bn, bj=bn, bc=bk,
                  pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
@@ -1188,7 +1442,7 @@ def _symm_bwd(a: torch.Tensor, s_packed: torch.Tensor,
                         gram=cfg.gram)
     return fused_symm_matmul(
         a, s_packed, levels=geo["levels"], variant=cfg.variant, bm=cfg.bk,
-        diag_sym=True, out_dtype=torch.promote_types(a.dtype, torch.float32),
+        diag_sym=True, out_dtype=_promoted(a.dtype),
         pipeline_depth=cfg.pipeline_depth, device=a.device)[:, :n]
 
 
@@ -1207,7 +1461,7 @@ class _FusedAtaPacked(torch.autograd.Function):
         # vdot(gp, packed(A)) has S = the block-lower cotangent (diagonal
         # tiles full, as the forward computes them), so dA = A (S + S^t)
         (a,), cfg = ctx.saved_tensors, ctx.cfg
-        acc = torch.promote_types(a.dtype, torch.float32)
+        acc = _promoted(a.dtype)
         if cfg.bwd == "fused":
             return _symm_bwd(a, gp.to(acc), cfg).to(a.dtype), None
         m, n = a.shape
@@ -1240,7 +1494,7 @@ class _FusedAtaDense(torch.autograd.Function):
         # C = tril(A^t A) => dL/dA = A (S + S^t), S = tril(dL/dC); the
         # factor 2 on the diagonal of S + S^t is the quadratic term's
         (a,), cfg = ctx.saved_tensors, ctx.cfg
-        acc = torch.promote_types(a.dtype, torch.float32)
+        acc = _promoted(a.dtype)
         if cfg.bwd == "dense":
             s = torch.tril(g).to(acc)
             with ieee_fp32():
@@ -1301,11 +1555,12 @@ def fused_ata(
     (:func:`_pack_cotangent`) and runs the symm kind; ``bwd="dense"`` is
     the classical ``a @ (s + s.T)``.
     """
-    a, cfg = _ata_config(
+    a, cfg, sr = _ata_config(
         a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bn,
         out_dtype=out_dtype, bwd=bwd, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed)
-    return _FusedAtaDense.apply(a, cfg)
+    out = _FusedAtaDense.apply(a, cfg)
+    return out if sr is None else _sr_round(out, sr)
 
 
 # ---------------------------------------------------------------------------
@@ -1347,9 +1602,7 @@ def fused_symm_matmul(
     the stack.
     """
     x, s_packed = _place(x, device), _place(s_packed, device)
-    out_dtype = (torch.promote_types(torch.promote_types(x.dtype,
-                                                         s_packed.dtype),
-                                     torch.float32)
+    out_dtype = (_promoted(x.dtype, s_packed.dtype)
                  if out_dtype is None else out_dtype)
     spec, xp, sp = _prepare_symm(
         x, s_packed, levels, variant, bm, diag_sym,
@@ -1375,8 +1628,7 @@ def _prepare_symm(x, s_packed, levels, variant, bm, diag_sym,
     M = geo["M"]
     if (M, N) != (m, nx):
         x = F.pad(x, (0, N - nx, 0, M - m))
-    if operand_dtype is not None:
-        x, s_packed = x.to(operand_dtype), s_packed.to(operand_dtype)
+    x, s_packed = _stored(x, operand_dtype), _stored(s_packed, operand_dtype)
     spec = _bind(geo["plan"], n_out=(M // bm) * T, n_tj=T, q_i=geo["nbm"],
                  q_j=geo["q"], n_k=geo["q"], bi=bm, bj=bs, bc=bs,
                  diag_sym=diag_sym, pipeline_depth=pipeline_depth,
@@ -1417,8 +1669,7 @@ def _prepare_aat(a, levels, variant, gram, bm, bk, pipeline_depth=1,
     M, N = geo["M"], geo["N"]
     if (M, N) != (m, n):
         a = F.pad(a, (0, N - n, 0, M - m))
-    if operand_dtype is not None:
-        a = a.to(operand_dtype)
+    a = _stored(a, operand_dtype)
     spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
                  q_j=geo["nbt"], n_k=geo["n_k"], bi=bm, bj=bm, bc=bk,
                  pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
@@ -1438,7 +1689,7 @@ def _sym_left_product(s: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """``(S + S^t) A`` for ``S`` of ``M >= rows(A)`` rows, in full fp32:
     the row gram's backward, a dense product outside any kernel as in
     the JAX package (``jnp.dot``)."""
-    acc = torch.promote_types(a.dtype, torch.float32)
+    acc = _promoted(a.dtype)
     ap = F.pad(a.to(acc), (0, 0, 0, s.shape[0] - a.shape[0]))
     with ieee_fp32():
         return ((s + s.T) @ ap)[:a.shape[0]]
@@ -1457,7 +1708,7 @@ class _FusedAatPacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gp):
         (a,), cfg = ctx.saved_tensors, ctx.cfg
-        acc = torch.promote_types(a.dtype, torch.float32)
+        acc = _promoted(a.dtype)
         m_pad = _aat_geometry(*a.shape, cfg.levels, cfg.variant, cfg.bn,
                               cfg.bk, gram=cfg.gram)["M"]
         s = unpack_tril_blocks(gp.to(acc), m_pad, cfg.bn, symmetrize=False)
@@ -1481,7 +1732,7 @@ class _FusedAatDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (a,), cfg = ctx.saved_tensors, ctx.cfg
-        acc = torch.promote_types(a.dtype, torch.float32)
+        acc = _promoted(a.dtype)
         return _sym_left_product(torch.tril(g).to(acc), a).to(a.dtype), None
 
 
@@ -1510,13 +1761,14 @@ def fused_aat_packed(
     contraction tile edge).  Differentiable: ``dA = (S + S^t) A`` with S
     the block-lower cotangent, a dense product in torch.
     """
-    a, cfg = _ata_config(
+    a, cfg, sr = _ata_config(
         a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bm,
         out_dtype=out_dtype, bwd="dense", pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
         kind="aat")
     m_pad = _aat_geometry(*a.shape, levels, variant, bm, bk, gram=gram)["M"]
-    return _FusedAatPacked.apply(a, cfg), m_pad
+    packed = _FusedAatPacked.apply(a, cfg)
+    return (packed if sr is None else _sr_round(packed, sr)), m_pad
 
 
 def fused_aat(
@@ -1542,12 +1794,13 @@ def fused_aat(
     dense product of the JAX package (the row gram's backward is
     symmetric on the left, which the symm program does not express).
     """
-    a, cfg = _ata_config(
+    a, cfg, sr = _ata_config(
         a, device, levels=levels, variant=variant, gram=gram, bk=bk, bn=bm,
         out_dtype=out_dtype, bwd="dense", pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
         kind="aat")
-    return _FusedAatDense.apply(a, cfg)
+    out = _FusedAatDense.apply(a, cfg)
+    return out if sr is None else _sr_round(out, sr)
 
 
 # ---------------------------------------------------------------------------
@@ -1595,8 +1848,7 @@ def _prepare_rank_k(c_stack, a, levels, variant, gram, bk, pipeline_depth=1,
     M, N = geo["M"], T * bn
     if (M, N) != (m, n):
         a = F.pad(a, (0, N - n, 0, M - m))
-    if operand_dtype is not None:
-        a = a.to(operand_dtype)
+    a = _stored(a, operand_dtype)
     spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
                  q_j=geo["nbt"], n_k=geo["n_k"], bi=bn, bj=bn, bc=bk,
                  pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
@@ -1630,7 +1882,7 @@ class _FusedRankK(torch.autograd.Function):
                               cfg.bk, gram=cfg.gram)["levels"]
         da = fused_symm_matmul(
             a, g, levels=lv, variant=cfg.variant, bm=cfg.bk, diag_sym=True,
-            out_dtype=torch.promote_types(a.dtype, torch.float32),
+            out_dtype=_promoted(a.dtype),
             pipeline_depth=cfg.pipeline_depth, device=a.device)
         return g.to(cfg.stack_dtype), da[:, :a.shape[1]].to(a.dtype), None
 
@@ -1731,8 +1983,7 @@ def _prepare_matmul(a, b, levels, variant, bm, bk, bn, trans_a=False,
     M, K, N = geo["M"], geo["K"], geo["N"]
     a = _pad_to(a, (K, M) if trans_a else (M, K))
     b = _pad_to(b, (N, K) if trans_b else (K, N))
-    if operand_dtype is not None:
-        a, b = a.to(operand_dtype), b.to(operand_dtype)
+    a, b = _stored(a, operand_dtype), _stored(b, operand_dtype)
     spec = _bind(geo["plan"], n_out=(M // bm) * (N // bn), n_tj=N // bn,
                  q_i=geo["nbm"], q_j=geo["nbn"], n_k=geo["n_k"], bi=bm,
                  bj=bn, bc=bk, pipeline_depth=pipeline_depth,
@@ -1772,8 +2023,7 @@ class _FusedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (a, b), cfg = ctx.saved_tensors, ctx.cfg
-        acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
-                                  torch.float32)
+        acc = _promoted(a.dtype, b.dtype)
         gf = g.to(acc)
         bm, bk, bn = cfg.bm, cfg.bk, cfg.bn
         if cfg.bwd == "dense":
@@ -1856,8 +2106,7 @@ def fused_matmul(
     cfg = _MatmulConfig(
         levels=levels, variant=variant, bm=bm, bk=bk, bn=bn,
         trans_a=bool(trans_a), trans_b=bool(trans_b),
-        out_dtype=(torch.promote_types(torch.promote_types(a.dtype, b.dtype),
-                                       torch.float32)
+        out_dtype=(_promoted(a.dtype, b.dtype)
                    if out_dtype is None else out_dtype),
         bwd=_resolve_bwd(bwd),
         pipeline_depth=_resolve_pipeline_depth(pipeline_depth, a.device),

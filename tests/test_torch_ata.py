@@ -102,11 +102,28 @@ def test_errors():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             strassen_matmul(a, a, mode="fused")
-    for kw in (dict(operand_dtype=torch.float16), dict(acc_dtype="float64"),
-               dict(sr_seed=3)):
-        for mode in ("reference", "fused"):
-            with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-                ata(a, mode=mode, device="cpu", **kw)
+    # the precision knobs: fp16 operand tiles on both paths against the
+    # quantized float64 oracle; the accumulator and stochastic rounding
+    # are the fused path's, and the reference path ignores them, as the
+    # JAX package's does
+    aq = a.half().double().numpy()
+    a64 = a.double().numpy()
+    for mode in ("reference", "fused"):
+        got = ata(a, mode=mode, operand_dtype=torch.float16, device="cpu")
+        assert _rel(got.numpy(), np.tril(aq.T @ aq)) <= 1e-5
+        got = ata(a, mode=mode, acc_dtype="float64", device="cpu")
+        assert got.dtype == torch.float32
+        assert _rel(got.numpy(), np.tril(a64.T @ a64)) <= 1e-5
+    assert torch.equal(ata(a, mode="reference", sr_seed=3, device="cpu"),
+                       ata(a, mode="reference", device="cpu"))
+    sr = ata(a, mode="fused", sr_seed=3, out_dtype=torch.bfloat16,
+             device="cpu")
+    assert sr.dtype == torch.bfloat16
+    assert _rel(sr.float().numpy(), np.tril(a64.T @ a64)) <= 2.0 ** -7
+    with pytest.raises(ValueError, match="bfloat16"):
+        ata(a, mode="fused", sr_seed=3, device="cpu")
+    with pytest.raises(ValueError):
+        ata(a, mode="fused", acc_dtype="float16", device="cpu")
     # the fused path differentiates through the symm kind
     x = a.clone().requires_grad_()
     ata(x, mode="fused", device="cpu").sum().backward()

@@ -156,16 +156,29 @@ def test_traffic_model_matches_jax(m, n, block, levels):
         jax_sf.ata_traffic_model(m, n, **kw)
 
 
-def test_unported_knobs_raise():
-    a = torch.from_numpy(_rand((16, 16), seed=1))
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        sf.fused_ata(a, operand_dtype="float8_e4m3fn", device="cpu")
+def test_unported_knobs_raise(pallas_compiler_params):
+    """The knobs this test once found refused run now, against the JAX
+    executor on the same input: fp8 operand tiles, a bf16 accumulator
+    (its rounding within 2^-7 of max|C|) and stochastic rounding (a bf16
+    output only); the JAX package's ValueErrors stay."""
+    a_np = _rand((16, 16), seed=1)
+    a = torch.from_numpy(a_np)
+    kw = dict(levels=1, bk=8, bn=8)
+    got = sf.fused_ata(a, operand_dtype="float8_e4m3fn", device="cpu", **kw)
+    want = jax_sf.fused_ata(jnp.asarray(a_np), interpret=True,
+                            operand_dtype="float8_e4m3fn", **kw)
+    assert _rel(got.numpy(), np.asarray(want, np.float64)) <= 1e-5
     with pytest.raises(ValueError):
         sf.fused_ata(a, operand_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        sf.fused_ata(a, acc_dtype=torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+    got = sf.fused_ata(a, acc_dtype=torch.bfloat16, device="cpu", **kw)
+    want = jax_sf.fused_ata(jnp.asarray(a_np), interpret=True,
+                            acc_dtype="bfloat16", **kw)
+    assert _rel(got.numpy(), np.asarray(want, np.float64)) <= 2.0 ** -7
+    with pytest.raises(ValueError, match="bfloat16"):
         sf.fused_ata(a, sr_seed=0, device="cpu")
+    sr = sf.fused_ata(a, sr_seed=0, out_dtype=torch.bfloat16, device="cpu")
+    assert sr.dtype == torch.bfloat16
+    assert _rel(sr.float().numpy(), _oracle(a_np)) <= 2.0 ** -7
     # the gradient flows through the fused path (the symm kind)
     x = a.clone().requires_grad_()
     (g,) = torch.autograd.grad(sf.fused_ata(x, device="cpu").sum(), x)

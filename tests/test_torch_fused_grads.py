@@ -369,11 +369,13 @@ def test_symm_levels_clamp_like_jax():
                 {k: v for k, v in want.items() if k != "plan"}
 
 
-def test_unported_kinds_refuse_on_every_device():
-    """Every program kind of the leaf program is ported now: the aat
-    spec the executor once refused runs (the plain version here) and
-    gives tril(A A^t).  What still refuses, on every device, are the
-    unported knobs of the new kinds (ROADMAP Queue 1 #6)."""
+def test_unported_kinds_refuse_on_every_device(pallas_compiler_params):
+    """Every program kind of the leaf program is ported, and so are the
+    precision knobs of the new kinds that this test once found refused:
+    on the CPU fp8 operand tiles match the JAX executor on the same
+    input, an fp64 accumulator the float64 oracle; without a card the
+    entry points still refuse to run, and ``sr_seed`` still wants a bf16
+    output."""
     prog = sf.leaf_ir.compile_program("aat", 1)
     spec = sf._bind(prog, n_out=3, n_tj=0, q_i=1, q_j=1, n_k=1, bi=8, bj=8,
                     bc=8)
@@ -381,18 +383,34 @@ def test_unported_kinds_refuse_on_every_device():
                          .astype(np.float32))
     packed = sf.leaf_program(spec, x, x, torch.float32)
     got = torch.tril(unpack_tril_blocks(packed, 16, 8, symmetrize=False))
-    want = np.tril(_np(x) @ _np(x).T)
-    assert _rel(_np(got), want) <= 1e-5
+    x64 = _np(x)
+    assert _rel(_np(got), np.tril(x64 @ x64.T)) <= 1e-5
     stack = torch.zeros(24, 8)
+    xj, sj = jnp.asarray(x64, jnp.float32), jnp.zeros((24, 8), jnp.float32)
+    cases = ((sf.fused_aat, (x,), jax_sf.fused_aat, (xj,),
+              dict(bm=8, bk=8), np.tril(x64 @ x64.T)),
+             (sf.fused_rank_k_update, (stack, x), jax_sf.fused_rank_k_update,
+              (sj, xj), dict(bk=8), np.tril(x64.T @ x64)),
+             (sf.fused_matmul, (x, x), jax_sf.fused_matmul, (xj, xj),
+              dict(bm=8, bk=8, bn=8), x64 @ x64))
+    for fn, args, jfn, jargs, blocks, oracle in cases:
+        got = fn(*args, operand_dtype="float8_e4m3fn", levels=1,
+                 device="cpu", **blocks)
+        want = jfn(*jargs, operand_dtype="float8_e4m3fn", levels=1,
+                   interpret=True, **blocks)
+        assert _rel(_np(got), np.asarray(want, np.float64)) <= 1e-5
+        got = fn(*args, acc_dtype="float64", levels=1, device="cpu",
+                 **blocks)
+        if fn is sf.fused_rank_k_update:    # the zero stack's update
+            got = torch.tril(unpack_tril_blocks(got, 16, 8,
+                                                symmetrize=False))
+        assert _rel(_np(got), oracle) <= 1e-5
+        if not torch.cuda.is_available():
+            for kw in (dict(operand_dtype="float8_e4m3fn"),
+                       dict(acc_dtype="float64")):
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    fn(*args, **kw)
     for device in ("cpu", "cuda"):
-        for kw in (dict(operand_dtype="float8_e4m3fn"),
-                   dict(acc_dtype="float64")):
-            for fn, args in ((sf.fused_aat, (x,)),
-                             (sf.fused_rank_k_update, (stack, x)),
-                             (sf.fused_matmul, (x, x))):
-                with pytest.raises((NotImplementedError, RuntimeError),
-                                   match="Queue 1 #6|no CUDA device"):
-                    fn(*args, device=device, **kw)
-        with pytest.raises((NotImplementedError, RuntimeError),
-                           match="Queue 1 #6|no CUDA device"):
+        with pytest.raises((ValueError, RuntimeError),
+                           match="bfloat16|no CUDA device"):
             sf.fused_aat(x, sr_seed=0, device=device)

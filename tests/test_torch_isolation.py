@@ -47,6 +47,10 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from repro_torch.models.convert import params_from_jax\n"
         "from repro_torch.runtime import ServingEngine, Request\n"
         "import repro_torch.launch.serve\n"
+        "from repro_torch.gram.verify import verify_gram, default_rtol\n"
+        "from repro_torch.obs.trace import get_tracer\n"
+        "from repro_torch.kernels.strassen_fused import (\n"
+        "    stochastic_round_bf16, _quantize)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
         "or m.startswith('repro.'))\n"

@@ -14,26 +14,30 @@ parent, change, change, parent, each timing ``strassen_fused.leaf_program``
 on the main path's padded operands at n = 10000, seed 0, levels 2, tiles
 of 256, at the default pipeline depth and block tile: the ata, aat and
 rank_k kinds (one 2500-row chunk into a 40-tile stack) of the strassen
-gram, the symm kind (the backward's X @ (S + S^t)), the matmul kind, and
-ata of the dps gram; and ``syrk_packed`` and ``matmul_padded`` (blocks of
+gram, the symm kind (the backward's X @ (S + S^t)), the matmul kind, ata
+of the dps gram, ata on bf16 operands (``ata_bf16``) and ata into a bf16
+output (``ata_bf16_out``); and ``syrk_packed`` and ``matmul_padded`` (blocks of
 256, the default block tile) on the padded 10240^2 A (and B) of
 ``ops.syrk(a)`` and ``ops.matmul(a, b)`` and on the reference recursion's
 2560^2 leaf (``syrk_leaf``, ``matmul_leaf``).  ``--cases`` picks some of
 them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
 summary gives each side's median over its processes and the change over
-the parent.  It prints the card's name and power limit.
+the parent.  Each process also hashes each case's output (sha256 of its
+bytes), and the summary says whether every run of both sides gave the
+same bits.  It prints the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 
-CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps", "syrk",
-         "syrk_leaf", "matmul_padded", "matmul_leaf")
+CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps", "ata_bf16",
+         "ata_bf16_out", "syrk", "syrk_leaf", "matmul_padded", "matmul_leaf")
 # the single-purpose kernels' cases, and their libraries
 SINGLE = ("syrk", "syrk_leaf", "matmul_padded", "matmul_leaf")
 
@@ -73,26 +77,36 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
     def padded(x):
         return F.pad(x, (0, -x.shape[1] % block, 0, -x.shape[0] % block))
 
+    def measured(fn):
+        """(ms, sha256 of the output's bytes)."""
+        out = fn()
+        torch.cuda.synchronize()
+        raw = out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        return {"ms": timed(fn), "hash": hashlib.sha256(raw).hexdigest()}
+
     out = {}
     for case in (c for c in cases if c in SINGLE):
         big = case in ("syrk", "matmul_padded")
         x = padded(a if big else a[:n // 4, :n // 4].contiguous())
         if case.startswith("syrk"):
-            out[case] = timed(lambda: k_syrk.syrk_packed(x, bk=block,
-                                                         bn=block))
+            out[case] = measured(lambda: k_syrk.syrk_packed(x, bk=block,
+                                                            bn=block))
         else:
             y = padded(torch.randn(x.shape, generator=gen, device=dev))
-            out[case] = timed(lambda: k_matmul.matmul_padded(
+            out[case] = measured(lambda: k_matmul.matmul_padded(
                 x, y, bm=block, bk=block, bn=block))
             del y
         del x
     for case in (c for c in cases if c not in SINGLE):
-        seed = None
+        seed, out_dtype = None, f32
         gram = "dps" if case == "ata_dps" else "strassen"
-        if case in ("ata", "ata_dps"):
-            spec, left = sf._prepare_ata(a, levels, "strassen", gram, block,
+        if case.startswith("ata"):
+            x = a.to(torch.bfloat16) if case == "ata_bf16" else a
+            spec, left = sf._prepare_ata(x, levels, "strassen", gram, block,
                                          block, pipeline_depth=depth)
             right = left
+            if case == "ata_bf16_out":
+                out_dtype = torch.bfloat16
         elif case == "aat":
             spec, left = sf._prepare_aat(a, levels, "strassen", gram, block,
                                          block, pipeline_depth=depth)
@@ -116,8 +130,8 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
             spec, left, right = sf._prepare_matmul(
                 a, a, levels, "strassen", block, block, block,
                 pipeline_depth=depth)
-        out[case] = timed(lambda: sf.leaf_program(spec, left, right, f32,
-                                                  seed=seed))
+        out[case] = measured(lambda: sf.leaf_program(spec, left, right,
+                                                     out_dtype, seed=seed))
         del left, right
     return {case: out[case] for case in cases}
 
@@ -175,16 +189,21 @@ def main() -> int:
                                      "--cases", args.cases]))
             runs[side].append(times)
             print(f"round {r} {side}: " + ", ".join(
-                f"{k} {v:.3f} ms" for k, v in times.items()), flush=True)
+                f"{k} {v['ms']:.3f} ms ({v['hash'][:12]})"
+                for k, v in times.items()), flush=True)
     summary = {}
     for case in cases:
-        med = {side: statistics.median(t[case] for t in runs[side])
+        med = {side: statistics.median(t[case]["ms"] for t in runs[side])
                for side in sides}
+        hashes = {t[case]["hash"] for side in sides for t in runs[side]}
         summary[case] = {**med, "change_over_parent":
-                         med["change"] / med["parent"]}
+                         med["change"] / med["parent"],
+                         "same_bits": len(hashes) == 1,
+                         "hash": sorted(hashes)}
         print(f"{case}: parent {med['parent']:.3f} ms, change "
               f"{med['change']:.3f} ms, change / parent "
-              f"{med['change'] / med['parent']:.4f}")
+              f"{med['change'] / med['parent']:.4f}; every run's output "
+              f"bits equal: {len(hashes) == 1}")
     print(json.dumps(summary))
     return 0
 
