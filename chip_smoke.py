@@ -78,6 +78,15 @@ failure exits non-zero):
        over the grid and a causal Sq 80 over Skv 40 (kv zero-padded as in
        the JAX package) against itself on the CPU; a bad head_dim, a view
        and an operand that requires grad refused;
+   3l. fp16 operands in the single-purpose kernels, through 3f-3j's
+       sweeps: syrk (fp16 in, out, or both; fp16 with bf16) and matmul
+       (fp16, and fp16 mixed with fp32 and bf16, which promote to fp32, and
+       fp16 outputs) at both tiles, bit-equal across tiles, within 1e-5 of
+       max|out| of the plain version for an fp32 output and 2^-10 for an
+       fp16 one (tighter than bf16's 2^-8); combine in fp16 bit-equal;
+       flash attention in fp16 on the tensor cores within fp16's own bars
+       (1.5e-3 of max|out|, 2^-8 row by row: bf16-precision arithmetic
+       would fail them), its planted fault above them;
 4. the main paths at n x n fp32 from ``--seed`` (the paper's n = 10000),
    each with the launch counts zeroed just before it and read just
    after, by kind and by library, checked against float64 on the card
@@ -108,7 +117,10 @@ failure exits non-zero):
        (49), ``ops.syrk``, ``ops.matmul``, ``ops.strassen_combine`` on the
        seven products of one Strassen level (C against float64 A B),
        ``ops.transpose``, and the refusal of an A that requires grad;
-       then each leaf configuration against its plain version;
+       the same recursion on fp16 A (16 and 22 fp16 leaves, fp32 out,
+       <= 2^-8 of max|C| against float64 of the fp16 A) and combine on the
+       seven products in fp16 (bit-equal to plain); then each leaf
+       configuration against its plain version;
    4g. ``ServingEngine`` serving Qwen2.5-3B at full width (36 layers, d
        2048, vocab 151936), bf16, ``attn_impl="flash"``, weights from a
        ``torch.Generator`` on the card seeded with ``--seed``: slots 4,
@@ -146,6 +158,18 @@ failure exits non-zero):
        (NaN once quantized) whose NaNs in the kernel's output lie where
        the plain version's do; each configuration then against its plain
        version (the fp64 accumulator bit-equal);
+   4j. the streamed Gram (``repro_torch.gram``): A in 4 chunks of n / 4
+       rows through ``GramStream`` (4 ata-kind launches, the n(n+1)/2
+       packed state) and ``GramStackStream`` (4 rank_k launches into the
+       T(T+1)/2-tile stack), each asserted, each finalize against the
+       one-shot ``ata(a)`` (<= 1e-5 of max|C|) and float64 (<= 1e-4), the
+       update ms of each chunk and the finalize ms printed;
+       ``CheckpointedGramStream`` in both layouts, committing every 2
+       chunks into a temporary directory, killed after 3 chunks and resumed
+       at chunk 2: ``torch.equal`` to the uninterrupted run, the commit and
+       restore ms (the port's tracer spans) and MB printed; one gradient
+       through each layout's update, dA against float64 A (S + S^t) <=
+       1e-4;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -174,7 +198,14 @@ failure exits non-zero):
    e4m3fn, e5m2 and fp16 tiles and the rank_k kind on an e4m3fn chunk
    (``leaf_products_lowp``), ata with a bf16 and an fp64 accumulator
    (``leaf_products_acc``), each bound counting the stored bytes at
-   their own element size and the kind's yardstick beside it.
+   their own element size and the kind's yardstick beside it.  fp16
+   operands in the single-purpose kernels (phase 3l): ``syrk`` and
+   ``matmul`` at the padded 10240^2 and the 2560^2 leaf, combine on seven
+   fp16 5120^2, flash attention at the serving prefill in fp16, each
+   against its plain version and beside its fp16 library call
+   (``torch.tril(a16.T @ a16)``, ``a16 @ b16``, fp16 SDPA), bound at the
+   fp16 tensor-core peak (989 TFLOP/s) or its bytes, whichever is
+   larger.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
@@ -189,10 +220,13 @@ import dataclasses
 import importlib
 import json
 import pathlib
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -241,11 +275,21 @@ FLASH_GRID = [(2, 64, 64, 4, 4, 32), (2, 64, 64, 8, 2, 32),
 # Qwen2.5-3B's attention: 16 query heads, 2 kv heads, head_dim 128, a
 # 2048-slot cache
 QWEN_HEADS, QWEN_KV_HEADS, QWEN_HEAD_DIM, MAX_SEQ = 16, 2, 128, 2048
-# Phase 3j's and phase 5's bars for the flash kernel against its plain
-# version, by dtype: (of max|out|, row by row).  The two round p at the
-# same place, so bf16 differs by the output's rounding: a one-ulp flip is
-# up to 2^-7 of an element.
-FLASH_BARS = {"float32": (1e-5, 1e-5), "bfloat16": (5e-3, 2 ** -6)}
+# Phase 3j's, 3l's and phase 5's bars for the flash kernel against its
+# plain version, by dtype: (of max|out|, row by row).  The two round p at
+# the same place, so bf16 differs by the output's rounding: a one-ulp flip
+# is up to 2^-7 of an element.  fp16's flip is up to 2^-10: its bars sit
+# ~3-4x above its sound readings (4.55e-4 of max|out|, 9.61e-4 by row on
+# an H100) and below what bf16-precision arithmetic reads there (2.8e-3,
+# 7.7e-3), so an fp16 kernel that packed p or staged operands in bf16
+# fails them.
+FLASH_BARS = {"float32": (1e-5, 1e-5), "bfloat16": (5e-3, 2 ** -6),
+              "float16": (1.5e-3, 2 ** -8)}
+# Phases 3f-3g's and 3l's bars for syrk and matmul against their plain
+# version, of max|out|, by output dtype: fp32 sums in another order, then
+# one rounding to a bf16 or fp16 output (a one-ulp flip of an element is
+# at most 2^-8, 2^-10 of max|out|: fp16's bar is the tighter).
+PRODUCT_BARS = {"float32": 1e-5, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
 # Phase 4g's bars, of max|logits|.  bf16: the engine's logits against the
 # same model with plain attention, in bf16 and in fp32, and its decode
 # against a no-cache bf16 forward.  Any bf16 rounding that differs, even
@@ -382,16 +426,18 @@ def _device_ms(fn, n=20):
 
 def _ptxas_flash(report: str) -> list:
     """Registers and spills of each flash-attention instantiation from
-    ``nvcc -Xptxas -v``: the bf16 tensor-core kernel by its head_dim and
-    the fp32 CUDA-core body by its own.  The tensor-core kernel's count is
-    its entry budget (384 threads); setmaxnreg moves the producer
-    warpgroup to 24 and the consumers to 240 after entry."""
+    ``nvcc -Xptxas -v``: the tensor-core kernel by its type (bf16, fp16)
+    and head_dim, the fp32 CUDA-core body by its head_dim.  The
+    tensor-core kernel's count is its entry budget (384 threads);
+    setmaxnreg moves the producer warpgroup to 24 and the consumers to
+    240 after entry."""
     stats, kind = {}, None
     for line in report.splitlines():
-        found = re.search(r"(flash_tc_kernel|flash_kernel)ILi(\d+)E", line)
+        found = re.search(r"(flash_tc_kernel|flash_kernel)ILi(\d+)E"
+                          r"(?:\d+(__nv_bfloat16|__half)E)?", line)
         if found:
-            kind = (f"bf16 tensor cores, D {found.group(2)}"
-                    if found.group(1) == "flash_tc_kernel"
+            kind = (f"{_TYPE_NAMES[found.group(3)]} tensor cores, D "
+                    f"{found.group(2)}" if found.group(1) == "flash_tc_kernel"
                     else f"fp32 CUDA cores, D {found.group(2)}")
             stats[kind] = {"regs": None, "spill": 0}
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -472,7 +518,10 @@ def main() -> int:
     from repro_torch.core.leaf_ir import compile_program
     from repro_torch.core.strassen import (
         AUTO_MAX_LEVELS, DEFAULT_LEAF, DEFAULT_LEVELS)
-    from repro_torch.core.symmetry import pack_tril_blocks, unpack_tril_blocks
+    from repro_torch.core.symmetry import (pack_tril_blocks, unpack_tril,
+                                           unpack_tril_blocks)
+    from repro_torch.gram import stream
+    from repro_torch.obs import trace as obs_trace
     from repro_torch.kernels import _build, _launch, ops
     from repro_torch.core.symmetry import tri_count
     from repro_torch.kernels import strassen_fused as sf
@@ -544,9 +593,9 @@ def main() -> int:
         print(f"  flash_attention {line}")
     smem = _build.library("flash_attention").flash_attention_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    print("  flash_attention dynamic shared memory by head_dim, fp32 / bf16: "
-          + ", ".join(f"{d}: {smem(d, 0)} / {smem(d, 1)} B"
-                      for d in k_flash.HEAD_DIMS))
+    print("  flash_attention dynamic shared memory by head_dim, fp32 / bf16 / "
+          "fp16: " + ", ".join(f"{d}: {smem(d, 0)} / {smem(d, 1)} / "
+                               f"{smem(d, 2)} B" for d in k_flash.HEAD_DIMS))
 
     plain = sf._leaf_products_plain
 
@@ -834,8 +883,9 @@ def main() -> int:
     def product_errors(errs, got, plain_out, want64):
         """Add (vs plain, vs float64) of a product, each of max|out|, to
         ``errs`` under its output dtype; held to 1e-5 and 1e-4 (2^-8 for a
-        bf16 output)."""
-        bar = 1e-5 if got.dtype == f32 else 2.0 ** -8
+        bf16 output, 2^-10 for an fp16 one: one rounding of the largest
+        element, tighter than bf16's bar)."""
+        bar = PRODUCT_BARS[str(got.dtype).removeprefix("torch.")]
         e_plain, e64 = _rel(got, plain_out.double()), _rel(got, want64)
         assert e_plain <= bar and e64 <= max(1e-4, bar), (e_plain, e64)
         errs.setdefault(got.dtype, []).append((e_plain, e64))
@@ -858,43 +908,54 @@ def main() -> int:
     def sweep_blocks(shape):
         return BLOCKS + WIDE_BLOCKS if shape[0] == 1000 else BLOCKS
 
+    def syrk_sweep(pairs, label):
+        """Every shape and block of 3f at each (input, output) dtype pair of
+        ``pairs``, at both tiles."""
+        for m, k in SHAPES_SYRK:
+            errs = {}
+            for blk in sweep_blocks((m, k)):
+                for dt, out_dt in pairs:
+                    xp = ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
+                    got = both_tiles("syrk", lambda tile: k_syrk.syrk_packed(
+                        xp, bk=blk, bn=blk, out_dtype=out_dt, tile=tile))
+                    x64 = xp.double()
+                    product_errors(errs, got,
+                                   k_syrk._syrk_packed_plain(xp, blk, f32),
+                                   pack_tril_blocks(x64.T @ x64, blk))
+            print(f"  {m} x {k}, blocks {sweep_blocks((m, k))}, {label}: "
+                  f"{error_summary(errs)}")
+
+    def matmul_sweep(cases, label):
+        """Every shape and block of 3g at each (a, b, output) dtype case of
+        ``cases`` (output None: the promoted type), at both tiles."""
+        for m, k, n_ in SHAPES_MM:
+            errs = {}
+            for blk in sweep_blocks((m, k, n_)):
+                for dta, dtb, out_dt in cases:
+                    xp = ops._pad_to(randn(m, k, dtype=dta), (blk, blk))
+                    yp = ops._pad_to(randn(k, n_, dtype=dtb), (blk, blk))
+                    got = both_tiles("matmul", lambda tile: k_matmul
+                                     .matmul_padded(xp, yp, bm=blk, bk=blk,
+                                                    bn=blk, out_dtype=out_dt,
+                                                    tile=tile))
+                    assert got.dtype == (out_dt
+                                         or torch.promote_types(dta, dtb))
+                    product_errors(errs, got,
+                                   k_matmul._matmul_padded_plain(xp, yp, f32),
+                                   xp.double() @ yp.double())
+            print(f"  {m} x {k} x {n_}, blocks {sweep_blocks((m, k, n_))}, "
+                  f"{label}: {error_summary(errs)}")
+
     print("== 3f. syrk against its plain version, at tiles 64 and 128 "
           "(bit-equal)")
-    for m, k in SHAPES_SYRK:
-        errs = {}
-        for blk in sweep_blocks((m, k)):
-            for dt, out_dt in ((f32, f32), (bf16, bf16), (bf16, f32),
-                               (f32, bf16)):
-                xp = ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
-                got = both_tiles("syrk", lambda tile: k_syrk.syrk_packed(
-                    xp, bk=blk, bn=blk, out_dtype=out_dt, tile=tile))
-                x64 = xp.double()
-                product_errors(errs, got,
-                               k_syrk._syrk_packed_plain(xp, blk, f32),
-                               pack_tril_blocks(x64.T @ x64, blk))
-        print(f"  {m} x {k}, blocks {sweep_blocks((m, k))}, fp32 and bf16 "
-              f"in: {error_summary(errs)}")
+    syrk_sweep(((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)),
+               "fp32 and bf16 in")
 
     print("== 3g. matmul against its plain version, at tiles 64 and 128 "
           "(bit-equal)")
-    for m, k, n_ in SHAPES_MM:
-        errs = {}
-        for blk in sweep_blocks((m, k, n_)):
-            for dta, dtb, out_dt in ((f32, f32, None), (bf16, bf16, None),
-                                     (bf16, f32, None), (bf16, bf16, f32),
-                                     (f32, f32, bf16)):
-                xp = ops._pad_to(randn(m, k, dtype=dta), (blk, blk))
-                yp = ops._pad_to(randn(k, n_, dtype=dtb), (blk, blk))
-                got = both_tiles("matmul", lambda tile: k_matmul
-                                 .matmul_padded(xp, yp, bm=blk, bk=blk,
-                                                bn=blk, out_dtype=out_dt,
-                                                tile=tile))
-                assert got.dtype == (out_dt or torch.promote_types(dta, dtb))
-                product_errors(errs, got,
-                               k_matmul._matmul_padded_plain(xp, yp, f32),
-                               xp.double() @ yp.double())
-        print(f"  {m} x {k} x {n_}, blocks {sweep_blocks((m, k, n_))}, fp32, "
-              f"bf16 and mixed in: {error_summary(errs)}")
+    matmul_sweep(((f32, f32, None), (bf16, bf16, None), (bf16, f32, None),
+                  (bf16, bf16, f32), (f32, f32, bf16)),
+                 "fp32, bf16 and mixed in")
     # what the wrappers pick at the wide blocks (1000x777, padded)
     for name, shape in (("syrk", k_syrk.syrk_launch_shape(
             816, bn=136, a_dtype=f32, out_dtype=f32)),
@@ -903,18 +964,22 @@ def main() -> int:
                 out_dtype=f32))):
         print(f"  {name} default launch at the wide blocks: {shape}")
 
+    def combine_sweep(dtypes, label):
+        for m, k in SHAPES_2D:
+            for blk in BLOCKS:
+                for dt in dtypes:
+                    mp = [ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
+                          for _ in range(7)]
+                    got = counted_launch("combine", lambda: k_combine
+                                         .strassen_combine(*mp, bm=blk,
+                                                           bn=blk))
+                    want = k_combine._strassen_combine_plain(*mp)
+                    assert all(torch.equal(g, w)
+                               for g, w in zip(got, want)), (m, k, blk, dt)
+            print(f"  {m} x {k}, blocks {BLOCKS}, {label}: bit-equal")
+
     print("== 3h. combine against its plain version (torch.equal)")
-    for m, k in SHAPES_2D:
-        for blk in BLOCKS:
-            for dt in (f32, bf16):
-                mp = [ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
-                      for _ in range(7)]
-                got = counted_launch("combine", lambda: k_combine
-                                     .strassen_combine(*mp, bm=blk, bn=blk))
-                want = k_combine._strassen_combine_plain(*mp)
-                assert all(torch.equal(g, w) for g, w in zip(got, want)), \
-                    (m, k, blk, dt)
-        print(f"  {m} x {k}, blocks {BLOCKS}, fp32 and bf16: bit-equal")
+    combine_sweep((f32, bf16), "fp32 and bf16")
 
     print("== 3i. transpose against its plain version (torch.equal)")
     for m, k in SHAPES_2D:
@@ -940,7 +1005,7 @@ def main() -> int:
             bn=32)),
         (ValueError, lambda: k_transpose.transpose_padded(x[:, :32], bm=32,
                                                           bn=32)),
-        (TypeError, lambda: k_combine.strassen_combine(*[x.half()] * 7,
+        (TypeError, lambda: k_combine.strassen_combine(*[x.double()] * 7,
                                                        bm=32, bn=32)),
         (RuntimeError, lambda: ops.matmul(x.clone().requires_grad_(), x)))
     before = dict(_launch.KERNEL_LAUNCHES)
@@ -951,7 +1016,7 @@ def main() -> int:
             continue
         raise AssertionError(f"not refused with {error.__name__}")
     assert _launch.KERNEL_LAUNCHES == before
-    print("  a transposed view, a misaligned view, a strided view, fp16 and "
+    print("  a transposed view, a misaligned view, a strided view, fp64 and "
           "an operand that requires grad are refused, nothing launched")
 
     print("== 3j. flash_attention against its plain version")
@@ -994,8 +1059,10 @@ def main() -> int:
             b, h, hkv, sq, skv, d, dt, kw, errs)
         return float((got.float() - want.float()).abs().max())
 
-    flash_err = 0.0
-    for dt in (f32, bf16):
+    def flash_sweep(dt):
+        """3j's sweep in ``dt``; returns the largest max|kernel - plain| at
+        Qwen2.5-3B's shapes."""
+        worst = 0.0
         for b_, sq, skv, h_, hkv, d in FLASH_GRID:
             flash_check(b_, h_, hkv, sq, skv, d, dt)
         for kw in ({"window": 16}, {"window": 48}):
@@ -1004,23 +1071,27 @@ def main() -> int:
         flash_check(2, 4, 2, 64, 64, 32, dt, causal=False)
         flash_check(1, 2, 2, 64, 96, 32, dt, causal=False)
         for sq in (128, 1000, MAX_SEQ):
-            err = flash_check(1, QWEN_HEADS, QWEN_KV_HEADS, sq, MAX_SEQ,
-                              QWEN_HEAD_DIM, dt)
-            if dt == bf16:
-                flash_err = max(flash_err, err)
+            worst = max(worst, flash_check(1, QWEN_HEADS, QWEN_KV_HEADS, sq,
+                                           MAX_SEQ, QWEN_HEAD_DIM, dt))
         flash_check(1, 4, 2, 512, 512, 256, dt, window=100, softcap=50.0)
         flash_check(1, 4, 2, 256, 320, 256, dt, causal=False, softcap=30.0)
-        # head_dim 80 (zamba2-2.7b's): bf16 runs it as 128 with zero columns
+        # head_dim 80 (zamba2-2.7b's): the tensor-core kernel runs it as 128
+        # with zero columns
         flash_check(2, 4, 4, 64, 64, 80, dt)
         flash_check(1, 8, 2, 300, 300, 80, dt)
         flash_check(1, 4, 2, 200, 260, 80, dt, window=50, softcap=30.0)
         flash_check(1, 4, 2, 160, 200, 80, dt, causal=False)
-    for dt_name, read in flash_read.items():
+        dt_name = str(dt).removeprefix("torch.")
+        read = flash_read[dt_name]
         print(f"  {dt_name}: largest sound error of max|out| "
               f"{read['sound'][0]:.3e}, by row {read['sound'][1]:.3e} (<= "
-              f"{FLASH_BARS[dt_name][0]:.0e}, {FLASH_BARS[dt_name][1]:.3e}); "
+              f"{FLASH_BARS[dt_name][0]:.1e}, {FLASH_BARS[dt_name][1]:.3e}); "
               f"least with rows past tile 0 zeroed {read['fault'][0]:.3e}, "
               f"by row {read['fault'][1]:.3e}")
+        return worst
+
+    flash_sweep(f32)
+    flash_err = flash_sweep(bf16)
     # the ops entry point on (B, S, H, D) against itself on the CPU (the
     # plain version), over the grid and a causal Sq > Skv, where kv is
     # zero-padded to the block as in the JAX package
@@ -1265,6 +1336,30 @@ def main() -> int:
                    for k in ("ata", "symm", "aat", "rank_k", "matmul")), lib
         assert all(precision_checked.get(f"{lib}: {k}, pair mode")
                    for k in ("ata", "aat", "rank_k")), lib
+
+    # -- 3l. fp16 operands in the single-purpose kernels ---------------------
+    print("== 3l. fp16 operands in syrk, matmul, combine and flash_attention "
+          "against their plain versions")
+    fp16 = torch.float16
+    before = dict(_launch.KERNEL_LAUNCHES)
+    print("  syrk, at tiles 64 and 128 (bit-equal):")
+    syrk_sweep(((fp16, fp16), (fp16, f32), (f32, fp16), (bf16, fp16),
+                (fp16, bf16)), "fp16 in or out")
+    print("  matmul, at tiles 64 and 128 (bit-equal):")
+    matmul_sweep(((fp16, fp16, None), (fp16, bf16, None), (bf16, fp16, None),
+                  (fp16, f32, None), (f32, fp16, None), (fp16, fp16, f32),
+                  (f32, f32, fp16)),
+                 "fp16, and fp16 mixed with fp32 and bf16")
+    print("  combine (torch.equal):")
+    combine_sweep((fp16,), "fp16")
+    print("  flash_attention, on the tensor cores:")
+    flash_err16 = flash_sweep(fp16)
+    f16_launches = {k: v - before[k]
+                    for k, v in _launch.KERNEL_LAUNCHES.items()}
+    print(f"  fp16 branches held against their plain versions: "
+          f"{f16_launches}")
+    assert all(f16_launches[k] for k in ("syrk", "matmul", "combine",
+                                         "flash_attention"))
 
     # -- 4. main paths ----------------------------------------------------------
     n = args.n
@@ -1576,17 +1671,17 @@ def main() -> int:
                  base_matmul=ops.kernel_base_matmul())
     path_launches = dict.fromkeys(_launch.KERNEL_LAUNCHES, 0)
 
-    def counted(label, fn, **want):
+    def counted(label, fn, tally=path_launches, **want):
         """Run ``fn`` with the counts zeroed just before and read just
         after; every count of ``want`` must match, and no leaf program
-        may run."""
+        may run.  The counts add up in ``tally``."""
         reset_counts()
         out = fn()
         got = read_counts(label)
         assert all(got[k] == v for k, v in want.items()), (label, want)
         assert not any(got[k] for k in sf.KERNEL_LAUNCHES), label
-        for k in path_launches:
-            path_launches[k] += got[k]
+        for k in tally:
+            tally[k] += got[k]
         return out
 
     s_leaves, m_leaves = hooked_leaves(n, n, DEFAULT_LEVELS, DEFAULT_LEAF)
@@ -1654,6 +1749,31 @@ def main() -> int:
     assert torch.equal(t, a.T)
     del t, a64, b64
     print("ops.transpose(a) equals a.T")
+    # fp16 A through the same recursion: every leaf a kernel's fp16
+    # instantiation, the result in fp32 (the promoted type, as the JAX
+    # package's); the seven products in fp16, recombined in fp16
+    path16 = dict.fromkeys(_launch.KERNEL_LAUNCHES, 0)
+    a16 = a.half()
+    c16 = counted("ata(fp16 a) with kernel leaves", lambda: ata(a16, **hooks),
+                  tally=path16, syrk=s_leaves, matmul=m_leaves, combine=0,
+                  transpose=0)
+    assert c16.shape == (n, n) and c16.dtype == f32
+    assert bool(torch.isfinite(c16).all())
+    x64 = a16.double()
+    e16 = _rel(c16, torch.tril(x64.T @ x64))
+    del c16, x64
+    prods16 = [p_.half() for p_ in prods]
+    q16 = counted("ops.strassen_combine on seven fp16 products",
+                  lambda: ops.strassen_combine(*prods16), tally=path16,
+                  combine=1)
+    assert all(q.dtype == torch.float16 and torch.equal(q, p_) for q, p_ in
+               zip(q16, k_combine._strassen_combine_plain(*prods16)))
+    del q16, prods16
+    print(f"ata(fp16 a) with kernel leaves vs float64 of the fp16 A: "
+          f"{e16:.3e} (<= 2^-8: fp16 leaves and sums, bf16's bar); "
+          f"strassen_combine of the fp16 products bit-equal to plain; "
+          f"fp16 launches {path16}")
+    assert e16 <= 2.0 ** -8
     x = a.clone().requires_grad_()
     for call in (lambda: ata(x, **hooks), lambda: ops.syrk(x),
                  lambda: ops.matmul(x, b)):
@@ -2072,6 +2192,154 @@ def main() -> int:
                                     fap, fap, 0, out_dtype=fp64))
     del a64
 
+    # -- 4j. streaming the Gram ------------------------------------------------
+    print(f"== 4j. main path: the streamed Gram, A ({n} x {n}) in {chunks} "
+          f"chunks of {rows} rows, packed (GramStream) and tile-stack "
+          f"(GramStackStream), checkpointed every 2 chunks, killed after 3 "
+          f"and resumed")
+    parts = [a[i * rows:(i + 1) * rows] for i in range(chunks)]
+    c_one = ata(a)
+    a64 = a.double()
+    want = torch.tril(a64.T @ a64)
+    del a64
+
+    def timed(fn):
+        """``fn()`` and its time in ms between two CUDA events."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def vs_one_shot(label, c):
+        """The lower triangle of a streamed Gram against the one-shot
+        ``ata(a)`` (<= 1e-5 of max|C|) and float64 (<= 1e-4)."""
+        low = torch.tril(c)
+        e_one, e64 = _rel(low, c_one.double()), _rel(low, want)
+        print(f"  {label} vs one-shot ata(a): {e_one:.3e} (<= 1e-5); vs "
+              f"float64: {e64:.3e} (<= 1e-4)")
+        assert e_one <= 1e-5 and e64 <= 1e-4, (label, e_one, e64)
+        return {"vs_one_shot": e_one, "vs_float64": e64}
+
+    streamed = {}
+    for layout, kind in (("packed", "ata"), ("stack", "rank_k")):
+        strm = stream.init(n) if layout == "packed" else stream.stack_init(n)
+        step = stream.update if layout == "packed" else stream.stack_update
+        reset_counts()
+        update_ms = []
+        for x in parts:
+            strm, ms_ = timed(lambda: step(strm, x))
+            update_ms.append(ms_)
+        got = read_counts(f"the {layout} stream")
+        lib_key = f"leaf_products.cu/{kind}"
+        assert got[f"leaf_program/{kind}"] == got[lib_key] == chunks, got
+        assert sum(v for k, v in got.items()
+                   if k.startswith("leaf_program/")) == chunks, got
+        assert int(strm.rows) == n and strm.rows.dtype == torch.int32
+        state = strm.packed if layout == "packed" else strm.stack
+        assert bool(torch.isfinite(state).all())
+        fin = (lambda: stream.finalize(strm)) if layout == "packed" else \
+            (lambda: stream.stack_finalize(strm, n))
+        c_st, fin_ms = timed(fin)
+        assert c_st.shape == (n, n) and torch.equal(c_st, c_st.T)
+        shape = (f"{state.shape[0] // strm.block} tiles of {strm.block}^2"
+                 if layout == "stack" else f"{state.numel()} words")
+        print(f"  {layout}: {chunks} {kind}-kind launches of "
+              f"leaf_products.cu; state {shape}, "
+              f"{state.numel() * state.element_size() / 1e6:.1f} MB; update "
+              f"ms by chunk {[round(t_, 3) for t_ in update_ms]}; finalize "
+              f"(dense, mirrored) {fin_ms:.3f} ms")
+        streamed[layout] = {"kind": kind, "launches": got[lib_key],
+                            "update_ms": update_ms, "finalize_ms": fin_ms,
+                            "state_bytes": state.numel()
+                            * state.element_size(),
+                            **vs_one_shot(layout, c_st)}
+        del strm, state, c_st
+    assert streamed["stack"]["state_bytes"] == \
+        tri_count(-(-n // DEFAULT_BLOCK)) * DEFAULT_BLOCK ** 2 * 4
+    # Crash recovery: an uninterrupted checkpointed run, and one killed
+    # after 3 chunks (its last commit at chunk 2) and resumed there; the
+    # commits' and the restore's times from the port's tracer.
+    tracer = obs_trace.set_tracer(obs_trace.Tracer(enabled=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        for layout in ("packed", "stack"):
+            ref_s = stream.CheckpointedGramStream(n, f"{tmp}/{layout}-ref",
+                                                every=2, layout=layout)
+            for x in parts:
+                ref_s.update(x)
+            ref_c = ref_s.finalize()
+            del ref_s
+            shutil.rmtree(f"{tmp}/{layout}-ref")
+            wal = f"{tmp}/{layout}-wal"
+            s1 = stream.CheckpointedGramStream(n, wal, every=2, layout=layout)
+            for x in parts[:3]:
+                s1.update(x)
+            del s1
+            commits = [e_.duration_s * 1e3 for e_ in tracer.events()
+                       if e_.name == "stream_commit"
+                       and e_.attrs.get("layout") == layout]
+            tracer.clear()
+            s2 = stream.CheckpointedGramStream(n, wal, every=2, layout=layout)
+            (restore,) = [e_.duration_s * 1e3 for e_ in tracer.events()
+                          if e_.name == "stream_restore"]
+            assert s2.resumed and s2.next_chunk == 2, s2.next_chunk
+            state = s2.state.packed if layout == "packed" else s2.state.stack
+            assert state.device.type == "cuda" and int(s2.state.rows) == \
+                2 * rows
+            for i, x in enumerate(parts):
+                if i >= s2.next_chunk:
+                    s2.update(x)
+            out = s2.finalize()
+            same = torch.equal(out, ref_c)
+            npz = os.path.getsize(f"{wal}/step_{chunks:08d}/state.npz")
+            print(f"  {layout}, checkpointed: resumed at chunk "
+                  f"{2} after a kill at 3, finalize torch.equal to the "
+                  f"uninterrupted run: {same}; commit ms "
+                  f"{[round(t_, 1) for t_ in commits]}, restore "
+                  f"{restore:.1f} ms, of {npz / 1e6:.1f} MB (state.npz)")
+            assert same, layout
+            streamed[layout].update(commit_ms=commits, restore_ms=restore,
+                                    checkpoint_bytes=npz,
+                                    resumed_bit_equal=same)
+            del s2, state, out, ref_c
+    obs_trace.set_tracer(None)
+    # One gradient through each layout's update: the packed one through
+    # the gather and the ata kind's backward, the stack one through the
+    # rank_k kind's (not donated); dA against float64 A (S + S^t).
+    x = parts[0].clone().requires_grad_()
+    wv = randn(n * (n + 1) // 2)
+    reset_counts()
+    st1 = stream.update(stream.init(n), x)
+    (g,) = torch.autograd.grad((wv * st1.packed).sum(), x)
+    got = read_counts("a gradient through a packed update")
+    assert got[ATA] == 1 and got[SYMM] >= 1, got
+    wl = unpack_tril(wv, n, symmetrize=False).double()
+    e_gp = _rel(g, parts[0].double() @ (wl + wl.T))
+    del wl, wv, st1, g
+    ss0 = stream.stack_init(n)
+    s0 = ss0.stack.requires_grad_()
+    wq = randn(*s0.shape)
+    x = parts[0].clone().requires_grad_()
+    reset_counts()
+    out = stream.stack_update(stream.GramStackStream(stack=s0, rows=ss0.rows),
+                            x)
+    g_stack, g = torch.autograd.grad((wq * out.stack).sum(), (s0, x))
+    got = read_counts("a gradient through a stack update")
+    assert got[RANK_K] == 1 and got[SYMM] >= 1, got
+    assert torch.equal(g_stack, wq) and out.stack.data_ptr() != s0.data_ptr()
+    sw = unpack_tril_blocks(wq, ss0.n_padded, DEFAULT_BLOCK,
+                            symmetrize=False).double()
+    e_gs = _rel(g, (F.pad(parts[0].double(), (0, ss0.n_padded - n))
+                    @ (sw + sw.T))[:, :n])
+    del sw, wq, s0, ss0, out, g_stack, g, x, parts, c_one, want
+    print(f"  dA through a packed update vs float64 A (S + S^t): {e_gp:.3e}; "
+          f"through a stack update: {e_gs:.3e} (each <= 1e-4)")
+    assert e_gp <= 1e-4 and e_gs <= 1e-4
+    streamed["packed"]["grad_vs_float64"] = e_gp
+    streamed["stack"]["grad_vs_float64"] = e_gs
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
     print(f"card: {smi}")
@@ -2369,20 +2637,23 @@ def main() -> int:
             out[tile] = {"ms": t_ms, **shape}
         return default, out
 
-    def leaf_row(name, label, launch, flops, io_bytes, library, shape_of,
-                 launches, shape):
+    def leaf_row(name, label, launch, plain_fn, flops, io_bytes, library,
+                 shape_of, launches, shape):
         """The kernel at the recursion's leaf: its time against its own
-        bound and library call (timed only), at both tiles; ``launches``:
-        the path's leaves of this shape, as phase 4f asserted them."""
+        bound, plain version (once) and library call (timed only), at both
+        tiles; ``launches``: the path's leaves of this shape, as phase 4f
+        asserted them."""
         t_ms, runs = _time_ms(lambda: launch(None))
+        p_ms, _ = _time_ms(plain_fn, reps=1, warmup=0)
         l_ms, l_runs = _time_ms(library[1])
         print(f"{name} kernel at the recursion's leaf {label}: {t_ms:.3f} ms "
-              f"(runs {runs}); {library[0]}: {l_ms:.3f} ms (runs {l_runs})")
+              f"(runs {runs}); plain version, once: {p_ms:.3f} ms; "
+              f"{library[0]}: {l_ms:.3f} ms (runs {l_runs})")
         b_ms, b_by = roofline(f"{name} at the leaf", flops, io_bytes)
         tile, by_tile = tile_times(f"{name} leaf", launch, shape_of)
         return {"shape": shape, "leaf_launches": launches, "ms": t_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-                "tile": tile, "tiles": by_tile}
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": l_ms, "tile": tile, "tiles": by_tile}
 
     B = DEFAULT_BLOCK
     ap, bp = ops._pad_to(a, (B, B)), ops._pad_to(b, (B, B))
@@ -2406,7 +2677,8 @@ def main() -> int:
     syrk_leaf = leaf_row(
         "syrk", f"{tuple(leaf.shape)}",
         lambda t: k_syrk.syrk_packed(leaf, bk=B, bn=B, tile=t),
-        hs * hs * (hs + 1), (leaf.numel() + tri_count(NL // B) * B * B) * 4,
+        lambda: k_syrk._syrk_packed_plain(leaf, B, f32), hs * hs * (hs + 1),
+        (leaf.numel() + tri_count(NL // B) * B * B) * 4,
         ("torch.tril(leaf.T @ leaf)", lambda: torch.tril(leaf.T @ leaf)),
         lambda t: k_syrk.syrk_launch_shape(NL, bn=B, a_dtype=f32,
                                            out_dtype=f32, tile=t),
@@ -2430,6 +2702,7 @@ def main() -> int:
         "matmul", f"{tuple(leaf.shape)} @ {tuple(leaf_b.shape)}",
         lambda t: k_matmul.matmul_padded(leaf, leaf_b, bm=B, bk=B, bn=B,
                                          tile=t),
+        lambda: k_matmul._matmul_padded_plain(leaf, leaf_b, f32),
         2 * hs ** 3, 3 * NL * NL * 4, ("leaf @ leaf_b", lambda: leaf @ leaf_b),
         lambda t: k_matmul.matmul_launch_shape(
             NL, NL, bm=B, bn=B, a_dtype=f32, b_dtype=f32, out_dtype=f32,
@@ -2448,6 +2721,7 @@ def main() -> int:
     single("combine", ms, plain_ms, None, 10 * H * H, 11 * H * H * 4,
            library_note="no single PyTorch call computes the four quadrants",
            shape=[H, H])
+    prods16_5 = [x.half() for x in prods]
     del mp, prods
     # transpose: ops.transpose(a), the kernel on the padded A
     ms, plain_ms, lib_ms = time_kernel(
@@ -2549,7 +2823,103 @@ def main() -> int:
             "fp32_decode_vs_no_cache": e_dec32,
             "profile": {"prefill_2032": prof_prefill,
                         "decode_tick": prof_decode}}))
-    del fq, fk, fv, got, want
+    # fp16 operands, phase 3l's branches, at the main path's shapes: each
+    # bound at the fp16 tensor-core peak (989 TFLOP/s, bf16's) or its bytes
+    # at fp16's two a element, whichever is larger; the yardsticks in fp16
+    fp16 = torch.float16
+    by_name = {k_["name"]: k_ for k_ in kernels if k_["name"] in KERNELS}
+
+    def fp16_row(label, kernel, plain_fn, library, flops, io_bytes,
+                 launches, bar, peak=PEAK_BF16_FLOPS, **extra):
+        """An fp16 kernel's time against its bound, plain version and
+        library call, and its result against the plain version's."""
+        ms, plain_ms, lib_ms = time_kernel(label, kernel, plain_fn, library)
+        bound_ms, bound_by = roofline(label, flops, io_bytes, peak=peak)
+        got, ref = kernel(), plain_fn()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        assert all(g_.dtype == fp16 for g_ in got), label
+        err = max(float((g_.float() - r_.float()).abs().max())
+                  for g_, r_ in zip(got, ref))
+        rel = max(_rel(g_, r_.double()) for g_, r_ in zip(got, ref))
+        print(f"  {label}: kernel vs plain max|d| {err:.3e}, of max|out| "
+              f"{rel:.3e} (<= {bar:.3e})")
+        assert rel <= bar, (label, rel)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "launches": launches, "max_abs_err": err, **extra}
+
+    a16, b16 = (ops._pad_to(x.half(), (B, B)) for x in (a, b))
+    leaf16, leaf16_b = (ops._pad_to(x[:hs, :hs].half(), (B, B))
+                        for x in (a, b))
+    f16_bar = PRODUCT_BARS["float16"]
+    syrk16 = fp16_row(
+        f"syrk kernel, fp16 {tuple(a16.shape)}",
+        lambda: k_syrk.syrk_packed(a16, bk=B, bn=B),
+        lambda: k_syrk._syrk_packed_plain(a16, B, fp16),
+        ("torch.tril(a16.T @ a16)", lambda: torch.tril(a16.T @ a16)),
+        n * n * (n + 1), (a16.numel() + tri_count(T) * B * B) * 2,
+        path16["syrk"], f16_bar, phase_3l_launches=f16_launches["syrk"],
+        tile=k_syrk.syrk_launch_shape(N, bn=B, a_dtype=fp16,
+                                      out_dtype=fp16)["tile"])
+    syrk16["leaf"] = fp16_row(
+        f"syrk kernel, fp16 leaf {tuple(leaf16.shape)}",
+        lambda: k_syrk.syrk_packed(leaf16, bk=B, bn=B),
+        lambda: k_syrk._syrk_packed_plain(leaf16, B, fp16),
+        ("torch.tril(leaf16.T @ leaf16)",
+         lambda: torch.tril(leaf16.T @ leaf16)),
+        hs * hs * (hs + 1), (leaf16.numel() + tri_count(NL // B) * B * B) * 2,
+        path16["syrk"], f16_bar)
+    matmul16 = fp16_row(
+        f"matmul kernel, fp16 {tuple(a16.shape)} @ {tuple(b16.shape)}",
+        lambda: k_matmul.matmul_padded(a16, b16, bm=B, bk=B, bn=B),
+        lambda: k_matmul._matmul_padded_plain(a16, b16, fp16),
+        ("a16 @ b16", lambda: a16 @ b16), 2 * n * n * n, 3 * N * N * 2,
+        path16["matmul"], f16_bar,
+        phase_3l_launches=f16_launches["matmul"],
+        tile=k_matmul.matmul_launch_shape(N, N, bm=B, bn=B, a_dtype=fp16,
+                                          b_dtype=fp16,
+                                          out_dtype=fp16)["tile"])
+    matmul16["leaf"] = fp16_row(
+        f"matmul kernel, fp16 leaf {tuple(leaf16.shape)} @ "
+        f"{tuple(leaf16_b.shape)}",
+        lambda: k_matmul.matmul_padded(leaf16, leaf16_b, bm=B, bk=B, bn=B),
+        lambda: k_matmul._matmul_padded_plain(leaf16, leaf16_b, fp16),
+        ("leaf16 @ leaf16_b", lambda: leaf16 @ leaf16_b), 2 * hs ** 3,
+        3 * NL * NL * 2, path16["matmul"], f16_bar)
+    del a16, b16, leaf16, leaf16_b
+    mp16 = [ops._pad_to(x, (B, B)) for x in prods16_5]
+    combine16 = fp16_row(
+        f"combine kernel, seven fp16 {tuple(mp16[0].shape)}",
+        lambda: k_combine.strassen_combine(*mp16, bm=B, bn=B),
+        lambda: k_combine._strassen_combine_plain(*mp16), None,
+        10 * H * H, 11 * H * H * 2, path16["combine"], 0.0,
+        peak=PEAK_FP32_FLOPS, phase_3l_launches=f16_launches["combine"],
+        library_note="no single PyTorch call computes the four quadrants")
+    del mp16, prods16_5
+    fq16, fk16, fv16 = (x.half() for x in (fq, fk, fv))
+    flash16 = fp16_row(
+        f"flash_attention kernel, fp16 q {tuple(fq16.shape)}, k/v "
+        f"{tuple(fk16.shape)}, causal",
+        lambda: k_flash.flash_attention(fq16, fk16, fv16),
+        lambda: k_flash._flash_attention_plain(fq16, fk16, fv16, **opts),
+        ("F.scaled_dot_product_attention(q16, k16, v16, is_causal=True, "
+         "enable_gqa=True)",
+         lambda: F.scaled_dot_product_attention(fq16, fk16, fv16,
+                                                is_causal=True,
+                                                enable_gqa=True)),
+        QWEN_HEADS * pairs * 4 * QWEN_HEAD_DIM,
+        (2 * fq16.numel() + 2 * fk16.numel()) * 2, 0,
+        FLASH_BARS["float16"][0], phase_3l_launches=f16_launches[
+            "flash_attention"], phase_3l_max_abs_err=flash_err16,
+        device_ms=_device_ms(lambda: k_flash.flash_attention(fq16, fk16,
+                                                             fv16)),
+        library_device_ms=_device_ms(
+            lambda: F.scaled_dot_product_attention(
+                fq16, fk16, fv16, is_causal=True, enable_gqa=True)))
+    for name, row in (("syrk", syrk16), ("matmul", matmul16),
+                      ("combine", combine16), ("flash_attention", flash16)):
+        by_name[name]["fp16"] = row
+    del fq, fk, fv, got, want, fq16, fk16, fv16
 
     # The precision axes' libraries at their main-path shapes (phase 4i):
     # each bound counts the stored operand bytes at their own element size;
@@ -2614,6 +2984,14 @@ def main() -> int:
         library="leaf_products_acc", acc_dtype="bfloat16", branches=acc,
         quantized_vs_float64=quant_errs, shape=[n, n]))
     del bap, fap, prec_specs, rk8_x, stack8
+
+    # the streamed Gram's launches and times (phase 4j) beside the kinds
+    # it ran
+    for layout, info in streamed.items():
+        row = next(k_ for k_ in kernels if k_.get("kind") == info["kind"]
+                   and k_.get("library") == "leaf_products"
+                   and k_.get("gram", "strassen") == "strassen")
+        row["stream"] = {"layout": layout, **info}
 
     # -- 6. summary -------------------------------------------------------------
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")

@@ -2,7 +2,8 @@
 from .ata import ata, ata_full, ata_levels_for
 from .strassen import strassen_matmul, strassen_levels_for
 from .symmetry import (
-    pack_tril_blocks, unpack_tril_blocks, tril_vector_from_blocks,
+    pack_tril, unpack_tril, pack_tril_blocks, unpack_tril_blocks,
+    tril_vector_from_blocks,
     symmetrize_from_lower, tri_count, tri_index, tri_coords,
 )
 from .leaf_ir import (
@@ -16,6 +17,7 @@ __all__ = [
     "strassen_matmul", "strassen_levels_for", "leaf_ir",
     "compile_program", "interpret_program", "register_algebra",
     "registered_algebras", "import_algebras", "PROGRAM_KINDS",
-    "pack_tril_blocks", "unpack_tril_blocks", "tril_vector_from_blocks",
+    "pack_tril", "unpack_tril", "pack_tril_blocks", "unpack_tril_blocks",
+    "tril_vector_from_blocks",
     "symmetrize_from_lower", "tri_count", "tri_index", "tri_coords",
 ]

@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["tri_count", "tri_index", "tri_coords", "pack_tril_blocks",
-           "unpack_tril_blocks", "tril_vector_from_blocks",
-           "symmetrize_from_lower"]
+__all__ = ["tri_count", "tri_index", "tri_coords", "pack_tril",
+           "unpack_tril", "pack_tril_blocks", "unpack_tril_blocks",
+           "tril_vector_from_blocks", "symmetrize_from_lower"]
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -43,6 +43,35 @@ def tri_coords(t: int) -> torch.Tensor:
     """(tri_count(t), 2) int32 tensor of (i, j) for linear indices 0.. ."""
     rows, cols = torch.tril_indices(t, t)
     return torch.stack([rows, cols], dim=1).to(torch.int32)
+
+
+def _tril_mask(n: int, device) -> torch.Tensor:
+    """(n, n) bool, True on and below the diagonal.  Boolean indexing
+    walks it row-major, so its True elements come in the order of
+    ``jnp.tril_indices(n)``: row i's columns 0..i, rows in turn.  n^2
+    bytes, made per call (100 MB at n = 10000) where the index pair of
+    ``tril_indices`` would hold n(n+1) int64 (800 MB)."""
+    return torch.ones((n, n), dtype=torch.bool, device=device).tril_()
+
+
+def pack_tril(c) -> torch.Tensor:
+    """Dense symmetric/lower (n, n) -> packed vector of n(n+1)/2 entries,
+    in ``jnp.tril_indices`` order (row-major over the lower triangle)."""
+    c = _as_tensor(c)
+    return c[_tril_mask(c.shape[0], c.device)]
+
+
+def unpack_tril(packed, n: int, *, symmetrize: bool = True) -> torch.Tensor:
+    """Packed n(n+1)/2 vector -> dense (n, n); mirrors to the upper half when
+    ``symmetrize`` (C12 = C21^t, per the paper), as the JAX package's
+    ``c + c.T - diag(diag(c))``."""
+    packed = _as_tensor(packed)
+    mask = _tril_mask(n, packed.device)
+    c = torch.zeros((n, n), dtype=packed.dtype,
+                    device=packed.device).masked_scatter(mask, packed)
+    if symmetrize:
+        c = c + c.T - torch.diag(torch.diagonal(c))
+    return c
 
 
 def pack_tril_blocks(c, bn: int) -> torch.Tensor:
@@ -75,17 +104,36 @@ def unpack_tril_blocks(packed, n: int, bn: int,
     return c
 
 
+def _tril_gather_index(bn: int, n: int, device) -> torch.Tensor:
+    """The flat offsets into a (tri_count(T)*bn, bn) stack of the lower
+    triangle's elements, in ``pack_tril`` order: element (r, c), r >= c,
+    lies in tile (r // bn, c // bn) at (r % bn, c % bn).  Closed form on
+    ``device``: row r holds r + 1 elements, so each element's row comes
+    from ``repeat_interleave`` given its output size and its column from
+    the row's start (no host sync, no n^2 intermediate).  int32 where the
+    offsets fit (4 bytes an element, 200 MB at n = 10000), made per call
+    and freed with its result."""
+    t = -(-n // bn)
+    size = tri_count(n)
+    itype = (torch.int32 if max(tri_count(t) * bn * bn, n * (n + 1)) < 2 ** 31
+             else torch.int64)
+    r = torch.repeat_interleave(
+        torch.arange(1, n + 1, dtype=itype, device=device), output_size=size)
+    c = torch.arange(size, dtype=itype, device=device).sub_(r * (r + 1) // 2)
+    # ((tile row's first tile + tile column) * bn + r % bn) * bn + c % bn
+    idx = tri_count(r // bn).add_(c // bn).mul_(bn).add_(r % bn).mul_(bn)
+    return idx.add_(c % bn)
+
+
 def tril_vector_from_blocks(packed, bn: int, n: int) -> torch.Tensor:
     """Element-packed tril vector (n(n+1)/2,) straight from a packed
     lower-triangular *block* stack ((tri_count(T)*bn, bn) over a padded
-    T*bn >= n grid) — one gather, the dense (n, n) never materializes."""
+    T*bn >= n grid) — one gather (:func:`_tril_gather_index`), the dense
+    (n, n) never materializes; its backward scatters into the stack, so
+    a packed cotangent stays packed."""
     packed = _as_tensor(packed)
-    rows, cols = np.tril_indices(n)
-    bi, bj = rows // bn, cols // bn
-    blk = bi * (bi + 1) // 2 + bj
-    gr = torch.from_numpy(blk * bn + rows % bn).to(packed.device)
-    gc = torch.from_numpy(cols % bn).to(packed.device)
-    return packed[gr, gc]
+    idx = _tril_gather_index(bn, n, packed.device)
+    return packed.reshape(-1).index_select(0, idx)
 
 
 def symmetrize_from_lower(c_lower) -> torch.Tensor:

@@ -25,8 +25,9 @@ from . import _build
 KERNEL_LAUNCHES = {"syrk": 0, "matmul": 0, "combine": 0, "transpose": 0,
                    "flash_attention": 0}
 
-# dtype codes of the C interfaces
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C interfaces of the syrk, matmul, combine and
+# flash-attention kernels: the element types they take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: Element types of ``csrc/leaf_products*.cu`` (its ``Dtype``): operand
 #: tiles (the first five), the seed stack and the output (fp32, bf16, fp16,
@@ -69,8 +70,8 @@ def check_blocks(kernel: str, **blocks) -> None:
 
 def check_dtype(kernel: str, name: str, dtype: torch.dtype) -> None:
     if dtype not in DTYPE_CODES:
-        raise TypeError(f"the {kernel} kernel takes float32 or bfloat16, "
-                        f"got {dtype} for {name}")
+        raise TypeError(f"the {kernel} kernel takes float32, bfloat16 or "
+                        f"float16, got {dtype} for {name}")
 
 
 def device_of(kernel: str, *xs: torch.Tensor) -> torch.device:

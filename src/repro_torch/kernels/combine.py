@@ -8,7 +8,9 @@ and writing each quadrant once.  On a CUDA tensor it launches
 ``csrc/combine.cu`` or raises; on a CPU tensor it runs
 :func:`_strassen_combine_plain`.  Both round after each add, in that
 order, so the kernel is bit-equal to the plain version on the card, bf16
-included.  Forward-only: an input that requires grad is refused.
+and fp16 included (each add rounded in the input dtype, as ``jnp``
+rounds each operation).  Forward-only: an input that requires grad is
+refused.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def strassen_combine(m1: torch.Tensor, m2: torch.Tensor, m3: torch.Tensor,
     """``(c11, c12, c21, c22)`` from the seven Strassen products.
 
     All seven share one shape (m, n) with m % bm == 0 and n % bn == 0
-    (``ops.strassen_combine`` pads) and one dtype, fp32 or bf16; the
+    (``ops.strassen_combine`` pads) and one dtype, fp32, bf16 or fp16; the
     quadrants come out in that dtype.
     """
     ms = (m1, m2, m3, m4, m5, m6, m7)

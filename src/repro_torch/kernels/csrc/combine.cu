@@ -10,14 +10,15 @@
 // What bounds it: bytes.  Seven reads and four writes of every element against ten adds: at
 // 5120^2 fp32 (one Strassen level at n = 10240) 1.15 GB at 3.35 TB/s, 0.34 ms, on an H100 SXM
 // at 700 W.  The design reads each input and writes each output once, in 16-byte vectors
-// (4 fp32 or 8 bf16 a thread and iteration), in a grid-stride loop over the flat arrays; the
-// tile blocks of the TPU kernel shape nothing here, except that padded to multiples of 8 the
-// arrays hold whole vectors.
+// (4 fp32, or 8 bf16 or fp16, a thread and iteration), in a grid-stride loop over the flat
+// arrays; the tile blocks of the TPU kernel shape nothing here, except that padded to multiples
+// of 8 the arrays hold whole vectors.
 //
 // Interface: plain C, loaded with ctypes.  The launcher returns cudaGetLastError() after the
 // launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +34,15 @@ __device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 a, __nv_bfloat16 b) {
 }
 __device__ __forceinline__ __nv_bfloat16 sub(__nv_bfloat16 a, __nv_bfloat16 b) {
   return __float2bfloat16_rn(__fsub_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+// fp16 (and bf16): fp32 carries at least 2 x 11 + 2 significand bits, so a sum rounded to fp32
+// and then to fp16 is the correctly rounded fp16 sum (double rounding is innocuous there), which
+// is what torch computes for each operation on fp16 tensors.
+__device__ __forceinline__ __half add(__half a, __half b) {
+  return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
+}
+__device__ __forceinline__ __half sub(__half a, __half b) {
+  return __float2half_rn(__fsub_rn(__half2float(a), __half2float(b)));
 }
 
 template <typename T>
@@ -94,7 +104,7 @@ const char* combine_error_string(int err) {
 }
 
 // (c11, c12, c21, c22) from m1..m7, all `numel` elements of one type, 16-byte aligned;
-// numel a multiple of 8 (whole 16-byte vectors).  dtype codes: 0 fp32, 1 bf16.
+// numel a multiple of 8 (whole 16-byte vectors).  dtype codes: 0 fp32, 1 bf16, 2 fp16.
 int combine_launch(const void* m1, const void* m2, const void* m3, const void* m4,
                    const void* m5, const void* m6, const void* m7, void* c11, void* c12,
                    void* c21, void* c22, long long numel, int dtype, void* stream) {
@@ -104,6 +114,7 @@ int combine_launch(const void* m1, const void* m2, const void* m3, const void* m
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(m, c, numel, s);
   if (dtype == 1) return launch<__nv_bfloat16>(m, c, numel, s);
+  if (dtype == 2) return launch<__half>(m, c, numel, s);
   return cudaErrorInvalidValue;
 }
 

@@ -25,11 +25,13 @@
 // the bf16 tensor cores at 989 TFLOP/s; q, k, v and o once are 18.9 MB, 0.0056 ms at
 // 3.35 TB/s.  So it is bound by the tensor cores' operations.
 //
-// bf16, the serving path: a kernel for the tensor cores (flash_tc_kernel below).
+// bf16, the serving path, and fp16: a kernel for the tensor cores (flash_tc_kernel below), one
+// instantiation a type; fp16 runs the same wgmma forms with .f16 operands, an fp16 tensor map and
+// p packed to fp16 (v's type) before P V.
 //   * Both products are wgmma.mma_async m64 x N x k16 with fp32 accumulators in registers.
 //     S = Q K^T reads Q and K from shared memory, both K-major (head_dim contiguous), so K
 //     needs no transpose.  O += P V takes P from registers: the fp32 S fragment, after the
-//     softmax and a cast to bf16, is already the A fragment of the next wgmma (the two
+//     softmax and a cast to v's type, is already the A fragment of the next wgmma (the two
 //     layouts match), and V is read N-major from shared memory with the transpose bit.
 //   * The online softmax runs on the accumulator fragments: a thread holds 2 rows, a row's
 //     max and sum reduce over the quad of threads that share it (__shfl_xor_sync 1, 2).  It
@@ -50,7 +52,7 @@
 //     so one's softmax runs under the other's products.
 //   * Tiles: BK = 128 kv rows at D <= 128 (Q 32 KB + 2 stages x (K 32 + V 32) KB = 160 KB
 //     of shared memory at D 128), 64 at D 256 (64 KB + 2 x 64 KB = 192 KB).  Every tile lies
-//     in slabs of 64 bf16 columns, 128 bytes a row, in the 128-byte swizzle that the TMA box
+//     in slabs of 64 16-bit columns, 128 bytes a row, in the 128-byte swizzle that the TMA box
 //     and the wgmma descriptors both name; slabs are 1024-byte aligned, so the swizzle phase
 //     of a row is its index mod 8.
 //   * Head dims 16 and 32 run the D 64 instantiation and 80 the D 128 one: TMA fills the
@@ -73,8 +75,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tma.cuh"
 
@@ -83,7 +88,7 @@ namespace {
 using namespace tma;
 
 constexpr float NEG_INF = -1e30f;
-constexpr int F32 = 0, BF16 = 1;
+constexpr int F32 = 0, BF16 = 1, F16 = 2;
 
 // ---- fp32: the CUDA-core body ---------------------------------------------------------------
 
@@ -280,14 +285,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 
 }  // namespace cuda_core
 
-// ---- bf16: the tensor-core kernel ------------------------------------------------------------
+// ---- bf16 and fp16: the tensor-core kernel ---------------------------------------------------
 
 namespace tc {
 
 constexpr int BQ = 128;                 // query rows per block: two consumer warpgroups of 64
 constexpr int STAGES = 2;               // depth of the K / V ring
 constexpr int THREADS = 384;            // the producer warpgroup and two consumers
-constexpr int SLAB = 64;                // bf16 columns of a 128-byte swizzled row
+constexpr int SLAB = 64;                // 16-bit columns of a 128-byte swizzled row
 constexpr int ROW_BYTES = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -338,177 +343,168 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The accumulator operands of an m64nNk16 wgmma: d[0 .. N / 2 - 1], N / 2 fp32 registers.
+#define ACC8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define ACC128 \
+  ACC64, ACC8(64), ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)
+// The A fragment of an RS wgmma: 4 registers of a, each two 16-bit elements.
+#define A_FRAG "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+
+// The PTX of the wgmma forms, for operands of type AB ("bf16" or "f16"): SS reads A and B
+// from shared memory (both K-major), RS reads A from 4 registers and B from shared memory
+// (N-major, the transpose bit set).  The first operand past the accumulators is the predicate
+// that scales D (0: D = A B).
+#define SS_N64(AB) \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+#define SS_N128(AB) \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63" \
+  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+#define RS_N64(AB) \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31" \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+#define RS_N128(AB) \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63" \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+#define RS_N256(AB) \
+  "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, " \
+  "%88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, " \
+  "%104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127" \
+  "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+
+// The tensor cores' operand type: bf16, or fp16 (the same wgmma forms, .f16).
+template <typename T>
+constexpr bool IS_F16 = std::is_same<T, __half>::value;
+
 // D (64 x 64) += A B, A (64 x 16) and B (16 x 64) in shared memory, both K-major.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+                                             int scale_d) {
+  if constexpr (IS_F16<T>)
+    asm volatile(SS_N64("f16") : ACC32 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(SS_N64("bf16") : ACC32 : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 128) += A B, A (64 x 16) and B (16 x 128) in shared memory, both K-major.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (IS_F16<T>)
+    asm volatile(SS_N128("f16") : ACC64 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(SS_N128("bf16") : ACC64 : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 64) += A B, A (64 x 16) bf16 in registers, B (16 x 64) in shared memory N-major.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+// D (64 x 64) += A B, A (64 x 16) in registers, B (16 x 64) in shared memory N-major.
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+  if constexpr (IS_F16<T>)
+    asm volatile(RS_N64("f16") : ACC32 : A_FRAG, "l"(db), "r"(scale_d));
+  else
+    asm volatile(RS_N64("bf16") : ACC32 : A_FRAG, "l"(db), "r"(scale_d));
 }
 
-// D (64 x 128) += A B, A (64 x 16) bf16 in registers, B (16 x 128) in shared memory N-major.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+// D (64 x 128) += A B, A (64 x 16) in registers, B (16 x 128) in shared memory N-major.
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  if constexpr (IS_F16<T>)
+    asm volatile(RS_N128("f16") : ACC64 : A_FRAG, "l"(db), "r"(scale_d));
+  else
+    asm volatile(RS_N128("bf16") : ACC64 : A_FRAG, "l"(db), "r"(scale_d));
 }
 
-// D (64 x 256) += A B, A (64 x 16) bf16 in registers, B (16 x 256) in shared memory N-major.
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+// D (64 x 256) += A B, A (64 x 16) in registers, B (16 x 256) in shared memory N-major.
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  if constexpr (IS_F16<T>)
+    asm volatile(RS_N256("f16") : ACC128 : A_FRAG, "l"(db), "r"(scale_d));
+  else
+    asm volatile(RS_N256("bf16") : ACC128 : A_FRAG, "l"(db), "r"(scale_d));
 }
 
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
-  else wgmma_ss_n128(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_ss_n64<T>(d, da, db, scale_d);
+  else wgmma_ss_n128<T>(d, da, db, scale_d);
 }
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
-  else wgmma_rs_n256(d, a, db, 1);
+  if constexpr (N == 64) wgmma_rs_n64<T>(d, a, db, 1);
+  else if constexpr (N == 128) wgmma_rs_n128<T>(d, a, db, 1);
+  else wgmma_rs_n256<T>(d, a, db, 1);
 }
 
-// 2^x by the SFU alone: results below 2^-126 flush to 0 (p there is below any bf16 output's
-// last place), and 2^-1.4e30, a masked score's, is 0.
+// 2^x by the SFU alone: results below 2^-126 flush to 0 (p there is below any bf16 or fp16
+// output's last place), and 2^-1.4e30, a masked score's, is 0.
 __device__ __forceinline__ float exp2_sfu(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
+// Two floats rounded to T (bf16 or fp16) and packed into one register, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (IS_F16<T>) {
+    const __half2 x = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  } else {
+    const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&x);
+  }
 }
 
 // The named barriers by which the two consumer warpgroups take turns to issue their products
@@ -530,20 +526,20 @@ struct Rows {
 
 // S = Q K^T of the warpgroup's 64 rows over one kv tile, issued and committed (not waited):
 // DP / 16 steps of 16 columns, 4 steps a 64-column slab, 32 bytes each.
-template <int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void issue_scores(float (&s)[Layout<DP>::BK / 2], unsigned q_addr,
                                              unsigned k_addr) {
   using L = Layout<DP>;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk)
-    wgmma_ss<L::BK>(s, descriptor(q_addr + (kk / 4) * L::Q_SLAB + (kk % 4) * 32, 16),
+    wgmma_ss<T, L::BK>(s, descriptor(q_addr + (kk / 4) * L::Q_SLAB + (kk % 4) * 32, 16),
                     descriptor(k_addr + (kk / 4) * L::KV_SLAB + (kk % 4) * 32, 16), kk > 0);
   wgmma_commit();
 }
 
 // O += P V over one kv tile, issued and committed: BK / 16 steps of 16 kv rows (2048 bytes).
-template <int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
                                          const uint32_t (&p)[Layout<DP>::BK / 16][4],
                                          unsigned v_addr) {
@@ -551,7 +547,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[DP / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < L::BK / 16; ++kk)
-    wgmma_rs<DP>(o, p[kk], descriptor(v_addr + kk * 16 * ROW_BYTES, L::KV_SLAB));
+    wgmma_rs<T, DP>(o, p[kk], descriptor(v_addr + kk * 16 * ROW_BYTES, L::KV_SLAB));
   wgmma_commit();
 }
 
@@ -616,23 +612,24 @@ __device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&corr)[
   fence_regs(o);
 }
 
-// p rounded to bf16 as the A fragments of P V: k-step kk is columns 16 kk .. 16 kk + 15, which
-// are s[8 kk .. 8 kk + 7] in the order the fragment wants.
-template <int BK>
+// p rounded to T (v's type, bf16 or fp16) as the A fragments of P V: k-step kk is columns
+// 16 kk .. 16 kk + 15, which are s[8 kk .. 8 kk + 7] in the order the fragment wants.  In fp16 a
+// p below 2^-24 rounds to 0 where bf16 keeps it; the plain version rounds p to v's type alike.
+template <typename T, int BK>
 __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&p)[BK / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int a = 0; a < 4; ++a) p[kk][a] = pack_bf16(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1]);
+    for (int a = 0; a < 4; ++a) p[kk][a] = pack2<T>(s[8 * kk + 2 * a], s[8 * kk + 2 * a + 1]);
 }
 
 // One block: q rows q0 .. q0 + 127 of head blockIdx.x, over kv tiles [t_lo, t_hi).  DP is
 // the instantiation's head_dim (d <= DP; columns past d arrive as zeros).
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
-                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* out, int heads,
+                    const __grid_constant__ CUtensorMap vmap, T* out, int heads,
                     int kv_heads, int sq, int skv, int d, float scale, float softcap,
                     int causal, int window) {
   using L = Layout<DP>;
@@ -717,12 +714,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (n > 0) {
       float s[BK / 2];
       mbar_wait(&k_full[0], 0);
-      issue_scores<DP>(s, q_addr, k_base);
+      issue_scores<T, DP>(s, q_addr, k_base);
       wgmma_wait<0>();
       fence_regs(s);
       mbar_arrive(&k_empty[0]);
       softmax<BK>(s, t_lo * BK, w, m, l, corr);   // o is 0: corr has nothing to scale
-      pack_p<BK>(s, p);
+      pack_p<T, BK>(s, p);
       if (c == 1) turn_pass(TURN);                // warpgroup 0 issues first
     }
     for (int i = 1; i < n; ++i) {
@@ -731,9 +728,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       rescale<DP>(o, corr);                      // before any wgmma of the turn is issued
       turn_wait(TURN + c);
       mbar_wait(&k_full[st], (i / STAGES) & 1);
-      issue_scores<DP>(s, q_addr, k_base + st * L::KV_BYTES);
+      issue_scores<T, DP>(s, q_addr, k_base + st * L::KV_BYTES);
       mbar_wait(&v_full[pst], ((i - 1) / STAGES) & 1);
-      issue_pv<DP>(o, p, v_base + pst * L::KV_BYTES);
+      issue_pv<T, DP>(o, p, v_base + pst * L::KV_BYTES);
       turn_pass(TURN + 1 - c);
       wgmma_wait<1>();
       fence_regs(s);
@@ -742,7 +739,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_wait<0>();
       fence_regs(o);
       mbar_arrive(&v_empty[pst]);
-      pack_p<BK>(s, p);
+      pack_p<T, BK>(s, p);
     }
     if (n > 0) {
       // the last tile's P V
@@ -750,33 +747,35 @@ __global__ void __launch_bounds__(THREADS, 1)
       rescale<DP>(o, corr);
       turn_wait(TURN + c);
       mbar_wait(&v_full[pst], ((n - 1) / STAGES) & 1);
-      issue_pv<DP>(o, p, v_base + pst * L::KV_BYTES);
+      issue_pv<T, DP>(o, p, v_base + pst * L::KV_BYTES);
       if (c == 0) turn_pass(TURN + 1);
       wgmma_wait<0>();
       fence_regs(o);
       mbar_arrive(&v_empty[pst]);
     }
 
-    // out = acc / max(l, 1e-30) in bf16; o[4 j + e] is row r + 8 (e / 2), column 8 j + cq + e % 2
+    // out = acc / max(l, 1e-30) in T; o[4 j + e] is row r + 8 (e / 2), column 8 j + cq + e % 2
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = w.r + 8 * hh;
       if (row >= sq) continue;
       const float lq = fmaxf(l[hh], 1e-30f);
-      __nv_bfloat16* dst = out + (static_cast<long long>(bh) * sq + row) * d;
+      T* dst = out + (static_cast<long long>(bh) * sq + row) * d;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + w.cq;
         if (col < d)
-          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
-              __floats2bfloat162_rn(o[4 * j + 2 * hh] / lq, o[4 * j + 2 * hh + 1] / lq);
+          *reinterpret_cast<uint32_t*>(dst + col) =
+              pack2<T>(o[4 * j + 2 * hh] / lq, o[4 * j + 2 * hh + 1] / lq);
       }
     }
   }
 }
 
-// The 3-D map (d, s, planes) of a contiguous bf16 (planes, s, d) operand, read in boxes of
-// 64 columns x box_rows rows under the 128-byte swizzle; reads past its edges give zeros.
+// The 3-D map (d, s, planes) of a contiguous (planes, s, d) operand of type T (bf16 or fp16),
+// read in boxes of 64 columns x box_rows rows under the 128-byte swizzle; reads past its edges
+// give zeros.
+template <typename T>
 bool make_map(CUtensorMap* map, const void* base, int d, int s, int planes, int box_rows) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
@@ -786,29 +785,31 @@ bool make_map(CUtensorMap* map, const void* base, int d, int s, int planes, int 
                                  static_cast<cuuint64_t>(s) * d * 2};
   const cuuint32_t box[3] = {SLAB, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      IS_F16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3, const_cast<void*>(base), dims,
                 strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DP, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
                    int heads, int kv_heads, int sq, int skv, int d, float scale, float softcap,
                    int causal, int window, cudaStream_t stream) {
   using L = Layout<DP>;
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, d, sq, batch * heads, BQ) ||
-      !make_map(&kmap, k, d, skv, batch * kv_heads, L::BK) ||
-      !make_map(&vmap, v, d, skv, batch * kv_heads, L::BK))
+  if (!make_map<T>(&qmap, q, d, sq, batch * heads, BQ) ||
+      !make_map<T>(&kmap, k, d, skv, batch * kv_heads, L::BK) ||
+      !make_map<T>(&vmap, v, d, skv, batch * kv_heads, L::BK))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+      flash_tc_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (sq + BQ - 1) / BQ);
-  flash_tc_kernel<DP><<<grid, THREADS, L::BYTES, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), heads, kv_heads, sq, skv, d, scale,
-      softcap, causal, window);
+  flash_tc_kernel<DP, T><<<grid, THREADS, L::BYTES, stream>>>(
+      qmap, kmap, vmap, static_cast<T*>(out), heads, kv_heads, sq, skv, d, scale, softcap,
+      causal, window);
   return cudaGetLastError();
 }
 
@@ -848,19 +849,21 @@ cudaError_t launch_f32(int d, const void* q, const void* k, const void* v, void*
   }
 }
 
-cudaError_t launch_bf16(int d, const void* q, const void* k, const void* v, void* out,
-                        int batch, int heads, int kv_heads, int sq, int skv, float scale,
-                        float softcap, int causal, int window, cudaStream_t s) {
+// The tensor-core kernel on bf16 or fp16 (T) operands.
+template <typename T>
+cudaError_t launch_tc(int d, const void* q, const void* k, const void* v, void* out, int batch,
+                      int heads, int kv_heads, int sq, int skv, float scale, float softcap,
+                      int causal, int window, cudaStream_t s) {
   switch (tc::padded_dim(d)) {
     case 64:
-      return tc::launch<64>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
-                            causal, window, s);
+      return tc::launch<64, T>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
+                               causal, window, s);
     case 128:
-      return tc::launch<128>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
-                             causal, window, s);
+      return tc::launch<128, T>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale,
+                                softcap, causal, window, s);
     default:
-      return tc::launch<256>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
-                             causal, window, s);
+      return tc::launch<256, T>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale,
+                                softcap, causal, window, s);
   }
 }
 
@@ -872,11 +875,11 @@ const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory a launch at head_dim d and dtype (0 fp32, 1 bf16) takes, in bytes (0 for an
-// unsupported d or dtype).
+// Shared memory a launch at head_dim d and dtype (0 fp32, 1 bf16, 2 fp16) takes, in bytes (0
+// for an unsupported d or dtype).
 int flash_attention_smem_bytes(int d, int dtype) {
   if (!supported(d)) return 0;
-  if (dtype == BF16) {
+  if (dtype == BF16 || dtype == F16) {
     switch (tc::padded_dim(d)) {
       case 64: return tc::Layout<64>::BYTES;
       case 128: return tc::Layout<128>::BYTES;
@@ -895,7 +898,7 @@ int flash_attention_smem_bytes(int d, int dtype) {
 }
 
 // out (B, H, Sq, D) = attention of q (B, H, Sq, D) over k, v (B, Hkv, Skv, D), all contiguous,
-// 16-byte aligned and of one dtype (0 fp32, 1 bf16).  d in {16, 32, 64, 80, 128, 256};
+// 16-byte aligned and of one dtype (0 fp32, 1 bf16, 2 fp16).  d in {16, 32, 64, 80, 128, 256};
 // heads % kv_heads == 0; window 0 means none, softcap 0 means none.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int batch,
                            int heads, int kv_heads, int sq, int skv, int d, float scale,
@@ -908,8 +911,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
     return launch_f32(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap, causal,
                       window, s);
   if (dtype == BF16)
-    return launch_bf16(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap, causal,
-                       window, s);
+    return launch_tc<__nv_bfloat16>(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+                                    softcap, causal, window, s);
+  if (dtype == F16)
+    return launch_tc<__half>(d, q, k, v, out, batch, heads, kv_heads, sq, skv, scale, softcap,
+                             causal, window, s);
   return cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,8 @@
 // matmul_padded :37, pallas_call :54).  It computes what that kernel computes: for row-major
 // A (M, K) and B (K, N) already padded to multiples of (bm, bk) and (bk, bn), C = A B, each
 // (bm, bn) output tile summed over K into an fp32 accumulator and stored once in the output
-// type.
+// type.  A, B and C are each fp32, bf16 or fp16 (the TPU kernel's jnp.dot of 16-bit tiles with
+// an fp32 accumulator: a 16-bit element widens to fp32 exactly).
 //
 // What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): 2 M K N flops on the
 // fp32 CUDA cores at 67 TFLOP/s, against (M K + K N + M N) elements at 3.35 TB/s: a 2560^3
@@ -48,6 +49,7 @@ template <int TILE, typename Ta, typename Tb>
 Kernel by_out(int out_dtype) {
   if (out_dtype == F32) return matmul_kernel<TILE, Ta, Tb, float>;
   if (out_dtype == BF16) return matmul_kernel<TILE, Ta, Tb, __nv_bfloat16>;
+  if (out_dtype == F16) return matmul_kernel<TILE, Ta, Tb, __half>;
   return nullptr;
 }
 
@@ -55,6 +57,7 @@ template <int TILE, typename Ta>
 Kernel by_b(int b_dtype, int out_dtype) {
   if (b_dtype == F32) return by_out<TILE, Ta, float>(out_dtype);
   if (b_dtype == BF16) return by_out<TILE, Ta, __nv_bfloat16>(out_dtype);
+  if (b_dtype == F16) return by_out<TILE, Ta, __half>(out_dtype);
   return nullptr;
 }
 
@@ -62,6 +65,7 @@ template <int TILE>
 Kernel by_a(int a_dtype, int b_dtype, int out_dtype) {
   if (a_dtype == F32) return by_b<TILE, float>(b_dtype, out_dtype);
   if (a_dtype == BF16) return by_b<TILE, __nv_bfloat16>(b_dtype, out_dtype);
+  if (a_dtype == F16) return by_b<TILE, __half>(b_dtype, out_dtype);
   return nullptr;
 }
 
@@ -89,8 +93,8 @@ int matmul_blocks_per_sm(int a_dtype, int b_dtype, int out_dtype, int tile) {
 }
 
 // C = A B for row-major A (m, k), B (k, n), C (m, n), with m % bm == k % bk == n % bn == 0.
-// bm, bk and bn: multiples of 8.  dtype codes: 0 fp32, 1 bf16.  tile: the block's sub-tile
-// edge, 128 or 64.
+// bm, bk and bn: multiples of 8.  dtype codes: 0 fp32, 1 bf16, 2 fp16, each side and the
+// output alone (3 x 3 x 3 types at each tile).  tile: the block's sub-tile edge, 128 or 64.
 int matmul_launch(const void* a, const void* b, void* out, long long m, long long k,
                   long long n, int bm, int bk, int bn, int a_dtype, int b_dtype, int out_dtype,
                   int tile, void* stream) {

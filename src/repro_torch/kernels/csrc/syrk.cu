@@ -5,9 +5,9 @@
 // M % bk == N % bn == 0 and T = N / bn, the stack of the T(T+1)/2 lower-triangular (bn, bn)
 // tiles of A^t A in row-major triangular order, tile t = (i, j), i >= j, at stack rows
 // [t*bn, (t+1)*bn): tile (i, j) = A[:, i-block]^t A[:, j-block], summed over M into an fp32
-// accumulator and stored once.  Diagonal tiles are stored whole, both halves, as the TPU
-// kernel stores them (the sub-tiles above their diagonal are computed, not mirrored); upper
-// tiles are never computed.
+// accumulator and stored once.  A and the stack are each fp32, bf16 or fp16.  Diagonal tiles
+// are stored whole, both halves, as the TPU kernel stores them (the sub-tiles above their
+// diagonal are computed, not mirrored); upper tiles are never computed.
 //
 // What bounds it on an H100 SXM (data-sheet peaks at the 700 W limit): 2 * M * bn^2 flops a
 // tile, M * N * (N + bn) in all, on the fp32 CUDA cores at 67 TFLOP/s, against (M N + the
@@ -62,6 +62,7 @@ template <int TILE, typename Ta>
 Kernel by_out(int out_dtype) {
   if (out_dtype == F32) return syrk_kernel<TILE, Ta, float>;
   if (out_dtype == BF16) return syrk_kernel<TILE, Ta, __nv_bfloat16>;
+  if (out_dtype == F16) return syrk_kernel<TILE, Ta, __half>;
   return nullptr;
 }
 
@@ -69,6 +70,7 @@ template <int TILE>
 Kernel by_a(int a_dtype, int out_dtype) {
   if (a_dtype == F32) return by_out<TILE, float>(out_dtype);
   if (a_dtype == BF16) return by_out<TILE, __nv_bfloat16>(out_dtype);
+  if (a_dtype == F16) return by_out<TILE, __half>(out_dtype);
   return nullptr;
 }
 
@@ -97,7 +99,7 @@ int syrk_blocks_per_sm(int a_dtype, int out_dtype, int tile) {
 
 // The packed stack of A^t A for a row-major A (m, n), m % bk == n % bn == 0, into `out`
 // ((T(T+1)/2) * bn, bn), T = n / bn.  bk and bn: multiples of 8.  dtype codes: 0 fp32,
-// 1 bf16.  tile: the block's sub-tile edge, 128 or 64.
+// 1 bf16, 2 fp16, A and the output alone.  tile: the block's sub-tile edge, 128 or 64.
 int syrk_launch(const void* a, void* out, long long m, long long n, int bk, int bn,
                 int a_dtype, int out_dtype, int tile, void* stream) {
   if (m < 1 || n < 1 || bk < 8 || bn < 8 || bk % 8 || bn % 8 || m % bk || n % bn)

@@ -12,7 +12,9 @@
 // and 128 give the same bits.  A side is read as it lies in memory: "k-major" (stored K x TILE,
 // element (x, k) at base[k * ld + x0 + x]: both sides of syrk, B of matmul) or "x-major"
 // (stored TILE x K, element at base[(x0 + x) * ld + k]: A of matmul).  Every chunk lands in
-// shared memory as [k][x] in fp32, so the multiply loop is one code path for both.
+// shared memory as [k][x] in fp32, so the multiply loop is one code path for both.  A side is
+// fp32, bf16 or fp16; a 16-bit element widens to fp32 exactly, so each product is that of the
+// TPU kernel's jnp.dot of 16-bit tiles with an fp32 accumulator.
 //
 // What bounds it: fp32 FMA on the CUDA cores (no tensor cores, no TF32), 67 TFLOP/s on an
 // H100 SXM at 700 W; each output needs 2K flops against 8K bytes of operands.  An SM's shared
@@ -28,8 +30,8 @@
 //     goes through registers one chunk ahead, under the ring: matmul's x-major left side is
 //     transposed as it is stored (each float4 along k becomes 4 scalar stores down a column of
 //     the [k][x] slot; a float4 read down that column each k step would cost 8 LDS.128 where
-//     the [k][x] row costs 2), and a bf16 side is widened to fp32 where it is stored, so the
-//     multiply loop never converts.  KC 16 rather than 32 keeps a chunk's masked tail short
+//     the [k][x] row costs 2), and a bf16 or fp16 side is widened to fp32 where it is stored,
+//     so the multiply loop never converts.  KC 16 rather than 32 keeps a chunk's masked tail short
 //     for K a multiple of 8, and 4 slots keep three chunks in flight;
 //   * 67,584 B of shared memory a block at TILE 128 (34,816 B at 64) and at most 128
 //     registers a thread at TILE 128 (64 at 64): __launch_bounds__(256, 2) (4 at 64), so two
@@ -40,11 +42,12 @@
 // Shape contract (checked by the C entries and the Python wrappers): the tile edges and the
 // K block are multiples of 8, so every 4-element vector lies wholly inside or outside a tile
 // and K, and the row strides are multiples of 8, so vectors are 16-byte (fp32) or 8-byte
-// (bf16) aligned.  Masked rows and columns of a sub-tile are zero-filled when staged and never
-// stored.
+// (bf16, fp16) aligned.  Masked rows and columns of a sub-tile are zero-filled when staged and
+// never stored.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,7 +60,7 @@ constexpr int STAGES = 4;          // ring slots a side
 constexpr int THREADS = 256;       // 16 x 16 threads
 
 // dtype codes of the C interfaces
-enum DType { F32 = 0, BF16 = 1 };
+enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 
 template <int TILE>
 struct Geometry {
@@ -91,10 +94,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Four elements of type T, as loaded (a float4, or 8 bytes of bf16 or fp16), widened to fp32:
+// exact for both 16-bit types.
+template <typename T>
 __device__ __forceinline__ float4 widen(float4 v) { return v; }
+template <typename T>
 __device__ __forceinline__ float4 widen(uint2 raw) {
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  float2 lo, hi;
+  if constexpr (std::is_same<T, __half>::value) {
+    lo = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+    hi = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  } else {
+    lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  }
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
@@ -104,6 +117,14 @@ __device__ __forceinline__ void store4(float* p, const float* v) {
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
   __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&lo);
+  raw.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+__device__ __forceinline__ void store4(__half* p, const float* v) {
+  __half2 lo = __floats2half2_rn(v[0], v[1]);
+  __half2 hi = __floats2half2_rn(v[2], v[3]);
   uint2 raw;
   raw.x = *reinterpret_cast<unsigned*>(&lo);
   raw.y = *reinterpret_cast<unsigned*>(&hi);
@@ -171,7 +192,7 @@ struct Side {
 #pragma unroll
       for (int v = 0; v < G::VECS; ++v) {
         float* const at = slot + k_of(v) * G::LDS + x_of(v);
-        const float4 w = widen(held[v]);
+        const float4 w = widen<T>(held[v]);
         if (K_MAJOR) {
           *reinterpret_cast<float4*>(at) = w;
         } else {

@@ -7,12 +7,12 @@ i and kv column j at position j (aligned at the top left, also when Skv
 > Sq).  Causal, sliding-window and softcap masking with the TPU kernel's
 finite mask value -1e30; fp32 accumulators; the output in q's dtype.
 On a CUDA tensor :func:`flash_attention` launches
-``csrc/flash_attention.cu`` (bf16 on the tensor cores, fp32 on the CUDA
-cores) or raises; on a CPU tensor it runs :func:`_flash_attention_plain`,
-which repeats the kernel's arithmetic (the online softmax over the
-kernel's kv tiles, :func:`kv_tile`, ``p`` cast to v's dtype before
-``P V``).  Forward-only, as the JAX kernel: an input that requires grad
-is refused.
+``csrc/flash_attention.cu`` (bf16 and fp16 on the tensor cores, fp32 on
+the CUDA cores) or raises; on a CPU tensor it runs
+:func:`_flash_attention_plain`, which repeats the kernel's arithmetic
+(the online softmax over the kernel's kv tiles, :func:`kv_tile`, ``p``
+cast to v's dtype before ``P V``).  Forward-only, as the JAX kernel: an
+input that requires grad is refused.
 """
 from __future__ import annotations
 
@@ -32,16 +32,21 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
+#: the dtypes the tensor-core kernel runs
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+
+
 def q_tile(dtype: torch.dtype) -> int:
-    """The kernel's q tile: 128 rows in bf16 (two warpgroups of 64), 64 in
-    fp32."""
-    return 128 if dtype == torch.bfloat16 else 64
+    """The kernel's q tile: 128 rows in bf16 and fp16 (two warpgroups of
+    64), 64 in fp32."""
+    return 128 if dtype in TENSOR_CORE_DTYPES else 64
 
 
 def kv_tile(dtype: torch.dtype, d: int) -> int:
     """The kernel's kv tile, which the plain version's online softmax
-    follows: in bf16 128 rows, or 64 at head_dim 256; in fp32 64."""
-    return 64 if dtype != torch.bfloat16 or d > 128 else 128
+    follows: in bf16 and fp16 128 rows, or 64 at head_dim 256; in fp32
+    64."""
+    return 64 if dtype not in TENSOR_CORE_DTYPES or d > 128 else 128
 
 _ARGTYPES = (PTR,) * 4 + (INT,) * 6 + (ctypes.c_float,) * 2 \
     + (INT,) * 3

@@ -3,7 +3,8 @@
 The port of ``repro/kernels/matmul.py``.  :func:`matmul_padded` takes
 shapes already padded to block multiples (``ops.matmul`` pads).  On a
 CUDA tensor it launches ``csrc/matmul.cu`` (fp32 FMA on the CUDA cores,
-an fp32 accumulator over K, no TF32) or raises; on a CPU
+an fp32 accumulator over K, no TF32; bf16 and fp16 sides widened to
+fp32 exactly) or raises; on a CPU
 tensor it runs :func:`_matmul_padded_plain`.  Forward-only, as the JAX
 kernel: an input that requires grad is refused.  The kernel's block tile
 (128 or 64) is chosen per launch by :func:`matmul_launch_shape`.
@@ -68,10 +69,11 @@ def matmul_padded(a: torch.Tensor, b: torch.Tensor, *, bm: int = 256,
                   bk: int = 256, bn: int = 256, out_dtype=None,
                   tile: int | None = None) -> torch.Tensor:
     """``a @ b`` for shapes already padded to (bm, bk) / (bk, bn)
-    multiples; fp32 or bf16 operands, the result in ``out_dtype``
-    (default ``torch.promote_types(a.dtype, b.dtype)``).  ``tile``: the
-    kernel's block tile, one of ``_launch.PRODUCT_TILES``, by default
-    :func:`matmul_launch_shape`'s; no tile changes a bit."""
+    multiples; fp32, bf16 or fp16 operands, each alone, the result in
+    ``out_dtype`` (default ``torch.promote_types(a.dtype, b.dtype)``, as
+    ``jnp.promote_types``: fp16 with bf16 gives fp32), rounded once.
+    ``tile``: the kernel's block tile, one of ``_launch.PRODUCT_TILES``,
+    by default :func:`matmul_launch_shape`'s; no tile changes a bit."""
     _launch.refuse_grad("matmul", a, b)
     _launch.check_blocks("matmul", bm=bm, bk=bk, bn=bn)
     _launch.check_tile("matmul", tile)

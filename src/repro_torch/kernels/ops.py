@@ -83,7 +83,7 @@ def _pad_to(x: torch.Tensor, mults) -> torch.Tensor:
 
 def matmul(a, b, *, bm=None, bk=None, bn=None, device=None):
     """``a @ b`` via the tiled matmul kernel (``kernels/matmul.py``); any
-    shapes, fp32 or bf16, the result in ``promote_types(a, b)``."""
+    shapes, fp32, bf16 or fp16, the result in ``promote_types(a, b)``."""
     a, b = _place(a, device), _place(b, device)
     bm, bk, bn = _block(bm), _block(bk), _block(bn)
     _launch.check_blocks("matmul", bm=bm, bk=bk, bn=bn)

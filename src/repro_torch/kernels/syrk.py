@@ -5,8 +5,9 @@ stack of the ``T(T+1)/2`` lower-triangular ``(bn, bn)`` tiles, row-major
 over the triangle (the layout of ``core/symmetry.pack_tril_blocks``),
 diagonal tiles stored whole; upper tiles are never computed.  On a CUDA
 tensor it launches ``csrc/syrk.cu`` (fp32 FMA, an fp32 accumulator over
-K, no TF32) or raises; on a CPU tensor it runs
-:func:`_syrk_packed_plain`, which walks the kernel's grid in torch.
+K, no TF32; a bf16 or fp16 A is widened to fp32 exactly) or raises; on
+a CPU tensor it runs :func:`_syrk_packed_plain`, which walks the
+kernel's grid in torch.
 Forward-only, as the JAX kernel: an input that requires grad is refused.
 The kernel's block tile (128 or 64) is chosen per launch by
 :func:`syrk_launch_shape`.
@@ -94,8 +95,8 @@ def syrk_packed(a: torch.Tensor, *, bk: int = 256, bn: int = 256,
                 out_dtype=None, tile: int | None = None) -> torch.Tensor:
     """Packed lower-triangular block stack of ``a.T @ a``.
 
-    ``a``: (M, N) with M % bk == 0, N % bn == 0 (``ops.syrk`` pads), fp32
-    or bf16.  Returns (T(T+1)/2 * bn, bn) with T = N // bn, in
+    ``a``: (M, N) with M % bk == 0, N % bn == 0 (``ops.syrk`` pads), fp32,
+    bf16 or fp16.  Returns (T(T+1)/2 * bn, bn) with T = N // bn, in
     ``out_dtype`` (default ``a.dtype``).  ``tile``: the kernel's block
     tile, one of ``_launch.PRODUCT_TILES``, by default
     :func:`syrk_launch_shape`'s; no tile changes a bit.

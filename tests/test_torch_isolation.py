@@ -49,6 +49,13 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import repro_torch.launch.serve\n"
         "from repro_torch.gram.verify import verify_gram, default_rtol\n"
         "from repro_torch.obs.trace import get_tracer\n"
+        "from repro_torch.obs.metrics import counter, get_registry\n"
+        "from repro_torch.core import pack_tril, unpack_tril\n"
+        "from repro_torch.checkpoint import (CheckpointManager,\n"
+        "    save_pytree, load_pytree)\n"
+        "from repro_torch.gram import (stream, GramStream, stream_init,\n"
+        "    stream_update, stream_finalize, GramStackStream, stack_init,\n"
+        "    stack_update, stack_finalize, CheckpointedGramStream)\n"
         "from repro_torch.kernels.strassen_fused import (\n"
         "    stochastic_round_bf16, _quantize)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -320,15 +320,17 @@ def _f(shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("call,error,match", [
-    (lambda: ops.matmul(_f((8, 8), torch.float16), _f((8, 8)), device="cpu"),
-     TypeError, "float32 or bfloat16"),
+    (lambda: p_matmul.matmul_padded(_f((8, 8), torch.float8_e4m3fn),
+                                    _f((8, 8)), bm=8, bk=8, bn=8),
+     TypeError, "float32, bfloat16 or float16"),
     (lambda: ops.matmul(_f((8, 8), torch.float64), _f((8, 8), torch.float64),
-                        device="cpu"), TypeError, "float32 or bfloat16"),
-    (lambda: ops.syrk(_f((8, 8), torch.float16), device="cpu"), TypeError,
-     "float32 or bfloat16"),
-    (lambda: ops.strassen_combine(*[_f((8, 8), torch.float16)] * 7, bm=8,
+                        device="cpu"), TypeError,
+     "float32, bfloat16 or float16"),
+    (lambda: ops.syrk(_f((8, 8), torch.int32), device="cpu"), TypeError,
+     "float32, bfloat16 or float16"),
+    (lambda: ops.strassen_combine(*[_f((8, 8), torch.float64)] * 7, bm=8,
                                   bn=8, device="cpu"), TypeError,
-     "float32 or bfloat16"),
+     "float32, bfloat16 or float16"),
     (lambda: p_combine.strassen_combine(
         *[_f((8, 8))] * 6, _f((8, 8), torch.bfloat16), bm=8, bn=8),
      TypeError, "one dtype"),
@@ -337,8 +339,8 @@ def _f(shape, dtype=torch.float32):
     (lambda: ops.transpose(torch.ones(8, 8, dtype=torch.uint8), device="cpu"),
      TypeError, "2- or 4-byte"),
     (lambda: p_matmul.matmul_padded(_f((8, 8)), _f((8, 8)), bm=8, bk=8, bn=8,
-                                    out_dtype=torch.float16), TypeError,
-     "float32 or bfloat16"),
+                                    out_dtype=torch.int32), TypeError,
+     "float32, bfloat16 or float16"),
     (lambda: ops.matmul(_f((8, 8)), _f((8, 8)), bm=12, device="cpu"),
      ValueError, "multiples of 8"),
     (lambda: ops.syrk(_f((8, 8)), bk=4, bn=8, device="cpu"), ValueError,
