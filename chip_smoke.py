@@ -12,9 +12,13 @@ failure exits non-zero):
 2. build: every kernel library of ``src/repro_torch/kernels/csrc`` from
    source, one ``nvcc`` each, all started together, each one's build
    time, and the registers and spills of every flash-attention
-   instantiation, by block tile of the syrk and matmul ones, and of the
-   leaf program's three libraries by operand type, accumulator, layout,
-   tile and mode;
+   instantiation, by core and block tile of the syrk and matmul ones, and
+   of the leaf program's three libraries by operand type, accumulator,
+   layout, tile and mode; no wgmma serialized by ptxas (C7514) in syrk,
+   matmul or flash; ``cuobjdump -sass``: HGMMA in each of the 12
+   tensor-core kernels of syrk and of matmul and in none of their
+   CUDA-core ones; the core the C side picks for each of the 3 x 3
+   operand pairs equal to ``_launch.product_core``'s;
 3. the leaf program's kernel, ``leaf_products.cuh`` (``leaf_products.cu``
    for fp32 and bf16 operands; ``_lowp`` and ``_acc`` below), against its plain
    torch version ``_leaf_products_plain`` on the card, for every kind
@@ -46,7 +50,9 @@ failure exits non-zero):
        1000x777[x555]) x fp32 and bf16 (transpose also int32): syrk and
        matmul at both block tiles of their core (64 and 128), the two
        bit-equal, <= 1e-5 of max|out| of the plain version (2^-8 for a
-       bf16 output) and <= 1e-4 against float64; combine and transpose
+       bf16 output) and <= 1e-4 against float64, bf16 A (and bf16 with
+       bf16) on the tensor cores, where K and the tile edges are ragged to
+       its 64-deep chunk and 128-wide tile; combine and transpose
        ``torch.equal``; what the wrappers refuse on the card;
    3k. the precision axes, ``leaf_products_lowp.cu`` (fp16, fp8 e4m3fn
        and e5m2 operand tiles) and ``leaf_products_acc.cu`` (a bf16 or
@@ -81,7 +87,8 @@ failure exits non-zero):
    3l. fp16 operands in the single-purpose kernels, through 3f-3j's
        sweeps: syrk (fp16 in, out, or both; fp16 with bf16) and matmul
        (fp16, and fp16 mixed with fp32 and bf16, which promote to fp32, and
-       fp16 outputs) at both tiles, bit-equal across tiles, within 1e-5 of
+       fp16 outputs; fp16 into bf16 and bf16 into fp16 on the tensor
+       cores) at both tiles, bit-equal across tiles, within 1e-5 of
        max|out| of the plain version for an fp32 output and 2^-10 for an
        fp16 one (tighter than bf16's 2^-8); combine in fp16 bit-equal;
        flash attention in fp16 on the tensor cores within fp16's own bars
@@ -118,9 +125,10 @@ failure exits non-zero):
        seven products of one Strassen level (C against float64 A B),
        ``ops.transpose``, and the refusal of an A that requires grad;
        the same recursion on fp16 A (16 and 22 fp16 leaves, fp32 out,
-       <= 2^-8 of max|C| against float64 of the fp16 A) and combine on the
-       seven products in fp16 (bit-equal to plain); then each leaf
-       configuration against its plain version;
+       <= 2^-8 of max|C| against float64 of the fp16 A), timed end to end
+       (its leaves on the tensor cores), and combine on the seven products
+       in fp16 (bit-equal to plain); then each leaf configuration against
+       its plain version;
    4g. ``ServingEngine`` serving Qwen2.5-3B at full width (36 layers, d
        2048, vocab 151936), bf16, ``attn_impl="flash"``, weights from a
        ``torch.Generator`` on the card seeded with ``--seed``: slots 4,
@@ -198,14 +206,15 @@ failure exits non-zero):
    e4m3fn, e5m2 and fp16 tiles and the rank_k kind on an e4m3fn chunk
    (``leaf_products_lowp``), ata with a bf16 and an fp64 accumulator
    (``leaf_products_acc``), each bound counting the stored bytes at
-   their own element size and the kind's yardstick beside it.  fp16
-   operands in the single-purpose kernels (phase 3l): ``syrk`` and
-   ``matmul`` at the padded 10240^2 and the 2560^2 leaf, combine on seven
-   fp16 5120^2, flash attention at the serving prefill in fp16, each
-   against its plain version and beside its fp16 library call
-   (``torch.tril(a16.T @ a16)``, ``a16 @ b16``, fp16 SDPA), bound at the
-   fp16 tensor-core peak (989 TFLOP/s) or its bytes, whichever is
-   larger.
+   their own element size and the kind's yardstick beside it.  16-bit
+   operands in the single-purpose kernels: ``syrk`` and ``matmul`` in
+   fp16 and in bf16 on the tensor cores at the padded 10240^2 and the
+   2560^2 leaf (each at both tiles), combine on seven fp16 5120^2 and
+   flash attention at the serving prefill in fp16, each against its plain
+   version and beside its library call in the same type
+   (``torch.tril(x.T @ x)``, ``x @ y``, fp16 SDPA), bound at the 16-bit
+   tensor-core peak (989 TFLOP/s) or its bytes, whichever is larger.
+   Each syrk and matmul row names its core.
 
 It prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
@@ -453,23 +462,48 @@ def _ptxas_flash(report: str) -> list:
 
 def _ptxas_tiles(report: str, kernel: str) -> list:
     """Instantiations, registers and spills of the syrk or matmul kernel
-    by block tile (its first template argument) from ``nvcc -Xptxas
-    -v``."""
-    stats, tile = {}, None
+    by core (``<kernel>_kernel``: the CUDA cores, ``<kernel>_tc_kernel``:
+    the tensor cores) and block tile (the first template argument) from
+    ``nvcc -Xptxas -v``, and the count of ptxas's C7514 warnings (wgmma
+    serialized)."""
+    stats, key = {}, None
     for line in report.splitlines():
-        found = re.search(rf"{kernel}_kernelILi(\d+)E", line)
-        if found:
-            tile = int(found.group(1))
-            stats.setdefault(tile, {"regs": [], "spill": [0]})
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            found = re.search(rf"{kernel}(_tc)?_kernelILi(\d+)E",
+                              entry.group(1))
+            key = None if found is None else (
+                "tensor" if found.group(1) else "cuda", int(found.group(2)))
+            if key:
+                stats.setdefault(key, {"regs": [], "spill": [0]})
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores", line)
-        if tile is not None and regs:
-            stats[tile]["regs"].append(int(regs.group(1)))
-        if tile is not None and spill:
-            stats[tile]["spill"].append(int(spill.group(1)))
-    return [f"tile {t}: {len(v['regs'])} instantiations, {min(v['regs'])}-"
-            f"{max(v['regs'])} registers, spill stores up to "
-            f"{max(v['spill'])} B" for t, v in sorted(stats.items())]
+        if key is not None and regs:
+            stats[key]["regs"].append(int(regs.group(1)))
+        if key is not None and spill:
+            stats[key]["spill"].append(int(spill.group(1)))
+    return [f"{core} cores, tile {t}: {len(v['regs'])} instantiations, "
+            f"{min(v['regs'])}-{max(v['regs'])} registers, spill stores up "
+            f"to {max(v['spill'])} B" for (core, t), v in
+            sorted(stats.items())] + [
+        f"wgmma serialized by ptxas (C7514): {report.count('C7514')} times"]
+
+
+def _sass_hgmma(library: pathlib.Path) -> dict:
+    """The HGMMA (wgmma) instructions of each kernel of a built library,
+    from ``cuobjdump -sass``: {mangled name: count}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _ptxas_registers(report: str) -> str:
@@ -584,13 +618,42 @@ def main() -> int:
     for name in LIBRARIES:
         if name in ("syrk", "matmul"):
             lines = _ptxas_tiles(reports[name] or "", name)
-            assert reports[name] is None or len(lines) == 2, (name, lines)
+            assert reports[name] is None or len(lines) == 5, (name, lines)
             for line in lines:
                 print(f"  {name} {line}")
         elif name not in (*sf.PRODUCT_LIBRARIES, "flash_attention"):
             print(f"  {name}: {_ptxas_registers(reports[name] or '')}")
     for line in _ptxas_flash(reports["flash_attention"] or ""):
         print(f"  flash_attention {line}")
+    # the wgmma kernels: no wgmma serialized by ptxas
+    for name in ("syrk", "matmul", "flash_attention"):
+        assert (reports[name] or "").count("C7514") == 0, name
+    # each core as built: wgmma (HGMMA in the SASS) in every tensor-core
+    # kernel of syrk and matmul and in none of the CUDA-core ones
+    for name in ("syrk", "matmul"):
+        hgmma = _sass_hgmma(_build._target(name))
+        by_core = {core: [v for k, v in hgmma.items() if kernel in k]
+                   for core, kernel in (("tensor", f"{name}_tc_kernel"),
+                                        ("cuda", f"{name}_kernel"))}
+        print(f"  {name} SASS: {len(by_core['tensor'])} tensor-core kernels, "
+              f"HGMMA {min(by_core['tensor'])}-{max(by_core['tensor'])} "
+              f"each; {len(by_core['cuda'])} CUDA-core kernels, HGMMA "
+              f"{max(by_core['cuda'])}")
+        assert len(by_core["tensor"]) == 12 and min(by_core["tensor"]) > 0
+        assert by_core["cuda"] and max(by_core["cuda"]) == 0
+    # the core each operand pair runs on: the C side's choice is the one
+    # _launch.product_core names
+    codes = _launch.DTYPE_CODES
+    mm_core = _launch.entry("matmul", "matmul_core", (ctypes.c_int,) * 2)
+    syrk_core = _launch.entry("syrk", "syrk_core", (ctypes.c_int,))
+    cores = {1: "tensor", 0: "cuda"}
+    for dta in codes:
+        assert cores[syrk_core(codes[dta])] == _launch.product_core(dta, dta)
+        for dtb in codes:
+            assert cores[mm_core(codes[dta], codes[dtb])] == \
+                _launch.product_core(dta, dtb), (dta, dtb)
+    print("  syrk and matmul pick the core _launch.product_core names for "
+          "each of the 3 x 3 operand pairs (tensor: bf16/bf16, fp16/fp16)")
     smem = _build.library("flash_attention").flash_attention_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     print("  flash_attention dynamic shared memory by head_dim, fp32 / bf16 / "
@@ -908,9 +971,17 @@ def main() -> int:
     def sweep_blocks(shape):
         return BLOCKS + WIDE_BLOCKS if shape[0] == 1000 else BLOCKS
 
+    # launches of the tensor-core instantiations in phases 3f, 3g and 3l, by
+    # kernel and operand type (each case at both tiles)
+    tc_launches = {}
+
+    def cores_of(pairs):
+        return " and ".join(sorted({_launch.product_core(*p_) for p_ in pairs}))
+
     def syrk_sweep(pairs, label):
         """Every shape and block of 3f at each (input, output) dtype pair of
-        ``pairs``, at both tiles."""
+        ``pairs``, at both tiles (16-bit A on the tensor cores, with K and
+        the tile edges ragged to their 64-deep chunk and 128-wide tile)."""
         for m, k in SHAPES_SYRK:
             errs = {}
             for blk in sweep_blocks((m, k)):
@@ -918,16 +989,21 @@ def main() -> int:
                     xp = ops._pad_to(randn(m, k, dtype=dt), (blk, blk))
                     got = both_tiles("syrk", lambda tile: k_syrk.syrk_packed(
                         xp, bk=blk, bn=blk, out_dtype=out_dt, tile=tile))
+                    if _launch.product_core(dt, dt) == "tensor":
+                        tc_launches[("syrk", dt)] = tc_launches.get(
+                            ("syrk", dt), 0) + len(_launch.PRODUCT_TILES)
                     x64 = xp.double()
                     product_errors(errs, got,
                                    k_syrk._syrk_packed_plain(xp, blk, f32),
                                    pack_tril_blocks(x64.T @ x64, blk))
-            print(f"  {m} x {k}, blocks {sweep_blocks((m, k))}, {label}: "
+            print(f"  {m} x {k}, blocks {sweep_blocks((m, k))}, {label} ("
+                  f"{cores_of((dt, dt) for dt, _ in pairs)} cores): "
                   f"{error_summary(errs)}")
 
     def matmul_sweep(cases, label):
         """Every shape and block of 3g at each (a, b, output) dtype case of
-        ``cases`` (output None: the promoted type), at both tiles."""
+        ``cases`` (output None: the promoted type), at both tiles (a and b
+        of one 16-bit type on the tensor cores)."""
         for m, k, n_ in SHAPES_MM:
             errs = {}
             for blk in sweep_blocks((m, k, n_)):
@@ -938,21 +1014,25 @@ def main() -> int:
                                      .matmul_padded(xp, yp, bm=blk, bk=blk,
                                                     bn=blk, out_dtype=out_dt,
                                                     tile=tile))
+                    if _launch.product_core(dta, dtb) == "tensor":
+                        tc_launches[("matmul", dta)] = tc_launches.get(
+                            ("matmul", dta), 0) + len(_launch.PRODUCT_TILES)
                     assert got.dtype == (out_dt
                                          or torch.promote_types(dta, dtb))
                     product_errors(errs, got,
                                    k_matmul._matmul_padded_plain(xp, yp, f32),
                                    xp.double() @ yp.double())
             print(f"  {m} x {k} x {n_}, blocks {sweep_blocks((m, k, n_))}, "
-                  f"{label}: {error_summary(errs)}")
+                  f"{label} ({cores_of((a_, b_) for a_, b_, _ in cases)} "
+                  f"cores): {error_summary(errs)}")
 
     print("== 3f. syrk against its plain version, at tiles 64 and 128 "
-          "(bit-equal)")
+          "(bit-equal); bf16 A on the tensor cores")
     syrk_sweep(((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)),
                "fp32 and bf16 in")
 
     print("== 3g. matmul against its plain version, at tiles 64 and 128 "
-          "(bit-equal)")
+          "(bit-equal); bf16 with bf16 on the tensor cores")
     matmul_sweep(((f32, f32, None), (bf16, bf16, None), (bf16, f32, None),
                   (bf16, bf16, f32), (f32, f32, bf16)),
                  "fp32, bf16 and mixed in")
@@ -1348,7 +1428,7 @@ def main() -> int:
     print("  matmul, at tiles 64 and 128 (bit-equal):")
     matmul_sweep(((fp16, fp16, None), (fp16, bf16, None), (bf16, fp16, None),
                   (fp16, f32, None), (f32, fp16, None), (fp16, fp16, f32),
-                  (f32, f32, fp16)),
+                  (f32, f32, fp16), (fp16, fp16, bf16), (bf16, bf16, fp16)),
                  "fp16, and fp16 mixed with fp32 and bf16")
     print("  combine (torch.equal):")
     combine_sweep((fp16,), "fp16")
@@ -1357,7 +1437,12 @@ def main() -> int:
     f16_launches = {k: v - before[k]
                     for k, v in _launch.KERNEL_LAUNCHES.items()}
     print(f"  fp16 branches held against their plain versions: "
-          f"{f16_launches}")
+          f"{f16_launches}; tensor-core launches in 3f, 3g and 3l: "
+          + ", ".join(f"{k_} {str(d_).removeprefix('torch.')} {v_}"
+                      for (k_, d_), v_ in sorted(tc_launches.items(),
+                                                 key=str)))
+    assert all(tc_launches.get((k_, d_)) for k_ in ("syrk", "matmul")
+               for d_ in (bf16, fp16))
     assert all(f16_launches[k] for k in ("syrk", "matmul", "combine",
                                          "flash_attention"))
 
@@ -1774,6 +1859,11 @@ def main() -> int:
           f"strassen_combine of the fp16 products bit-equal to plain; "
           f"fp16 launches {path16}")
     assert e16 <= 2.0 ** -8
+    # the same recursion end to end: its 16 + 22 leaves on the tensor-core
+    # core, the sums and pads in torch
+    ata16_ms, ata16_runs = _time_ms(lambda: ata(a16, **hooks))
+    print(f"ata(fp16 a) with kernel leaves end to end: {ata16_ms:.3f} ms "
+          f"(runs {ata16_runs})")
     x = a.clone().requires_grad_()
     for call in (lambda: ata(x, **hooks), lambda: ops.syrk(x),
                  lambda: ops.matmul(x, b)):
@@ -2651,7 +2741,8 @@ def main() -> int:
               f"{library[0]}: {l_ms:.3f} ms (runs {l_runs})")
         b_ms, b_by = roofline(f"{name} at the leaf", flops, io_bytes)
         tile, by_tile = tile_times(f"{name} leaf", launch, shape_of)
-        return {"shape": shape, "leaf_launches": launches, "ms": t_ms,
+        return {"shape": shape, "core": shape_of(None)["core"],
+                "leaf_launches": launches, "ms": t_ms,
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": l_ms, "tile": tile, "tiles": by_tile}
 
@@ -2684,8 +2775,10 @@ def main() -> int:
                                            out_dtype=f32, tile=t),
         s_leaves, list(leaf.shape))
     single("syrk", ms, plain_ms, lib_ms, n * n * (n + 1),
-           (ap.numel() + tri_count(T) * B * B) * 4, tile=tile, tiles=by_tile,
-           leaf=syrk_leaf, shape=list(ap.shape))
+           (ap.numel() + tri_count(T) * B * B) * 4,
+           core=k_syrk.syrk_launch_shape(N, bn=B, a_dtype=f32,
+                                         out_dtype=f32)["core"],
+           tile=tile, tiles=by_tile, leaf=syrk_leaf, shape=list(ap.shape))
     # matmul: ops.matmul(a, b), the kernel on the padded operands
     ms, plain_ms, lib_ms = time_kernel(
         f"matmul kernel {tuple(ap.shape)} @ {tuple(bp.shape)} (blocks {B})",
@@ -2709,6 +2802,9 @@ def main() -> int:
             tile=t),
         m_leaves + 7 ** DEFAULT_LEVELS, [NL, NL, NL])
     single("matmul", ms, plain_ms, lib_ms, 2 * n * n * n, 3 * N * N * 4,
+           core=k_matmul.matmul_launch_shape(N, N, bm=B, bn=B, a_dtype=f32,
+                                             b_dtype=f32,
+                                             out_dtype=f32)["core"],
            tile=tile, tiles=by_tile, leaf=matmul_leaf, shape=[N, N, N])
     del leaf, leaf_b
     # combine: the seven padded products of one Strassen level
@@ -2747,6 +2843,8 @@ def main() -> int:
              lambda: strassen_matmul(a, b, mode="reference"))):
         e2e[label], runs = _time_ms(fn)
         print(f"{label}: {e2e[label]:.3f} ms (runs {runs})")
+    # the fp16 recursion, timed in phase 4f: its leaves on the tensor cores
+    e2e["ata(fp16 a) on kernel leaves (phase 4f)"] = ata16_ms
     kernels[-4]["e2e_ms"] = e2e
     # flash_attention at the serving prefill: a 2048-token prompt over the
     # 2048-slot cache, causal, bf16; the least flops are 4 D for each
@@ -2823,21 +2921,27 @@ def main() -> int:
             "fp32_decode_vs_no_cache": e_dec32,
             "profile": {"prefill_2032": prof_prefill,
                         "decode_tick": prof_decode}}))
-    # fp16 operands, phase 3l's branches, at the main path's shapes: each
-    # bound at the fp16 tensor-core peak (989 TFLOP/s, bf16's) or its bytes
-    # at fp16's two a element, whichever is larger; the yardsticks in fp16
+    # 16-bit operands at the main path's shapes: syrk and matmul on the
+    # tensor cores in fp16 (phase 3l's branches, the fp16 recursion's leaves)
+    # and bf16, combine and flash attention in fp16; each bound at the
+    # 16-bit tensor-core peak (989 TFLOP/s) or its bytes at two a element,
+    # whichever is larger; the yardsticks in the operands' type
     fp16 = torch.float16
     by_name = {k_["name"]: k_ for k_ in kernels if k_["name"] in KERNELS}
 
-    def fp16_row(label, kernel, plain_fn, library, flops, io_bytes,
-                 launches, bar, peak=PEAK_BF16_FLOPS, **extra):
-        """An fp16 kernel's time against its bound, plain version and
-        library call, and its result against the plain version's."""
+    def row16(label, kernel, plain_fn, library, flops, io_bytes, launches,
+              bar, dtype=fp16, peak=PEAK_BF16_FLOPS, ref_fn=None, **extra):
+        """A 16-bit kernel's time against its bound, plain version and
+        library call, and its result (in ``dtype``) against the plain
+        version's: ``ref_fn``'s, where given (syrk and matmul: the plain
+        version's fp32 result, as phase 3 holds them, so the bar bounds
+        the kernel's one rounding; a bf16 element's one-ulp flip is up to
+        2^-7 of it), else ``plain_fn``'s."""
         ms, plain_ms, lib_ms = time_kernel(label, kernel, plain_fn, library)
         bound_ms, bound_by = roofline(label, flops, io_bytes, peak=peak)
-        got, ref = kernel(), plain_fn()
+        got, ref = kernel(), (ref_fn or plain_fn)()
         got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
-        assert all(g_.dtype == fp16 for g_ in got), label
+        assert all(g_.dtype == dtype for g_ in got), label
         err = max(float((g_.float() - r_.float()).abs().max())
                   for g_, r_ in zip(got, ref))
         rel = max(_rel(g_, r_.double()) for g_, r_ in zip(got, ref))
@@ -2848,47 +2952,80 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "launches": launches, "max_abs_err": err, **extra}
 
-    a16, b16 = (ops._pad_to(x.half(), (B, B)) for x in (a, b))
-    leaf16, leaf16_b = (ops._pad_to(x[:hs, :hs].half(), (B, B))
-                        for x in (a, b))
-    f16_bar = PRODUCT_BARS["float16"]
-    syrk16 = fp16_row(
-        f"syrk kernel, fp16 {tuple(a16.shape)}",
-        lambda: k_syrk.syrk_packed(a16, bk=B, bn=B),
-        lambda: k_syrk._syrk_packed_plain(a16, B, fp16),
-        ("torch.tril(a16.T @ a16)", lambda: torch.tril(a16.T @ a16)),
-        n * n * (n + 1), (a16.numel() + tri_count(T) * B * B) * 2,
-        path16["syrk"], f16_bar, phase_3l_launches=f16_launches["syrk"],
-        tile=k_syrk.syrk_launch_shape(N, bn=B, a_dtype=fp16,
-                                      out_dtype=fp16)["tile"])
-    syrk16["leaf"] = fp16_row(
-        f"syrk kernel, fp16 leaf {tuple(leaf16.shape)}",
-        lambda: k_syrk.syrk_packed(leaf16, bk=B, bn=B),
-        lambda: k_syrk._syrk_packed_plain(leaf16, B, fp16),
-        ("torch.tril(leaf16.T @ leaf16)",
-         lambda: torch.tril(leaf16.T @ leaf16)),
-        hs * hs * (hs + 1), (leaf16.numel() + tri_count(NL // B) * B * B) * 2,
-        path16["syrk"], f16_bar)
-    matmul16 = fp16_row(
-        f"matmul kernel, fp16 {tuple(a16.shape)} @ {tuple(b16.shape)}",
-        lambda: k_matmul.matmul_padded(a16, b16, bm=B, bk=B, bn=B),
-        lambda: k_matmul._matmul_padded_plain(a16, b16, fp16),
-        ("a16 @ b16", lambda: a16 @ b16), 2 * n * n * n, 3 * N * N * 2,
-        path16["matmul"], f16_bar,
-        phase_3l_launches=f16_launches["matmul"],
-        tile=k_matmul.matmul_launch_shape(N, N, bm=B, bn=B, a_dtype=fp16,
-                                          b_dtype=fp16,
-                                          out_dtype=fp16)["tile"])
-    matmul16["leaf"] = fp16_row(
-        f"matmul kernel, fp16 leaf {tuple(leaf16.shape)} @ "
-        f"{tuple(leaf16_b.shape)}",
-        lambda: k_matmul.matmul_padded(leaf16, leaf16_b, bm=B, bk=B, bn=B),
-        lambda: k_matmul._matmul_padded_plain(leaf16, leaf16_b, fp16),
-        ("leaf16 @ leaf16_b", lambda: leaf16 @ leaf16_b), 2 * hs ** 3,
-        3 * NL * NL * 2, path16["matmul"], f16_bar)
-    del a16, b16, leaf16, leaf16_b
+    rows16 = {}
+    for dt in (fp16, bf16):
+        short = {fp16: "fp16", bf16: "bf16"}[dt]
+        x16, y16 = (ops._pad_to(x.to(dt), (B, B)) for x in (a, b))
+        lx16, ly16 = (ops._pad_to(x[:hs, :hs].to(dt), (B, B)) for x in (a, b))
+        bar = PRODUCT_BARS[str(dt).removeprefix("torch.")]
+        # the main path's launches: fp16's are the fp16 recursion's leaves
+        # (phase 4f); bf16 runs on no main path, only in phases 3f and 3g
+        path = {k_: path16[k_] if dt == fp16 else 0 for k_ in ("syrk",
+                                                              "matmul")}
+        extra = {k_: {"phase_3_tensor_launches": tc_launches[(k_, dt)],
+                      **({"phase_3l_launches": f16_launches[k_]}
+                         if dt == fp16 else {})}
+                 for k_ in ("syrk", "matmul")}
+
+        def syrk_shape(n_, t):
+            return k_syrk.syrk_launch_shape(n_, bn=B, a_dtype=dt,
+                                            out_dtype=dt, tile=t)
+
+        def matmul_shape(n_, t):
+            return k_matmul.matmul_launch_shape(n_, n_, bm=B, bn=B,
+                                                a_dtype=dt, b_dtype=dt,
+                                                out_dtype=dt, tile=t)
+
+        dt_rows = {}
+        for name, label, flops, io_bytes, shape_of, launch, plain_in, \
+                lib in (
+                ("syrk", f"{short} {tuple(x16.shape)}", n * n * (n + 1),
+                 (x16.numel() + tri_count(T) * B * B) * 2,
+                 lambda t: syrk_shape(N, t),
+                 lambda t: k_syrk.syrk_packed(x16, bk=B, bn=B, tile=t),
+                 lambda od: k_syrk._syrk_packed_plain(x16, B, od),
+                 (f"torch.tril(x.T @ x), {short}",
+                  lambda: torch.tril(x16.T @ x16))),
+                ("syrk leaf", f"{short} leaf {tuple(lx16.shape)}",
+                 hs * hs * (hs + 1),
+                 (lx16.numel() + tri_count(NL // B) * B * B) * 2,
+                 lambda t: syrk_shape(NL, t),
+                 lambda t: k_syrk.syrk_packed(lx16, bk=B, bn=B, tile=t),
+                 lambda od: k_syrk._syrk_packed_plain(lx16, B, od),
+                 (f"torch.tril(leaf.T @ leaf), {short}",
+                  lambda: torch.tril(lx16.T @ lx16))),
+                ("matmul", f"{short} {tuple(x16.shape)} @ {tuple(y16.shape)}",
+                 2 * n * n * n, 3 * N * N * 2,
+                 lambda t: matmul_shape(N, t),
+                 lambda t: k_matmul.matmul_padded(x16, y16, bm=B, bk=B, bn=B,
+                                                  tile=t),
+                 lambda od: k_matmul._matmul_padded_plain(x16, y16, od),
+                 (f"x @ y, {short}", lambda: x16 @ y16)),
+                ("matmul leaf", f"{short} leaf {tuple(lx16.shape)} @ "
+                 f"{tuple(ly16.shape)}", 2 * hs ** 3, 3 * NL * NL * 2,
+                 lambda t: matmul_shape(NL, t),
+                 lambda t: k_matmul.matmul_padded(lx16, ly16, bm=B, bk=B,
+                                                  bn=B, tile=t),
+                 lambda od: k_matmul._matmul_padded_plain(lx16, ly16, od),
+                 (f"leaf @ leaf_b, {short}", lambda: lx16 @ ly16))):
+            kernel = name.split()[0]
+            shape = shape_of(None)
+            row = row16(f"{kernel} kernel, {label}", lambda: launch(None),
+                        lambda: plain_in(dt), lib, flops, io_bytes,
+                        path[kernel], bar, dtype=dt,
+                        ref_fn=lambda: plain_in(f32), core=shape["core"],
+                        tile=shape["tile"],
+                        **(extra[kernel] if name == kernel else {}))
+            assert shape["core"] == "tensor", (name, shape)
+            row["tiles"] = tile_times(f"{kernel} {label}", launch,
+                                      shape_of)[1]
+            dt_rows[name] = row
+        for kernel in ("syrk", "matmul"):
+            dt_rows[kernel]["leaf"] = dt_rows.pop(f"{kernel} leaf")
+        rows16[dt] = dt_rows
+        del x16, y16, lx16, ly16
     mp16 = [ops._pad_to(x, (B, B)) for x in prods16_5]
-    combine16 = fp16_row(
+    combine16 = row16(
         f"combine kernel, seven fp16 {tuple(mp16[0].shape)}",
         lambda: k_combine.strassen_combine(*mp16, bm=B, bn=B),
         lambda: k_combine._strassen_combine_plain(*mp16), None,
@@ -2897,7 +3034,7 @@ def main() -> int:
         library_note="no single PyTorch call computes the four quadrants")
     del mp16, prods16_5
     fq16, fk16, fv16 = (x.half() for x in (fq, fk, fv))
-    flash16 = fp16_row(
+    flash16 = row16(
         f"flash_attention kernel, fp16 q {tuple(fq16.shape)}, k/v "
         f"{tuple(fk16.shape)}, causal",
         lambda: k_flash.flash_attention(fq16, fk16, fv16),
@@ -2916,9 +3053,12 @@ def main() -> int:
         library_device_ms=_device_ms(
             lambda: F.scaled_dot_product_attention(
                 fq16, fk16, fv16, is_causal=True, enable_gqa=True)))
-    for name, row in (("syrk", syrk16), ("matmul", matmul16),
+    for name, row in (("syrk", rows16[fp16]["syrk"]),
+                      ("matmul", rows16[fp16]["matmul"]),
                       ("combine", combine16), ("flash_attention", flash16)):
         by_name[name]["fp16"] = row
+    for name in ("syrk", "matmul"):
+        by_name[name]["bf16"] = rows16[bf16][name]
     del fq, fk, fv, got, want, fq16, fk16, fv16
 
     # The precision axes' libraries at their main-path shapes (phase 4i):

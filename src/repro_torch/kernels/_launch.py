@@ -6,9 +6,11 @@ each one library ``csrc/<name>.cu`` with one plain-C entry
 Their wrappers check their arguments here, refuse inputs that require
 grad (these kernels have no backward), launch on the current stream,
 raise on an error and count the launch.  The syrk and matmul kernels
-share one tile product (``csrc/tile_product.cuh``); its grid arithmetic
-and the choice of its block tile are here, in pure Python.  Nothing here
-builds or loads a library at import time.
+share two tile products, one core each: the tensor cores
+(``csrc/tile_product_tc.cuh``) for operands of one 16-bit type, the fp32
+CUDA cores (``csrc/tile_product.cuh``) for the rest.  Which core a pair
+runs, the grid arithmetic and the choice of the block tile are here, in
+pure Python.  Nothing here builds or loads a library at import time.
 """
 from __future__ import annotations
 
@@ -41,15 +43,40 @@ ACC_CODES = {"float32": 0, "bfloat16": 1, "float64": 2}
 
 PTR, INT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-#: Block tiles of ``csrc/tile_product.cuh``, the core of the syrk and
-#: matmul kernels: the edge of the output sub-tile one thread block of 256
-#: computes (8 x 8 outputs a thread at 128, 4 x 4 at 64).
+#: Block tiles of the syrk and matmul kernels' two cores: the edge of the
+#: output sub-tile one thread block computes (the CUDA cores: 256 threads,
+#: 8 x 8 outputs a thread at 128, 4 x 4 at 64; the tensor cores: one
+#: consumer warpgroup for each 64 rows of the tile, and a producer warp).
 PRODUCT_TILES = (128, 64)
 
-#: Issue cost of one k step of a thread at each tile, in FMA slots: 64
-#: FFMAs at 128; at 64, 16 FFMAs behind 8 shared-memory words, which an SM
-#: delivers at 32 a clock against 128 FMA lanes, so 32.
-STEP_COST = {128: 64, 64: 32}
+#: The cores of the syrk and matmul kernels: ``csrc/tile_product_tc.cuh``
+#: (wgmma) and ``csrc/tile_product.cuh`` (fp32 FMA).
+PRODUCT_CORES = ("tensor", "cuda")
+
+#: A block's cost of one k step at each tile, by core.  The CUDA cores:
+#: issue slots of a thread, 64 FFMAs at 128; at 64, 16 FFMAs behind 8
+#: shared-memory words, which an SM delivers at 32 a clock against 128 FMA
+#: lanes, so 32.  The tensor cores: the operand bytes the step moves from
+#: L2 into shared memory, 2 x TILE 16-bit elements (the L2 reads, not the
+#: wgmma rate, bound a 128 x 128 tile), 512 at 128 and 256 at 64, in
+#: units of 256.
+STEP_COST = {"cuda": {128: 64, 64: 32}, "tensor": {128: 2, 64: 1}}
+
+_16BIT = (torch.bfloat16, torch.float16)
+
+
+def product_core(a_dtype, b_dtype) -> str:
+    """The core that runs a syrk or matmul launch on operands of these
+    types (syrk: A's type twice), as ``core`` in ``csrc/matmul.cu`` and
+    ``csrc/syrk.cu`` picks it: ``"tensor"`` when both are bf16 or both
+    fp16, ``"cuda"`` for any other pair of fp32, bf16 and fp16.  Fixed by
+    the types: a launch the tensor cores refuse raises, it never runs on
+    the CUDA cores."""
+    for dt in (a_dtype, b_dtype):
+        if dt not in DTYPE_CODES:
+            raise TypeError(f"the syrk and matmul kernels take float32, "
+                            f"bfloat16 or float16, got {dt}")
+    return "tensor" if a_dtype == b_dtype and a_dtype in _16BIT else "cuda"
 
 
 def refuse_grad(kernel: str, *xs: torch.Tensor) -> None:
@@ -97,33 +124,62 @@ def check_pointer(kernel: str, name: str, x: torch.Tensor) -> None:
 
 def sub_tile(index: int, bm: int, bn: int, tile: int):
     """Sub-tile ``index`` of a (bm, bn) output tile at ``tile``, as the
-    kernels decode ``blockIdx.y`` (``tile_product::sub_tile``): its origin
-    (i0, j0) and valid extent (i_lim, j_lim), row-major over
-    ``ceil(bn / tile)`` columns of sub-tiles."""
+    kernels decode it (``tile_product::sub_tile``; the CUDA-core kernels
+    take ``blockIdx.y``): its origin (i0, j0) and valid extent (i_lim,
+    j_lim), row-major over ``ceil(bn / tile)`` columns of sub-tiles."""
     n_sub_j = -(-bn // tile)
     i0, j0 = (index // n_sub_j) * tile, (index % n_sub_j) * tile
     return i0, j0, min(tile, bm - i0), min(tile, bn - j0)
 
 
-def product_grid(n_tiles: int, bm: int, bn: int, blocks_per_sm: dict,
-                 sms: int, tile: int | None = None) -> dict:
-    """How a launch of the tile product over ``n_tiles`` (bm, bn) output
-    tiles fills ``sms`` SMs, at ``tile`` or, by default, at the tile the
-    wrappers choose; ``blocks_per_sm`` maps each tile to the blocks an SM
-    holds at once (0 or less: it cannot launch).
+#: Sub-tile rows of a group in the tensor-core kernels' launch order
+#: (``tile_product_tc::RASTER``).
+RASTER = 8
 
-    The choice: the least ``ceil(blocks / sms) * STEP_COST[tile]``, the
-    busiest SM's blocks at a block's k-step cost (the SM's FMA or shared-
-    memory issue rate shared among its resident blocks); ties go to the
-    larger tile.  Pure arithmetic: the CPU tests run it."""
+
+def grouped_sub_tile(index: int, n_ti: int, n_tj: int, bm: int, bn: int,
+                     tile: int):
+    """Block ``index`` (in launch order) of a tensor-core matmul launch
+    over (n_ti, n_tj) output tiles of (bm, bn), as ``grouped_sub_tile`` in
+    ``csrc/matmul.cu`` decodes it: its output tile (ti, tj) and sub-tile
+    (i0, j0, i_lim, j_lim).  The grid of sub-tiles is walked ``RASTER``
+    rows at a time, column by column, so the blocks that run at once
+    share rows of A and columns of B."""
+    n_sub_i, n_sub_j = -(-bm // tile), -(-bn // tile)
+    rows, cols = n_ti * n_sub_i, n_tj * n_sub_j
+    first = index // (RASTER * cols) * RASTER
+    g_rows = min(RASTER, rows - first)
+    within = index - first * cols
+    gi, gj = first + within % g_rows, within // g_rows
+    i0, j0 = gi % n_sub_i * tile, gj % n_sub_j * tile
+    return (gi // n_sub_i, gj // n_sub_j, i0, j0, min(tile, bm - i0),
+            min(tile, bn - j0))
+
+
+def product_grid(n_tiles: int, bm: int, bn: int, blocks_per_sm: dict,
+                 sms: int, tile: int | None = None, *, core: str) -> dict:
+    """How a launch of ``core``'s tile product (one of
+    ``PRODUCT_CORES``) over ``n_tiles`` (bm, bn) output tiles fills
+    ``sms`` SMs, at ``tile`` or, by default, at the tile the wrappers
+    choose; ``blocks_per_sm`` maps each tile to the blocks an SM holds at
+    once (0 or less: it cannot launch).
+
+    The choice: the least ``ceil(blocks / sms) * STEP_COST[core][tile]``,
+    the busiest SM's blocks at a block's k-step cost (the SM's FMA or
+    shared-memory issue rate, or its share of the L2 reads, shared among
+    its resident blocks); ties go to the larger tile.  Pure arithmetic:
+    the CPU tests run it."""
+    if core not in PRODUCT_CORES:
+        raise ValueError(f"core is one of {PRODUCT_CORES}, got {core!r}")
+
     def shape(t):
         per_sm = blocks_per_sm[t]
         sub = -(-bm // t) * -(-bn // t)
         blocks = n_tiles * sub
-        return {"tile": t, "sub_tiles": sub, "tiles": n_tiles,
+        return {"tile": t, "core": core, "sub_tiles": sub, "tiles": n_tiles,
                 "blocks": blocks, "blocks_per_sm": per_sm, "sms": sms,
                 "waves": blocks / (sms * per_sm) if per_sm > 0 else math.inf,
-                "cost": math.ceil(blocks / sms) * STEP_COST[t]}
+                "cost": math.ceil(blocks / sms) * STEP_COST[core][t]}
 
     if tile is not None:
         check_tile("tile product", tile)

@@ -1,6 +1,9 @@
 // tile_product.cuh — the shared-memory-tiled fp32 product behind the port's syrk and matmul
 // kernels (csrc/syrk.cu, csrc/matmul.cu), which replace the TPU kernels
 // src/repro/kernels/syrk.py:37 _syrk_kernel and src/repro/kernels/matmul.py:21 _matmul_kernel.
+// It runs fp32 operands and mixed pairs (fp32 with a 16-bit type, fp16 with bf16); two operands
+// of one 16-bit type run on the tensor cores instead (tile_product_tc.cuh).  The type alone
+// picks the core (kernels/_launch.product_core), never a failed launch.
 //
 // One thread block of 256 computes one TILE x TILE sub-tile of an output tile, TILE 128 or 64
 // (a template parameter; the host picks it per launch, kernels/_launch.product_grid):
@@ -16,8 +19,9 @@
 // fp32, bf16 or fp16; a 16-bit element widens to fp32 exactly, so each product is that of the
 // TPU kernel's jnp.dot of 16-bit tiles with an fp32 accumulator.
 //
-// What bounds it: fp32 FMA on the CUDA cores (no tensor cores, no TF32), 67 TFLOP/s on an
-// H100 SXM at 700 W; each output needs 2K flops against 8K bytes of operands.  An SM's shared
+// What bounds it: fp32 FMA on the CUDA cores (no tensor cores: TF32 would miss the 1e-5 bar an
+// fp32 product is held to), 67 TFLOP/s on an H100 SXM at 700 W; each output needs 2K flops
+// against 8K bytes of operands.  An SM's shared
 // memory delivers 32 words a clock against its 128 FMA lanes, so a k step must load at most one
 // word for 4 FMAs, and the copies of later chunks must be in flight while one is multiplied.
 // The design:
@@ -37,7 +41,8 @@
 //     registers a thread at TILE 128 (64 at 64): __launch_bounds__(256, 2) (4 at 64), so two
 //     blocks share an SM at TILE 128 and one block's barrier waits hide under the other's
 //     FMAs.
-// Larger tiles (wgmma on tensor cores, 3xTF32) are not this fp32 path: no TF32 here.
+// A mixed pair widened here runs at this fp32 rate, ~7 % of what the tensor cores give a pair
+// of one 16-bit type.  3xTF32 split products are untried (PERF.md section 7).
 //
 // Shape contract (checked by the C entries and the Python wrappers): the tile edges and the
 // K block are multiples of 8, so every 4-element vector lies wholly inside or outside a tile

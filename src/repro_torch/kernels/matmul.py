@@ -2,12 +2,13 @@
 
 The port of ``repro/kernels/matmul.py``.  :func:`matmul_padded` takes
 shapes already padded to block multiples (``ops.matmul`` pads).  On a
-CUDA tensor it launches ``csrc/matmul.cu`` (fp32 FMA on the CUDA cores,
-an fp32 accumulator over K, no TF32; bf16 and fp16 sides widened to
-fp32 exactly) or raises; on a CPU
-tensor it runs :func:`_matmul_padded_plain`.  Forward-only, as the JAX
-kernel: an input that requires grad is refused.  The kernel's block tile
-(128 or 64) is chosen per launch by :func:`matmul_launch_shape`.
+CUDA tensor it launches ``csrc/matmul.cu`` or raises: A and B of one
+16-bit type on the tensor cores (wgmma, an fp32 accumulator over K),
+any other pair by fp32 FMA on the CUDA cores (no TF32; a bf16 or fp16
+side widened to fp32 exactly), as ``_launch.product_core`` says; on a
+CPU tensor it runs :func:`_matmul_padded_plain`.  Forward-only, as the
+JAX kernel: an input that requires grad is refused.  The kernel's block
+tile (128 or 64) is chosen per launch by :func:`matmul_launch_shape`.
 """
 from __future__ import annotations
 
@@ -35,28 +36,32 @@ def _blocks_per_sm(a_dtype, b_dtype, out_dtype, tile: int) -> int:
 
 
 def _grid(m: int, n: int, bm: int, bn: int, blocks_per_sm: dict, sms: int,
-          tile: int | None = None) -> dict:
-    """The launch's grid on (m, k) @ (k, n) for given blocks an SM: the
-    pure arithmetic of :func:`matmul_launch_shape`."""
+          tile: int | None = None, *, core: str) -> dict:
+    """The launch's grid on (m, k) @ (k, n) on ``core`` for given blocks
+    an SM: the pure arithmetic of :func:`matmul_launch_shape`."""
     return _launch.product_grid((m // bm) * (n // bn), bm, bn,
-                                blocks_per_sm, sms, tile)
+                                blocks_per_sm, sms, tile, core=core)
 
 
 def matmul_launch_shape(m: int, n: int, *, bm: int, bn: int, a_dtype,
                         b_dtype, out_dtype, tile: int | None = None,
                         device=None) -> dict:
     """How a ``csrc/matmul.cu`` launch on (m, k) @ (k, n) fills the card:
-    its block tile (by default the one the wrapper picks), sub-tiles an
-    output tile, output tiles, thread blocks, blocks an SM
+    the core the operand types run on (``_launch.product_core``), its
+    block tile (by default the one the wrapper picks), sub-tiles an output
+    tile, output tiles, thread blocks, blocks an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves on the
     card's SMs and shared memory a block (``_launch.product_grid``)."""
     device = torch.device("cuda") if device is None else torch.device(device)
+    core = _launch.product_core(a_dtype, b_dtype)
     per_sm = {t: _blocks_per_sm(a_dtype, b_dtype, out_dtype, t)
               for t in _launch.PRODUCT_TILES}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    shape = _grid(m, n, bm, bn, per_sm, sms, tile)
-    smem = _launch.entry("matmul", "matmul_smem_bytes", (INT,))
-    return {**shape, "smem_bytes": smem(shape["tile"])}
+    shape = _grid(m, n, bm, bn, per_sm, sms, tile, core=core)
+    codes = _launch.DTYPE_CODES
+    smem = _launch.entry("matmul", "matmul_smem_bytes", (INT,) * 3)
+    return {**shape, "smem_bytes": smem(codes[a_dtype], codes[b_dtype],
+                                        shape["tile"])}
 
 
 def _matmul_padded_plain(a: torch.Tensor, b: torch.Tensor,

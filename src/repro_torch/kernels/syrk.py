@@ -4,10 +4,11 @@ The port of ``repro/kernels/syrk.py``.  :func:`syrk_packed` returns the
 stack of the ``T(T+1)/2`` lower-triangular ``(bn, bn)`` tiles, row-major
 over the triangle (the layout of ``core/symmetry.pack_tril_blocks``),
 diagonal tiles stored whole; upper tiles are never computed.  On a CUDA
-tensor it launches ``csrc/syrk.cu`` (fp32 FMA, an fp32 accumulator over
-K, no TF32; a bf16 or fp16 A is widened to fp32 exactly) or raises; on
-a CPU tensor it runs :func:`_syrk_packed_plain`, which walks the
-kernel's grid in torch.
+tensor it launches ``csrc/syrk.cu`` or raises: a bf16 or fp16 A on the
+tensor cores (wgmma, an fp32 accumulator over K), an fp32 A by fp32 FMA
+on the CUDA cores (no TF32), as ``_launch.product_core`` says; on a CPU
+tensor it runs :func:`_syrk_packed_plain`, which walks the kernel's grid
+in torch.
 Forward-only, as the JAX kernel: an input that requires grad is refused.
 The kernel's block tile (128 or 64) is chosen per launch by
 :func:`syrk_launch_shape`.
@@ -38,29 +39,32 @@ def _blocks_per_sm(a_dtype, out_dtype, tile: int) -> int:
 
 
 def _grid(n: int, bn: int, blocks_per_sm: dict, sms: int,
-          tile: int | None = None) -> dict:
-    """The launch's grid on an (M, n) A for given blocks an SM: the pure
-    arithmetic of :func:`syrk_launch_shape`, over the T(T+1)/2 packed
-    tiles, T = n / bn."""
+          tile: int | None = None, *, core: str) -> dict:
+    """The launch's grid on an (M, n) A on ``core`` for given blocks an
+    SM: the pure arithmetic of :func:`syrk_launch_shape`, over the
+    T(T+1)/2 packed tiles, T = n / bn."""
     t_blocks = n // bn
     return _launch.product_grid(t_blocks * (t_blocks + 1) // 2, bn, bn,
-                                blocks_per_sm, sms, tile)
+                                blocks_per_sm, sms, tile, core=core)
 
 
 def syrk_launch_shape(n: int, *, bn: int, a_dtype, out_dtype,
                       tile: int | None = None, device=None) -> dict:
-    """How a ``csrc/syrk.cu`` launch on an (M, n) A fills the card: its
-    block tile (by default the one the wrapper picks), sub-tiles a packed
-    tile, packed tiles (T(T+1)/2, T = n / bn), thread blocks, blocks an SM
+    """How a ``csrc/syrk.cu`` launch on an (M, n) A fills the card: the
+    core A's type runs on (``_launch.product_core``), its block tile (by
+    default the one the wrapper picks), sub-tiles a packed tile, packed
+    tiles (T(T+1)/2, T = n / bn), thread blocks, blocks an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves on the
     card's SMs and shared memory a block (``_launch.product_grid``)."""
     device = torch.device("cuda") if device is None else torch.device(device)
+    core = _launch.product_core(a_dtype, a_dtype)
     per_sm = {t: _blocks_per_sm(a_dtype, out_dtype, t)
               for t in _launch.PRODUCT_TILES}
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    shape = _grid(n, bn, per_sm, sms, tile)
-    smem = _launch.entry("syrk", "syrk_smem_bytes", (INT,))
-    return {**shape, "smem_bytes": smem(shape["tile"])}
+    shape = _grid(n, bn, per_sm, sms, tile, core=core)
+    smem = _launch.entry("syrk", "syrk_smem_bytes", (INT,) * 2)
+    return {**shape, "smem_bytes": smem(_launch.DTYPE_CODES[a_dtype],
+                                        shape["tile"])}
 
 
 def _tri_decode(t):
@@ -75,6 +79,31 @@ def _tri_decode(t):
     i = torch.where((i + 1) * (i + 2) // 2 <= t, i + 1, i)
     i = torch.where(i * (i + 1) // 2 > t, i - 1, i)
     return i, t - i * (i + 1) // 2
+
+
+def _grouped_packed_tile(index: int, t_blocks: int, bn: int, tile: int):
+    """Block ``index`` (in launch order) of a tensor-core syrk launch over
+    T = ``t_blocks`` tile rows, as ``grouped_packed_tile`` in
+    ``csrc/syrk.cu`` decodes it: its packed tile (i, j), i >= j, and the
+    index of its sub-tile (``_launch.sub_tile``).  A packed tile's
+    sub-tiles run together, and the packed tiles are walked
+    ``max(1, RASTER // ceil(bn / tile))`` tile rows at a time, column by
+    column."""
+    n_sub = -(-bn // tile)
+    p, sub = divmod(index, n_sub * n_sub)
+    g = max(1, _launch.RASTER // n_sub)
+    row = int(_tri_decode(p)[0])
+    first = row // g * g
+    rows = min(g, t_blocks - first)
+    w = p - first * (first + 1) // 2
+    if w < first * rows:
+        return first + w % rows, w // rows, sub
+    w -= first * rows
+    c = 0
+    while w >= rows - c:
+        w -= rows - c
+        c += 1
+    return first + c + w, first + c, sub
 
 
 def _syrk_packed_plain(a: torch.Tensor, bn: int,

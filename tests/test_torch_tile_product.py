@@ -1,5 +1,6 @@
-"""The launch arithmetic of the port's shared tile product
-(``csrc/tile_product.cuh``, behind ``csrc/syrk.cu`` and ``csrc/matmul.cu``).
+"""The launch arithmetic of the port's shared tile products (the CUDA-core
+``csrc/tile_product.cuh`` and the tensor-core ``csrc/tile_product_tc.cuh``,
+behind ``csrc/syrk.cu`` and ``csrc/matmul.cu``).
 
 The kernels run only on the card, where ``chip_smoke.py`` holds them
 against their plain versions at both block tiles.  What surrounds them
@@ -26,8 +27,12 @@ p_matmul, p_syrk = (importlib.import_module(f"repro_torch.kernels.{name}")
 SMS = 132                                    # an H100 SXM's SMs
 EDGES = tuple(range(8, 257, 8))              # every block edge 8-256
 # blocks an SM at each tile, by operand dtype, as the card's occupancy
-# query gives them for the kernels' launch bounds (two at 128, four at 64)
-PER_SM = {"float32": {128: 2, 64: 4}, "bfloat16": {128: 2, 64: 4}}
+# query gives them for the launch bounds of the dtype's core
+# (``_launch.product_core``): the CUDA cores (fp32) two at 128, four at 64;
+# the tensor cores (bf16 with bf16) one at 128, three at 64
+PER_SM = {"float32": {128: 2, 64: 4}, "bfloat16": {128: 1, 64: 3}}
+CORE = {name: _launch.product_core(getattr(torch, name), getattr(torch, name))
+        for name in PER_SM}
 
 
 @pytest.mark.parametrize("dtype", sorted(PER_SM))
@@ -37,14 +42,15 @@ def test_tile_choice_by_block_edge(edge, dtype):
     to the edge: 64 where a 128 sub-tile would be mostly empty (edges up
     to 64), 128 where it divides the edge, and in every case the tile of
     least busiest-SM cost, ties to 128."""
-    per_sm = PER_SM[dtype]
+    per_sm, core = PER_SM[dtype], CORE[dtype]
     n = -(-2560 // edge) * edge
-    got = p_matmul._grid(n, n, edge, edge, per_sm, SMS)
-    shapes = {t: p_matmul._grid(n, n, edge, edge, per_sm, SMS, tile=t)
+    got = p_matmul._grid(n, n, edge, edge, per_sm, SMS, core=core)
+    shapes = {t: p_matmul._grid(n, n, edge, edge, per_sm, SMS, tile=t,
+                                core=core)
               for t in _launch.PRODUCT_TILES}
     for t, shape in shapes.items():
         assert shape["cost"] == math.ceil(shape["blocks"] / SMS) \
-            * _launch.STEP_COST[t]
+            * _launch.STEP_COST[core][t]
     assert got["cost"] == min(s["cost"] for s in shapes.values())
     if shapes[128]["cost"] == shapes[64]["cost"]:
         assert got["tile"] == 128
@@ -52,16 +58,20 @@ def test_tile_choice_by_block_edge(edge, dtype):
         assert got["tile"] == 64
     if edge % 128 == 0:
         assert got["tile"] == 128
-    assert p_syrk._grid(n, edge, per_sm, SMS)["tile"] in _launch.PRODUCT_TILES
+    assert p_syrk._grid(n, edge, per_sm, SMS, core=core)["tile"] \
+        in _launch.PRODUCT_TILES
 
 
 def test_tile_choice_skips_a_tile_that_cannot_launch():
-    shape = p_matmul._grid(2560, 2560, 256, 256, {128: 0, 64: 3}, SMS)
+    shape = p_matmul._grid(2560, 2560, 256, 256, {128: 0, 64: 3}, SMS,
+                           core="cuda")
     assert shape["tile"] == 64
     with pytest.raises(RuntimeError, match="no tile"):
-        p_matmul._grid(2560, 2560, 256, 256, {128: 0, 64: 0}, SMS)
+        p_matmul._grid(2560, 2560, 256, 256, {128: 0, 64: 0}, SMS,
+                       core="cuda")
     with pytest.raises(ValueError, match="tile"):
-        p_matmul._grid(2560, 2560, 256, 256, PER_SM["float32"], SMS, tile=96)
+        p_matmul._grid(2560, 2560, 256, 256, PER_SM["float32"], SMS, tile=96,
+                       core="cuda")
 
 
 @pytest.mark.parametrize("tile", _launch.PRODUCT_TILES)
@@ -74,7 +84,7 @@ def test_sub_tiles_cover_each_output_once(bm, bn, tile):
     origins on the tile and extents that are multiples of 8 (a thread's
     4-wide vectors lie wholly inside or outside)."""
     n_sub = _launch.product_grid(1, bm, bn, PER_SM["float32"], SMS,
-                                 tile=tile)["sub_tiles"]
+                                 tile=tile, core="cuda")["sub_tiles"]
     seen = np.zeros((bm, bn), dtype=np.int64)
     for index in range(n_sub):
         i0, j0, i_lim, j_lim = _launch.sub_tile(index, bm, bn, tile)
@@ -92,7 +102,7 @@ def test_syrk_grid_counts_packed_tiles(n, bn):
     them, and the kernel's decode of the column index walks exactly the
     lower triangle, row-major."""
     t_blocks = n // bn
-    shape = p_syrk._grid(n, bn, PER_SM["float32"], SMS)
+    shape = p_syrk._grid(n, bn, PER_SM["float32"], SMS, core="cuda")
     assert shape["tiles"] == t_blocks * (t_blocks + 1) // 2
     assert shape["blocks"] == shape["tiles"] * shape["sub_tiles"]
     ii, jj = p_syrk._tri_decode(torch.arange(shape["tiles"]))
@@ -117,9 +127,10 @@ def test_blocks_and_waves_at_the_main_path(kernel, n, tile, blocks, waves):
     tile 128 at all four (the leaf: 400 blocks fill 264 slots, 1.52
     waves)."""
     per_sm = PER_SM["float32"]
-    grid = (lambda t: p_matmul._grid(n, n, 256, 256, per_sm, SMS, t)) \
+    grid = (lambda t: p_matmul._grid(n, n, 256, 256, per_sm, SMS, t,
+                                     core="cuda")) \
         if kernel == "matmul" else \
-        (lambda t: p_syrk._grid(n, 256, per_sm, SMS, t))
+        (lambda t: p_syrk._grid(n, 256, per_sm, SMS, t, core="cuda"))
     shape = grid(tile)
     assert shape["blocks"] == blocks
     assert shape["sub_tiles"] == (256 // tile) ** 2

@@ -7,20 +7,27 @@ checkouts of the port on one card.
 
 Each checkout is a directory holding ``src/repro_torch`` (unpack the
 parent with ``git archive <commit> | tar -x -C DIR`` into a directory
-that ``.gitignore`` lists).  Both build ``leaf_products`` (and whatever
-else their ``leaf_program`` launches) into their own ``build/`` first,
-at once.  Then each round runs one process per side in the order
+that ``.gitignore`` lists).  Both build what the cases run (``leaf_products``
+and whatever else their ``leaf_program`` launches; ``syrk`` and ``matmul``;
+``flash_attention``) into their own ``build/`` first, at once.  Then each round runs one process per side in the order
 parent, change, change, parent, each timing ``strassen_fused.leaf_program``
 on the main path's padded operands at n = 10000, seed 0, levels 2, tiles
 of 256, at the default pipeline depth and block tile: the ata, aat and
 rank_k kinds (one 2500-row chunk into a 40-tile stack) of the strassen
 gram, the symm kind (the backward's X @ (S + S^t)), the matmul kind, ata
 of the dps gram, ata on bf16 operands (``ata_bf16``) and ata into a bf16
-output (``ata_bf16_out``); and ``syrk_packed`` and ``matmul_padded`` (blocks of
+output (``ata_bf16_out``); ``syrk_packed`` and ``matmul_padded`` (blocks of
 256, the default block tile) on the padded 10240^2 A (and B) of
 ``ops.syrk(a)`` and ``ops.matmul(a, b)`` and on the reference recursion's
-2560^2 leaf (``syrk_leaf``, ``matmul_leaf``).  ``--cases`` picks some of
-them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
+2560^2 leaf (``syrk_leaf``, ``matmul_leaf``), in fp32 and, with the
+suffix ``_f16`` or ``_bf16`` (``syrk_f16``, ``syrk_leaf_f16``,
+``matmul_f16``, ``matmul_leaf_f16`` and their bf16 twins), on operands of
+that type with an output of that type; and the reference recursion on
+fp16 A end to end, ``ata(a16, base_syrk=ops.kernel_base_syrk(),
+base_matmul=ops.kernel_base_matmul())`` (``ata_leaves_f16``: 16 syrk and
+22 matmul leaves); and flash attention at the serving prefill, q (1, 16,
+2048, 128) over k, v (1, 2, 2048, 128), causal, in bf16 and fp16
+(``flash_bf16``, ``flash_f16``).  ``--cases`` picks some of them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
 summary gives each side's median over its processes and the change over
 the parent.  Each process also hashes each case's output (sha256 of its
 bytes), and the summary says whether every run of both sides gave the
@@ -36,10 +43,18 @@ import statistics
 import subprocess
 import sys
 
+# the single-purpose kernels' cases: fp32, then 16-bit (the suffix names
+# the operand and output type)
+SINGLE32 = ("syrk", "syrk_leaf", "matmul_padded", "matmul_leaf")
+SINGLE16 = tuple(f"{c}_{t}" for t in ("f16", "bf16")
+                 for c in ("syrk", "syrk_leaf", "matmul", "matmul_leaf"))
+SINGLE = SINGLE32 + SINGLE16
+# the reference recursion on kernel leaves, end to end
+E2E = ("ata_leaves_f16",)
+# flash attention at the serving prefill
+FLASH = ("flash_bf16", "flash_f16")
 CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps", "ata_bf16",
-         "ata_bf16_out", "syrk", "syrk_leaf", "matmul_padded", "matmul_leaf")
-# the single-purpose kernels' cases, and their libraries
-SINGLE = ("syrk", "syrk_leaf", "matmul_padded", "matmul_leaf")
+         "ata_bf16_out") + SINGLE + E2E + FLASH
 
 
 def _time_side(root: pathlib.Path, cases: tuple) -> dict:
@@ -48,10 +63,13 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
 
     import torch
     import torch.nn.functional as F
+    from repro_torch.core import ata
     from repro_torch.core.symmetry import pack_tril_blocks
+    from repro_torch.kernels import ops
     from repro_torch.kernels import strassen_fused as sf
-    k_syrk, k_matmul = (importlib.import_module(f"repro_torch.kernels.{m}")
-                        for m in ("syrk", "matmul"))
+    k_syrk, k_matmul, k_flash = (
+        importlib.import_module(f"repro_torch.kernels.{m}")
+        for m in ("syrk", "matmul", "flash_attention"))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, f32 = torch.device("cuda"), torch.float32
@@ -86,18 +104,35 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
 
     out = {}
     for case in (c for c in cases if c in SINGLE):
-        big = case in ("syrk", "matmul_padded")
-        x = padded(a if big else a[:n // 4, :n // 4].contiguous())
+        base, _, suffix = case.rpartition("_") if case in SINGLE16 \
+            else (case, "", "")
+        dtype = {"f16": torch.float16, "bf16": torch.bfloat16}.get(suffix,
+                                                                    f32)
+        big = base in ("syrk", "matmul_padded", "matmul")
+        x = padded(a if big else a[:n // 4, :n // 4].contiguous()).to(dtype)
         if case.startswith("syrk"):
             out[case] = measured(lambda: k_syrk.syrk_packed(x, bk=block,
                                                             bn=block))
         else:
-            y = padded(torch.randn(x.shape, generator=gen, device=dev))
+            y = padded(torch.randn(x.shape, generator=gen,
+                                   device=dev)).to(dtype)
             out[case] = measured(lambda: k_matmul.matmul_padded(
                 x, y, bm=block, bk=block, bn=block))
             del y
         del x
-    for case in (c for c in cases if c not in SINGLE):
+    if "ata_leaves_f16" in cases:
+        hooks = dict(base_syrk=ops.kernel_base_syrk(),
+                     base_matmul=ops.kernel_base_matmul())
+        a16 = a.half()
+        out["ata_leaves_f16"] = measured(lambda: ata(a16, **hooks))
+        del a16
+    for case in (c for c in cases if c in FLASH):
+        dtype = torch.float16 if case == "flash_f16" else torch.bfloat16
+        q, k, v = (torch.randn(1, heads, 2048, 128, generator=gen,
+                               device=dev).to(dtype) for heads in (16, 2, 2))
+        out[case] = measured(lambda: k_flash.flash_attention(q, k, v))
+        del q, k, v
+    for case in (c for c in cases if c not in SINGLE + E2E + FLASH):
         seed, out_dtype = None, f32
         gram = "dps" if case == "ata_dps" else "strassen"
         if case.startswith("ata"):
@@ -164,7 +199,13 @@ def main() -> int:
     if args.build is not None:
         sys.path.insert(0, str(args.build.resolve() / "src"))
         from repro_torch.kernels import _build
-        for name in ("leaf_products", "leaf_program", "syrk", "matmul"):
+        # the libraries the cases run: the leaf program's for a fused case,
+        # syrk and matmul for the others
+        names = (("leaf_products", "leaf_program")
+                 if set(cases) - set(SINGLE + E2E + FLASH) else ()) + \
+            (("syrk", "matmul") if set(cases) & set(SINGLE + E2E) else ()) + \
+            (("flash_attention",) if set(cases) & set(FLASH) else ())
+        for name in names:
             if (_build.CSRC / f"{name}.cu").exists():
                 _build.build(name)
         return 0
@@ -179,7 +220,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     sides = {"parent": args.parent.resolve(), "change": args.change.resolve()}
     builds = [subprocess.Popen([sys.executable, __file__, "--build",
-                                str(root)]) for root in sides.values()]
+                                str(root), "--cases", args.cases])
+              for root in sides.values()]
     if any(b.wait() for b in builds):
         return 1
     runs = {side: [] for side in sides}
