@@ -178,6 +178,28 @@ failure exits non-zero):
        restore ms (the port's tracer spans) and MB printed; one gradient
        through each layout's update, dA against float64 A (S + S^t) <=
        1e-4;
+   4k. the distributed layer (``core.distributed``) on a one-rank NCCL
+       world (a ``HashStore``, rank 0 of 1) and ``make_gram_mesh(1)`` on
+       the card: ``distributed_gram`` on the n x n A for "allreduce",
+       "reducescatter", "ring", "bfs25d" and "auto", each against
+       ``ata_full(a)`` (<= 1e-5 of max|C|; bit-equality printed), its
+       ``gram_dist:<scheme>`` profiler span, and ``distributed_update``
+       over 4 chunks of n / 4 rows for "reducescatter" and "ring" against
+       it; the launches of ``leaf_products.cu`` counted (a one-rank ring
+       has no off-diagonal block: no matmul kind); each scheme's ms beside
+       ``ata_full``'s, each update's; the NCCL version; the group
+       destroyed at the end;
+   4l. autotune on the card: ``autotune(n, n, kind="ata", measure=True)``
+       (the 16384^2 bucket at n = 10000) into the script's own cache (a
+       fresh temporary file, set before anything reads the cache, so no
+       cache on the machine moves an earlier phase's blocks): the
+       candidate count, the model's top 3, the measured winner and the
+       seconds; where the reference recursion wins, the fused candidates'
+       own contest too; then ``ops.ata_fused(a)`` with no block hits the
+       cache (the hit counter rises by one) and runs the tuned blocks,
+       against the 256-block result (<= 1e-5), both timed; a lookup's
+       host cost, hit and miss; the entry then dropped, so phase 5 runs
+       the 256 default;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -216,13 +238,15 @@ failure exits non-zero):
    tensor-core peak (989 TFLOP/s) or its bytes, whichever is larger.
    Each syrk and matmul row names its core.
 
-It prints one ``{"kernels": [...]}`` line and, last, the
+It prints one ``{"distributed": ..., "autotune": ...}`` line (phases 4k
+and 4l), one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import concurrent.futures
 import ctypes
 import dataclasses
@@ -546,6 +570,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # the autotune cache the block defaults read: a fresh file of the
+    # script's own (phase 4l fills it, then drops its entry), so no cache
+    # on the machine changes an earlier phase's blocks
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tune_dir,
+                                                      "gram_autotune.json")
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
     from repro_torch.core import ata, ata_full, ata_levels_for, strassen_matmul
@@ -2430,6 +2461,185 @@ def main() -> int:
     streamed["packed"]["grad_vs_float64"] = e_gp
     streamed["stack"]["grad_vs_float64"] = e_gs
 
+    # -- 4k. the distributed layer on the card ---------------------------------
+    # One H100: a one-rank NCCL world, so every collective runs through
+    # NCCL on the device; the multi-rank schedules are held on the CPU in
+    # gloo worlds (tests/test_torch_distributed.py).
+    import torch.distributed as dist
+    from repro_torch.core import distributed as cdist
+    from repro_torch.launch.mesh import make_gram_mesh
+    print(f"== 4k. main path: distributed_gram and the distributed streams "
+          f"on a one-rank NCCL world, A {n} x {n}")
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_gram_mesh(1)
+        axes = cdist.default_gram_axes(mesh)
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        backend = dist.get_backend(mesh.get_group("data"))
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"  NCCL {nccl}, mesh {sizes} on {mesh.device_type}, groups "
+              f"{backend}; axes {axes}")
+        assert backend == "nccl", backend
+        schemes = ("allreduce", "reducescatter", "ring", "bfs25d", "auto")
+        reset_counts()
+        c_full = ata_full(a)
+        dist_out = {s_: cdist.distributed_gram(a, mesh, scheme=s_, **axes)
+                    for s_ in schemes}
+        got = read_counts("ata_full(a) and the five distributed_gram calls")
+        # one ata-kind launch each, no block task on a one-rank ring
+        assert got[ATA] == got["leaf_products.cu/ata"] == 1 + len(schemes), \
+            got
+        assert got[MATMUL] == 0 and sum(
+            v for k_, v in got.items() if k_.startswith("leaf_program/")) \
+            == got[ATA], got
+        dist_launches = {"ata": got[ATA], "matmul": got[MATMUL]}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            cdist.distributed_gram(a, mesh, scheme="auto", **axes)
+        spans = sorted({e_.key for e_ in prof.key_averages()
+                        if e_.key.startswith("gram_dist:")})
+        print(f"  profiler span of scheme='auto': {spans}")
+        assert spans == ["gram_dist:allreduce"], spans
+        full_ms, _ = _time_ms(lambda: ata_full(a))
+        print(f"  ata_full(a): {full_ms:.3f} ms")
+        distributed = {"nccl": nccl, "ata_full_ms": full_ms,
+                       "launches": dist_launches, "schemes": {}}
+        for s_, out in dist_out.items():
+            loc = out.to_local()
+            assert loc.shape == (n, n) and loc.dtype == f32, (s_, loc.shape)
+            e_ = _rel(loc, c_full.double())
+            same = torch.equal(loc, c_full)
+            ms, runs = _time_ms(lambda: cdist.distributed_gram(
+                a, mesh, scheme=s_, **axes))
+            print(f"  {s_}: {[repr(p_) for p_ in out.placements]}, vs "
+                  f"ata_full(a) {e_:.3e} (<= 1e-5), bit-equal {same}; "
+                  f"{ms:.3f} ms (runs {[round(t_, 3) for t_ in runs]}), "
+                  f"{ms - full_ms:+.3f} over ata_full")
+            assert e_ <= 1e-5, (s_, e_)
+            distributed["schemes"][s_] = {
+                "vs_ata_full": e_, "bit_equal": same, "ms": ms,
+                "over_ata_full_ms": ms - full_ms,
+                "placements": [repr(p_) for p_ in out.placements]}
+        del dist_out, loc, out
+        d_parts = [a[i * rows:(i + 1) * rows] for i in range(chunks)]
+        for s_ in ("reducescatter", "ring"):
+            state = stream.distributed_init(n, mesh, scheme=s_)
+            reset_counts()
+            upd_ms = []
+            for x in d_parts:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                new = stream.distributed_update(state, x, mesh, scheme=s_)
+                end.record()
+                end.synchronize()
+                assert new is state          # in place
+                upd_ms.append(start.elapsed_time(end))
+            got = read_counts(f"the distributed {s_} stream")
+            assert got[ATA] == chunks and got[MATMUL] == 0, got
+            fin = stream.distributed_finalize(state, mesh,
+                                              scheme=s_).to_local()
+            e_ = _rel(fin, c_full.double())
+            print(f"  distributed_update, {s_}: {chunks} chunks of {rows} "
+                  f"rows, update ms {[round(t_, 3) for t_ in upd_ms]}; "
+                  f"finalize vs ata_full(a) {e_:.3e} (<= 1e-5)")
+            assert e_ <= 1e-5, (s_, e_)
+            distributed["schemes"][s_]["stream"] = {
+                "update_ms": upd_ms, "vs_ata_full": e_,
+                "launches": got[ATA]}
+            del state, fin, new
+        del d_parts, c_full
+    finally:
+        dist.destroy_process_group()
+    distributed["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 4k: {distributed['phase_s']:.1f} s")
+
+    # -- 4l. autotune on the card --------------------------------------------
+    from repro_torch.gram import autotune as at
+    from repro_torch.obs import metrics as obs_metrics
+    bucket = at.bucket_shape(n, n)
+    print(f"== 4l. autotune: the ata bucket {bucket} of A {n} x {n}, "
+          f"measured on the card")
+    t_phase = time.perf_counter()
+    hits = obs_metrics.counter("gram_autotune_cache_total")
+
+    def lookup_us(reps=2000):
+        """The host cost, in microseconds, of the block defaults an entry
+        point reads (``ops._resolve_blocks``: the hook's answer, re-read
+        from the file at most once a second) and of one ``at.lookup``
+        (a stat of the cache file, every call)."""
+        out = []
+        for fn in (lambda: ops._resolve_blocks("ata", n, n, f32, dev,
+                                               bk=None, bn=None),
+                   lambda: at.lookup(n, n, kind="ata")):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            out.append((time.perf_counter() - t0) / reps * 1e6)
+        return out
+
+    miss_us = lookup_us()
+    assert ops._resolve_blocks("ata", n, n, f32, dev, bk=None, bn=None) == \
+        {"bk": DEFAULT_BLOCK, "bn": DEFAULT_BLOCK}
+    cands = at.candidate_space(*bucket, kind="ata")
+    fused_c = sorted((c_ for c_ in cands if c_["mode"] == "fused"),
+                     key=lambda c_: at.model_score(*bucket, c_))
+    knobs = ("levels", "variant", "gram", "bk", "bn", "pipeline_depth")
+    top3 = [{k_: c_[k_] for k_ in knobs} | {
+        "model_bytes": at.model_score(*bucket, c_)} for c_ in fused_c[:3]]
+    print(f"  {len(cands)} candidates ({len(fused_c)} fused); the model's "
+          f"top 3: {top3}")
+    reset_counts()
+    t0 = time.perf_counter()
+    entry = at.autotune(n, n, kind="ata", measure=True)
+    tune_s = time.perf_counter() - t0
+    print(f"  autotune(measure=True): {tune_s:.1f} s; winner "
+          f"{ {k_: entry[k_] for k_ in ('mode', *knobs)} }, measured "
+          f"{entry['measured_s'] * 1e3:.3f} ms at {bucket}")
+    autotune = {"bucket": list(bucket), "candidates": len(cands),
+                "model_top3": top3, "winner": entry, "tune_s": tune_s,
+                "lookup_miss_us": miss_us}
+    if entry["mode"] != "fused":
+        # the blocks the kernel's entry points read come from a fused
+        # winner: the fused candidates' own contest
+        t0 = time.perf_counter()
+        entry = at.autotune(n, n, kind="ata", measure=True,
+                            modes=("fused",), refresh=True)
+        autotune["fused_tune_s"] = time.perf_counter() - t0
+        autotune["fused_winner"] = entry
+        print(f"  the fused candidates alone: {autotune['fused_tune_s']:.1f} "
+              f"s; winner { {k_: entry[k_] for k_ in knobs} }, measured "
+              f"{entry['measured_s'] * 1e3:.3f} ms")
+    before = hits.value(outcome="hit")
+    c_tuned = ops.ata_fused(a)
+    assert hits.value(outcome="hit") == before + 1
+    got = read_counts("autotune and ops.ata_fused(a) with the tuned blocks")
+    autotune["launches"] = {"ata": got[ATA], "matmul": got[MATMUL]}
+    tuned = {k_: entry[k_] for k_ in ("bk", "bn")}
+    hit_us = lookup_us()
+    c_256 = ops.ata_fused(a, bk=DEFAULT_BLOCK, bn=DEFAULT_BLOCK)
+    e_ = _rel(c_tuned, c_256.double())
+    tuned_ms, _ = _time_ms(lambda: ops.ata_fused(a))
+    d_ms, _ = _time_ms(lambda: ops.ata_fused(a, bk=DEFAULT_BLOCK,
+                                             bn=DEFAULT_BLOCK))
+    print(f"  ops.ata_fused(a) hit the cache: blocks {tuned}, vs the "
+          f"{DEFAULT_BLOCK}-block result {e_:.3e} (<= 1e-5); {tuned_ms:.3f} "
+          f"ms against {d_ms:.3f} at {DEFAULT_BLOCK}; on the host, an entry "
+          f"point's block defaults {miss_us[0]:.2f} us (miss), "
+          f"{hit_us[0]:.2f} us (hit), one at.lookup {miss_us[1]:.2f} us "
+          f"(miss), {hit_us[1]:.2f} us (hit)")
+    assert e_ <= 1e-5, e_
+    del c_tuned, c_256
+    assert at.invalidate(n, n, kind="ata")
+    assert ops._resolve_blocks("ata", n, n, f32, dev, bk=None, bn=None) == \
+        {"bk": DEFAULT_BLOCK, "bn": DEFAULT_BLOCK}
+    autotune.update(tuned_blocks=tuned, vs_default=e_, tuned_ms=tuned_ms,
+                    default_ms=d_ms, lookup_hit_us=hit_us,
+                    phase_s=time.perf_counter() - t_phase)
+    print(f"  phase 4l: {autotune['phase_s']:.1f} s")
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
     print(f"card: {smi}")
@@ -3135,6 +3345,7 @@ def main() -> int:
 
     # -- 6. summary -------------------------------------------------------------
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"distributed": distributed, "autotune": autotune}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

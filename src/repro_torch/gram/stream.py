@@ -37,9 +37,19 @@ accumulation-order rounding.
 :class:`CheckpointedGramStream` is the crash-recovery layer: the state
 committed to a :class:`~repro_torch.checkpoint.CheckpointManager`
 directory every ``every`` chunks, in the JAX package's format, so either
-package resumes the other's stream.  The sharded and distributed streams
-of the JAX package (``sharded_init``, ``update_sharded``,
-``distributed_*``) wait for the port's distributed layer.
+package resumes the other's stream.
+
+Sharded variant: :func:`update_sharded` composes with
+``core.distributed.gram_reducescatter`` — each rank streams its *row
+shard* of the chunk and holds only its block-row shard of C, so the
+replicated C of the paper-faithful all-reduce scheme never materializes.
+
+Distributed variant: :func:`distributed_init` / :func:`distributed_update`
+/ :func:`distributed_finalize` compose with the reduce-scatter, half-ring
+and 2.5D ``bfs25d`` schemes over a ``DeviceMesh``: the state is a
+``DTensor`` in the scheme's own output layout (block-rows, or the
+circulant block stack sharded over the ring axis), and each chunk's delta
+adds into it without a replicated C.
 """
 from __future__ import annotations
 
@@ -50,6 +60,9 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core.ata import ata, ata_levels_for
+from ..core.distributed import (_local_shard, _wrap, assemble_ring_gram,
+                                gram_bfs25d, gram_reducescatter, gram_ring,
+                                ring_stack_len, _axis_sizes)
 from ..core.strassen import AUTO_MAX_LEVELS, resolve_mode
 from ..core.symmetry import (_as_tensor, _tril_gather_index, pack_tril,
                              symmetrize_from_lower, unpack_tril,
@@ -60,6 +73,8 @@ from ..obs import trace as _trace
 
 __all__ = ["GramStream", "init", "update", "finalize",
            "GramStackStream", "stack_init", "stack_update", "stack_finalize",
+           "sharded_init", "update_sharded",
+           "distributed_init", "distributed_update", "distributed_finalize",
            "CheckpointedGramStream"]
 
 
@@ -121,7 +136,7 @@ def update(state: GramStream, chunk, *, levels: Union[int, str] = 2,
 
     ``chunk`` is (m_chunk, n) with any m_chunk >= 1 (ragged tails fine), a
     tensor on any device or an array.  Kernel knobs mirror ``core.ata``;
-    ``block=None`` is ``ops.DEFAULT_BLOCK``.
+    ``block=None`` consults the autotune cache (256 when untuned).
 
     Unless an input requires grad, the sum is written over
     ``state.packed``: the returned state shares that buffer, and
@@ -215,12 +230,15 @@ def stack_init(n: int, *, block: Optional[int] = None, dtype=torch.float32,
     """Fresh rank-k accumulator for an n-column stream on ``device`` (None:
     the card).
 
-    ``block`` is the stack's tile edge, ``ops.DEFAULT_BLOCK`` (256) when
-    None until the autotune cache lands (ROADMAP Queue 1 #8); the stack
-    spans ``ceil(n / block)`` tiles — padded columns are exact zeros.
+    ``block`` is the stack's tile edge (``None`` consults the autotune
+    cache for the (n, n) rank_k bucket on ``device``'s backend, 256 when
+    untuned); the stack spans ``ceil(n / block)`` tiles — padded columns
+    are exact zeros.
     """
-    block = ops.DEFAULT_BLOCK if block is None else block
     dev = ops.resolve_device(device)
+    if block is None:
+        block = ops._resolve_blocks("rank_k", n, n, dtype, dev,
+                                    bn=None)["bn"]
     t = -(-n // block)
     return GramStackStream(
         stack=torch.zeros((t * (t + 1) // 2 * block, block), dtype=dtype,
@@ -286,6 +304,138 @@ def stack_finalize(state: GramStackStream, n: Optional[int] = None, *,
     if n is not None:
         c = c[:n, :n]
     return c if out_dtype is None else c.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sharded streaming: C lives sharded by block-rows over a mesh axis.
+# ---------------------------------------------------------------------------
+
+def sharded_init(n: int, axis_size: int, *, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """This rank's state for :func:`update_sharded`: its (n/P, n)
+    block-row shard of C, on ``device`` (None: the card)."""
+    if n % axis_size:
+        raise ValueError(f"n={n} not divisible by axis_size={axis_size}")
+    return torch.zeros((n // axis_size, n), dtype=dtype,
+                       device=ops.resolve_device(device))
+
+
+def update_sharded(c_shard: torch.Tensor, chunk_local: torch.Tensor, mesh,
+                   row_axis: str = "data", *,
+                   levels: Union[int, str] = 2, leaf: int = 256,
+                   variant: str = "strassen",
+                   mode: str = "auto") -> torch.Tensor:
+    """One streamed chunk on this rank: the chunk's rows sharded over
+    ``row_axis`` of ``mesh``, C sharded by block-rows over the same axis.
+
+    Each rank computes the Gram of its row shard (the fused kernel on the
+    card via ``mode="auto"``) and one ``reduce_scatter_tensor``
+    (``gram_reducescatter``) lands its block-row slice — the full C is
+    never replicated, and a chunk's collective moves n^2/P words a rank
+    instead of n^2.  Adds into ``c_shard`` in place unless an input
+    requires grad (then out of place, differentiable).
+    """
+    delta = gram_reducescatter(chunk_local, mesh, row_axis, levels=levels,
+                               leaf=leaf, variant=variant, mode=mode,
+                               out_dtype=c_shard.dtype)
+    if _in_place(c_shard, chunk_local):
+        return c_shard.add_(delta)
+    return c_shard + delta
+
+
+# ---------------------------------------------------------------------------
+# Distributed streaming over a DeviceMesh: the state a DTensor in the
+# scheme's natural output layout, the chunks sharded like its input.
+# ---------------------------------------------------------------------------
+
+def _state_dims(scheme: str, row_axis: str, col_axis: Optional[str]):
+    """Mesh axis -> tensor dim of the state's shards."""
+    if scheme == "reducescatter":
+        return {row_axis: 0}
+    if scheme in ("ring", "bfs25d"):
+        return {col_axis: 2}
+    raise ValueError(f"unsupported streaming scheme {scheme!r}")
+
+
+def distributed_init(n: int, mesh, *, scheme: str = "reducescatter",
+                     row_axis: str = "data",
+                     col_axis: Optional[str] = "model",
+                     dtype=torch.float32):
+    """Zero accumulator for :func:`distributed_update` on ``mesh``, on
+    the mesh's device type; every rank of the mesh calls it.
+
+    * ``"reducescatter"`` — dense (n, n) C sharded by block-rows over
+      ``row_axis`` (never replicated).
+    * ``"ring"`` / ``"bfs25d"`` — the half-ring circulant block stack
+      (floor(T/2)+1, n/T, n) sharded over ``col_axis``: ~n(n+1)/2 words
+      of global state, the packed-triangle saving at mesh scale.
+    """
+    dims = _state_dims(scheme, row_axis, col_axis)
+    sizes = _axis_sizes(mesh)
+    if scheme == "reducescatter":
+        R = sizes[row_axis]
+        if n % R:
+            raise ValueError(f"n={n} not divisible by the row axis ({R})")
+        local = (n // R, n)
+    else:
+        T = sizes[col_axis]
+        if n % T:
+            raise ValueError(f"n={n} not divisible by ring size {T}")
+        local = (ring_stack_len(T), n // T, n // T)
+    return _wrap(torch.zeros(local, dtype=dtype, device=mesh.device_type),
+                 mesh, dims)
+
+
+def distributed_update(state, chunk, mesh, *,
+                       scheme: str = "reducescatter",
+                       row_axis: str = "data",
+                       col_axis: Optional[str] = "model",
+                       rep_axis: Optional[str] = None,
+                       levels: Union[int, str] = 2, leaf: int = 256,
+                       variant: str = "strassen", mode: str = "auto"):
+    """Fold one row chunk into the distributed state:
+    ``state += scheme(chunk)``.
+
+    ``chunk`` is a ``DTensor`` or a full tensor every rank holds whole;
+    its rows must divide by the row axis, and for the ring family its
+    columns by the ring axis (for ``bfs25d`` it is replicated over
+    ``rep_axis``: each update ships only ceil(half/c) hops).  Unless an
+    input requires grad the delta adds into ``state``'s local shard in
+    place and ``state`` itself is returned; otherwise a new ``DTensor``.
+    """
+    dims = _state_dims(scheme, row_axis, col_axis)
+    local = state.to_local()
+    kw = dict(levels=levels, leaf=leaf, variant=variant, mode=mode,
+              out_dtype=local.dtype)
+    if scheme == "reducescatter":
+        chunk_local = _local_shard(chunk, mesh, {row_axis: 0})
+        delta = gram_reducescatter(chunk_local, mesh, row_axis, **kw)
+    else:
+        chunk_local = _local_shard(chunk, mesh, {row_axis: 0, col_axis: 1})
+        if scheme == "ring":
+            delta = gram_ring(chunk_local, mesh, col_axis, row_axis, **kw)
+        else:
+            if rep_axis is None:
+                raise ValueError("bfs25d streaming needs rep_axis")
+            delta = gram_bfs25d(chunk_local, mesh, col_axis, rep_axis,
+                                row_axis, **kw)
+    if _in_place(local, chunk_local):
+        local.add_(delta)
+        return state
+    return _wrap(local + delta, mesh, dims)
+
+
+def distributed_finalize(state, mesh, *, scheme: str = "reducescatter",
+                         col_axis: Optional[str] = "model"):
+    """Dense symmetric (n, n) C from the distributed state: the
+    reduce-scatter state already IS dense (sharded by block-rows); a
+    ring-family state is assembled from its circulant block layout into
+    a ``Replicate()`` ``DTensor``."""
+    if scheme == "reducescatter":
+        return state
+    T = _axis_sizes(mesh)[col_axis]
+    return _wrap(assemble_ring_gram(state.full_tensor(), T, state.shape[2]),
+                 mesh, {})
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,11 @@ device: the entry points run on the card unless the caller passes
 ``device="cpu"`` (:func:`_place`), and a CUDA tensor always reaches the
 CUDA kernel.
 
-Block sizes default to 256, the JAX package's untuned default; the
-autotune cache is ROADMAP Queue 1 #8.  The single-purpose kernels are
+Block sizes default to ``None`` = "consult the gram autotune cache"
+(``gram/autotune.py``: winners persisted per shape bucket, dtype and
+backend), as in the JAX package, falling back to 256 when the cache has
+no entry for the bucket or cannot be read.  Explicit block arguments
+bypass the cache.  The single-purpose kernels are
 forward-only, as the JAX package's are: with grad mode on they refuse an
 input that requires grad.
 """
@@ -62,8 +65,17 @@ def _place(a, device) -> torch.Tensor:
     return torch.as_tensor(a).to(resolve_device(device))
 
 
-def _block(b):
-    return DEFAULT_BLOCK if b is None else b
+def _resolve_blocks(kind, m, n, dtype, device, **blocks) -> dict:
+    """Fill ``None`` block edges from the gram autotune cache for the
+    (m, n) bucket of ``kind`` on ``device``'s backend
+    (``autotune.resolve_block_defaults``).  Explicit values win; an empty
+    or unreadable cache gives ``DEFAULT_BLOCK``."""
+    if all(v is not None for v in blocks.values()):
+        return blocks
+    from ..gram.autotune import resolve_block_defaults
+    return resolve_block_defaults(kind, m, n, dtype,
+                                  backend=resolve_device(device).type,
+                                  **blocks)
 
 
 def _pad_to(x: torch.Tensor, mults) -> torch.Tensor:
@@ -85,7 +97,9 @@ def matmul(a, b, *, bm=None, bk=None, bn=None, device=None):
     """``a @ b`` via the tiled matmul kernel (``kernels/matmul.py``); any
     shapes, fp32, bf16 or fp16, the result in ``promote_types(a, b)``."""
     a, b = _place(a, device), _place(b, device)
-    bm, bk, bn = _block(bm), _block(bk), _block(bn)
+    bs = _resolve_blocks("matmul", a.shape[0], b.shape[-1], a.dtype,
+                         a.device, bm=bm, bk=bk, bn=bn)
+    bm, bk, bn = bs["bm"], bs["bk"], bs["bn"]
     _launch.check_blocks("matmul", bm=bm, bk=bk, bn=bn)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         # checked before padding, which would hide a mismatched k
@@ -97,13 +111,21 @@ def matmul(a, b, *, bm=None, bk=None, bn=None, device=None):
     return out[:m, :n]
 
 
+def _syrk_blocks(a: torch.Tensor, bk, bn):
+    if a.ndim != 2:
+        raise ValueError(f"expected a 2-d tensor, got shape {tuple(a.shape)}")
+    bs = _resolve_blocks("ata", a.shape[0], a.shape[1], a.dtype, a.device,
+                         bk=bk, bn=bn)
+    _launch.check_blocks("syrk", **bs)
+    return bs["bk"], bs["bn"]
+
+
 def syrk_packed(a, *, bk=None, bn=None, device=None):
     """Packed lower-tri block stack of ``a.T @ a`` via the syrk kernel
     (``kernels/syrk.py``), N padded to a multiple of ``bn`` (the caller
     keeps the block layout; :func:`syrk` gives the dense result)."""
     a = _place(a, device)
-    bk, bn = _block(bk), _block(bn)
-    _launch.check_blocks("syrk", bk=bk, bn=bn)
+    bk, bn = _syrk_blocks(a, bk, bn)
     return _syrk.syrk_packed(_pad_to(a, (bk, bn)), bk=bk, bn=bn)
 
 
@@ -111,8 +133,7 @@ def syrk(a, *, bk=None, bn=None, symmetrize=False, device=None):
     """Dense ``tril(a.T @ a)`` (or the full symmetric product) via the
     packed syrk kernel, in ``a.dtype``."""
     a = _place(a, device)
-    bk, bn = _block(bk), _block(bn)
-    _launch.check_blocks("syrk", bk=bk, bn=bn)
+    bk, bn = _syrk_blocks(a, bk, bn)
     ap = _pad_to(a, (bk, bn))
     n = a.shape[1]
     packed = _syrk.syrk_packed(ap, bk=bk, bn=bn)
@@ -153,9 +174,18 @@ def kernel_base_matmul(bm=None, bk=None, bn=None):
     """``base_matmul`` hook for ``core.strassen_matmul`` and ``core.ata``:
     every leaf product through :func:`matmul`, on the device its operands
     lie on.  The counterpart of the JAX package's ``pallas_base_matmul``;
-    forward-only."""
+    forward-only.  A hook reads the block defaults of each leaf shape
+    once (the JAX package reads them once a trace): a recursion calls it
+    once a leaf, and a cache lookup costs host time on each call."""
+    chosen = {}
+
     def base(a, b):
-        return matmul(a, b, bm=bm, bk=bk, bn=bn, device=a.device)
+        key = (a.shape, b.shape, a.dtype, a.device)
+        if key not in chosen:
+            chosen[key] = _resolve_blocks("matmul", a.shape[0],
+                                          b.shape[-1], a.dtype, a.device,
+                                          bm=bm, bk=bk, bn=bn)
+        return matmul(a, b, **chosen[key], device=a.device)
     return base
 
 
@@ -163,10 +193,29 @@ def kernel_base_syrk(bk=None, bn=None):
     """``base_syrk`` hook for ``core.ata`` (the lower-triangular leaf
     gram): every leaf through :func:`syrk`, on the device its operand
     lies on.  The counterpart of the JAX package's ``pallas_base_syrk``;
-    forward-only."""
+    forward-only.  Like :func:`kernel_base_matmul`, it reads each leaf
+    shape's block defaults once."""
+    chosen = {}
+
     def base(a):
-        return syrk(a, bk=bk, bn=bn, symmetrize=False, device=a.device)
+        key = (a.shape, a.dtype, a.device)
+        if key not in chosen:
+            chosen[key] = _resolve_blocks("ata", a.shape[0], a.shape[1],
+                                          a.dtype, a.device, bk=bk, bn=bn)
+        return syrk(a, **chosen[key], symmetrize=False, device=a.device)
     return base
+
+
+def _gram_blocks(kind, a, device, **blocks) -> tuple:
+    """The block edges a fused entry point runs ``a`` at: explicit ones,
+    else the autotune cache's for ``a``'s (m, n) bucket and dtype."""
+    if all(v is not None for v in blocks.values()):
+        return tuple(blocks.values())
+    a = torch.as_tensor(a)
+    if a.ndim != 2:
+        raise ValueError(f"expected a 2-d tensor, got shape {tuple(a.shape)}")
+    return tuple(_resolve_blocks(kind, a.shape[0], a.shape[1], a.dtype,
+                                 device, **blocks).values())
 
 
 def ata_fused(a, *, levels=2, variant="strassen", gram="strassen", bk=None,
@@ -178,9 +227,10 @@ def ata_fused(a, *, levels=2, variant="strassen", gram="strassen", bk=None,
     cotangent; ``"dense"``: ``a @ (s + s.T)``); the other knobs are
     ``strassen_fused.fused_ata_packed``'s."""
     from . import strassen_fused as _sf
+    bk, bn = _gram_blocks("ata", a, device, bk=bk, bn=bn)
     return _sf.fused_ata(
-        a, levels=levels, variant=variant, gram=gram, bk=_block(bk),
-        bn=_block(bn), out_dtype=out_dtype, bwd=bwd,
+        a, levels=levels, variant=variant, gram=gram, bk=bk,
+        bn=bn, out_dtype=out_dtype, bwd=bwd,
         pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
         acc_dtype=acc_dtype, sr_seed=sr_seed, device=device)
 
@@ -194,9 +244,10 @@ def ata_fused_packed(a, *, levels=2, variant="strassen", gram="strassen",
     Differentiable: the packed cotangent goes straight to the symm kind
     (``bwd="fused"``) — no dense n^2 buffer in the backward."""
     from . import strassen_fused as _sf
+    bk, bn = _gram_blocks("ata", a, device, bk=bk, bn=bn)
     packed, _ = _sf.fused_ata_packed(
-        a, levels=levels, variant=variant, gram=gram, bk=_block(bk),
-        bn=_block(bn), out_dtype=out_dtype, bwd=bwd,
+        a, levels=levels, variant=variant, gram=gram, bk=bk,
+        bn=bn, out_dtype=out_dtype, bwd=bwd,
         pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
         acc_dtype=acc_dtype, sr_seed=sr_seed, device=device)
     return packed
@@ -211,8 +262,9 @@ def symm_matmul(x, s_packed, *, levels=2, variant="strassen", bm=None,
     ``diag_sym=True`` computes ``x @ (S + S^t)`` instead (the VJP
     operand).  The knobs are ``strassen_fused.fused_symm_matmul``'s."""
     from . import strassen_fused as _sf
+    (bm,) = _gram_blocks("ata", x, device, bm=bm)
     return _sf.fused_symm_matmul(
-        x, s_packed, levels=levels, variant=variant, bm=_block(bm),
+        x, s_packed, levels=levels, variant=variant, bm=bm,
         diag_sym=diag_sym, out_dtype=out_dtype, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, device=device)
 
@@ -228,9 +280,16 @@ def matmul_fused(a, b, *, levels=2, variant="strassen", bm=None, bk=None,
     through the same kind with the transposes likewise folded; the knobs
     are ``strassen_fused.fused_matmul``'s."""
     from . import strassen_fused as _sf
+    if None in (bm, bk, bn):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        m = a.shape[-1] if trans_a else a.shape[0]
+        n = b.shape[0] if trans_b else b.shape[-1]
+        bs = _resolve_blocks("matmul", m, n, a.dtype, device, bm=bm, bk=bk,
+                             bn=bn)
+        bm, bk, bn = bs["bm"], bs["bk"], bs["bn"]
     return _sf.fused_matmul(
-        a, b, levels=levels, variant=variant, bm=_block(bm), bk=_block(bk),
-        bn=_block(bn), trans_a=trans_a, trans_b=trans_b, out_dtype=out_dtype,
+        a, b, levels=levels, variant=variant, bm=bm, bk=bk,
+        bn=bn, trans_a=trans_a, trans_b=trans_b, out_dtype=out_dtype,
         bwd=bwd, pipeline_depth=pipeline_depth, operand_dtype=operand_dtype,
         acc_dtype=acc_dtype, device=device)
 
@@ -243,9 +302,10 @@ def aat_fused(a, *, levels=2, variant="strassen", gram="strassen", bm=None,
     transpose of ``a`` never exists.  Differentiable through the dense
     ``(S + S^t) A``; the knobs are ``strassen_fused.fused_aat``'s."""
     from . import strassen_fused as _sf
+    bm, bk = _gram_blocks("aat", a, device, bm=bm, bk=bk)
     return _sf.fused_aat(
-        a, levels=levels, variant=variant, gram=gram, bm=_block(bm),
-        bk=_block(bk), out_dtype=out_dtype, pipeline_depth=pipeline_depth,
+        a, levels=levels, variant=variant, gram=gram, bm=bm,
+        bk=bk, out_dtype=out_dtype, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
         device=device)
 
@@ -257,9 +317,10 @@ def aat_fused_packed(a, *, levels=2, variant="strassen", gram="strassen",
     """Packed lower-tri block stack of ``a @ a.T`` (the row-gram dual of
     :func:`ata_fused_packed`)."""
     from . import strassen_fused as _sf
+    bm, bk = _gram_blocks("aat", a, device, bm=bm, bk=bk)
     packed, _ = _sf.fused_aat_packed(
-        a, levels=levels, variant=variant, gram=gram, bm=_block(bm),
-        bk=_block(bk), out_dtype=out_dtype, pipeline_depth=pipeline_depth,
+        a, levels=levels, variant=variant, gram=gram, bm=bm,
+        bk=bk, out_dtype=out_dtype, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, sr_seed=sr_seed,
         device=device)
     return packed
@@ -277,9 +338,10 @@ def rank_k_update(c_stack, a, *, levels=2, variant="strassen",
     that requires grad is refused then (pass ``donate=False``).  The
     knobs are ``strassen_fused.fused_rank_k_update``'s."""
     from . import strassen_fused as _sf
+    (bk,) = _gram_blocks("rank_k", a, device, bk=bk)
     return _sf.fused_rank_k_update(
         c_stack, a, levels=levels, variant=variant, gram=gram,
-        bk=_block(bk), out_dtype=out_dtype, pipeline_depth=pipeline_depth,
+        bk=bk, out_dtype=out_dtype, pipeline_depth=pipeline_depth,
         operand_dtype=operand_dtype, acc_dtype=acc_dtype, donate=donate,
         device=device)
 

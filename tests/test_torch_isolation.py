@@ -58,6 +58,14 @@ def test_import_loads_no_jax_and_no_reference_package():
         "    stack_update, stack_finalize, CheckpointedGramStream)\n"
         "from repro_torch.kernels.strassen_fused import (\n"
         "    stochastic_round_bf16, _quantize)\n"
+        "import repro_torch.core.cost_model, repro_torch.core.distributed\n"
+        "import repro_torch.launch.mesh, repro_torch.runtime.faults\n"
+        "import repro_torch.gram.autotune\n"
+        "from repro_torch.core import (distributed_gram, gram_ring,\n"
+        "    gram_bfs25d, cost_model, plan_ata, schedule)\n"
+        "from repro_torch.gram import (autotune_bucket,\n"
+        "    resolve_block_defaults, distributed_update, update_sharded)\n"
+        "from repro_torch.runtime import faults\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -153,3 +161,48 @@ def test_chip_smoke_fails_without_cuda():
                          text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("device_type,backend,ok", [
+    ("cuda", "nccl", True), ("cuda", "gloo", False),
+    ("cpu", "gloo", True), ("cpu", "nccl", False),
+    ("cuda", "cpu:gloo,cuda:nccl", True), ("meta", "gloo", False)])
+def test_distributed_refuses_host_staging(device_type, backend, ok):
+    """The distributed schemes run a CUDA tensor through NCCL and a CPU
+    tensor through gloo: a CUDA tensor on a gloo group, or a CPU tensor
+    on a CUDA mesh (NCCL), is refused, never staged through the host.
+    The refusal is a plain check of (tensor device, group backend)."""
+    from repro_torch.core.distributed import check_backend
+    if ok:
+        check_backend(device_type, backend)
+    else:
+        with pytest.raises(ValueError, match="never stage|cuda or cpu"):
+            check_backend(device_type, backend)
+
+
+@pytest.mark.parametrize("scheme", ["allreduce", "reducescatter", "ring",
+                                    "bfs25d"])
+def test_distributed_gram_refuses_a_cpu_tensor_on_a_cuda_mesh(
+        monkeypatch, scheme):
+    """Every scheme checks its tensor against its groups before any
+    compute or collective (a one-rank mesh whose groups are NCCL's)."""
+    from repro_torch.core import distributed
+
+    class CudaMesh:
+        device_type = "cuda"
+        mesh_dim_names = ("rep", "data", "model")
+        shape = (1, 1, 1)
+        mesh = torch.zeros((1, 1, 1), dtype=torch.int)
+
+        def get_coordinate(self):
+            return (0, 0, 0)
+
+        def get_group(self, axis):
+            return f"group:{axis}"
+
+    monkeypatch.setattr(distributed.dist, "get_backend",
+                        lambda group=None: "nccl")
+    with pytest.raises(ValueError, match="never stage"):
+        distributed.distributed_gram(
+            torch.ones(16, 8), CudaMesh(), scheme=scheme, row_axis="data",
+            col_axis="model", rep_axis="rep")

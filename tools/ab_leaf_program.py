@@ -22,10 +22,12 @@ output (``ata_bf16_out``); ``syrk_packed`` and ``matmul_padded`` (blocks of
 2560^2 leaf (``syrk_leaf``, ``matmul_leaf``), in fp32 and, with the
 suffix ``_f16`` or ``_bf16`` (``syrk_f16``, ``syrk_leaf_f16``,
 ``matmul_f16``, ``matmul_leaf_f16`` and their bf16 twins), on operands of
-that type with an output of that type; and the reference recursion on
-fp16 A end to end, ``ata(a16, base_syrk=ops.kernel_base_syrk(),
-base_matmul=ops.kernel_base_matmul())`` (``ata_leaves_f16``: 16 syrk and
-22 matmul leaves); and flash attention at the serving prefill, q (1, 16,
+that type with an output of that type; the reference recursion on
+kernel leaves end to end, ``ata(a, base_syrk=ops.kernel_base_syrk(),
+base_matmul=ops.kernel_base_matmul())`` on fp32 A (``ata_leaves``) and
+fp16 A (``ata_leaves_f16``), 16 syrk and 22 matmul leaves each; the main
+path end to end, ``ata(a)`` (``ata_e2e``: the entry point's block
+defaults, the kernel, the unpack); and flash attention at the serving prefill, q (1, 16,
 2048, 128) over k, v (1, 2, 2048, 128), causal, in bf16 and fp16
 (``flash_bf16``, ``flash_f16``).  ``--cases`` picks some of them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
 summary gives each side's median over its processes and the change over
@@ -50,7 +52,9 @@ SINGLE16 = tuple(f"{c}_{t}" for t in ("f16", "bf16")
                  for c in ("syrk", "syrk_leaf", "matmul", "matmul_leaf"))
 SINGLE = SINGLE32 + SINGLE16
 # the reference recursion on kernel leaves, end to end
-E2E = ("ata_leaves_f16",)
+LEAVES = ("ata_leaves", "ata_leaves_f16")
+# the entry points end to end
+E2E = ("ata_e2e",) + LEAVES
 # flash attention at the serving prefill
 FLASH = ("flash_bf16", "flash_f16")
 CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps", "ata_bf16",
@@ -120,12 +124,16 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
                 x, y, bm=block, bk=block, bn=block))
             del y
         del x
+    hooks = dict(base_syrk=ops.kernel_base_syrk(),
+                 base_matmul=ops.kernel_base_matmul())
+    if "ata_leaves" in cases:
+        out["ata_leaves"] = measured(lambda: ata(a, **hooks))
     if "ata_leaves_f16" in cases:
-        hooks = dict(base_syrk=ops.kernel_base_syrk(),
-                     base_matmul=ops.kernel_base_matmul())
         a16 = a.half()
         out["ata_leaves_f16"] = measured(lambda: ata(a16, **hooks))
         del a16
+    if "ata_e2e" in cases:
+        out["ata_e2e"] = measured(lambda: ata(a))
     for case in (c for c in cases if c in FLASH):
         dtype = torch.float16 if case == "flash_f16" else torch.bfloat16
         q, k, v = (torch.randn(1, heads, 2048, 128, generator=gen,
@@ -202,8 +210,9 @@ def main() -> int:
         # the libraries the cases run: the leaf program's for a fused case,
         # syrk and matmul for the others
         names = (("leaf_products", "leaf_program")
-                 if set(cases) - set(SINGLE + E2E + FLASH) else ()) + \
-            (("syrk", "matmul") if set(cases) & set(SINGLE + E2E) else ()) + \
+                 if set(cases) - set(SINGLE + LEAVES + FLASH) else ()) + \
+            (("syrk", "matmul") if set(cases) & set(SINGLE + LEAVES)
+             else ()) + \
             (("flash_attention",) if set(cases) & set(FLASH) else ())
         for name in names:
             if (_build.CSRC / f"{name}.cu").exists():
