@@ -200,6 +200,28 @@ failure exits non-zero):
        against the 256-block result (<= 1e-5), both timed; a lookup's
        host cost, hit and miss; the entry then dropped, so phase 5 runs
        the 256 default;
+   4m. the Gram service (``repro_torch.gram.engine``), fp32, the engine's
+       defaults (levels 1, slots 4, verify "finite"): the batched launch
+       of ``leaf_products.cuh`` (one launch over a (4, m, n) stack) at
+       (4, 8192, 8192) and (4, 256, 256) for the ata and aat kinds,
+       bit-equal per slot to four single launches and within 1e-5 of
+       max|out| of the plain version slot by slot, timed against the
+       four single launches, ``BoundGram`` end to end and
+       ``torch.tril(x.mT @ x)`` (``x @ x.mT``) on the stack, with its
+       bound (four slots' least flops at the fp32 peak, or their bytes);
+       then, its launches counted from here on: a 64-request trace
+       (``launch.gram_serve.make_trace``, sides log-uniform in
+       512-8192, seed 0) served synchronously, ``compile_count`` <= the
+       bucket count, 8 requests (the largest bucket's cheapest among
+       them) within 1e-4 of max|C| of float64 on the host, requests/s,
+       latency p50/p99 and each bucket's exec ms; a 16-request async
+       run over two tenants weighted 3:1, column and row grams in turn,
+       drained; a fault drill ("poison_output:rate=0.1;exec_fail:
+       rate=0.05", verify 2, seed 0) whose every future ends, the rungs
+       it reached printed; an 8192^2 bucket routed to
+       ``distributed_gram`` on a one-rank NCCL mesh (dist_threshold
+       4096^2), bit-equal to ``ata_full(a, levels=1)``; batched launches
+       of both kinds asserted;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -232,14 +254,16 @@ failure exits non-zero):
    operands in the single-purpose kernels: ``syrk`` and ``matmul`` in
    fp16 and in bf16 on the tensor cores at the padded 10240^2 and the
    2560^2 leaf (each at both tiles), combine on seven fp16 5120^2 and
-   flash attention at the serving prefill in fp16, each against its plain
+   flash attention at the serving prefill in fp16 (and in fp32, the
+   CUDA-core body, bound at the fp32 peak), each against its plain
    version and beside its library call in the same type
    (``torch.tril(x.T @ x)``, ``x @ y``, fp16 SDPA), bound at the 16-bit
    tensor-core peak (989 TFLOP/s) or its bytes, whichever is larger.
    Each syrk and matmul row names its core.
 
-It prints one ``{"distributed": ..., "autotune": ...}`` line (phases 4k
-and 4l), one ``{"kernels": [...]}`` line and, last, the
+It prints one ``{"distributed": ..., "autotune": ..., "service": ...}``
+line (phases 4k, 4l and 4m), one ``{"kernels": [...]}`` line (the
+batched launch's rows among them) and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
 and prints no result.
 """
@@ -557,6 +581,288 @@ def hooked_leaves(m: int, n: int, levels: int, leaf: int):
     return 4 * syrk, 4 * mm + 2 * strassen(n2, m2, n2, levels - 1)
 
 
+def phase_4m(seed, dev, smi, reset_counts, read_counts) -> dict:
+    """Phase 4m, the Gram service (``repro_torch.gram.engine``) on the card,
+    fp32, the engine's defaults (levels 1, slots 4, verify "finite"): the
+    batched launch alone, a 64-request trace, an async run, a fault drill
+    and a distributed bucket.  Returns what the summary and the kernels
+    line report."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import ata_full
+    from repro_torch.core.leaf_ir import compile_program
+    from repro_torch.gram import GramEngine
+    from repro_torch.gram import autotune as at
+    from repro_torch.kernels import strassen_fused as sf
+    from repro_torch.launch.gram_serve import make_trace
+    from repro_torch.launch.mesh import make_gram_mesh
+    from repro_torch.runtime import faults
+
+    f32 = torch.float32
+    K = 4
+    t_phase = time.perf_counter()
+    print("== 4m. the Gram service on the card: the batched launch, a "
+          "64-request trace, an async run, a fault drill, a distributed "
+          "bucket")
+    out = {"card": smi}
+
+    # 1. the batched launch alone: one launch over K slots against K single
+    # launches (bit-equal) and the plain version slot by slot (<= 1e-5)
+    batched = {}
+    for kind in ("ata", "aat"):
+        rows = {}
+        for side in (8192, 256):
+            gen = torch.Generator(device=dev).manual_seed(seed + side)
+            x = torch.randn((K, side, side), generator=gen, device=dev)
+            t0 = time.perf_counter()
+            bound = sf.BoundGram(side, side, batch=K,
+                                 gram_of="cols" if kind == "ata" else "rows",
+                                 levels=1, b_out=256, b_k=256,
+                                 out_dtype=f32, device=dev)
+            bind_ms = (time.perf_counter() - t0) * 1e3
+            spec = bound.spec
+            sp = sf._pad_stored(x, *bound.padded, None)
+            before = sf.BATCHED_LAUNCHES[f"leaf_program/{kind}"]
+            got = sf.leaf_program(spec, sp, sp, f32)
+            torch.cuda.synchronize()
+            assert sf.BATCHED_LAUNCHES[f"leaf_program/{kind}"] == before + 1
+            singles = [sf.leaf_program(spec, sp[k], sp[k], f32)
+                       for k in range(K)]
+            torch.cuda.synchronize()
+            bit_equal = all(torch.equal(got[k], singles[k])
+                            for k in range(K))
+            errs, err_abs = [], 0.0
+            for k in range(K):
+                want = sf._leaf_products_plain(spec, sp[k], sp[k], f32)
+                errs.append(_rel(got[k], want.double()))
+                err_abs = max(err_abs,
+                              float((got[k] - want).abs().max()))
+                del want
+            del singles
+            ms, runs = _time_ms(lambda: sf.leaf_program(spec, sp, sp, f32))
+            singles_ms, _ = _time_ms(lambda: [
+                sf.leaf_program(spec, sp[k], sp[k], f32) for k in range(K)])
+            e2e_ms, _ = _time_ms(lambda: bound(x))
+            plain_ms, _ = _time_ms(lambda: [
+                sf._leaf_products_plain(spec, sp[k], sp[k], f32)
+                for k in range(K)], reps=1, warmup=0)
+            lib = (lambda: torch.tril(x.mT @ x)) if kind == "ata" \
+                else (lambda: torch.tril(x @ x.mT))
+            lib_ms, _ = _time_ms(lib)
+            # the bound of one slot, times K: the least flops (each leaf
+            # product once, or classical) at the fp32 peak against the
+            # input and the packed output once at HBM rate
+            prog = compile_program(kind, spec.levels, spec.variant,
+                                   gram=spec.gram)
+            q_b, k_b = spec.q_i * spec.bi, spec.n_k * spec.bc
+            leaf = 2 * (prog.mult_count(k_b, q_b) if kind == "ata"
+                        else prog.mult_count(q_b, k_b))
+            flops = K * min(leaf, side * side * (side + 1))
+            io = K * (sp[0].numel() * 4 + spec.n_out * spec.bi * spec.bj * 4)
+            ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, \
+                io / PEAK_HBM_BYTES * 1e3
+            shape = bound.launch
+            print(f"  batched {kind} ({K}, {side}, {side}), levels "
+                  f"{spec.levels}, tile {shape['tile']}: {ms:.3f} ms; {K} single "
+                  f"launches {singles_ms:.3f} ms; "
+                  f"BoundGram end to end (pad, launch, unpack) {e2e_ms:.3f} "
+                  f"ms; binding {bind_ms:.3f} ms; library "
+                  f"torch.tril(x{'.mT @ x' if kind == 'ata' else ' @ x.mT'}) "
+                  f"{lib_ms:.3f} ms; plain slot by slot {plain_ms:.3f} ms; "
+                  f"bound {max(ops_ms, bytes_ms):.3f} ms "
+                  f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
+                  f"{shape['positions']} positions, {shape['blocks']} "
+                  f"blocks, {shape['positions'] - shape['whole_positions']} "
+                  f"in quarters; bit-equal to single launches {bit_equal}; "
+                  f"vs plain {max(errs):.3e} of max|out| (<= 1e-5)")
+            assert bit_equal, (kind, side)
+            assert max(errs) <= 1e-5, (kind, side, errs)
+            rows[side] = {
+                "ms": ms, "runs": runs, "singles_ms": singles_ms,
+                "e2e_ms": e2e_ms, "bind_ms": bind_ms, "library_ms": lib_ms,
+                "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "max_abs_err": err_abs, "rel_err": max(errs),
+                "bit_equal": bit_equal, "levels": spec.levels,
+                "launch": {k_: shape[k_] for k_ in (
+                    "tile", "positions", "whole_positions", "blocks",
+                    "blocks_per_sm", "ring_depth")}}
+            del x, sp, got
+        batched[kind] = rows
+    out["batched"] = batched
+
+    # 2-5 run the service through the engine: the main path of this
+    # phase, its launches counted from here to the end
+    reset_counts()
+
+    # 2. a 64-request trace, log-uniform sides in 512-8192 (make_trace,
+    # seed 0), served synchronously
+    rng = np.random.default_rng(0)
+    shapes = make_trace(rng, 64, 512, 8192)
+    arrays = [rng.standard_normal(s_, dtype=np.float32) for s_ in shapes]
+    eng = GramEngine()
+    buckets = {eng._bucket_key(a_.shape, a_.dtype) for a_ in arrays}
+    t0 = time.perf_counter()
+    futs = [eng.submit(a_) for a_ in arrays]
+    eng.run_to_completion()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    assert all(f_.request.status == "ok" for f_ in futs), \
+        [(f_.request.status, f_.request.error) for f_ in futs]
+    assert st["compile_count"] <= len(buckets), (st["compile_count"],
+                                                 len(buckets))
+    lab = {"engine": eng.engine_label}
+    exec_ms = {}
+    for key in sorted(buckets):
+        b_ = eng._blabel(key)
+        cnt = eng._m_exec.count({**lab, "bucket": b_})
+        exec_ms[b_] = {"batches": cnt, "ms": eng._m_exec.sum(
+            {**lab, "bucket": b_}) / max(cnt, 1) * 1e3}
+    # a sample of 8 against float64 on the host: the largest bucket's
+    # cheapest request and the 7 cheapest others
+    cost = [a_.shape[0] * a_.shape[1] ** 2 for a_ in arrays]
+    top = max(buckets, key=lambda k_: (k_[0] * k_[1], k_))
+    in_top = [i for i, a_ in enumerate(arrays)
+              if eng._bucket_key(a_.shape, a_.dtype) == top]
+    first = min(in_top, key=lambda i: cost[i])
+    sample = [first] + sorted((i for i in range(len(arrays)) if i != first),
+                              key=lambda i: cost[i])[:7]
+    t0 = time.perf_counter()
+    sample_errs = {}
+    for i in sample:
+        a64 = arrays[i].astype(np.float64)
+        want = a64.T @ a64
+        got = futs[i].result(timeout=1)
+        sample_errs[i] = float(np.abs(got - want).max() / np.abs(want).max())
+    check_s = time.perf_counter() - t0
+    p50, p99 = st["p50_latency_s"], st["p99_latency_s"]
+    staging_mib = eng._staging.numel() / 2 ** 20
+    print(f"  64-request trace (512-8192, seed 0): {len(arrays)} served in "
+          f"{wall:.2f} s ({len(arrays) / wall:.2f} req/s) over {st['ticks']} "
+          f"ticks; compile_count {st['compile_count']} for {len(buckets)} "
+          f"buckets; latency p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms; "
+          f"staging buffer {staging_mib:.0f} MiB pinned")
+    for b_, v in exec_ms.items():
+        print(f"    bucket {b_}: {v['batches']} batches, exec {v['ms']:.3f} "
+              f"ms a batch")
+    print(f"  sample vs float64 on the host (largest bucket {top}, request "
+          f"{first} {arrays[first].shape}): max {max(sample_errs.values()):.3e}"
+          f" of max|C| (<= 1e-4) over {len(sample)} requests, "
+          f"{check_s:.1f} s")
+    assert max(sample_errs.values()) <= 1e-4, sample_errs
+    out["trace64"] = {
+        "requests": len(arrays), "wall_s": wall,
+        "requests_per_s": len(arrays) / wall, "ticks": st["ticks"],
+        "compile_count": st["compile_count"], "buckets": len(buckets),
+        "p50_s": p50, "p99_s": p99, "exec_ms": exec_ms,
+        "staging_mib": staging_mib,
+        "largest_bucket": list(top), "sample": sample,
+        "sample_vs_float64": max(sample_errs.values())}
+    del eng, futs, arrays
+
+    # 3. a 16-request async run across 2 tenants (weights 3:1), column and
+    # row grams in turn, drained
+    rng = np.random.default_rng(1)
+    shapes = make_trace(rng, 16, 512, 4096)
+    arrays = [rng.standard_normal(s_, dtype=np.float32) for s_ in shapes]
+    eng = GramEngine(tenant_weights={"t0": 3.0, "t1": 1.0}).start()
+    t0 = time.perf_counter()
+    try:
+        futs = [eng.submit(a_, tenant=f"t{i % 2}",
+                           gram_of="rows" if i % 2 else "cols")
+                for i, a_ in enumerate(arrays)]
+        drained = eng.drain(timeout=300)
+    finally:
+        eng.shutdown(timeout=60)
+    wall = time.perf_counter() - t0
+    assert drained and all(f_.done() for f_ in futs)
+    errs = []
+    for i, f_ in enumerate(futs):
+        a64 = arrays[i].astype(np.float64)
+        want = a64 @ a64.T if i % 2 else a64.T @ a64
+        if max(a64.shape) <= 2048:
+            errs.append(float(np.abs(f_.result(timeout=1) - want).max()
+                              / np.abs(want).max()))
+    st = eng.stats()
+    print(f"  async: 16 requests over tenants t0 (weight 3) and t1 (1), "
+          f"drained {drained} in {wall:.2f} s; served {st['served']}, "
+          f"tenants {{t0: {st['tenants']['t0']['served']}, t1: "
+          f"{st['tenants']['t1']['served']}}}; {len(errs)} checked vs "
+          f"float64: max {max(errs):.3e}")
+    assert st["served"] == 16 and max(errs) <= 1e-4
+    out["async"] = {"wall_s": wall, "served": st["served"],
+                    "ticks": st["ticks"], "vs_float64": max(errs)}
+    del eng, futs, arrays
+
+    # 4. the fault drill: 16 requests under the JAX suite's profile, verify=2
+    rng = np.random.default_rng(0)
+    shapes = make_trace(rng, 16, 512, 2048)
+    arrays = [rng.standard_normal(s_, dtype=np.float32) for s_ in shapes]
+    eng = GramEngine(verify=2, verify_seed=0)
+    faults.install(faults.parse_profile(
+        "poison_output:rate=0.1;exec_fail:rate=0.05", seed=0))
+    t0 = time.perf_counter()
+    try:
+        futs = [eng.submit(a_) for a_ in arrays]
+        eng.run_to_completion()
+        reg = faults.active()
+        fired = {k_: reg.count(k_) for k_ in ("poison_output", "exec_fail")}
+    finally:
+        faults.reset()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    assert all(f_.done() for f_ in futs), "the drill left a future hanging"
+    rungs = sorted({f_.request.served_by for f_ in futs
+                    if f_.request.served_by})
+    print(f"  fault drill (poison_output rate 0.1, exec_fail rate 0.05, "
+          f"verify 2, seed 0): {fired} fired; served {st['served']}, failed "
+          f"{st['failed']}, degraded {st['degraded_served']}, retries "
+          f"{st['retries']}, guard vetoes {st['guard_failures']}; rungs "
+          f"reached {rungs}; quarantined {st['quarantined']}; {wall:.2f} s")
+    assert st["served"] + st["failed"] == 16
+    out["fault_drill"] = {"fired": fired, "served": st["served"],
+                          "failed": st["failed"],
+                          "degraded": st["degraded_served"],
+                          "retries": st["retries"],
+                          "guard_vetoes": st["guard_failures"],
+                          "rungs": rungs, "wall_s": wall}
+    del eng, futs, arrays
+
+    # 5. distributed routing: an 8192^2 bucket on a one-rank NCCL mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_gram_mesh(1)
+        eng = GramEngine(mesh=mesh, dist_threshold=4096 ** 2)
+        gen = torch.Generator(device=dev).manual_seed(seed + 5)
+        big = torch.randn((8192, 8192), generator=gen, device=dev)
+        t0 = time.perf_counter()
+        c = eng.serve(big.cpu(), timeout=300)
+        serve_s = time.perf_counter() - t0
+        r_ = eng.finished[-1]
+        want = ata_full(big, levels=1, leaf=256).cpu().numpy()
+        equal = bool(np.array_equal(c, want))
+        print(f"  distributed: 8192^2 served by {r_.served_by} on a "
+              f"one-rank NCCL mesh in {serve_s:.2f} s; bit-equal to "
+              f"ata_full(a, levels=1) {equal}")
+        assert r_.served_by.startswith("dist:") and equal
+        out["distributed"] = {"served_by": r_.served_by,
+                              "serve_s": serve_s, "bit_equal": equal}
+        del eng, big, c, want
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = read_counts("phase 4m's engine runs (steps 2-5)")
+    out["batched_launches"] = dict(sf.BATCHED_LAUNCHES)
+    print(f"  batched launches in steps 2-5: {out['batched_launches']}")
+    assert out["batched_launches"]["leaf_program/ata"] > 0
+    assert out["batched_launches"]["leaf_program/aat"] > 0
+    # the tuned-block cache the engine consulted held nothing: 256
+    assert at.lookup(8192, 8192, kind="ata") is None
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -705,7 +1011,7 @@ def main() -> int:
 
     def reset_counts():
         for counts in (sf.KERNEL_LAUNCHES, sf.LIBRARY_LAUNCHES,
-                       _launch.KERNEL_LAUNCHES):
+                       sf.BATCHED_LAUNCHES, _launch.KERNEL_LAUNCHES):
             for key in counts:
                 counts[key] = 0
 
@@ -2640,6 +2946,10 @@ def main() -> int:
                     phase_s=time.perf_counter() - t_phase)
     print(f"  phase 4l: {autotune['phase_s']:.1f} s")
 
+    # -- 4m. the Gram service on the card --------------------------------------
+    service = phase_4m(args.seed, dev, smi, reset_counts, read_counts)
+    print(f"  phase 4m: {service['phase_s']:.1f} s")
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
     print(f"card: {smi}")
@@ -3263,13 +3573,35 @@ def main() -> int:
         library_device_ms=_device_ms(
             lambda: F.scaled_dot_product_attention(
                 fq16, fk16, fv16, is_causal=True, enable_gqa=True)))
+    # the fp32 instantiation (the CUDA-core body) at the same prefill:
+    # phase 3j's fp32 cases hold it; no main path runs it (serving is bf16)
+    fq32, fk32, fv32 = (x.float() for x in (fq, fk, fv))
+    flash32 = row16(
+        f"flash_attention kernel, fp32 q {tuple(fq32.shape)}, k/v "
+        f"{tuple(fk32.shape)}, causal",
+        lambda: k_flash.flash_attention(fq32, fk32, fv32),
+        lambda: k_flash._flash_attention_plain(fq32, fk32, fv32, **opts),
+        ("F.scaled_dot_product_attention(q32, k32, v32, is_causal=True, "
+         "enable_gqa=True)",
+         lambda: F.scaled_dot_product_attention(fq32, fk32, fv32,
+                                                is_causal=True,
+                                                enable_gqa=True)),
+        QWEN_HEADS * pairs * 4 * QWEN_HEAD_DIM,
+        (2 * fq32.numel() + 2 * fk32.numel()) * 4, 0,
+        FLASH_BARS["float32"][0], dtype=f32, peak=PEAK_FP32_FLOPS,
+        device_ms=_device_ms(lambda: k_flash.flash_attention(fq32, fk32,
+                                                             fv32)),
+        library_device_ms=_device_ms(
+            lambda: F.scaled_dot_product_attention(
+                fq32, fk32, fv32, is_causal=True, enable_gqa=True)))
     for name, row in (("syrk", rows16[fp16]["syrk"]),
                       ("matmul", rows16[fp16]["matmul"]),
                       ("combine", combine16), ("flash_attention", flash16)):
         by_name[name]["fp16"] = row
+    by_name["flash_attention"]["fp32"] = flash32
     for name in ("syrk", "matmul"):
         by_name[name]["bf16"] = rows16[bf16][name]
-    del fq, fk, fv, got, want, fq16, fk16, fv16
+    del fq, fk, fv, got, want, fq16, fk16, fv16, fq32, fk32, fv32
 
     # The precision axes' libraries at their main-path shapes (phase 4i):
     # each bound counts the stored operand bytes at their own element size;
@@ -3343,9 +3675,26 @@ def main() -> int:
                    and k_.get("gram", "strassen") == "strassen")
         row["stream"] = {"layout": layout, **info}
 
+    # the batched launch (phase 4m): one row a kind at (4, 8192, 8192), the
+    # (4, 256, 256) stack beside it; launches: the engine runs' batched ones
+    for kind in ("ata", "aat"):
+        by_size = service["batched"][kind]
+        row = by_size[8192]
+        kernels.append(kernel_entry(
+            "leaf_program (batched)", PRODUCTS_SOURCE,
+            REPLACES.format(kind) + " under jax.vmap "
+            "(src/repro/gram/engine.py:1219)",
+            service["batched_launches"][f"leaf_program/{kind}"],
+            row["max_abs_err"], row["ms"], row["plain_ms"], row["bound_ms"],
+            row["bound_by"], row["library_ms"], kind=kind, gram="strassen",
+            library="leaf_products", batch=4, shape=[4, 8192, 8192],
+            by_size=by_size))
+
     # -- 6. summary -------------------------------------------------------------
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
-    print(json.dumps({"distributed": distributed, "autotune": autotune}))
+    print(json.dumps({"distributed": distributed, "autotune": autotune,
+                      "service": {k_: v for k_, v in service.items()
+                                  if k_ != "batched"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

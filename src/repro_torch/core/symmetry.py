@@ -88,19 +88,20 @@ def pack_tril_blocks(c, bn: int) -> torch.Tensor:
 
 def unpack_tril_blocks(packed, n: int, bn: int,
                        *, symmetrize: bool = True) -> torch.Tensor:
-    """Inverse of :func:`pack_tril_blocks`."""
+    """Inverse of :func:`pack_tril_blocks`; leading dimensions of
+    ``packed`` (a stack of packed grams) carry over to the result."""
     packed = _as_tensor(packed)
-    t = n // bn
+    t, lead = n // bn, packed.shape[:-2]
     ij = tri_coords(t).long().to(packed.device)
-    tiles = torch.zeros((t, t, bn, bn), dtype=packed.dtype,
+    tiles = torch.zeros((*lead, t, t, bn, bn), dtype=packed.dtype,
                         device=packed.device)
-    tiles[ij[:, 0], ij[:, 1]] = packed.reshape(-1, bn, bn)
-    c = tiles.permute(0, 2, 1, 3).reshape(n, n)
+    tiles[..., ij[:, 0], ij[:, 1], :, :] = packed.reshape(*lead, -1, bn, bn)
+    c = tiles.transpose(-3, -2).reshape(*lead, n, n)
     if symmetrize:
         # Diagonal blocks carry their own (symmetric) upper halves — drop
         # them before mirroring so they are not double-counted.
         c = torch.tril(c)
-        c = c + torch.tril(c, -1).T
+        c = c + torch.tril(c, -1).mT
     return c
 
 

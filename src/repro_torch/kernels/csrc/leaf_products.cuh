@@ -252,6 +252,8 @@ struct Ops {
   int out_code;         // the output's element type (a Dtype)
   int l_pitch, r_pitch; // fp8 sides: the stored columns of one tile (its width rounded up to
                         //   16; the rest zeros)
+  int batch;            // slots of a batched launch (1 otherwise): every slot runs this program
+  long long slot_elems; // elements of one slot's output (and workspace and seed)
 };
 
 // Packed lower-triangular index -> (i, j), i >= j, row-major; a root estimate with the
@@ -401,13 +403,15 @@ __device__ __forceinline__ void store1(void* out, long long at, int code, double
 // TILE x TILE sub-tile (i0, j0) of it; in PAIR mode also at its mirror, tile (jq, iq),
 // sub-tile (j0, i0).  The three operand maps are the left side's, the right side's and, for a
 // tri right side, the mirrored read of the same stack (boxes TILE x KC where the stored box is
-// KC x TILE).  PAIRS: the pair-mode instantiation, whose ring slots hold GROUP terms a side
+// KC x TILE).  z is the block's slot of a batched launch: the outermost coordinate of every
+// box, and the slot's output, workspace and seed lie at z * slot_elems.  PAIRS: the
+// pair-mode instantiation, whose ring slots hold GROUP terms a side
 // (a chunk of an op with more takes several slots in turn); elsewhere a slot holds tmax.  Acc:
 // the accumulator's type (float, __nv_bfloat16 or double).
 template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, int STAGES, bool PAIRS>
 __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
                                      const CUtensorMap& rmap, const CUtensorMap& mmap, int iq,
-                                     int jq, int i0, int j0, int mode) {
+                                     int jq, int i0, int j0, int mode, int z) {
   using G = Geometry<TILE>;
   constexpr int RC = right_chunks(TRI);
   constexpr int R = G::R, XQ = G::XQ, LDS = G::LDS, CHUNK = G::CHUNK;
@@ -421,6 +425,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   StepTerms* terms = reinterpret_cast<StepTerms*>(sum_base + 2 * 2 * G::SUM);  // [STAGES]
   uint64_t* full = reinterpret_cast<uint64_t*>(terms + STAGES);                 // [STAGES]
 
+  const long long so = static_cast<long long>(z) * P.slot_elems;  // batch slot z's elements
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int lane = tid % 32, warp = tid / 32;
@@ -518,30 +523,30 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
       if (P.left_trans) {  // K x i: rows (lrow*n_k + k)*bc + kc.., cols (lcol*q_i + wi)*bi + wi0..
         const int pitch = sizeof(Tl) == 1 ? P.l_pitch : P.bi;
         tma_load(dst, &lmap, (lc * P.q_i + wi) * pitch + wi0, (lr * P.n_k + t.k) * P.bc + kc,
-                 &full[slot]);
+                 z, &full[slot]);
       } else {  // i x K: rows (lrow*q_i + wi)*bi + wi0.., cols (lcol*n_k + k)*bc + kc..
         const int pitch = sizeof(Tl) == 1 ? P.l_pitch : P.bc;
         tma_load(dst, &lmap, (lc * P.n_k + t.k) * pitch + kc, (lr * P.q_i + wi) * P.bi + wi0,
-                 &full[slot]);
+                 z, &full[slot]);
       }
       return;
     }
     Tr* dst = rring + (static_cast<size_t>(slot) * gw + p) * RC * CHUNK;
     if constexpr (TRI) {
       if (!tt.mirrored || tt.diag)  // stored rows kc.., cols wj0..
-        tma_load(dst, &rmap, wj0, static_cast<int>(tt.row) + kc, &full[slot]);
+        tma_load(dst, &rmap, wj0, static_cast<int>(tt.row) + kc, z, &full[slot]);
       if (tt.mirrored || tt.diag)   // stored rows wj0.., cols kc..
-        tma_load(dst + CHUNK, &mmap, kc, static_cast<int>(tt.row) + wj0, &full[slot]);
+        tma_load(dst + CHUNK, &mmap, kc, static_cast<int>(tt.row) + wj0, z, &full[slot]);
     } else {
       const int rr = term_row, rc = term_col;
       if (P.right_jk) {  // j x K: rows (rrow*q_j + wj)*bj + wj0.., cols (rcol*n_k + k)*bc + kc..
         const int pitch = sizeof(Tr) == 1 ? P.r_pitch : P.bc;
         tma_load(dst, &rmap, (rc * P.n_k + t.k) * pitch + kc, (rr * P.q_j + wj) * P.bj + wj0,
-                 &full[slot]);
+                 z, &full[slot]);
       } else {  // K x j: rows (rrow*n_k + k)*bc + kc.., cols (rcol*q_j + wj)*bj + wj0..
         const int pitch = sizeof(Tr) == 1 ? P.r_pitch : P.bj;
         tma_load(dst, &rmap, (rc * P.q_j + wj) * pitch + wj0, (rr * P.n_k + t.k) * P.bc + kc,
-                 &full[slot]);
+                 z, &full[slot]);
       }
     }
   };
@@ -702,6 +707,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   // unless the output is the workspace.  The seed is read by the thread that writes the
   // element, before it writes: the seed may be the output.
   auto put1 = [&](long long at, float v, int flag) {
+    at += so;
     Acc* const ws = static_cast<Acc*>(P.ws);
     if constexpr (PER_K) {
       const Acc term = from_f32<Acc>(v);
@@ -727,6 +733,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
 #pragma unroll
       for (int j = 0; j < 4; ++j) put1(at + j, v[j], flag);
     } else {
+      at += so;
       float* const ws = static_cast<float*>(P.ws);
       if (!(flag & FIRST) || P.seed != nullptr) {
         const float4 w = flag & FIRST ? load4(P.seed, at, P.seed_code)
@@ -934,19 +941,27 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
 // are their own mirrors, which walk half as much (as much under PER_K), last.  Pair mode is its
 // own instantiation (PAIRS), so the one-position walk keeps none of its code.  The arithmetic
 // of an output element depends neither on the tile nor on the mode.
+//
+// A batched launch (batch > 1: the port of jax.vmap over the TPU kernel, whose grid gains a
+// leading batch axis) folds the slots into the same order, slot innermost: walk item g (a
+// position, or in pair mode a pair) is item g / batch of slot g % batch.  So every slot's heavy
+// cells come before any slot's light ones, and the quarter split counts waves over the whole
+// batch: the launch has one ragged last wave, not one a slot.
 template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, int STAGES, bool PAIRS>
 __device__ __forceinline__ void run(const Ops& P, const CUtensorMap& lmap,
                                     const CUtensorMap& rmap, const CUtensorMap& mmap,
                                     const CUtensorMap& lmap_half, const CUtensorMap& rmap_half,
                                     const CUtensorMap& mmap_half) {
   const int n_sub_i = (P.bi + TILE - 1) / TILE, n_sub_j = (P.bj + TILE - 1) / TILE;
-  int iq, jq, i0, j0, mode = SINGLE;
+  int iq, jq, i0, j0, mode = SINGLE, z;
   if constexpr (PAIRS) {  // square tiles: n_sub_i == n_sub_j
     const int side = P.q_i * n_sub_i;
     const int n_two = side * (side - 1) / 2;
-    int I, J = static_cast<int>(blockIdx.x) - n_two;
+    const int item = static_cast<int>(blockIdx.x) / P.batch;
+    z = static_cast<int>(blockIdx.x) % P.batch;
+    int I, J = item - n_two;
     if (J < 0) {
-      tri_decode(blockIdx.x, I, J);
+      tri_decode(item, I, J);
       ++I;
       mode = PAIR;
     } else {
@@ -963,6 +978,8 @@ __device__ __forceinline__ void run(const Ops& P, const CUtensorMap& lmap,
       quarter = (pos - P.n_big) % 4;
       pos = P.n_big + (pos - P.n_big) / 4;
     }
+    z = pos % P.batch;
+    pos /= P.batch;
     j0 = (pos % n_sub_j) * TILE;
     pos /= n_sub_j;
     i0 = (pos % n_sub_i) * TILE;
@@ -972,12 +989,12 @@ __device__ __forceinline__ void run(const Ops& P, const CUtensorMap& lmap,
       if (quarter >= 0) {
         walk<Tl, Tr, Acc, TRI, TILE / 2, STAGES, false>(
             P, lmap_half, rmap_half, mmap_half, iq, jq, i0 + (quarter / 2) * (TILE / 2),
-            j0 + (quarter % 2) * (TILE / 2), SINGLE);
+            j0 + (quarter % 2) * (TILE / 2), SINGLE, z);
         return;
       }
     }
   }
-  walk<Tl, Tr, Acc, TRI, TILE, STAGES, PAIRS>(P, lmap, rmap, mmap, iq, jq, i0, j0, mode);
+  walk<Tl, Tr, Acc, TRI, TILE, STAGES, PAIRS>(P, lmap, rmap, mmap, iq, jq, i0, j0, mode, z);
 }
 
 // The kernel with an fp32 accumulator.
@@ -1068,22 +1085,28 @@ cudaError_t prepare(KernelFn kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The 2-D map of a row-major (rows, cols) operand of element type `code` with row stride ld
-// (elements), read in boxes of box_rows x box_cols; reads past its edge give zeros.  Both fp8
-// types travel as bytes.
+// The map of a stack of `batch` row-major (rows, cols) operands of element type `code`, one
+// after the other, with row stride ld (elements), read in boxes of box_rows x box_cols of one
+// operand; reads past an operand's edge give zeros.  The stack is the map's third, outermost
+// dimension, so that a box that runs past one operand's last row reads zeros and not the next
+// operand's first rows (a 2-D map over the rows of the whole stack would).  Both fp8 types
+// travel as bytes.
 bool make_map(CUtensorMap* map, const void* base, int code, long long rows, long long cols,
-              long long ld, int box_rows, int box_cols) {
+              long long ld, int batch, int box_rows, int box_cols) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const CUtensorMapDataType type = code == F32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                    : code == BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                    : code == F16  ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                   : CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes(code)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+  const cuuint64_t pitch = static_cast<cuuint64_t>(ld) * elem_bytes(code);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {pitch, pitch * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1145,7 +1168,8 @@ int leaf_products_blocks_per_sm(int l_dtype, int r_dtype, int acc, int right_tri
 }
 
 // The positions a launch of n_pos positions walks whole (whole_positions); the other n_pos
-// minus that many are walked in quarters, four blocks each.
+// minus that many are walked in quarters, four blocks each.  A batched launch's n_pos counts
+// the positions of all its slots.
 long long leaf_products_whole_positions(int l_dtype, int r_dtype, int acc, int right_tri,
                                         int tmax, int tile, int stages, long long n_pos) {
   if (!operand_code(l_dtype) || !operand_code(r_dtype)) return -1;
@@ -1177,6 +1201,9 @@ const char* leaf_products_error_string(int err) {
 // tile: 64 or 128, a block's sub-tile edge.  stages: the requested ring depth
 // (leaf_products_ring_depth says which runs).  The operands' row strides and bases are 16-byte
 // aligned, their extents below 2^31.
+// batch: the slots of a batched launch (1 for one program run): `left`, `right`, `seed`, `ws`
+// and `out` then each hold `batch` of their kind one after the other, out_slot elements apart
+// for the last three, and every slot runs the same bound program on its own operands.
 int leaf_products_launch(const void* left, const void* right, const void* seed, void* ws,
                          void* out, const void* lrow, const void* lcol, const void* lsgn,
                          const void* rrow, const void* rcol, const void* rsgn, const void* rtrn,
@@ -1186,7 +1213,8 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
                          int n_k, int q_i, int q_j, int blocks_j, int bi, int bj, int bc,
                          int left_trans, int right_layout, int diag_sym, int out_tri, int pair,
                          int l_dtype, int r_dtype, int seed_dtype, int out_dtype, int acc,
-                         int l_pitch, int r_pitch, int tile, int stages, void* stream) {
+                         int l_pitch, int r_pitch, int tile, int stages, int batch,
+                         long long out_slot, void* stream) {
   if (n_ops < 1 || tmax < 1 || tmax > MAX_TERMS || max_dests < 1 || n_k < 1 || q_i < 1 ||
       q_j < 1 || blocks_j < 1 || bi < 8 || bj < 8 || bc < 8 || right_layout < RIGHT_KJ ||
       right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
@@ -1199,7 +1227,7 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
       (elem_bytes(r_dtype) == 1 && right_layout != RIGHT_TRI &&
        (r_pitch % 16 || r_pitch < (right_layout == RIGHT_JK ? bc : bj))) ||
       l_rows >= (1LL << 31) || l_cols >= (1LL << 31) || r_rows >= (1LL << 31) ||
-      r_cols >= (1LL << 31))
+      r_cols >= (1LL << 31) || batch < 1 || out_slot < 1)
     return cudaErrorInvalidValue;
   const bool tri = right_layout == RIGHT_TRI;
   const KernelFn kernel = select(l_dtype, r_dtype, acc, tri, pair != 0, tile, stages);
@@ -1214,11 +1242,11 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
   for (int half = 0; half < 2; ++half) {
     const int w = tile >> half;
     CUtensorMap* m = maps[half];
-    if (!make_map(&m[0], left, l_dtype, l_rows, l_cols, l_cols, left_trans ? KC : w,
+    if (!make_map(&m[0], left, l_dtype, l_rows, l_cols, l_cols, batch, left_trans ? KC : w,
                   left_trans ? w : KC) ||
-        !make_map(&m[1], right, r_dtype, r_rows, r_cols, r_cols, r_kx ? KC : w,
+        !make_map(&m[1], right, r_dtype, r_rows, r_cols, r_cols, batch, r_kx ? KC : w,
                   r_kx ? w : KC) ||
-        (tri && !make_map(&m[2], right, r_dtype, r_rows, r_cols, r_cols, w, KC)))
+        (tri && !make_map(&m[2], right, r_dtype, r_rows, r_cols, r_cols, batch, w, KC)))
       return cudaErrorInvalidValue;
     if (!tri) m[2] = m[1];  // unread
   }
@@ -1231,12 +1259,14 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
         static_cast<const int*>(dtrn), static_cast<const int*>(odiag),
         n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
         left_trans, right_layout == RIGHT_JK, diag_sym, out_tri != 0, slot_terms(tmax, pair),
-        seed_dtype, ws != out, 0, out_dtype, l_pitch, r_pitch};
+        seed_dtype, ws != out, 0, out_dtype, l_pitch, r_pitch, batch, out_slot};
+  // the positions of every slot: the quarter split counts waves over the whole launch
   const long long n_pos = static_cast<long long>(q_i) * q_j * ((bi + tile - 1) / tile) *
-                          ((bj + tile - 1) / tile);
-  // pair mode: one block a mirror pair of sub-tiles and one a sub-tile on the diagonal
+                          ((bj + tile - 1) / tile) * batch;
+  // pair mode: one block a mirror pair of sub-tiles and one a sub-tile on the diagonal, a slot
   const long long side = static_cast<long long>(q_i) * ((bi + tile - 1) / tile);
-  const long long n_big = pair ? side * (side + 1) / 2 : whole_positions(kernel, smem, tile, n_pos);
+  const long long n_big =
+      pair ? side * (side + 1) / 2 * batch : whole_positions(kernel, smem, tile, n_pos);
   const long long blocks = pair ? n_big : n_big + 4 * (n_pos - n_big);
   if (n_big < 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   P.n_big = static_cast<int>(n_big);

@@ -78,8 +78,9 @@ __all__ = ["fused_ata", "fused_ata_packed", "fused_symm_matmul",
            "fused_matmul", "ata_traffic_model", "ata_bwd_traffic_model",
            "aat_traffic_model", "rank_k_traffic_model", "leaf_program",
            "product_flops", "stochastic_round_bf16", "KERNEL_LAUNCHES",
-           "LIBRARY_LAUNCHES", "MAX_OPERAND_TERMS", "PRODUCT_LIBRARIES",
-           "MAX_PIPELINE_DEPTH", "PRODUCT_TILES"]
+           "LIBRARY_LAUNCHES", "BATCHED_LAUNCHES", "MAX_OPERAND_TERMS",
+           "PRODUCT_LIBRARIES", "MAX_PIPELINE_DEPTH", "PRODUCT_TILES",
+           "BoundGram"]
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -151,6 +152,10 @@ PRODUCT_LIBRARIES = ("leaf_products", "leaf_products_lowp",
 #: The same launches by the library that ran them.
 LIBRARY_LAUNCHES = {f"{lib}.cu/{kind}": 0 for lib in PRODUCT_LIBRARIES
                     for kind in _KINDS}
+
+#: The batched launches among them (one launch over a stack of slots, the
+#: port of ``jax.vmap`` over the TPU kernel), by program kind.
+BATCHED_LAUNCHES = {f"leaf_program/{kind}": 0 for kind in _KINDS}
 
 # (kind, variant, gram, requested, clamped) combinations already warned
 # about: the clamp warns exactly once per distinct clamp.
@@ -968,8 +973,8 @@ def _products_lib(name: str = "leaf_products") -> ctypes.CDLL:
     built at first use; all three share the C interface."""
     lib = _build.library(name)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 24 \
-        + [ptr]
+    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 25 \
+        + [i64, ptr]
     lib.leaf_products_launch.restype = i32
     lib.leaf_products_smem_bytes.argtypes = [i32] * 7
     lib.leaf_products_smem_bytes.restype = ctypes.c_size_t
@@ -1055,11 +1060,12 @@ def _pairs(spec: _Spec) -> bool:
 
 
 def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
-                          tile: int | None = None) -> dict:
+                          tile: int | None = None, batch: int = 1) -> dict:
     """How a ``leaf_products`` launch of ``spec`` on operands of these
-    types fills the current card: the library that runs it, the types it
+    types fills the current card (``batch`` slots of it: a batched
+    launch): the library that runs it, the types it
     stores them as, its ring depth, its block tile, output positions (a
-    tile x tile sub-tile each),
+    tile x tile sub-tile each, of every slot),
     the positions walked whole (the rest, the ragged last wave's, are
     walked in quarters, four blocks each; in pair mode none), thread
     blocks (in pair mode one a mirror pair of positions and one a
@@ -1070,7 +1076,7 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
     lb, rb = (torch.empty((), dtype=d).element_size() for d in (lt, rt))
     tile = _products_tile(spec, lb, rb) if tile is None else tile
     positions = spec.q_i * spec.q_j * -(-spec.bi // tile) \
-        * -(-spec.bj // tile)
+        * -(-spec.bj // tile) * batch
     name = _products_library(spec.acc_dtype, lt)
     lib = _products_lib(name)
     codes = (LEAF_DTYPE_CODES[lt], LEAF_DTYPE_CODES[rt],
@@ -1079,7 +1085,7 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
     pair = _pairs(spec)
     if pair:            # square: Q sub-tiles along a leaf block's edge
         side = spec.q_i * -(-spec.bi // tile)
-        whole, blocks = positions, side * (side + 1) // 2
+        whole, blocks = positions, side * (side + 1) // 2 * batch
     else:
         whole = lib.leaf_products_whole_positions(*codes, positions)
         blocks = whole + 4 * (positions - whole)
@@ -1137,7 +1143,7 @@ def _check_buffer(name: str, x: torch.Tensor, want, device,
                         f"{', '.join(str(t) for t in types)}, got {x.dtype}")
     if x.device != device:
         raise ValueError(f"the {name} lies on {x.device}, not {device}")
-    if x.ndim != 2 or tuple(x.shape) != tuple(want):
+    if tuple(x.shape) != tuple(want):
         raise ValueError(f"{name} of shape {tuple(x.shape)} does not fit "
                          f"the bound program (want {tuple(want)})")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -1146,15 +1152,17 @@ def _check_buffer(name: str, x: torch.Tensor, want, device,
 
 
 def _check_kernel_args(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
-                       out_dtype, seed, out) -> None:
+                       out_dtype, seed, out, lead=()) -> None:
+    """``lead``: the leading batch axis of a batched launch's buffers
+    (``(K,)``), else ``()``."""
     if out_dtype not in _VALUE_TYPES:
         raise TypeError(f"leaf_program writes "
                         f"{', '.join(str(t) for t in _VALUE_TYPES)}, got "
                         f"{out_dtype}")
     for name, x, want in zip(("left operand", "right operand"),
                              (left, right), _operand_extents(spec)):
-        _check_buffer(name, x, want, left.device, (*_OPERAND_TYPES,
-                                                   torch.float64))
+        _check_buffer(name, x, (*lead, *want), left.device,
+                      (*_OPERAND_TYPES, torch.float64))
     if spec.kind in ("ata", "aat", "rank_k"):
         if right.data_ptr() != left.data_ptr():
             raise ValueError(f"the {spec.kind} kernel reads one operand: "
@@ -1176,9 +1184,11 @@ def _check_kernel_args(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                          f"{'needs' if spec.accumulate else 'takes no'} "
                          "seed stack")
     if seed is not None:
-        _check_buffer("seed stack", seed, _out_shape(spec), left.device)
+        _check_buffer("seed stack", seed, (*lead, *_out_shape(spec)),
+                      left.device)
     if out is not None:
-        _check_buffer("output buffer", out, _out_shape(spec), left.device)
+        _check_buffer("output buffer", out, (*lead, *_out_shape(spec)),
+                      left.device)
         if out.dtype != out_dtype:
             raise ValueError(f"output buffer of {out.dtype}, not "
                              f"{out_dtype}")
@@ -1192,17 +1202,20 @@ def _tma_layout(x: torch.Tensor, edge: int | None):
     are widened to ``pitch``, the edge rounded up to 16, with zeros,
     which the kernel reads only where it reads past a tile's edge
     (outputs it never stores, or depth it masks).  Returns ``(stored x,
-    pitch)``; any other type passes as it is."""
+    pitch)``; any other type passes as it is.  A batched launch's stack
+    ``(K, rows, cols)`` is laid out slot by slot the same way."""
     if x.element_size() != 1:
-        return x, edge or x.shape[1]
-    raw = x.view(torch.uint8)
+        return x, edge or x.shape[-1]
+    lead = x.shape[:-1]
+    raw = x.view(torch.uint8).reshape(-1, x.shape[-1])
     if edge is None:
-        return F.pad(raw, (0, -x.shape[1] % 16)).view(x.dtype), x.shape[1]
+        raw = F.pad(raw, (0, -x.shape[-1] % 16))
+        return raw.view(x.dtype).reshape(*lead, -1), x.shape[-1]
     pitch = -(-edge // 16) * 16
     if pitch != edge:
-        raw = F.pad(raw.reshape(x.shape[0], -1, edge),
-                    (0, pitch - edge)).reshape(x.shape[0], -1)
-    return raw.view(x.dtype), pitch
+        raw = F.pad(raw.reshape(raw.shape[0], -1, edge),
+                    (0, pitch - edge)).reshape(raw.shape[0], -1)
+    return raw.view(x.dtype).reshape(*lead, -1), pitch
 
 
 def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
@@ -1217,7 +1230,13 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     B as stored (the transposes are the spec's).  ``seed`` is the
     incoming packed stack of ``rank_k``, which starts the accumulator.
     ``out``, where given, is the buffer written (it may be ``seed``: each
-    output element is read before it is written).  ``tile`` is the block
+    output element is read before it is written).
+
+    A batched launch (the port of ``jax.vmap`` over the TPU kernel): each
+    operand, the seed and ``out`` carry a leading slot axis ``K``, and one
+    launch runs the program on every slot (the result ``(K, ...)``); each
+    slot's output is bit-equal to a launch on its slot alone.  On the CPU
+    the plain version runs slot by slot.  ``tile`` is the block
     tile of ``csrc/leaf_products.cuh``, one of ``PRODUCT_TILES``; by
     default the first that divides the output tiles and fits.  Neither
     it nor ``spec.pipeline_depth`` changes a bit of the result (a bf16 or
@@ -1244,13 +1263,21 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
         raise ValueError(f"unknown program kind {spec.kind!r}")
     if left.device != right.device:
         raise ValueError(f"operands on {left.device} and {right.device}")
+    batched = left.ndim == 3
     if left.device.type == "cpu":
-        res = _leaf_products_plain(spec, left, right, out_dtype, seed)
+        if batched:
+            res = torch.stack([_leaf_products_plain(
+                spec, left[k], right[k], out_dtype,
+                None if seed is None else seed[k])
+                for k in range(left.shape[0])])
+        else:
+            res = _leaf_products_plain(spec, left, right, out_dtype, seed)
         return res if out is None else out.copy_(res)
     if left.device.type != "cuda":
         raise ValueError(f"leaf_program runs on cuda or cpu, not "
                          f"{left.device}")
-    _check_kernel_args(spec, left, right, out_dtype, seed, out)
+    lead = tuple(left.shape[:1]) if batched else ()
+    _check_kernel_args(spec, left, right, out_dtype, seed, out, lead)
     one = right is left
     lt, rt = _kernel_types(left.dtype, right.dtype, spec.acc_dtype)
     left, l_pitch = _tma_layout(left.to(lt),
@@ -1270,7 +1297,7 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
             f"{SMEM_LIMIT_BYTES} a Hopper block can use; lower "
             "pipeline_depth")
     if out is None:
-        out = torch.empty(_out_shape(spec), dtype=out_dtype,
+        out = torch.empty((*lead, *_out_shape(spec)), dtype=out_dtype,
                           device=left.device)
     acc_t = _ACC_DTYPES[spec.acc_dtype]
     ws = out if out.dtype == acc_t else torch.empty(
@@ -1285,15 +1312,17 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
         err = lib.leaf_products_launch(
             left.data_ptr(), right.data_ptr(),
             None if seed is None else seed.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), *(t.data_ptr() for t in tables), *left.shape,
-            *right.shape, n_ops, spec.tmax, max_dests, spec.n_k, spec.q_i,
+            out.data_ptr(), *(t.data_ptr() for t in tables),
+            *left.shape[-2:], *right.shape[-2:], n_ops, spec.tmax, max_dests,
+            spec.n_k, spec.q_i,
             spec.q_j, spec.blocks_j, spec.bi, spec.bj, spec.bc,
             int(spec.left_trans), right_layout, int(spec.diag_sym),
             int(spec.out_tri), int(_pairs(spec)),
             LEAF_DTYPE_CODES[left.dtype], LEAF_DTYPE_CODES[right.dtype],
             0 if seed is None else LEAF_DTYPE_CODES[seed.dtype],
             LEAF_DTYPE_CODES[out.dtype], ACC_CODES[spec.acc_dtype], l_pitch,
-            r_pitch, tile, spec.pipeline_depth,
+            r_pitch, tile, spec.pipeline_depth, lead[0] if batched else 1,
+            math.prod(_out_shape(spec)),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
@@ -1301,6 +1330,8 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
             f"({lib.leaf_products_error_string(err).decode()})")
     KERNEL_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
     LIBRARY_LAUNCHES[f"{name}.cu/{spec.kind}"] += 1
+    if batched:
+        BATCHED_LAUNCHES[f"leaf_program/{spec.kind}"] += 1
     return out
 
 
@@ -1404,6 +1435,31 @@ def fused_ata_packed(
     return (packed if sr is None else _sr_round(packed, sr)), n_pad
 
 
+def _gram_spec(kind, m, n, levels, variant, gram, b_out, b_k,
+               pipeline_depth=1, acc_dtype="float32"):
+    """The ata (or aat) program bound to the tiles of an (m, n) operand:
+    ``(spec, M, N)``, ``(M, N)`` its padded shape; ``b_out`` is the
+    output tile edge (bn, or bm for aat), ``b_k`` the contraction's."""
+    if kind == "ata":
+        geo = _ata_geometry(m, n, levels, variant, b_k, b_out, gram=gram)
+    else:
+        geo = _aat_geometry(m, n, levels, variant, b_out, b_k, gram=gram)
+    spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
+                 q_j=geo["nbt"], n_k=geo["n_k"], bi=b_out, bj=b_out,
+                 bc=b_k, pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
+    return spec, geo["M"], geo["N"]
+
+
+def _pad_stored(a, M, N, operand_dtype):
+    """``a`` (or a stack of them) zero-padded to ``(M, N)`` and quantized
+    once after padding: operand tiles are stored (and copied) at this
+    precision; every sum upcasts to fp32."""
+    m, n = a.shape[-2:]
+    if (M, N) != (m, n):
+        a = F.pad(a, (0, N - n, 0, M - m))
+    return _stored(a, operand_dtype).contiguous()
+
+
 def _prepare_ata(a, levels, variant, gram, bk, bn, pipeline_depth=1,
                  operand_dtype=None, acc_dtype="float32"):
     """Pad and quantize ``a`` and bind the ata program to its tiles;
@@ -1411,18 +1467,9 @@ def _prepare_ata(a, levels, variant, gram, bk, bn, pipeline_depth=1,
     if a.ndim != 2:
         raise ValueError(f"fused ata expects a matrix, got shape "
                          f"{tuple(a.shape)}")
-    m, n = a.shape
-    geo = _ata_geometry(m, n, levels, variant, bk, bn, gram=gram)
-    M, N = geo["M"], geo["N"]
-    if (M, N) != (m, n):
-        a = F.pad(a, (0, N - n, 0, M - m))
-    # the quantization step, once after padding: operand tiles are stored
-    # (and copied) at this precision; every sum upcasts to fp32
-    a = _stored(a, operand_dtype)
-    spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
-                 q_j=geo["nbt"], n_k=geo["n_k"], bi=bn, bj=bn, bc=bk,
-                 pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
-    return spec, a.contiguous()
+    spec, M, N = _gram_spec("ata", *a.shape, levels, variant, gram, bn, bk,
+                            pipeline_depth, acc_dtype)
+    return spec, _pad_stored(a, M, N, operand_dtype)
 
 
 def _fused_ata_packed_exec(a, cfg: _AtaConfig):
@@ -1664,16 +1711,9 @@ def _prepare_aat(a, levels, variant, gram, bm, bk, pipeline_depth=1,
     if a.ndim != 2:
         raise ValueError(f"fused aat expects a matrix, got shape "
                          f"{tuple(a.shape)}")
-    m, n = a.shape
-    geo = _aat_geometry(m, n, levels, variant, bm, bk, gram=gram)
-    M, N = geo["M"], geo["N"]
-    if (M, N) != (m, n):
-        a = F.pad(a, (0, N - n, 0, M - m))
-    a = _stored(a, operand_dtype)
-    spec = _bind(geo["plan"], n_out=geo["n_tri"], n_tj=0, q_i=geo["nbt"],
-                 q_j=geo["nbt"], n_k=geo["n_k"], bi=bm, bj=bm, bc=bk,
-                 pipeline_depth=pipeline_depth, acc_dtype=acc_dtype)
-    return spec, a.contiguous()
+    spec, M, N = _gram_spec("aat", *a.shape, levels, variant, gram, bm, bk,
+                            pipeline_depth, acc_dtype)
+    return spec, _pad_stored(a, M, N, operand_dtype)
 
 
 def _fused_aat_packed_exec(a, cfg: _AtaConfig):
@@ -1801,6 +1841,76 @@ def fused_aat(
         kind="aat")
     out = _FusedAatDense.apply(a, cfg)
     return out if sr is None else _sr_round(out, sr)
+
+
+# ---------------------------------------------------------------------------
+# Batched grams: one launch over a stack of K slots, the port of jax.vmap
+# over the fused ata / aat (the JAX engine's slot batches, batched_gram).
+# ---------------------------------------------------------------------------
+
+class BoundGram:
+    """The ata (``gram_of="cols"``) or aat (``"rows"``) program bound
+    once to the shape of a ``(K, m, n)`` stack: the spec, the padded
+    shape, the op tables on the device and, on the card, the launch
+    geometry (:func:`products_launch_shape`).  ``b_out`` is the output
+    tile edge (bn of ata, bm of aat), ``b_k`` the contraction's (bk).
+    The port's counterpart of the JAX package's compiled
+    ``jax.jit(jax.vmap(...))`` executable: each call pads the stack
+    once, quantizes it once and launches once over every slot
+    (:func:`leaf_program` with a slot axis), or on the CPU runs the
+    plain version slot by slot.  Forward-only."""
+
+    def __init__(self, m: int, n: int, *, batch: int, gram_of: str = "cols",
+                 levels: int = 2, variant: str = "strassen",
+                 b_out: int = 256, b_k: int = 256, out_dtype,
+                 dtype=torch.float32, pipeline_depth=None,
+                 operand_dtype=None, device):
+        if gram_of not in ("cols", "rows"):
+            raise ValueError(f"gram_of must be 'cols' or 'rows', got "
+                             f"{gram_of!r}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.kind = "ata" if gram_of == "cols" else "aat"
+        self.shape, self.batch, self.b_out = (m, n), batch, b_out
+        self.out_dtype = out_dtype
+        self.operand_dtype = _resolve_operand_dtype(operand_dtype)
+        self.spec, M, N = _gram_spec(
+            self.kind, m, n, levels, variant, "strassen", b_out, b_k,
+            _resolve_pipeline_depth(pipeline_depth, self.device), "float32")
+        self.padded = (M, N)
+        self.edge = N if self.kind == "ata" else M   # the padded gram edge
+        self.tables = _spec_op_tables(self.spec, self.device)
+        stored = _stored(torch.empty((), dtype=dtype), self.operand_dtype)
+        self.launch = products_launch_shape(
+            self.spec, stored.dtype, stored.dtype, batch=batch) \
+            if self.device.type == "cuda" else None
+
+    def packed(self, stack: torch.Tensor) -> torch.Tensor:
+        """``(K, T(T+1)/2 * b, b)``: each slot's packed lower-triangular
+        tile stack, one launch."""
+        if tuple(stack.shape) != (self.batch, *self.shape):
+            raise ValueError(f"stack of shape {tuple(stack.shape)}, bound "
+                             f"to {(self.batch, *self.shape)}")
+        if stack.device != self.device:
+            raise ValueError(f"the stack lies on {stack.device}, the bound "
+                             f"program on {self.device}")
+        if stack.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"the batched {self.kind} is forward-only: got a stack that "
+                "requires grad (take ata_full slot by slot for a gradient)")
+        sp = _pad_stored(stack, *self.padded, self.operand_dtype)
+        return leaf_program(self.spec, sp, sp, self.out_dtype)
+
+    def __call__(self, stack: torch.Tensor, *,
+                 symmetrize: bool = False) -> torch.Tensor:
+        """``(K, n, n)`` lower triangles ``tril(x.T @ x)`` of each slot x
+        (``(K, m, m)``, ``tril(x @ x.T)``, for the row gram); the full
+        symmetric grams with ``symmetrize``."""
+        g = self.shape[1] if self.kind == "ata" else self.shape[0]
+        c = unpack_tril_blocks(self.packed(stack), self.edge, self.b_out,
+                               symmetrize=symmetrize)[:, :g, :g]
+        return c if symmetrize else torch.tril(c)
 
 
 # ---------------------------------------------------------------------------

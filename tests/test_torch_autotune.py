@@ -66,7 +66,16 @@ def test_candidate_space_drops_oversized_and_refused_blocks():
 
 
 @pytest.mark.parametrize("kind", ["ata", "aat", "rank_k", "ata_bwd"])
-def test_candidate_space_matches_jax(kind):
+def test_candidate_space_matches_jax(kind, monkeypatch):
+    # another test file run earlier in this process may have registered
+    # an algebra in the JAX package's registry (tests/test_leaf_ir.py
+    # does): hold both grids to the port's algebras, each of which the
+    # JAX package registers too, in the same order
+    from repro.core import leaf_ir as jir
+    from repro_torch.core import leaf_ir as tir
+    ours = tir.registered_algebras()
+    assert tuple(v for v in jir.registered_algebras() if v in ours) == ours
+    monkeypatch.setattr(jir, "registered_algebras", lambda: ours)
     kw = dict(blocks=(16, 32, 128), levels=(0, 1, 2), kind=kind,
               pipeline_depths=(1, 2), operand_dtypes=(None, "bfloat16"))
     assert at.candidate_space(64, 128, **kw) == \

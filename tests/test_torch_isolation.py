@@ -66,6 +66,13 @@ def test_import_loads_no_jax_and_no_reference_package():
         "from repro_torch.gram import (autotune_bucket,\n"
         "    resolve_block_defaults, distributed_update, update_sharded)\n"
         "from repro_torch.runtime import faults\n"
+        "import repro_torch.gram.engine, repro_torch.obs.drift\n"
+        "import repro_torch.launch.gram_serve\n"
+        "from repro_torch.gram import (GramEngine, GramFuture, GramRequest,\n"
+        "    BucketHealth, TenantState, GramServeError, Overloaded,\n"
+        "    EngineShutdown, batched_gram)\n"
+        "from repro_torch.obs import DriftDetector, DriftFinding\n"
+        "from repro_torch.kernels.strassen_fused import BoundGram\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -125,6 +132,11 @@ def test_entry_points_refuse_to_run_without_cuda():
             fn(*args)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         strassen_matmul(a, a, trans_a=True, mode="auto")
+    from repro_torch.gram import GramEngine, batched_gram
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batched_gram(a[None])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GramEngine()
 
 
 def test_serving_entry_points_refuse_to_run_without_cuda():
@@ -135,14 +147,15 @@ def test_serving_entry_points_refuse_to_run_without_cuda():
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.convert import params_from_jax
     from repro_torch.runtime import ServingEngine
-    from repro_torch.launch import serve
+    from repro_torch.launch import gram_serve, serve
     q = torch.ones(1, 16, 2, 16)
     cfg = reduced_arch("qwen2.5-3b", num_layers=1)
     for call in (lambda: ops.flash_mha(q, q, q),
                  lambda: init_params(cfg, 0),
                  lambda: init_cache(cfg, 1, 16),
                  lambda: params_from_jax(cfg, {}),
-                 lambda: serve.main(["--requests", "1"])):
+                 lambda: serve.main(["--requests", "1"]),
+                 lambda: gram_serve.main(["--requests", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     params = init_params(cfg, 0, device="cpu")

@@ -38,6 +38,22 @@ def test_pack_unpack_blocks_match_jax(n, bn):
         np.testing.assert_array_equal(got_u.numpy(), want_u)
 
 
+@pytest.mark.parametrize("symmetrize", [False, True])
+def test_unpack_blocks_of_a_stack_is_each_slot_unpacked(symmetrize):
+    """Leading dimensions of a packed stack carry over: a (2, 3) stack of
+    packed grams unpacks slot by slot as the JAX package unpacks each."""
+    stacks = np.stack([np.asarray(jsym.pack_tril_blocks(
+        jnp.asarray(_dense(40, seed=s)), 8)) for s in range(6)])
+    got = tsym.unpack_tril_blocks(stacks.reshape(2, 3, *stacks.shape[1:]),
+                                  40, 8, symmetrize=symmetrize)
+    assert got.shape == (2, 3, 40, 40)
+    for s in range(6):
+        np.testing.assert_array_equal(
+            got.reshape(6, 40, 40)[s].numpy(),
+            np.asarray(jsym.unpack_tril_blocks(
+                jnp.asarray(stacks[s]), 40, 8, symmetrize=symmetrize)))
+
+
 @pytest.mark.parametrize("n,bn", [(40, 8), (64, 16)])
 def test_tril_vector_and_symmetrize_match_jax(n, bn):
     c = _dense(n, seed=7)
