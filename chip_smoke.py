@@ -222,6 +222,27 @@ failure exits non-zero):
        ``distributed_gram`` on a one-rank NCCL mesh (dist_threshold
        4096^2), bit-equal to ``ata_full(a, levels=1)``; batched launches
        of both kinds asserted;
+   4n. training, through the trainer's own entry points (a function of
+       its own, ``phase_4n``; ``--only 4n`` runs it alone after building
+       ``leaf_products.cu``): (a) the chunked ``"xla"`` attention branch
+       at Qwen2.5-3B's width, q (1, 4096, 16, 128) over k/v (1, 4096, 2,
+       128), causal, the config's chunks of 2048, forward and gradient
+       against the one-shot branch in fp32 (<= 1e-5 of max|out|, 1e-4 of
+       max|grad|) and bf16 (2^-6, 2^-5), each timed with its peak memory;
+       (b) ``Trainer`` with ``TrainConfig(optimizer="shampoo")`` at its
+       defaults (blocks of 1024, statistics every step, roots every 20)
+       on Qwen2.5-3B at full width cut to ``SHAMPOO_LAYERS`` layers,
+       bf16, seq 4096, batch 1: its statistics' batched launches of
+       ``leaf_products.cuh`` counted a step (2 for each preconditioned
+       path), step 0's L and R stacks against the plain version slot by
+       slot (<= 1e-5), a checkpoint at step 2 then ``SimulatedFailure``
+       (nothing else caught), a new ``Trainer`` restoring it
+       (``torch.equal`` to the saved state) and running step 3; each
+       step's ms beside its ``eigh`` seconds and its grams' ms, tokens/s,
+       peak memory, the checkpoint's MB, its write and the restore ms;
+       (c) AdamW through ``make_train_step(cfg, make_optimizer(tc))`` at
+       full width and depth (36 layers), ``remat="full"``, seq 4096: 3
+       steps, each loss finite, step ms, tokens/s, peak memory;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -261,9 +282,10 @@ failure exits non-zero):
    tensor-core peak (989 TFLOP/s) or its bytes, whichever is larger.
    Each syrk and matmul row names its core.
 
-It prints one ``{"distributed": ..., "autotune": ..., "service": ...}``
-line (phases 4k, 4l and 4m), one ``{"kernels": [...]}`` line (the
-batched launch's rows among them) and, last, the
+It prints one ``{"distributed": ..., "autotune": ..., "service": ...,
+"training": ...}`` line (phases 4k, 4l, 4m and 4n), one ``{"kernels":
+[...]}`` line (the batched launch's rows among them, the ata row's
+launches those of 4m and 4n) and, last, the
 ``{"ok": true, "device": ...}`` line.  Without a CUDA device it exits 1
 and prints no result.
 """
@@ -356,6 +378,16 @@ PRODUCT_BARS = {"float32": 1e-5, "bfloat16": 2.0 ** -8, "float16": 2.0 ** -10}
 # kernel and the cache in fp32, where sums in another order are all that
 # differ.
 SERVE_BF16_BAR, SERVE_F32_BAR = 1e-1, 1e-4
+# Phase 4n, training on the card: the bars of the chunked attention branch at
+# full width against the one-shot branch, of max|out| and of max|grad|:
+# fp32 sums in another order; bf16 rounds p before the value product at
+# another place (the chunk's unnormalized p, the one-shot's normalized
+# weights: one bf16 rounding, 2^-9, each), and its gradients are cast to
+# bf16, so 2^-6 and 2^-5 leave about 4x over that.
+CHUNK_BARS = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -5)}
+# Phase 4n's Shampoo run: Qwen2.5-3B at full width cut to this many layers
+# (its statistics are 1218 MiB a layer in fp32; PERF.md §4)
+SHAMPOO_LAYERS = 2
 # tests/test_kernels.py's shapes, and the phase-3 ragged shape
 SHAPES_MM = [(32, 32, 32), (64, 128, 32), (100, 70, 50), (256, 256, 256),
              (257, 129, 65), (16, 512, 16), (1000, 777, 555)]
@@ -863,11 +895,313 @@ def phase_4m(seed, dev, smi, reset_counts, read_counts) -> dict:
     return out
 
 
+def phase_4n(seed, dev, smi, reset_counts, read_counts) -> dict:
+    """Phase 4n, training on the card through the trainer's own entry
+    points: (a) the chunked attention branch at full width, (b) the
+    Shampoo ``Trainer`` on Qwen2.5-3B at full width and cut depth, its
+    statistics on the batched launch of ``leaf_products.cuh``, killed
+    after a checkpoint and restored, (c) AdamW through
+    ``make_train_step`` at full width and depth.  Returns what the
+    summary and the kernels line report."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.symmetry import unpack_tril_blocks
+    from repro_torch.data.pipeline import DataConfig, get_batch
+    from repro_torch.gram import engine as gram_engine
+    from repro_torch.kernels import strassen_fused as sf
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.optim.tree import layer_groups, leaves
+    from repro_torch.runtime import (FailureInjector, SimulatedFailure,
+                                     Trainer, make_optimizer,
+                                     make_train_step)
+    shampoo_mod = importlib.import_module("repro_torch.optim.shampoo")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+    print("== 4n. training on the card: the chunked attention branch, the "
+          f"Shampoo Trainer ({SHAMPOO_LAYERS} layers), AdamW at full depth")
+    out = {"card": smi}
+    full = get_arch("qwen2.5-3b")
+
+    # (a) the chunked branch at full width: one Qwen2.5-3B attention at S
+    # 4096, the config's chunks of 2048, against the one-shot branch
+    S, cq = 4096, full.attn_chunk_q
+    pos = torch.arange(S, device=dev)
+    chunked = {}
+    for name, dt in (("float32", f32), ("bfloat16", bf16)):
+        gen = torch.Generator(device=dev).manual_seed(seed + 4096)
+        shapes = [(1, S, QWEN_HEADS, QWEN_HEAD_DIM)] + \
+            [(1, S, QWEN_KV_HEADS, QWEN_HEAD_DIM)] * 2
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dt)
+                   .requires_grad_(True) for s in shapes)
+        w = torch.randn(shapes[0], generator=gen, device=dev)
+
+        def fwd(chunk):
+            return L.attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
+                               chunk_q=chunk, chunk_kv=chunk)
+
+        def fwd_bwd(chunk):
+            o = fwd(chunk)
+            return o, torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+
+        row = {}
+        for label, chunk in (("chunked", cq), ("one_shot", 0)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            o, grads = fwd_bwd(chunk)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            with torch.no_grad():
+                f_ms, _ = _time_ms(lambda: fwd(chunk), reps=3, warmup=1)
+            fb_ms, _ = _time_ms(lambda: fwd_bwd(chunk), reps=3, warmup=1)
+            row[label] = {"out": o.detach(), "grads": grads, "fwd_ms": f_ms,
+                          "fwd_bwd_ms": fb_ms, "peak_mib": peak}
+        c, o1 = row["chunked"], row["one_shot"]
+        err = _rel(c["out"], o1["out"].double())
+        gerr = max(_rel(a, b.double()) for a, b in zip(c["grads"],
+                                                       o1["grads"]))
+        bars = CHUNK_BARS[name]
+        print(f"  chunked attention {name}, q {shapes[0]} over k/v "
+              f"{shapes[1]}, causal, chunks of {cq}: vs one-shot "
+              f"{err:.3e} of max|out| (<= {bars[0]:.1e}), gradients "
+              f"{gerr:.3e} of max|grad| (<= {bars[1]:.1e}); forward "
+              f"{c['fwd_ms']:.3f} ms (one-shot {o1['fwd_ms']:.3f}), forward "
+              f"+ backward {c['fwd_bwd_ms']:.3f} ms ({o1['fwd_bwd_ms']:.3f}); "
+              f"peak {c['peak_mib']:.0f} MiB (one-shot "
+              f"{o1['peak_mib']:.0f})")
+        assert err <= bars[0] and gerr <= bars[1], (name, err, gerr)
+        chunked[name] = {"rel_err": err, "grad_rel_err": gerr,
+                         "bars": list(bars),
+                         **{f"{lab}_{key}": row[lab][key]
+                            for lab in row for key in ("fwd_ms",
+                                                       "fwd_bwd_ms",
+                                                       "peak_mib")}}
+        del q, k, v, w, row, c, o1, o
+    out["chunked"] = chunked
+    torch.cuda.empty_cache()
+
+    # (b) the Shampoo Trainer: full width, SHAMPOO_LAYERS layers, bf16,
+    # "xla" attention, seq 4096, batch 1; TrainConfig's Shampoo defaults
+    cfg = dataclasses.replace(full, num_layers=SHAMPOO_LAYERS,
+                              attn_impl="xla")
+    tc = TrainConfig(optimizer="shampoo", checkpoint_every=2, seed=seed)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=1,
+                    seed=seed)
+    calls, roots = [], []
+    capture = {"on": True}
+    real_gram, real_root = shampoo_mod.batched_gram, \
+        shampoo_mod._inv_4th_root
+
+    def timed_gram(blocks, **kw):
+        torch.cuda.synchronize()
+        before = sf.BATCHED_LAUNCHES["leaf_program/ata"]
+        t0 = time.perf_counter()
+        res = real_gram(blocks, **kw)
+        torch.cuda.synchronize()
+        calls.append({"shape": list(blocks.shape),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": sf.BATCHED_LAUNCHES["leaf_program/ata"]
+                      - before,
+                      "pair": (blocks, res) if capture["on"] else None})
+        return res
+
+    def timed_root(s, eps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_root(s, eps)
+        torch.cuda.synchronize()
+        roots.append({"shape": list(s.shape),
+                      "s": time.perf_counter() - t0})
+        return res
+
+    def plain_stack(x):
+        """The plain version of the batched launch, slot by slot: the
+        program the optimizer's call bound, its padded operands through
+        ``_leaf_products_plain`` and unpacked as ``BoundGram`` unpacks."""
+        K, m, n = x.shape
+        bound = gram_engine._bind_local(
+            m, n, batch=K, gram_of="cols", levels=tc.ata_levels, leaf=128,
+            variant="strassen", mode="fused", block=None, out_dtype=f32,
+            dtype=x.dtype, pipeline_depth=None, operand_dtype=None,
+            device=x.device)
+        sp = sf._pad_stored(x, *bound.padded, None)
+        return [unpack_tril_blocks(
+            sf._leaf_products_plain(bound.spec, sp[k_], sp[k_], f32),
+            bound.edge, bound.b_out, symmetrize=True)[:n, :n]
+            for k_ in range(K)]
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    shampoo_mod.batched_gram = timed_gram
+    shampoo_mod._inv_4th_root = timed_root
+    steps = []
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, tc, dc, workdir, failure=FailureInjector(2))
+        planned = [p for p, g in layer_groups(tr.state["params"])
+                   if shampoo_mod._plan(shampoo_mod._stacked_shape(g),
+                                        tc.shampoo_block_size, 64)]
+        real_step = tr.step_fn
+        write_ms = []
+        real_write = tr.ckpt._write
+
+        def timed_write(*a, **kw):
+            t0 = time.perf_counter()
+            real_write(*a, **kw)
+            write_ms.append((time.perf_counter() - t0) * 1e3)
+        tr.ckpt._write = timed_write
+
+        def timed_step(state, batch):
+            n_calls, n_roots = len(calls), len(roots)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real_step(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            mine = calls[n_calls:]
+            steps.append({
+                "ms": dt * 1e3, "eigh_s": sum(r["s"] for r in
+                                              roots[n_roots:]),
+                "stats_ms": sum(c_["ms"] for c_ in mine),
+                "launches": sum(c_["launches"] for c_ in mine),
+                "gram_calls": len(mine)})
+            capture["on"] = False
+            return res
+        tr.step_fn = timed_step
+        reset_counts()
+        try:
+            tr.run(3)
+        except SimulatedFailure as e:
+            print(f"  {type(e).__name__}: {e}")
+        else:
+            raise AssertionError("the FailureInjector did not fire")
+        assert tr.step == 2, tr.step
+        tr.ckpt.wait()
+        losses = [h["loss"] for h in tr.metrics_history]
+        # step 0's L and R stacks against the plain version, slot by slot
+        errs = []
+        for c_ in calls[:2 * len(planned)]:
+            x, got = c_["pair"]
+            for k_, want in enumerate(plain_stack(x)):
+                errs.append(_rel(got[k_], want.double()))
+            c_["pair"] = None
+        stat_err = max(errs)
+        ck = os.path.join(workdir, "step_00000002", "state.npz")
+        ckpt_mb = os.path.getsize(ck) / 2 ** 20
+        saved = tr.state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr2 = Trainer(cfg, tc, dc, workdir)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        assert tr2.step == 2
+        got_leaves = leaves({k_: v_ for k_, v_ in tr2.state.items()
+                             if k_ != "step"})
+        want_leaves = leaves({k_: v_ for k_, v_ in saved.items()
+                              if k_ != "step"})
+        restored_equal = len(got_leaves) == len(want_leaves) and all(
+            torch.equal(a_.detach(), b_.detach())
+            for a_, b_ in zip(got_leaves, want_leaves))
+        del saved, tr, got_leaves, want_leaves
+        torch.cuda.empty_cache()
+        tr2.step_fn = timed_step
+        tr2.run(3)
+        tr2.ckpt.wait()
+        launches = read_counts("phase 4n's Shampoo run (3 steps)")
+        batched = sf.BATCHED_LAUNCHES["leaf_program/ata"]
+        shampoo_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses += [h["loss"] for h in tr2.metrics_history]
+    finally:
+        shampoo_mod.batched_gram = real_gram
+        shampoo_mod._inv_4th_root = real_root
+        shutil.rmtree(workdir, ignore_errors=True)
+    per_step = [s_["launches"] for s_ in steps]
+    weights = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    n_weight = sum(1 for p in planned if p[-1] in weights)
+    n_vector = sum(1 for p in planned if p[0] == "blocks"
+                   and p[-1] not in weights)
+    print(f"  Shampoo: {len(planned)} preconditioned paths ({n_weight} "
+          f"weight matrices, {n_vector} per-layer vectors stacked into "
+          f"({SHAMPOO_LAYERS}, d) matrices, as the JAX package stacks them, "
+          f"{len(planned) - n_weight - n_vector} other); batched launches a "
+          f"stats step {per_step} (2 a path: {2 * n_weight} for the weight "
+          f"matrices)")
+    assert per_step == [2 * len(planned)] * 3, per_step
+    assert n_weight == 7
+    # every ata launch of the run was a batched one: none on the CPU,
+    # none of the plain version
+    assert batched == launches["leaf_program/ata"] == 6 * len(planned)
+    tok = S * dc.global_batch
+    for i, s_ in enumerate(steps):
+        print(f"  step {i}: {s_['ms']:.1f} ms ({tok / s_['ms'] * 1e3:.1f} "
+              f"tokens/s), of which eigh {s_['eigh_s']:.3f} s, the "
+              f"statistics' {s_['gram_calls']} batched grams "
+              f"{s_['stats_ms']:.1f} ms")
+    print(f"  step 0's L and R stacks vs the plain version, slot by slot: "
+          f"{stat_err:.3e} of max|out| (<= 1e-5); checkpoint {ckpt_mb:.1f} "
+          f"MB, commit (write) {write_ms} ms, restore {restore_ms:.1f} ms, "
+          f"restored state equal {restored_equal}; peak "
+          f"{shampoo_peak:.2f} GiB; losses {losses}")
+    assert stat_err <= 1e-5, stat_err
+    assert restored_equal
+    assert len(losses) == 3 and all(np.isfinite(x_) for x_ in losses)
+    out["shampoo"] = {
+        "layers": SHAMPOO_LAYERS, "paths": ["/".join(p) for p in planned],
+        "launches_per_stats_step": per_step, "steps": steps,
+        "stats_vs_plain": stat_err, "checkpoint_mb": ckpt_mb,
+        "commit_ms": write_ms, "restore_ms": restore_ms,
+        "restored_equal": restored_equal, "peak_gib": shampoo_peak,
+        "losses": losses, "batched_launches": batched, "gram_calls": [
+                {k_: c_[k_] for k_ in ("shape", "ms", "launches")}
+                for c_ in calls]}
+    del tr2
+    torch.cuda.empty_cache()
+
+    # (c) AdamW through make_train_step at full width and depth
+    cfg = dataclasses.replace(full, attn_impl="xla", remat="full")
+    opt = make_optimizer(TrainConfig(seed=seed))
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = {"step": torch.zeros((), dtype=torch.int32),
+             "params": init_params(cfg, gen, device=dev)}
+    state["opt_state"] = opt.init(state["params"])
+    step_fn = make_train_step(cfg, opt)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=1,
+                    seed=seed)
+    adam = []
+    for i in range(3):
+        batch = get_batch(dc, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        adam.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss})
+    adam_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, s_ in enumerate(adam):
+        print(f"  AdamW, {cfg.num_layers} layers, remat full: step {i} "
+              f"{s_['ms']:.1f} ms ({tok / s_['ms'] * 1e3:.1f} tokens/s), "
+              f"loss {s_['loss']:.4f}")
+    print(f"  AdamW peak memory {adam_peak:.2f} GiB")
+    assert all(np.isfinite(s_["loss"]) for s_ in adam)
+    out["adamw"] = {"layers": cfg.num_layers, "steps": adam,
+                    "peak_gib": adam_peak}
+    del state, step_fn, met
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=10000,
                     help="main-path size (A is n x n; the paper's 10000)")
+    ap.add_argument("--only", choices=("4n",), default=None,
+                    help="run phases 1, 2 (leaf_products alone) and this "
+                         "phase, then stop (no kernels line, no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -929,22 +1263,44 @@ def main() -> int:
         f"leaf_program/{k}" for k in ("ata", "symm", "aat", "rank_k",
                                       "matmul"))
 
+    def reset_counts():
+        for counts in (sf.KERNEL_LAUNCHES, sf.LIBRARY_LAUNCHES,
+                       sf.BATCHED_LAUNCHES, _launch.KERNEL_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    def read_counts(label):
+        torch.cuda.synchronize()
+        counts = {**sf.KERNEL_LAUNCHES, **_launch.KERNEL_LAUNCHES}
+        by_library = {k: v for k, v in sf.LIBRARY_LAUNCHES.items() if v}
+        print(f"launches on {label}: {counts}; by library: {by_library}")
+        return counts | sf.LIBRARY_LAUNCHES
+
     # -- 2. build -------------------------------------------------------------
     print("== 2. build")
     t0 = time.perf_counter()
+    libraries = ("leaf_products",) if args.only else LIBRARIES
 
     def timed_build(name):
         start = time.perf_counter()
         return _build.build(name), time.perf_counter() - start
 
-    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        built = dict(zip(LIBRARIES, pool.map(timed_build, LIBRARIES)))
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        built = dict(zip(libraries, pool.map(timed_build, libraries)))
     reports = {name: report for name, (report, _) in built.items()}
-    print(f"{len(LIBRARIES)} libraries, one nvcc each in parallel: "
+    print(f"{len(libraries)} libraries, one nvcc each in parallel: "
           f"{sum(r is not None for r in reports.values())} built, the rest "
           f"cached, in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{name} {secs:.1f} s" for name, (_, secs)
                       in built.items()) + ")")
+    if args.only == "4n":
+        # the training phase alone (it runs leaf_products.cu only): a
+        # shake-out, with no kernels line and no ok line
+        train = phase_4n(args.seed, dev, smi, reset_counts, read_counts)
+        print(f"  phase 4n: {train['phase_s']:.1f} s; chip_smoke.py took "
+              f"{time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({"training": train}))
+        return 0
     for name in sf.PRODUCT_LIBRARIES:
         # each instantiation of the precision axes' libraries on its own line
         lines = _ptxas_summary(reports[name] or "",
@@ -1008,19 +1364,6 @@ def main() -> int:
     def mode(spec):
         """How leaf_products.cu walks ``spec``."""
         return "pair mode" if sf._pairs(spec) else "one position a block"
-
-    def reset_counts():
-        for counts in (sf.KERNEL_LAUNCHES, sf.LIBRARY_LAUNCHES,
-                       sf.BATCHED_LAUNCHES, _launch.KERNEL_LAUNCHES):
-            for key in counts:
-                counts[key] = 0
-
-    def read_counts(label):
-        torch.cuda.synchronize()
-        counts = {**sf.KERNEL_LAUNCHES, **_launch.KERNEL_LAUNCHES}
-        by_library = {k: v for k, v in sf.LIBRARY_LAUNCHES.items() if v}
-        print(f"launches on {label}: {counts}; by library: {by_library}")
-        return counts | sf.LIBRARY_LAUNCHES
 
     refused = dict.fromkeys(("ata", "symm", "aat", "rank_k", "matmul"), 0)
 
@@ -2950,6 +3293,10 @@ def main() -> int:
     service = phase_4m(args.seed, dev, smi, reset_counts, read_counts)
     print(f"  phase 4m: {service['phase_s']:.1f} s")
 
+    # -- 4n. training on the card ----------------------------------------------
+    train = phase_4n(args.seed, dev, smi, reset_counts, read_counts)
+    print(f"  phase 4n: {train['phase_s']:.1f} s")
+
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
     print(f"card: {smi}")
@@ -3677,24 +4024,30 @@ def main() -> int:
 
     # the batched launch (phase 4m): one row a kind at (4, 8192, 8192), the
     # (4, 256, 256) stack beside it; launches: the engine runs' batched ones
+    # and, for ata, phase 4n's Shampoo statistics
     for kind in ("ata", "aat"):
         by_size = service["batched"][kind]
         row = by_size[8192]
+        served = service["batched_launches"][f"leaf_program/{kind}"]
+        trained = train["shampoo"]["batched_launches"] if kind == "ata" \
+            else 0
         kernels.append(kernel_entry(
             "leaf_program (batched)", PRODUCTS_SOURCE,
             REPLACES.format(kind) + " under jax.vmap "
-            "(src/repro/gram/engine.py:1219)",
-            service["batched_launches"][f"leaf_program/{kind}"],
+            "(src/repro/gram/engine.py:1219"
+            + (", src/repro/optim/shampoo.py:158-166)" if kind == "ata"
+               else ")"), served + trained,
             row["max_abs_err"], row["ms"], row["plain_ms"], row["bound_ms"],
             row["bound_by"], row["library_ms"], kind=kind, gram="strassen",
             library="leaf_products", batch=4, shape=[4, 8192, 8192],
-            by_size=by_size))
+            by_size=by_size, launches_by_phase={"4m": served,
+                                                "4n": trained}))
 
     # -- 6. summary -------------------------------------------------------------
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"distributed": distributed, "autotune": autotune,
                       "service": {k_: v for k_, v in service.items()
-                                  if k_ != "batched"}}))
+                                  if k_ != "batched"}, "training": train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

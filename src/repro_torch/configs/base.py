@@ -1,9 +1,9 @@
-"""Model config dataclasses of the port.
+"""Config dataclasses of the port.
 
 A copy of ``repro/configs/base.py`` (pure data): ``ModelConfig``,
-``MoEConfig``, ``MLAConfig``, ``SSMConfig`` and ``reduced``.
-``ShapeConfig``, ``SHAPES``, ``TrainConfig`` and ``MeshConfig`` come
-with the training slice (ROADMAP Queue 1 #11).
+``MoEConfig``, ``MLAConfig``, ``SSMConfig``, ``reduced`` and
+``TrainConfig``.  ``ShapeConfig``, ``SHAPES`` and ``MeshConfig`` come
+with the cells and meshes (ROADMAP Queue 1 #11 step 6).
 """
 from __future__ import annotations
 
@@ -94,7 +94,8 @@ class ModelConfig:
     attn_chunk_q: int = 2048         # chunked-attention block sizes (long seq)
     attn_chunk_kv: int = 2048
     # attention implementation: "xla" (plain torch attention in the port,
-    # where the JAX package leaves it to XLA) | "flash" (the CUDA kernel,
+    # chunked online softmax past attn_chunk_q, where the JAX package
+    # leaves it to XLA) | "flash" (the CUDA kernel, forward only,
     # kernels/flash_attention.py) | "stub" (the JAX package's roofline
     # stand-in; not ported)
     attn_impl: str = "xla"
@@ -212,3 +213,22 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         small["encoder_seq"] = 16
     small.update(overrides)
     return dataclasses.replace(cfg, **small)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"          # adamw | shampoo
+    shampoo_update_interval: int = 1  # gram-stat update cadence
+    shampoo_precond_interval: int = 20
+    shampoo_block_size: int = 1024
+    ata_levels: int = 1               # Strassen levels inside Shampoo grams
+    microbatch: int = 0               # 0 => no grad accumulation
+    seed: int = 0
+    grad_compress: bool = False       # int8 error-feedback all-reduce
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3

@@ -64,8 +64,17 @@ def pack_tril(c) -> torch.Tensor:
 def unpack_tril(packed, n: int, *, symmetrize: bool = True) -> torch.Tensor:
     """Packed n(n+1)/2 vector -> dense (n, n); mirrors to the upper half when
     ``symmetrize`` (C12 = C21^t, per the paper), as the JAX package's
-    ``c + c.T - diag(diag(c))``."""
+    ``c + c.T - diag(diag(c))``.  ``packed`` is broadcast to n(n+1)/2
+    entries as the JAX package's ``.at[].set`` broadcasts it: a 0-d or
+    length-1 tensor fills the triangle with its value; any other shape
+    but (n(n+1)/2,) raises ``ValueError``."""
     packed = _as_tensor(packed)
+    count = n * (n + 1) // 2
+    if packed.ndim > 1 or packed.numel() not in (1, count):
+        raise ValueError(f"unpack_tril: a packed tensor of shape "
+                         f"{tuple(packed.shape)} does not broadcast to "
+                         f"({count},) for n={n}")
+    packed = packed.reshape(-1).expand(count)
     mask = _tril_mask(n, packed.device)
     c = torch.zeros((n, n), dtype=packed.dtype,
                     device=packed.device).masked_scatter(mask, packed)

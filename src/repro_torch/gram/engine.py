@@ -207,6 +207,8 @@ def batched_gram(blocks, *, levels: Union[int, str] = 1, leaf: int = 256,
     K, m, n = blocks.shape
     out_dtype = _sf._promoted(blocks.dtype) if out_dtype is None \
         else _torch_dtype(out_dtype)
+    if K == 0:
+        return blocks.new_zeros((0, n, n), dtype=out_dtype)
     if not (blocks.requires_grad and torch.is_grad_enabled()) and \
             resolve_mode(mode, device=blocks.device) == "fused":
         return _bind_local(m, n, batch=K, gram_of="cols", levels=levels,

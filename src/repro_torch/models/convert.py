@@ -9,6 +9,14 @@ tests hold the port to the reference.  Every leaf of the tree is mapped
 and none is left over: a missing leaf, an extra one or a shape that
 differs raises ``ValueError``.  bf16 arrays (numpy's ``bfloat16`` from
 ml_dtypes) are carried bit for bit.
+
+``train_state_from_jax(cfg, state)`` carries a JAX train state over the
+same way (``{"step", "params", "opt_state"}``, numpy at the leaves): the
+step, the parameters, AdamW's or Shampoo's moments ``m`` and ``v`` (laid
+out as the parameters) and Shampoo's statistics ``gram`` (l, r, pl, pr
+a parameter path), which the port keeps in the JAX package's stacked
+layout: they come over one to one.  Both packages then step on from the
+same state.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
 from .model import param_spec
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "train_state_from_jax"]
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -73,3 +81,41 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], *,
         raise ValueError(f"leaves of the JAX tree the port does not map: "
                          f"{left}")
     return out
+
+
+_STATS = ("l", "r", "pl", "pr")
+
+
+def train_state_from_jax(cfg: ModelConfig, state: Dict[str, Any], *,
+                         device=None) -> Dict[str, Any]:
+    """The port's train state from the JAX package's, on ``device`` (the
+    card unless ``device="cpu"``); the step stays a 0-d int32 CPU
+    tensor, as the port's trainer keeps it."""
+    from ..optim.tree import layer_groups
+    dev = resolve_device(device)
+    opt = state["opt_state"]
+    out_opt = {k: params_from_jax(cfg, opt[k], device=dev)
+               for k in ("m", "v")}
+    left = sorted(set(opt) - {"m", "v", "gram"})
+    if left:
+        raise ValueError(f"optimizer state entries the port does not map: "
+                         f"{left}")
+    if "gram" in opt:
+        flat = dict(_leaves(opt["gram"]))
+        gram: Dict[str, Any] = {}
+        want = {path + (k,) for path, _ in layer_groups(param_spec(cfg))
+                for k in _STATS}
+        if set(flat) != want:
+            diff = sorted("/".join(p) for p in set(flat) ^ want)
+            raise ValueError(f"the JAX Shampoo statistics do not match the "
+                             f"port's parameters at {diff}")
+        for path, arr in flat.items():
+            node = gram
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = _tensor(arr, dev)
+        out_opt["gram"] = gram
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)
+    return {"step": step,
+            "params": params_from_jax(cfg, state["params"], device=dev),
+            "opt_state": out_opt}

@@ -13,13 +13,15 @@ layers over parameter dicts, as in the JAX package:
 ``attention`` takes the flash branch, the CUDA kernel behind
 ``ops.flash_mha``, exactly where the JAX package takes its Pallas
 kernel: ``impl == "flash"``, more than one query and no ``kv_len`` (train
-and prefill).  Decode attention is plain torch (the one-shot branch), as
-the JAX package leaves it to XLA.  The chunked branch, which the JAX
-package takes for sequences longer than ``cfg.attn_chunk_q``, is not
-ported.  MLA, MoE and the Mamba2 SSD layer come with their families.
+and prefill).  Otherwise sequences longer than ``cfg.attn_chunk_q`` take
+the chunked branch (an online softmax over kv chunks, each step
+rematerialized in the backward), as in the JAX package, and shorter ones
+and decode the one-shot branch, plain torch where the JAX package leaves
+both to XLA.  MLA, MoE and the Mamba2 SSD layer come with their families.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -185,11 +187,10 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
                                softcap=float(attn_softcap or 0.0),
                                device=q.device)
     if chunk_q and sq > chunk_q and skv > max(chunk_kv, 1):
-        raise NotImplementedError(
-            "the chunked attention branch (sequences longer than "
-            "cfg.attn_chunk_q with attn_impl='xla') is not ported: "
-            "ROADMAP.md Queue 1 #11; use attn_impl='flash' or a longer "
-            "attn_chunk_q")
+        return _chunked_attention(
+            q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+            window=window, kv_len=kv_len, attn_softcap=attn_softcap,
+            scale=scale, cq=chunk_q, ckv=chunk_kv or chunk_q)
 
     bias = _mask_bias(q_pos, kv_pos, causal=causal, window=window,
                       kv_len=kv_len)
@@ -203,6 +204,79 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
         o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype).float(),
                          v.float())
     return o.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def _kv_step(qi, qpi, kj, vj, kpj, kvalid, m, l, acc, *, causal, window,
+             kv_len, attn_softcap, scale):
+    """One kv chunk of the online softmax: the carry (m, l, acc) after
+    kv chunk j, in fp32.  Padded kv slots (``kvalid`` False) are masked
+    whatever ``causal``, ``window`` and ``kv_len`` say."""
+    bias = _mask_bias(qpi, kpj, causal=causal, window=window, kv_len=kv_len)
+    bias = torch.where(kvalid, bias, MASK_VALUE)
+    with ieee_fp32():
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qi.float(), kj.float()) * scale
+        if attn_softcap is not None:
+            s = softcap(s, attn_softcap)
+        s = s + bias[:, None, None]                 # (b,hkv,g,cq,ckv)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(vj.dtype).float(),
+                         vj.float())                # (b,cq,hkv,g,dv)
+        acc_new = acc * corr.permute(0, 3, 1, 2)[..., None] + o
+    return m_new, l_new, acc_new
+
+
+def _chunked_attention(q, k, v, *, q_pos, kv_pos, causal, window, kv_len,
+                       attn_softcap, scale, cq: int, ckv: int):
+    """The JAX package's chunked branch (``repro/models/layers.py:175``):
+    a loop over q chunks of ``cq`` rows and, inside it, over kv chunks of
+    ``ckv`` with the online-softmax carry (m, l, acc) in fp32.  Exact;
+    with grad enabled each kv step runs under ``torch.utils.checkpoint``
+    (the counterpart of ``jax.checkpoint`` there), so the backward
+    recomputes a chunk's scores instead of keeping (cq, ckv) of them per
+    step.
+
+    q positions are padded with -1 and kv positions with 2^30, as the
+    JAX package pads them; unlike it, the padded kv slots are masked
+    whatever ``causal``, ``window`` and ``kv_len`` are (the reference
+    masks them only through those, so its non-causal ragged case counts
+    the zero-padded keys in the softmax: ROADMAP.md Queue 3).
+    """
+    from torch.utils.checkpoint import checkpoint
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    nq = -(-sq // cq) * cq
+    nkv = -(-skv // ckv) * ckv
+    qp = F.pad(q.reshape(b, sq, hkv, g, d), (0, 0, 0, 0, 0, 0, 0, nq - sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, nkv - skv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nkv - skv))
+    qpos = F.pad(q_pos, (0, nq - sq), value=-1)
+    kpos = F.pad(kv_pos, (0, nkv - skv), value=2 ** 30)
+    kvalid = torch.arange(nkv, device=k.device) < skv
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    step = functools.partial(_kv_step, causal=causal, window=window,
+                             kv_len=kv_len, attn_softcap=attn_softcap,
+                             scale=scale)
+    outs = []
+    for i in range(0, nq, cq):
+        qi, qpi = qp[:, i:i + cq], qpos[..., i:i + cq]
+        m = torch.full((b, hkv, g, cq), -math.inf, device=q.device)
+        l = torch.zeros((b, hkv, g, cq), device=q.device)
+        acc = torch.zeros((b, cq, hkv, g, dv), device=q.device)
+        for j in range(0, nkv, ckv):
+            args = (qi, qpi, kp[:, j:j + ckv], vp[:, j:j + ckv],
+                    kpos[j:j + ckv], kvalid[j:j + ckv], m, l, acc)
+            m, l, acc = checkpoint(step, *args, use_reentrant=False) \
+                if remat else step(*args)
+        l = l.clamp_min(1e-30)
+        outs.append(acc / l.permute(0, 3, 1, 2)[..., None])
+    out = torch.cat(outs, 1).reshape(b, nq, hq, dv)[:, :sq]
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

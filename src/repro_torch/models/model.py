@@ -8,9 +8,14 @@ under ``lax.scan``, the port keeps a list of per-layer parameter dicts
 and loops over it in Python; the cache keeps the JAX layout, (L, B,
 max_seq, Hkv, D), and each layer reads and writes its slice in place.
 ``parallel/act.constrain``, a sharding hint that is the identity on one
-card, is dropped, and so is remat (the port has no training step yet).
-The other families raise ``NotImplementedError`` naming their ROADMAP
-item; ``loss_fn`` comes with the training slice.
+card, is dropped.  ``cfg.remat`` rematerializes each block in train mode
+with grad enabled, as ``_maybe_remat`` does in the JAX package:
+``"full"`` under ``torch.utils.checkpoint``, ``"dots"`` under selective
+checkpointing that keeps the projections' matmul outputs, ``"none"`` not
+at all; it changes memory, never numbers.  ``loss_fn`` is next-token
+cross-entropy with z-loss.  The other families raise
+``NotImplementedError`` naming their ROADMAP item, and so do the moe
+auxiliary loss and multi-token prediction in ``loss_fn``.
 
 Decode takes ``cache["index"]`` as a scalar, as the JAX package, or one
 index per row (B,), so that requests at different positions decode in one
@@ -18,10 +23,12 @@ batch (the serving engine's slots, where the JAX engine vmaps).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Union
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..configs.base import ModelConfig
 from ..configs.registry import PORTED_FAMILIES, not_ported
@@ -30,7 +37,7 @@ from . import blocks as B
 from . import layers as L
 
 __all__ = ["init_params", "param_spec", "init_cache", "forward", "prefill",
-           "decode_step"]
+           "decode_step", "cross_entropy", "loss_fn"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -116,6 +123,30 @@ def _pos_info(batch: int, seq: int, max_seq: int, index=None,
     return B.PosInfo(pos, pos, kv_pos, pos[:, 0] + 1)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of the matmuls without batch dimensions (the
+    projections, which torch runs as ``mm`` / ``addmm``), recompute the
+    rest (the attention's batched einsums among them)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` rematerialized in the backward as ``cfg.remat`` says."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    if cfg.remat != "full":
+        raise ValueError(f"remat is full, dots or none, got {cfg.remat!r}")
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+
+
 def _embed(cfg: ModelConfig, p, tokens):
     x = p["embed"][tokens]
     if cfg.scale_embed:
@@ -163,12 +194,15 @@ def forward(cfg: ModelConfig, params, tokens, *,
     pos = _pos_info(b, seq, max_seq, index, device)
 
     x = _embed(cfg, params, tokens)
+    block = B.attn_block
+    if mode == "train" and not use_cache and torch.is_grad_enabled():
+        block = _maybe_remat(B.attn_block, cfg)
     for li, lp in enumerate(params["blocks"]):
         cache_l = None
         if use_cache:
             cache_l = {"k": cache["blocks"]["k"][li],
                        "v": cache["blocks"]["v"][li]}
-        x, _ = B.attn_block(lp, x, cfg, layer_idx=li, pos=pos, cache=cache_l)
+        x, _ = block(lp, x, cfg, layer_idx=li, pos=pos, cache=cache_l)
 
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = _unembed(cfg, params, x)
@@ -180,6 +214,38 @@ def forward(cfg: ModelConfig, params, tokens, *,
         return (logits, new_cache, torch.zeros((), device=device)) \
             if mode == "train" else (logits, new_cache)
     return logits, torch.zeros((), device=device), x
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
+    """Token-mean CE in fp32 with z-loss; logits (B,S,V), labels (B,S)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    labels = torch.as_tensor(labels, device=lf.device).long()
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    loss = (lse - gold).mean()
+    if z_loss:
+        loss = loss + z_loss * lse.square().mean()
+    return loss
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], *,
+            aux_weight: float = 1e-2, mtp_weight: float = 0.3):
+    """Next-token CE.  batch: inputs, labels (B, S) int (numpy or
+    tensors).  Returns (loss, {"ce", "moe_aux", "loss"}), as the JAX
+    package; its moe auxiliary term (``aux_weight``) and multi-token
+    prediction (``mtp_weight``) come with their families."""
+    if cfg.moe is not None:
+        raise not_ported("moe")
+    if cfg.mtp:
+        raise not_ported("moe (multi-token prediction)")
+    logits, aux, _ = forward(cfg, params, batch["inputs"],
+                             enc_inputs=batch.get("enc_inputs"), mode="train")
+    loss = cross_entropy(logits, batch["labels"])
+    return loss, {"ce": loss, "moe_aux": aux, "loss": loss}
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache):

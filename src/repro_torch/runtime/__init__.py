@@ -1,11 +1,19 @@
-"""Runtime of the port: the serving engine, and fault injection
-(``runtime.faults``, which autotune's cache loader consults).
+"""Runtime of the port: the training loop, the serving engine, and fault
+injection (``runtime.faults``, which autotune's cache loader consults).
 
-Exports resolve lazily (PEP 562), as in the JAX package, so importing
-the package loads no model code.  The trainer comes with the training
-slice (ROADMAP.md Queue 1 #11).
+Exports resolve lazily (PEP 562), as in the JAX package: ``trainer``
+pulls in the model, optimizer and checkpoint stack, and importing it
+here would tax light consumers like the Gram service's fault hooks and
+make an import cycle ``runtime -> trainer -> optim.shampoo -> gram ->
+runtime.faults``.
 """
-_EXPORTS = {"ServingEngine": "serving", "Request": "serving"}
+_EXPORTS = {
+    "Trainer": "trainer", "TrainState": "trainer",
+    "make_train_step": "trainer", "make_optimizer": "trainer",
+    "StragglerWatchdog": "trainer", "FailureInjector": "trainer",
+    "SimulatedFailure": "trainer",
+    "ServingEngine": "serving", "Request": "serving",
+}
 
 __all__ = [*_EXPORTS, "faults"]
 

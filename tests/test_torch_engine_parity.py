@@ -238,3 +238,19 @@ def test_batched_gram_gradient_matches_jax_grad(mode):
     want = np.asarray(jax.grad(loss)(jnp.asarray(x)))
     scale = np.abs(want).max()
     assert np.abs(xt.grad.numpy() - want).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("mode", ["reference", "fused"])
+@pytest.mark.parametrize("dtype,out_dtype", [("float32", None),
+                                             ("bfloat16", None),
+                                             ("float32", "bfloat16")])
+def test_batched_gram_of_an_empty_stack(mode, dtype, out_dtype):
+    """A (0, m, n) stack gives an empty (0, n, n) of the output type on
+    both paths, as the JAX package's reference mode returns it."""
+    x = np.zeros((0, 40, 24), np.float32)
+    want = jax_batched_gram(jnp.asarray(x).astype(getattr(jnp, dtype)),
+                            mode="reference", out_dtype=out_dtype)
+    got = batched_gram(torch.zeros((0, 40, 24), dtype=getattr(torch, dtype)),
+                       mode=mode, out_dtype=out_dtype, device="cpu")
+    assert tuple(got.shape) == tuple(want.shape) == (0, 24, 24)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)

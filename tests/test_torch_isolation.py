@@ -73,6 +73,21 @@ def test_import_loads_no_jax_and_no_reference_package():
         "    EngineShutdown, batched_gram)\n"
         "from repro_torch.obs import DriftDetector, DriftFinding\n"
         "from repro_torch.kernels.strassen_fused import BoundGram\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.shampoo\n"
+        "import repro_torch.optim.schedules, repro_torch.optim.tree\n"
+        "import repro_torch.optim.grad_compress, repro_torch.data.pipeline\n"
+        "from repro_torch.optim import (adamw, shampoo, apply_updates,\n"
+        "    global_norm, clip_by_global_norm, warmup_cosine, warmup_linear,\n"
+        "    constant, int8_quantize, int8_dequantize, compressed_psum,\n"
+        "    ErrorFeedback, lowrank_basis, lowrank_psum)\n"
+        "from repro_torch.data import DataConfig, SyntheticStream, get_batch\n"
+        "from repro_torch.configs.base import TrainConfig\n"
+        "from repro_torch.models import loss_fn, cross_entropy\n"
+        "from repro_torch.models.convert import train_state_from_jax\n"
+        "from repro_torch.runtime import (Trainer, TrainState,\n"
+        "    make_train_step, make_optimizer, StragglerWatchdog,\n"
+        "    FailureInjector, SimulatedFailure)\n"
+        "import repro_torch.runtime.trainer, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
         "or m.startswith('repro.'))\n"
@@ -145,7 +160,8 @@ def test_serving_entry_points_refuse_to_run_without_cuda():
     from repro_torch.configs.registry import reduced_arch
     from repro_torch.kernels import ops
     from repro_torch.models import init_cache, init_params
-    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.convert import (params_from_jax,
+                                            train_state_from_jax)
     from repro_torch.runtime import ServingEngine
     from repro_torch.launch import gram_serve, serve
     q = torch.ones(1, 16, 2, 16)
@@ -155,6 +171,7 @@ def test_serving_entry_points_refuse_to_run_without_cuda():
                  lambda: init_cache(cfg, 1, 16),
                  lambda: params_from_jax(cfg, {}),
                  lambda: serve.main(["--requests", "1"]),
+                 lambda: train_state_from_jax(cfg, {"opt_state": {}}),
                  lambda: gram_serve.main(["--requests", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

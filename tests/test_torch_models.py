@@ -170,14 +170,16 @@ def test_attn_block_matches_jax(impl, window):
 @pytest.mark.parametrize("impl", ["xla", "flash"])
 def test_forward_train_prefill_decode_match_jax(dtype, impl):
     """Reduced Qwen2.5-3B (4 layers, d 256): train mode, then a prefill of
-    32 tokens into a 48-slot cache and three decode steps."""
+    32 tokens into a 48-slot cache and three decode steps; train mode
+    over 80 tokens, past ``attn_chunk_q`` (64: "xla" takes the chunked
+    branch)."""
     jcfg, jp, cfg, tp = _models("qwen2.5-3b", dtype, impl)
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 80))
     jl, _, _ = jm.forward(jcfg, jp, jnp.asarray(toks), mode="train")
     tl, aux, hidden = tm.forward(cfg, tp, torch.from_numpy(toks),
                                  mode="train")
-    assert tuple(tl.shape) == (2, 40, cfg.vocab_size)
-    assert float(aux) == 0.0 and tuple(hidden.shape) == (2, 40, cfg.d_model)
+    assert tuple(tl.shape) == (2, 80, cfg.vocab_size)
+    assert float(aux) == 0.0 and tuple(hidden.shape) == (2, 80, cfg.d_model)
     _check(tl.float().numpy(), jl, dtype, "train")
 
     s = 32
@@ -245,9 +247,10 @@ def test_decode_with_one_index_per_row():
 def test_every_ported_arch_matches_jax(arch):
     """The dense and vlm archs at their reduced configs (GQA, QKV bias,
     qk-norm, gemma2's softcaps, post-norms and alternating window),
-    train mode, one-shot attention."""
+    train mode over 96 tokens: the "xla" attention takes the chunked
+    branch (chunks of 64)."""
     jcfg, jp, cfg, tp = _models(arch)
-    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 24))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 96))
     jl, _, _ = jm.forward(jcfg, jp, jnp.asarray(toks), mode="train")
     tl, _, _ = tm.forward(cfg, tp, torch.from_numpy(toks), mode="train")
     assert _rel(tl.numpy(), jl) <= F32_BAR
@@ -315,7 +318,17 @@ def test_unported_families_raise():
     cfg = dataclasses.replace(reduced_arch("qwen2.5-3b"), family="moe")
     with pytest.raises(NotImplementedError, match="moe"):
         tm.init_params(cfg, 0, device="cpu")
-    _, _, cfg, tp = _models("qwen2.5-3b")
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tm.forward(cfg, tp, torch.zeros((1, 80), dtype=torch.long),
-                   mode="train")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_past_attn_chunk_q_takes_the_chunked_branch(dtype):
+    """Train mode over 80 and 150 tokens, past the reduced configs'
+    ``attn_chunk_q`` of 64: every layer's attention takes the chunked
+    branch (ragged at 150), as the JAX package's does."""
+    jcfg, jp, cfg, tp = _models("qwen2.5-3b", dtype)
+    for seq in (80, 150):
+        toks = np.random.default_rng(seq).integers(0, cfg.vocab_size,
+                                                   (1, seq))
+        jl, _, _ = jm.forward(jcfg, jp, jnp.asarray(toks), mode="train")
+        tl, _, _ = tm.forward(cfg, tp, torch.from_numpy(toks), mode="train")
+        _check(tl.float().numpy(), jl, dtype, "train")

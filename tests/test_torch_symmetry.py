@@ -126,3 +126,28 @@ def test_pack_unpack_tril_match_jax(n, dtype, symmetrize):
     np.testing.assert_array_equal(
         tsym.tril_vector_from_blocks(stack, bn, n).float().numpy(),
         want.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(), (1,), (6,), (7,), (5,), (0,), (2, 3),
+                                   (1, 6), (6, 1)])
+def test_unpack_tril_shape_checks_match_jax(shape):
+    """A packed tensor broadcasts to n(n+1)/2 entries as the reference's
+    ``.at[].set`` broadcasts it: 0-d and length 1 fill the triangle, the
+    right length unpacks, every other shape raises ``ValueError``."""
+    n = 3
+    packed = (np.arange(int(np.prod(shape)), dtype=np.float32) + 1) \
+        .reshape(shape)
+    try:
+        want = np.asarray(jsym.unpack_tril(jnp.asarray(packed), n))
+    except ValueError:
+        want = None
+    if want is None:
+        with pytest.raises(ValueError, match="does not broadcast"):
+            tsym.unpack_tril(torch.from_numpy(packed), n)
+        return
+    for symmetrize in (False, True):
+        np.testing.assert_array_equal(
+            tsym.unpack_tril(torch.from_numpy(packed), n,
+                             symmetrize=symmetrize).numpy(),
+            np.asarray(jsym.unpack_tril(jnp.asarray(packed), n,
+                                        symmetrize=symmetrize)))
