@@ -202,14 +202,24 @@ failure exits non-zero):
        the 256 default;
    4m. the Gram service (``repro_torch.gram.engine``), fp32, the engine's
        defaults (levels 1, slots 4, verify "finite"): the batched launch
-       of ``leaf_products.cuh`` (one launch over a (4, m, n) stack) at
-       (4, 8192, 8192) and (4, 256, 256) for the ata and aat kinds,
-       bit-equal per slot to four single launches and within 1e-5 of
-       max|out| of the plain version slot by slot, timed against the
-       four single launches, ``BoundGram`` end to end and
-       ``torch.tril(x.mT @ x)`` (``x @ x.mT``) on the stack, with its
-       bound (four slots' least flops at the fp32 peak, or their bytes);
-       then, its launches counted from here on: a 64-request trace
+       of ``leaf_products.cuh`` (its persistent kernel, one launch over a
+       (K, m, n) stack) at ``BATCHED_STACKS``: (4, 8192, 8192) and (4,
+       256, 256) for the ata and aat kinds and the eight stacks of
+       Shampoo's statistics (8 and 44 slots of 1024^2, 4 of 256 x 1024
+       and 1024 x 256, 2 of 2 x 1024 and 1024 x 2, 1 of 2 x 256 and 256
+       x 2), each bit-equal per slot to K single launches and to itself
+       at the other tile and within 1e-5 of max|out| of the plain version
+       slot by slot, timed (CUDA events around one call, and as device
+       time, a CUDA graph of 20) against the K single launches, the
+       other tile, ``BoundGram`` end to end and ``torch.tril(x.mT @ x)``
+       (``x @ x.mT``) on the stack, with its plan (tile, items, grid,
+       blocks an SM) and its bound (K slots' least flops at the fp32
+       peak, or their bytes); the batched kernel on bf16, fp16 and fp8
+       e4m3fn tiles of a (4, 512, 512) stack, bit-equal to single launches
+       and within 1e-5 of max|out| of the plain version; ``--only 4m``
+       runs this phase alone after building ``leaf_products.cu`` and
+       ``_lowp``; then, its launches counted from here on: a 64-request
+       trace
        (``launch.gram_serve.make_trace``, sides log-uniform in
        512-8192, seed 0) served synchronously, ``compile_count`` <= the
        bucket count, 8 requests (the largest bucket's cheapest among
@@ -224,9 +234,10 @@ failure exits non-zero):
        of both kinds asserted;
    4n. training, through the trainer's own entry points (a function of
        its own, ``phase_4n``; ``--only 4n`` runs it alone after building
-       ``leaf_products.cu``): (a) the chunked ``"xla"`` attention branch
-       at Qwen2.5-3B's width, q (1, 4096, 16, 128) over k/v (1, 4096, 2,
-       128), causal, the config's chunks of 2048, forward and gradient
+       ``leaf_products.cu`` and ``_lowp``): (a) the chunked ``"xla"``
+       attention branch at Qwen2.5-3B's width, q (1, 4096, 16, 128) over
+       k/v (1, 4096, 2, 128), causal, the config's chunks of 2048, forward
+       and gradient
        against the one-shot branch in fp32 (<= 1e-5 of max|out|, 1e-4 of
        max|grad|) and bf16 (2^-6, 2^-5), each timed with its peak memory;
        (b) ``Trainer`` with ``TrainConfig(optimizer="shampoo")`` at its
@@ -239,7 +250,9 @@ failure exits non-zero):
        (nothing else caught), a new ``Trainer`` restoring it
        (``torch.equal`` to the saved state) and running step 3; each
        step's ms beside its ``eigh`` seconds and its grams' ms, tokens/s,
-       peak memory, the checkpoint's MB, its write and the restore ms;
+       peak memory, the checkpoint's MB, its write and the restore ms; the
+       statistics' grams summed by stack shape, and the bound programs
+       ``batched_gram`` made and took from its cache;
        (c) AdamW through ``make_train_step(cfg, make_optimizer(tc))`` at
        full width and depth (36 layers), ``remat="full"``, seq 4096: 3
        steps, each loss finite, step ms, tokens/s, peak memory;
@@ -388,6 +401,18 @@ CHUNK_BARS = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -5)}
 # Phase 4n's Shampoo run: Qwen2.5-3B at full width cut to this many layers
 # (its statistics are 1218 MiB a layer in fp32; PERF.md §4)
 SHAMPOO_LAYERS = 2
+# Phase 4m's batched launches, (kind, K, m, n) at levels 1 (0 where the
+# shape allows no more) and tiles of 256: the Gram service's (4, 8192^2) and
+# (4, 256^2) for both kinds, then the stacks of Shampoo's statistics for
+# Qwen2.5-3B at SHAMPOO_LAYERS layers (blocks of 1024): wq and wo's L and R,
+# the MLP's three, wk and wv's L, their R, the norms' and bq's R and L, bk and
+# bv's R and L (phase 4n launches each a statistics step)
+BATCHED_STACKS = [("ata", 4, 8192, 8192), ("ata", 4, 256, 256),
+                  ("aat", 4, 8192, 8192), ("aat", 4, 256, 256),
+                  ("ata", 8, 1024, 1024), ("ata", 44, 1024, 1024),
+                  ("ata", 4, 256, 1024), ("ata", 4, 1024, 256),
+                  ("ata", 2, 2, 1024), ("ata", 2, 1024, 2),
+                  ("ata", 1, 2, 256), ("ata", 1, 256, 2)]
 # tests/test_kernels.py's shapes, and the phase-3 ragged shape
 SHAPES_MM = [(32, 32, 32), (64, 128, 32), (100, 70, 50), (256, 256, 256),
              (257, 129, 65), (16, 512, 16), (1000, 777, 555)]
@@ -444,7 +469,17 @@ def _leaf_instantiation(mangled: str):
                       r"(\d)ELb(\d)E", mangled)
     if not found:
         return None
-    args, types, last = found.group(2), [], None
+    types = _mangled_types(found.group(2))
+    acc = types[2] if found.group(1) else "fp32"
+    return (f"{types[0]}/{types[1]}", acc, found.group(3) == "1",
+            int(found.group(4)), int(found.group(5)), found.group(6) == "1")
+
+
+def _mangled_types(args: str) -> list:
+    """The type names of a mangled template argument list's leading type
+    arguments (``f``, ``d``, a length-prefixed name, or a substitution
+    ``S<n>_``, which names the class type named last)."""
+    types, last = [], None
     while args:
         if args[0] in "fd":
             types.append(_TYPE_NAMES[args[0]])
@@ -458,9 +493,31 @@ def _leaf_instantiation(mangled: str):
             last = _TYPE_NAMES.get(name, name)
             types.append(last)
             args = args[len(digits) + int(digits):]
-    acc = types[2] if found.group(1) else "fp32"
-    return (f"{types[0]}/{types[1]}", acc, found.group(3) == "1",
-            int(found.group(4)), int(found.group(5)), found.group(6) == "1")
+    return types
+
+
+def _ptxas_batched(report: str) -> dict:
+    """Registers and spill stores of the batched launch's persistent kernel
+    (``leaf_products_batched_kernel<T, T, TILE, STAGES>``) from ``nvcc
+    -Xptxas -v``: {(operand type, tile): {"regs": [...], "spill": [...]}},
+    the ring depths together."""
+    stats, key = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            found = re.search(r"leaf_products_batched_kernelI(.*?)Li(\d+)ELi"
+                              r"(\d)E", entry.group(1))
+            key = None if found is None else (
+                _mangled_types(found.group(1))[0], int(found.group(2)))
+            if key:
+                stats.setdefault(key, {"regs": [], "spill": [0]})
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if key is not None and regs:
+            stats[key]["regs"].append(int(regs.group(1)))
+        if key is not None and spill:
+            stats[key]["spill"].append(int(spill.group(1)))
+    return stats
 
 
 def _ptxas_summary(report: str, by_depth: bool = False) -> list:
@@ -511,6 +568,30 @@ def _device_ms(fn, n=20):
             fn()
     ms, _ = _time_ms(graph.replay)
     return ms / n
+
+
+def _replays_agree(fn, want) -> bool:
+    """Whether two CUDA graphs, each capturing one call of ``fn``, replayed
+    at once on two streams, each give ``want``'s bits: a launch may keep
+    no state that another launch, captured or not, shares."""
+    import torch
+    cur = torch.cuda.current_stream()
+    graphs, outs = [], []
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(fn())
+        graphs.append(graph)
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for graph, stream in zip(graphs, streams):
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            graph.replay()
+            graph.replay()
+    for stream in streams:
+        cur.wait_stream(stream)
+    torch.cuda.synchronize()
+    return all(torch.equal(out, want) for out in outs)
 
 
 def _ptxas_flash(report: str) -> list:
@@ -616,9 +697,9 @@ def hooked_leaves(m: int, n: int, levels: int, leaf: int):
 def phase_4m(seed, dev, smi, reset_counts, read_counts) -> dict:
     """Phase 4m, the Gram service (``repro_torch.gram.engine``) on the card,
     fp32, the engine's defaults (levels 1, slots 4, verify "finite"): the
-    batched launch alone, a 64-request trace, an async run, a fault drill
-    and a distributed bucket.  Returns what the summary and the kernels
-    line report."""
+    batched launch alone at ``BATCHED_STACKS``, a 64-request trace, an
+    async run, a fault drill and a distributed bucket.  Returns what the
+    summary and the kernels line report."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import ata_full
@@ -631,97 +712,143 @@ def phase_4m(seed, dev, smi, reset_counts, read_counts) -> dict:
     from repro_torch.runtime import faults
 
     f32 = torch.float32
-    K = 4
     t_phase = time.perf_counter()
     print("== 4m. the Gram service on the card: the batched launch, a "
           "64-request trace, an async run, a fault drill, a distributed "
           "bucket")
     out = {"card": smi}
 
-    # 1. the batched launch alone: one launch over K slots against K single
-    # launches (bit-equal) and the plain version slot by slot (<= 1e-5)
+    # 1. the batched launch alone (the persistent kernel), one launch over K
+    # slots against K single launches (bit-equal) and the plain version slot
+    # by slot (<= 1e-5), at the service's stacks and Shampoo's
     batched = {}
-    for kind in ("ata", "aat"):
-        rows = {}
-        for side in (8192, 256):
-            gen = torch.Generator(device=dev).manual_seed(seed + side)
-            x = torch.randn((K, side, side), generator=gen, device=dev)
-            t0 = time.perf_counter()
-            bound = sf.BoundGram(side, side, batch=K,
-                                 gram_of="cols" if kind == "ata" else "rows",
-                                 levels=1, b_out=256, b_k=256,
-                                 out_dtype=f32, device=dev)
-            bind_ms = (time.perf_counter() - t0) * 1e3
-            spec = bound.spec
-            sp = sf._pad_stored(x, *bound.padded, None)
-            before = sf.BATCHED_LAUNCHES[f"leaf_program/{kind}"]
-            got = sf.leaf_program(spec, sp, sp, f32)
-            torch.cuda.synchronize()
-            assert sf.BATCHED_LAUNCHES[f"leaf_program/{kind}"] == before + 1
-            singles = [sf.leaf_program(spec, sp[k], sp[k], f32)
-                       for k in range(K)]
-            torch.cuda.synchronize()
-            bit_equal = all(torch.equal(got[k], singles[k])
-                            for k in range(K))
-            errs, err_abs = [], 0.0
-            for k in range(K):
-                want = sf._leaf_products_plain(spec, sp[k], sp[k], f32)
-                errs.append(_rel(got[k], want.double()))
-                err_abs = max(err_abs,
-                              float((got[k] - want).abs().max()))
-                del want
-            del singles
-            ms, runs = _time_ms(lambda: sf.leaf_program(spec, sp, sp, f32))
-            singles_ms, _ = _time_ms(lambda: [
-                sf.leaf_program(spec, sp[k], sp[k], f32) for k in range(K)])
-            e2e_ms, _ = _time_ms(lambda: bound(x))
-            plain_ms, _ = _time_ms(lambda: [
-                sf._leaf_products_plain(spec, sp[k], sp[k], f32)
-                for k in range(K)], reps=1, warmup=0)
-            lib = (lambda: torch.tril(x.mT @ x)) if kind == "ata" \
-                else (lambda: torch.tril(x @ x.mT))
-            lib_ms, _ = _time_ms(lib)
-            # the bound of one slot, times K: the least flops (each leaf
-            # product once, or classical) at the fp32 peak against the
-            # input and the packed output once at HBM rate
-            prog = compile_program(kind, spec.levels, spec.variant,
-                                   gram=spec.gram)
-            q_b, k_b = spec.q_i * spec.bi, spec.n_k * spec.bc
-            leaf = 2 * (prog.mult_count(k_b, q_b) if kind == "ata"
-                        else prog.mult_count(q_b, k_b))
-            flops = K * min(leaf, side * side * (side + 1))
-            io = K * (sp[0].numel() * 4 + spec.n_out * spec.bi * spec.bj * 4)
-            ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, \
-                io / PEAK_HBM_BYTES * 1e3
-            shape = bound.launch
-            print(f"  batched {kind} ({K}, {side}, {side}), levels "
-                  f"{spec.levels}, tile {shape['tile']}: {ms:.3f} ms; {K} single "
-                  f"launches {singles_ms:.3f} ms; "
-                  f"BoundGram end to end (pad, launch, unpack) {e2e_ms:.3f} "
-                  f"ms; binding {bind_ms:.3f} ms; library "
-                  f"torch.tril(x{'.mT @ x' if kind == 'ata' else ' @ x.mT'}) "
-                  f"{lib_ms:.3f} ms; plain slot by slot {plain_ms:.3f} ms; "
-                  f"bound {max(ops_ms, bytes_ms):.3f} ms "
-                  f"({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
-                  f"{shape['positions']} positions, {shape['blocks']} "
-                  f"blocks, {shape['positions'] - shape['whole_positions']} "
-                  f"in quarters; bit-equal to single launches {bit_equal}; "
-                  f"vs plain {max(errs):.3e} of max|out| (<= 1e-5)")
-            assert bit_equal, (kind, side)
-            assert max(errs) <= 1e-5, (kind, side, errs)
-            rows[side] = {
-                "ms": ms, "runs": runs, "singles_ms": singles_ms,
-                "e2e_ms": e2e_ms, "bind_ms": bind_ms, "library_ms": lib_ms,
-                "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "max_abs_err": err_abs, "rel_err": max(errs),
-                "bit_equal": bit_equal, "levels": spec.levels,
-                "launch": {k_: shape[k_] for k_ in (
-                    "tile", "positions", "whole_positions", "blocks",
-                    "blocks_per_sm", "ring_depth")}}
-            del x, sp, got
-        batched[kind] = rows
+    for kind, K, m, n in BATCHED_STACKS:
+        gen = torch.Generator(device=dev).manual_seed(seed + m + n)
+        x = torch.randn((K, m, n), generator=gen, device=dev)
+        t0 = time.perf_counter()
+        bound = sf.BoundGram(m, n, batch=K,
+                             gram_of="cols" if kind == "ata" else "rows",
+                             levels=1, b_out=256, b_k=256, out_dtype=f32,
+                             device=dev)
+        bind_ms = (time.perf_counter() - t0) * 1e3
+        spec = bound.spec
+        sp = sf._pad_stored(x, *bound.padded, None)
+        before = sf.BATCHED_LAUNCHES[f"leaf_program/{kind}"]
+        got = sf.leaf_program(spec, sp, sp, f32)
+        torch.cuda.synchronize()
+        assert sf.BATCHED_LAUNCHES[f"leaf_program/{kind}"] == before + 1
+        singles = [sf.leaf_program(spec, sp[k], sp[k], f32)
+                   for k in range(K)]
+        plan = bound.launch["plan"]
+        other = 64 if plan["tile"] == 128 else 128
+        other_ok = spec.bi % other == 0
+        got_other = sf.leaf_program(spec, sp, sp, f32, tile=other) \
+            if other_ok else got
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(got[k], singles[k]) for k in range(K)) \
+            and torch.equal(got_other, got)
+        replays_equal = _replays_agree(
+            lambda: sf.leaf_program(spec, sp, sp, f32), got)
+        errs, err_abs = [], 0.0
+        for k in range(K):
+            want = sf._leaf_products_plain(spec, sp[k], sp[k], f32)
+            errs.append(_rel(got[k], want.double()))
+            err_abs = max(err_abs, float((got[k] - want).abs().max()))
+            del want
+        del singles, got_other
+        ms, runs = _time_ms(lambda: sf.leaf_program(spec, sp, sp, f32))
+        dev_ms = _device_ms(lambda: sf.leaf_program(spec, sp, sp, f32))
+        other_ms = _time_ms(lambda: sf.leaf_program(
+            spec, sp, sp, f32, tile=other))[0] if other_ok else None
+        singles_ms, _ = _time_ms(lambda: [
+            sf.leaf_program(spec, sp[k], sp[k], f32) for k in range(K)])
+        e2e_ms, _ = _time_ms(lambda: bound(x))
+        plain_ms, _ = _time_ms(lambda: [
+            sf._leaf_products_plain(spec, sp[k], sp[k], f32)
+            for k in range(K)], reps=1, warmup=0)
+        lib = (lambda: torch.tril(x.mT @ x)) if kind == "ata" \
+            else (lambda: torch.tril(x @ x.mT))
+        lib_ms, _ = _time_ms(lib)
+        lib_dev_ms = _device_ms(lib)
+        # the bound of one slot, times K: the least flops (each leaf product
+        # once, or classical: the lower triangle of the g x g gram over a
+        # contraction of c) at the fp32 peak against what the function
+        # moves once at HBM rate: the (m, n) slot read and the g (g + 1) / 2
+        # elements of its gram's lower triangle written (no padding, no
+        # diagonal tile's upper half)
+        prog = compile_program(kind, spec.levels, spec.variant,
+                               gram=spec.gram)
+        q_b, k_b = spec.q_i * spec.bi, spec.n_k * spec.bc
+        leaf = 2 * (prog.mult_count(k_b, q_b) if kind == "ata"
+                    else prog.mult_count(q_b, k_b))
+        g_, c_ = (n, m) if kind == "ata" else (m, n)
+        flops = K * min(leaf, c_ * g_ * (g_ + 1))
+        io = K * (m * n * x.element_size() + g_ * (g_ + 1) // 2 * 4)
+        ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, \
+            io / PEAK_HBM_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        print(f"  batched {kind} ({K}, {m}, {n}), levels {spec.levels}: "
+              f"{ms:.3f} ms (device {dev_ms:.4f}); plan tile {plan['tile']}, "
+              f"{plan['items']} items, grid {plan['grid']}, "
+              f"{plan['blocks_per_sm']} blocks an SM"
+              + (f"; tile {other} {other_ms:.3f} ms" if other_ok else "")
+              + f"; {K} single launches {singles_ms:.3f} ms; BoundGram end to "
+              f"end (pad, launch, unpack) {e2e_ms:.3f} ms; binding "
+              f"{bind_ms:.3f} ms; library torch.tril("
+              f"x{'.mT @ x' if kind == 'ata' else ' @ x.mT'}) {lib_ms:.3f} "
+              f"ms (device {lib_dev_ms:.4f}); plain slot by slot "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}, "
+              f"{bound_ms / dev_ms:.1%} of it on the device); bit-equal to "
+              f"single launches and across tiles {bit_equal}; two graphs "
+              f"replayed at once on two streams bit-equal {replays_equal}; "
+              f"vs plain {max(errs):.3e} of max|out| (<= 1e-5)")
+        assert bit_equal, (kind, K, m, n)
+        assert replays_equal, (kind, K, m, n)
+        assert max(errs) <= 1e-5, (kind, K, m, n, errs)
+        batched.setdefault(kind, {})[f"{K}x{m}x{n}"] = {
+            "ms": ms, "runs": runs, "device_ms": dev_ms,
+            "other_tile": other if other_ok else None,
+            "other_tile_ms": other_ms, "singles_ms": singles_ms,
+            "e2e_ms": e2e_ms, "bind_ms": bind_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_abs_err": err_abs, "rel_err": max(errs),
+            "bit_equal": bit_equal, "replays_equal": replays_equal,
+            "levels": spec.levels, "plan": plan,
+            "launch": {k_: bound.launch[k_] for k_ in (
+                "tile", "positions", "blocks", "blocks_per_sm",
+                "ring_depth", "smem_bytes")}}
+        del x, sp, got, bound
+        torch.cuda.empty_cache()
     out["batched"] = batched
+    # the batched kernel's other operand types: a (4, 512^2) stack quantized
+    # by BoundGram (bf16 in leaf_products.cu, fp16 and fp8 in _lowp), each
+    # slot bit-equal to its single launch and within 1e-5 of max|out| of the
+    # plain version on the same stored tiles
+    gen = torch.Generator(device=dev).manual_seed(seed + 512)
+    x = torch.randn((4, 512, 512), generator=gen, device=dev)
+    typed = {}
+    for od in ("bfloat16", "float16", "float8_e4m3fn"):
+        bound = sf.BoundGram(512, 512, batch=4, levels=1, b_out=256, b_k=256,
+                             out_dtype=f32, operand_dtype=od, device=dev)
+        sp = sf._pad_stored(x, *bound.padded, bound.operand_dtype)
+        got = sf.leaf_program(bound.spec, sp, sp, f32)
+        equal = all(torch.equal(got[k], sf.leaf_program(
+            bound.spec, sp[k], sp[k], f32)) for k in range(4))
+        err = max(_rel(got[k], sf._leaf_products_plain(
+            bound.spec, sp[k], sp[k], f32).double()) for k in range(4))
+        typed[od] = {"library": bound.launch["library"],
+                     "tile": bound.launch["tile"], "bit_equal": equal,
+                     "rel_err": err}
+        print(f"  batched ata (4, 512, 512) on {od} tiles "
+              f"({bound.launch['library']}.cu, tile {bound.launch['tile']}):"
+              f" bit-equal to single launches {equal}; vs plain {err:.3e} of "
+              f"max|out| (<= 1e-5)")
+        assert equal and err <= 1e-5, (od, equal, err)
+    out["batched_types"] = typed
+    del x, sp, got, bound
 
     # 2-5 run the service through the engine: the main path of this
     # phase, its launches counted from here to the end
@@ -1034,6 +1161,7 @@ def phase_4n(seed, dev, smi, reset_counts, read_counts) -> dict:
             for k_ in range(K)]
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    binds0 = dict(gram_engine.BOUND_GRAM_COUNTS)
     shampoo_mod.batched_gram = timed_gram
     shampoo_mod._inv_4th_root = timed_root
     steps = []
@@ -1133,6 +1261,24 @@ def phase_4n(seed, dev, smi, reset_counts, read_counts) -> dict:
     # every ata launch of the run was a batched one: none on the CPU,
     # none of the plain version
     assert batched == launches["leaf_program/ata"] == 6 * len(planned)
+    # the statistics' grams by stack shape over the 3 steps, and the bound
+    # programs batched_gram made and took from its cache
+    by_size = {}
+    for c_ in calls:
+        row = by_size.setdefault("x".join(map(str, c_["shape"])),
+                                 {"calls": 0, "ms": 0.0, "launches": 0})
+        row["calls"] += 1
+        row["ms"] += c_["ms"]
+        row["launches"] += c_["launches"]
+    binds = {k_: v_ - binds0[k_]
+             for k_, v_ in gram_engine.BOUND_GRAM_COUNTS.items()}
+    for key, row in sorted(by_size.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  statistics gram {key}: {row['calls']} calls, "
+              f"{row['ms']:.3f} ms in all ({row['ms'] / row['calls']:.3f} a "
+              f"call), {row['launches']} batched launches")
+    print(f"  batched_gram's bound programs: {binds['binds']} bound, "
+          f"{binds['hits']} taken from its cache")
+    assert binds["binds"] + binds["hits"] == len(calls)
     tok = S * dc.global_batch
     for i, s_ in enumerate(steps):
         print(f"  step {i}: {s_['ms']:.1f} ms ({tok / s_['ms'] * 1e3:.1f} "
@@ -1153,7 +1299,8 @@ def phase_4n(seed, dev, smi, reset_counts, read_counts) -> dict:
         "stats_vs_plain": stat_err, "checkpoint_mb": ckpt_mb,
         "commit_ms": write_ms, "restore_ms": restore_ms,
         "restored_equal": restored_equal, "peak_gib": shampoo_peak,
-        "losses": losses, "batched_launches": batched, "gram_calls": [
+        "losses": losses, "batched_launches": batched,
+        "gram_by_size": by_size, "bound_programs": binds, "gram_calls": [
                 {k_: c_[k_] for k_ in ("shape", "ms", "launches")}
                 for c_ in calls]}
     del tr2
@@ -1199,9 +1346,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=10000,
                     help="main-path size (A is n x n; the paper's 10000)")
-    ap.add_argument("--only", choices=("4n",), default=None,
-                    help="run phases 1, 2 (leaf_products alone) and this "
-                         "phase, then stop (no kernels line, no ok line)")
+    ap.add_argument("--only", choices=("4m", "4n"), default=None,
+                    help="run phases 1, 2 (leaf_products and _lowp alone) "
+                         "and this phase, then stop (no kernels line, no ok "
+                         "line)")
     args = ap.parse_args()
 
     import torch
@@ -1279,7 +1427,8 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     print("== 2. build")
     t0 = time.perf_counter()
-    libraries = ("leaf_products",) if args.only else LIBRARIES
+    libraries = ("leaf_products", "leaf_products_lowp") if args.only \
+        else LIBRARIES
 
     def timed_build(name):
         start = time.perf_counter()
@@ -1293,13 +1442,27 @@ def main() -> int:
           f"cached, in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{name} {secs:.1f} s" for name, (_, secs)
                       in built.items()) + ")")
-    if args.only == "4n":
-        # the training phase alone (it runs leaf_products.cu only): a
+    for name in libraries[:3]:
+        # the batched launch's persistent kernel, 384 threads: ptxas reports
+        # the entry budget, 168 registers at tile 128 (one block an SM) and
+        # at most 85 at tile 64 (two); setmaxnreg then moves the producer
+        # warpgroup and the consumers to 40 / 232 and 24 / 104
+        for (dtype, tile), v in sorted(_ptxas_batched(
+                reports[name] or "").items()):
+            print(f"  {name} batched kernel, {dtype} tiles, tile {tile}: "
+                  f"{len(v['regs'])} ring depths, {min(v['regs'])}-"
+                  f"{max(v['regs'])} registers at entry, spill stores up to "
+                  f"{max(v['spill'])} B")
+            assert max(v["regs"]) <= (168 if tile == 128 else 85), \
+                (name, dtype, v)
+    if args.only:
+        # one phase alone (it runs leaf_products.cu and _lowp only): a
         # shake-out, with no kernels line and no ok line
-        train = phase_4n(args.seed, dev, smi, reset_counts, read_counts)
-        print(f"  phase 4n: {train['phase_s']:.1f} s; chip_smoke.py took "
-              f"{time.perf_counter() - t_start:.1f} s in all")
-        print(json.dumps({"training": train}))
+        phase = phase_4m if args.only == "4m" else phase_4n
+        res = phase(args.seed, dev, smi, reset_counts, read_counts)
+        print(f"  phase {args.only}: {res['phase_s']:.1f} s; chip_smoke.py "
+              f"took {time.perf_counter() - t_start:.1f} s in all")
+        print(json.dumps({args.only: res}))
         return 0
     for name in sf.PRODUCT_LIBRARIES:
         # each instantiation of the precision axes' libraries on its own line
@@ -4027,7 +4190,7 @@ def main() -> int:
     # and, for ata, phase 4n's Shampoo statistics
     for kind in ("ata", "aat"):
         by_size = service["batched"][kind]
-        row = by_size[8192]
+        row = by_size["4x8192x8192"]
         served = service["batched_launches"][f"leaf_program/{kind}"]
         trained = train["shampoo"]["batched_launches"] if kind == "ata" \
             else 0
@@ -4041,7 +4204,9 @@ def main() -> int:
             row["bound_by"], row["library_ms"], kind=kind, gram="strassen",
             library="leaf_products", batch=4, shape=[4, 8192, 8192],
             by_size=by_size, launches_by_phase={"4m": served,
-                                                "4n": trained}))
+                                                "4n": trained},
+            training_by_size=train["shampoo"]["gram_by_size"]
+            if kind == "ata" else None))
 
     # -- 6. summary -------------------------------------------------------------
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")

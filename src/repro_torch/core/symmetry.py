@@ -98,19 +98,32 @@ def pack_tril_blocks(c, bn: int) -> torch.Tensor:
 def unpack_tril_blocks(packed, n: int, bn: int,
                        *, symmetrize: bool = True) -> torch.Tensor:
     """Inverse of :func:`pack_tril_blocks`; leading dimensions of
-    ``packed`` (a stack of packed grams) carry over to the result."""
+    ``packed`` (a stack of packed grams) carry over to the result.
+
+    Each tile is written once into its place in the dense result.  With
+    ``symmetrize`` the result has the bits of the JAX package's mirror
+    ``tril(c) + tril(c, -1).T``, tile by tile: a lower tile x + 0, its
+    mirror (x + 0)^t (the mirror's 0 + x), a diagonal tile tril(x) +
+    tril(x, -1)^t (the diagonal blocks' stored upper halves dropped, not
+    double-counted).  The + 0 turns -0 into +0 as the mirror's adds do."""
     packed = _as_tensor(packed)
     t, lead = n // bn, packed.shape[:-2]
-    ij = tri_coords(t).long().to(packed.device)
-    tiles = torch.zeros((*lead, t, t, bn, bn), dtype=packed.dtype,
-                        device=packed.device)
-    tiles[..., ij[:, 0], ij[:, 1], :, :] = packed.reshape(*lead, -1, bn, bn)
-    c = tiles.transpose(-3, -2).reshape(*lead, n, n)
+    # the tile coordinates made on the device: a host copy of them would
+    # wait for the stream
+    i, j = torch.tril_indices(t, t, device=packed.device)
+    # tiles[k] is packed tile k, (i[k], j[k]), over the leading dimensions
+    tiles = packed.reshape(*lead, -1, bn, bn).movedim(-3, 0)
+    c = (packed.new_empty if symmetrize else packed.new_zeros)(
+        (*lead, n, n))
+    grid = c.view(*lead, t, bn, t, bn)   # [..., I, r, J, s]: tile (I, J)
     if symmetrize:
-        # Diagonal blocks carry their own (symmetric) upper halves — drop
-        # them before mirroring so they are not double-counted.
-        c = torch.tril(c)
-        c = c + torch.tril(c, -1).mT
+        tiles = tiles + 0
+        grid[..., j, :, i, :] = tiles.mT
+    grid[..., i, :, j, :] = tiles
+    if symmetrize:
+        d = torch.arange(t, device=packed.device)
+        diag = tiles[d * (d + 3) // 2]   # tile (d, d) is packed tile d(d+3)/2
+        grid[..., d, :, d, :] = torch.tril(diag) + torch.tril(diag, -1).mT
     return c
 
 

@@ -151,6 +151,18 @@ def _resolve_levels(levels, m: int, n: int, leaf: int) -> int:
     return int(levels)
 
 
+def _gram_blocks(gram_of: str, m: int, n: int, dtype, device, block):
+    """``(b_out, b_k)`` of the fused gram of an (m, n) operand: ``block``,
+    or where it is None the autotune cache's, as ``ata`` takes them."""
+    if gram_of == "cols":
+        bs = _ops._resolve_blocks("ata", m, n, dtype, device, bk=block,
+                                  bn=block)
+        return bs["bn"], bs["bk"]
+    bs = _ops._resolve_blocks("aat", m, n, dtype, device, bm=block,
+                              bk=block)
+    return bs["bm"], bs["bk"]
+
+
 def _bind_local(m: int, n: int, *, batch: int, gram_of: str, levels,
                 leaf: int, variant: str, mode: str, block, out_dtype,
                 dtype, pipeline_depth, operand_dtype, device):
@@ -162,14 +174,7 @@ def _bind_local(m: int, n: int, *, batch: int, gram_of: str, levels,
     reference: the recursion slot by slot."""
     levels = _resolve_levels(levels, m, n, leaf)
     if resolve_mode(mode, device=device) == "fused":
-        if gram_of == "cols":
-            bs = _ops._resolve_blocks("ata", m, n, dtype, device, bk=block,
-                                      bn=block)
-            b_out, b_k = bs["bn"], bs["bk"]
-        else:
-            bs = _ops._resolve_blocks("aat", m, n, dtype, device, bm=block,
-                                      bk=block)
-            b_out, b_k = bs["bm"], bs["bk"]
+        b_out, b_k = _gram_blocks(gram_of, m, n, dtype, device, block)
         return _sf.BoundGram(
             m, n, batch=batch, gram_of=gram_of, levels=levels,
             variant=variant, b_out=b_out, b_k=b_k, out_dtype=out_dtype,
@@ -185,6 +190,46 @@ def _bind_local(m: int, n: int, *, batch: int, gram_of: str, levels,
     return slot_by_slot
 
 
+# batched_gram's bound programs, the least recently used dropped first past
+# BOUND_GRAMS_MAX (Shampoo binds about 12: a side of each preconditioned
+# path), as the JAX package's jit cache keeps its executables; the binds and
+# the hits so far
+BOUND_GRAMS_MAX = 32
+BOUND_GRAM_COUNTS = {"binds": 0, "hits": 0}
+_BOUND_GRAMS: "OrderedDict[tuple, _sf.BoundGram]" = OrderedDict()
+_BOUND_GRAMS_LOCK = threading.Lock()
+
+
+def _bound_gram(K: int, m: int, n: int, *, levels, leaf: int, variant: str,
+                block, out_dtype, dtype, device) -> "_sf.BoundGram":
+    """:func:`batched_gram`'s fused program for a (K, m, n) stack, bound
+    once a key (K, m, n, dtype, out_dtype, levels resolved, variant, the
+    block asked for, device) and then taken from the LRU.  As a traced
+    ``jax.jit`` keeps what it read, the autotune cache's blocks for a
+    ``block`` of None are read where the program is bound."""
+    levels = _resolve_levels(levels, m, n, leaf)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (K, m, n, dtype, out_dtype, levels, variant, block, device)
+    with _BOUND_GRAMS_LOCK:
+        bound = _BOUND_GRAMS.get(key)
+        if bound is not None:
+            _BOUND_GRAMS.move_to_end(key)
+            BOUND_GRAM_COUNTS["hits"] += 1
+            return bound
+    b_out, b_k = _gram_blocks("cols", m, n, dtype, device, block)
+    bound = _sf.BoundGram(m, n, batch=K, gram_of="cols", levels=levels,
+                          variant=variant, b_out=b_out, b_k=b_k,
+                          out_dtype=out_dtype, dtype=dtype, device=device)
+    with _BOUND_GRAMS_LOCK:
+        _BOUND_GRAMS[key] = bound
+        BOUND_GRAM_COUNTS["binds"] += 1
+        while len(_BOUND_GRAMS) > BOUND_GRAMS_MAX:
+            _BOUND_GRAMS.popitem(last=False)
+    return bound
+
+
 def batched_gram(blocks, *, levels: Union[int, str] = 1, leaf: int = 256,
                  variant: str = "strassen", mode: str = "auto",
                  block: Optional[int] = None, out_dtype=None,
@@ -198,7 +243,9 @@ def batched_gram(blocks, *, levels: Union[int, str] = 1, leaf: int = 256,
     port of the JAX package's ``jax.vmap`` over ``ata_full``); a stack
     that requires grad (with grad mode on) runs one differentiable
     ``ata_full`` a slot, whose backward is the symm kind.  The reference
-    path runs ``ata_full`` slot by slot.  ``device`` as in ``ata``.
+    path runs ``ata_full`` slot by slot.  ``device`` as in ``ata``.  The
+    fused program is bound once a stack shape and configuration and kept
+    (:func:`_bound_gram`, counted in ``BOUND_GRAM_COUNTS``).
     """
     blocks = _ops._place(blocks, device)
     if blocks.ndim != 3:
@@ -211,11 +258,9 @@ def batched_gram(blocks, *, levels: Union[int, str] = 1, leaf: int = 256,
         return blocks.new_zeros((0, n, n), dtype=out_dtype)
     if not (blocks.requires_grad and torch.is_grad_enabled()) and \
             resolve_mode(mode, device=blocks.device) == "fused":
-        return _bind_local(m, n, batch=K, gram_of="cols", levels=levels,
-                           leaf=leaf, variant=variant, mode="fused",
-                           block=block, out_dtype=out_dtype,
-                           dtype=blocks.dtype, pipeline_depth=None,
-                           operand_dtype=None, device=blocks.device)(
+        return _bound_gram(K, m, n, levels=levels, leaf=leaf,
+                           variant=variant, block=block, out_dtype=out_dtype,
+                           dtype=blocks.dtype, device=blocks.device)(
                                blocks, symmetrize=True)
     return torch.stack([ata_full(b, levels=levels, leaf=leaf, variant=variant,
                                  mode=mode, out_dtype=out_dtype, block=block,

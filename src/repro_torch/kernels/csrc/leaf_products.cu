@@ -1,7 +1,8 @@
 // leaf_products.cu — the leaf program's kernel (leaf_products.cuh) over fp32 and bf16 operand
 // tiles, either side, with an fp32 accumulator: the main path's library.  80 instantiations:
 // four operand pairs x two right-side layouts x tiles 64 and 128 x ring depths 1-4, and pair
-// mode for the two same-type pairs.
+// mode for the two same-type pairs; and 16 of the batched launch's persistent kernel, fp32
+// and bf16 x tiles 64 and 128 x ring depths 1-4.
 #include "leaf_products.cuh"
 
 namespace {
@@ -17,6 +18,12 @@ KernelFn select(int l_dtype, int r_dtype, int acc, bool tri, bool pair, int tile
   if (acc != ACC_F32) return nullptr;
   if (l_dtype == F32) return by_right<float>(r_dtype, tri, pair, tile, stages);
   if (l_dtype == BF16) return by_right<__nv_bfloat16>(r_dtype, tri, pair, tile, stages);
+  return nullptr;
+}
+
+BatchedFn select_batched(int dtype, int tile, int stages) {
+  if (dtype == F32) return batched_of<float>(tile, stages);
+  if (dtype == BF16) return batched_of<__nv_bfloat16>(tile, stages);
   return nullptr;
 }
 

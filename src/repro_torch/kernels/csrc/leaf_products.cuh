@@ -2,8 +2,8 @@
 // (ata, aat, rank_k of every gram, symm, matmul), every operand type and accumulator.
 //
 // The kernel's body and its plain C interface, shared by three libraries, one translation
-// unit each so that their builds run side by side; each defines select() and ring_depth()
-// over its own instantiations:
+// unit each so that their builds run side by side; each defines select(), select_batched()
+// and ring_depth() over its own instantiations:
 //   leaf_products.cu       fp32 and bf16 operand tiles, fp32 accumulator (the main path)
 //   leaf_products_lowp.cu  fp16, fp8 e4m3fn and fp8 e5m2 operand tiles, fp32 accumulator
 //   leaf_products_acc.cu   a bf16 or fp64 accumulator, over fp32, bf16, fp16 and fp8 tiles
@@ -116,7 +116,13 @@
 // the accumulator once, where the last slot feeding an element ends: fp64 goes through fp32 to
 // a narrower type, as torch's .to() does.
 //
-// Interface: plain C, loaded with ctypes.  The launcher returns cudaGetLastError() after the
+// A launch over a stack of slots (the port of jax.vmap over the TPU kernel: Shampoo's
+// statistics, the Gram service's buckets) takes a kernel of its own, leaf_products_batched_
+// kernel: a persistent grid whose blocks take (slot, position) items heaviest first, a
+// producer warp keeping one ring running through them, at a tile the host picks for the stack
+// (see walk_items).
+//
+// Interface: plain C, loaded with ctypes.  The launchers return cudaGetLastError() after the
 // launch.
 #pragma once
 
@@ -136,6 +142,10 @@ namespace {
 using namespace tma;
 
 constexpr int KC = 16;             // contraction depth per chunk
+// The batched kernel's at each tile: 16 at TILE 128, 32 at 64, where a 64 x 64 x 16 step is
+// too little work for the step's waits and barrier (at 128 the deeper step doubles the sum
+// buffers and the registers of the sum phase)
+__host__ __device__ constexpr int batched_kc(int tile) { return tile == 64 ? 32 : KC; }
 constexpr int THREADS = 256;       // 16 x 16 threads
 constexpr int MAX_TERMS = 8;       // terms a side: strassen_fused.MAX_OPERAND_TERMS
 constexpr int GROUP = 4;           // terms a side a ring slot holds
@@ -155,6 +165,9 @@ struct Geometry {
   static constexpr int CHUNK = KC * TILE;        // elements of one raw chunk
   static constexpr int LDS = TILE + 4;           // padded row of a summed chunk
   static constexpr int SUM = KC * LDS;           // floats of one summed chunk
+  static constexpr int BKC = batched_kc(TILE);   // the batched kernel's chunk depth,
+  static constexpr int BCHUNK = BKC * TILE;      //   chunk
+  static constexpr int BSUM = BKC * LDS;         //   and summed chunk
   static constexpr int R = TILE / 16;            // outputs a thread owns along each axis
   static constexpr int XQ = TILE / 32;           // x groups of a thread's summed elements
 };
@@ -252,8 +265,9 @@ struct Ops {
   int out_code;         // the output's element type (a Dtype)
   int l_pitch, r_pitch; // fp8 sides: the stored columns of one tile (its width rounded up to
                         //   16; the rest zeros)
-  int batch;            // slots of a batched launch (1 otherwise): every slot runs this program
-  long long slot_elems; // elements of one slot's output (and workspace and seed)
+  int batch;            // slots of a batched launch (1 for the one-position walk): every slot
+                        //   runs this program
+  long long slot_elems; // elements of one slot's output (and workspace)
 };
 
 // Packed lower-triangular index -> (i, j), i >= j, row-major; a root estimate with the
@@ -337,6 +351,14 @@ size_t smem_bytes(bool right_tri, int tmax, int tile, int left_bytes, int right_
          + static_cast<size_t>(stages) * (sizeof(StepTerms) + sizeof(uint64_t));  // per slot
 }
 
+// The batched kernel's: batched_kc-deep chunks, a dense right side, no pair mode.
+size_t batched_smem_bytes(int tmax, int tile, int bytes, int stages) {
+  const size_t depth = batched_kc(tile), chunk = depth * tile;
+  return static_cast<size_t>(stages) * tmax * chunk * 2 * bytes  // raw rings
+         + 2 * 2 * depth * (tile + 4) * sizeof(float)              // summed, 2 buffers
+         + static_cast<size_t>(stages) * (sizeof(StepTerms) + sizeof(uint64_t));  // per slot
+}
+
 // One seed element of type `code` (fp32, bf16, fp16, fp64) in the accumulator's type: fp64
 // rounded to fp32 first where the accumulator is narrower (as torch's .to() and the plain
 // version round it).
@@ -399,12 +421,180 @@ __device__ __forceinline__ void store1(void* out, long long at, int code, double
   if (code == F64) static_cast<double*>(out)[at] = v;
   else store1(out, at, code, __double2float_rn(v));
 }
+
+// The arithmetic of a walk, shared by walk() (DEPTH = KC) and the batched kernel's walk_items()
+// (DEPTH = batched_kc(TILE)): the elements of a DEPTH x TILE chunk a thread sums, the signed sums
+// of a side's terms, the summed chunk's store, its product, and the fp32 writes of a product
+// into a destination.  An item of either walks the same operations in the same order.
+
+// The rows kk of the chunk whose elements (kk, lane + 32 q) a thread sums, H = DEPTH / 8 of
+// them: kk = (H warp + h + lane / 2 + 16 (lane % 2)) % DEPTH.  A warp's 32 lanes hit 32 banks
+// where a chunk is read as it lies DEPTH x TILE ([kk][x]), where it lies TILE x DEPTH ([x][kk],
+// kk skewed by lane / 2, and at DEPTH 32 a lane pair 16 rows apart) and where the sum is written
+// ([kk][x] in rows of TILE + 4).  Ownership is fixed for the whole kernel, so each element sums
+// its terms in table order, and a chunk's later ring slot reads back what this thread left in
+// the buffer.
+template <int DEPTH>
+__device__ __forceinline__ void sum_rows(int (&kk_of)[DEPTH / 8], int warp, int lane) {
+#pragma unroll
+  for (int h = 0; h < DEPTH / 8; ++h)
+    kk_of[h] = (warp * (DEPTH / 8) + h + (lane >> 1) + 16 * (lane & 1)) % DEPTH;
+}
+
+// Adds the n dense terms of a side into v: term p's coefficient c[p] times its chunk, the p-th
+// at chunks, read as it lies (DEPTH x TILE where kx, else TILE x DEPTH); each element's terms in
+// table order as v = v + coef * x, no FMA contraction.
+template <int TILE, int DEPTH, typename T>
+__device__ __forceinline__ void sum_terms(float (&v)[DEPTH / 8][TILE / 32], const T* chunks,
+                                          const float* c, int n, bool kx,
+                                          const int (&kk_of)[DEPTH / 8], int lane) {
+  for (int p = 0; p < n; ++p) {
+    const float cp = c[p];
+    const T* src = chunks + p * DEPTH * TILE;
+#pragma unroll
+    for (int h = 0; h < DEPTH / 8; ++h)
+#pragma unroll
+      for (int q = 0; q < TILE / 32; ++q) {
+        const int x = lane + 32 * q;
+        const int at = kx ? kk_of[h] * TILE + x : x * DEPTH + kk_of[h];
+        v[h][q] = __fadd_rn(v[h][q], __fmul_rn(cp, to_f32(src[at])));
+      }
+  }
+}
+
+// A summed chunk into the sum buffers ([kk][x] in rows of TILE + 4): depth past the K block
+// (from row k_lim: the box's next K block, or zeros past the operand) sums to 0.
+template <int TILE, int DEPTH>
+__device__ __forceinline__ void store_sums(const float (&l)[DEPTH / 8][TILE / 32],
+                                           const float (&r)[DEPTH / 8][TILE / 32], float* lsum,
+                                           float* rsum, const int (&kk_of)[DEPTH / 8], int lane,
+                                           int k_lim) {
+#pragma unroll
+  for (int h = 0; h < DEPTH / 8; ++h)
+#pragma unroll
+    for (int q = 0; q < TILE / 32; ++q) {
+      const bool live = kk_of[h] < k_lim;
+      lsum[kk_of[h] * (TILE + 4) + lane + 32 * q] = live ? l[h][q] : 0.f;
+      rsum[kk_of[h] * (TILE + 4) + lane + 32 * q] = live ? r[h][q] : 0.f;
+    }
+}
+
+// part += the summed chunk's product over its DEPTH rows by fmaf, for this thread's outputs:
+// rows 64 a + 4 ty + i, columns 64 b + 4 tx + j of the sub-tile.
+template <int TILE, int DEPTH>
+__device__ __forceinline__ void multiply_chunk(float (&part)[TILE / 16][TILE / 16],
+                                               const float* lsum, const float* rsum, int tx,
+                                               int ty) {
+  constexpr int R = TILE / 16, LDS = TILE + 4;
+#pragma unroll
+  for (int kk = 0; kk < DEPTH; ++kk) {
+    float a[R], b[R];
+#pragma unroll
+    for (int g = 0; g < R / 4; ++g) {
+      const float4 av = *reinterpret_cast<const float4*>(lsum + kk * LDS + g * 64 + ty * 4);
+      const float4 bv = *reinterpret_cast<const float4*>(rsum + kk * LDS + g * 64 + tx * 4);
+      a[4 * g] = av.x; a[4 * g + 1] = av.y; a[4 * g + 2] = av.z; a[4 * g + 3] = av.w;
+      b[4 * g] = bv.x; b[4 * g + 1] = bv.y; b[4 * g + 2] = bv.z; b[4 * g + 3] = bv.w;
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&a)[R][R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) a[i][j] = 0.f;
+}
+
+// The end of a K block under an fp32 accumulator: its part added into the op's product,
+// rounded, and the part cleared.
+template <int R>
+__device__ __forceinline__ void fold_part(float (&prod)[R][R], float (&part)[R][R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      prod[i][j] = __fadd_rn(prod[i][j], part[i][j]);
+      part[i][j] = 0.f;
+    }
+}
+
+// The first output row and column of sub-tile (p0i, p0j) of position (pi, pj) of leaf
+// destination ld; false where the output holds none (above the diagonal of a diagonal leaf
+// block of a packed output).
+__device__ __forceinline__ bool dest_origin(const Ops& P, int ld, int pi, int pj, int p0i,
+                                            int p0j, long long& row0, long long& col0) {
+  if (P.out_tri) {  // tile (gi, gj) of the packed stack
+    int di, dj;
+    tri_decode(ld, di, dj);
+    if (di == dj && pi < pj) return false;
+    const long long gi = static_cast<long long>(di) * P.q_i + pi;
+    const long long gj = static_cast<long long>(dj) * P.q_j + pj;
+    row0 = (gi * (gi + 1) / 2 + gj) * P.bi + p0i;
+    col0 = p0j;
+  } else {
+    row0 = (static_cast<long long>(ld / P.blocks_j) * P.q_i + pi) * P.bi + p0i;
+    col0 = (static_cast<long long>(ld % P.blocks_j) * P.q_j + pj) * P.bj + p0j;
+  }
+  return true;
+}
+
+// Four fp32 values v into the elements at `at` (the slot's offset included) of an fp32
+// accumulator: onto the seed where the slot is the first to feed them, else onto what they hold,
+// each rounded; cast into the output where the slot is the last, unless the output is the
+// workspace.  The seed is read by the thread that writes the element, before it writes: the
+// seed may be the output.
+__device__ __forceinline__ void put4_f32(const Ops& P, long long at, float (&v)[4], int flag) {
+  float* const ws = static_cast<float*>(P.ws);
+  if (!(flag & FIRST) || P.seed != nullptr) {
+    const float4 w = flag & FIRST ? load4(P.seed, at, P.seed_code)
+                                  : *reinterpret_cast<const float4*>(ws + at);
+    v[0] = __fadd_rn(w.x, v[0]);
+    v[1] = __fadd_rn(w.y, v[1]);
+    v[2] = __fadd_rn(w.z, v[2]);
+    v[3] = __fadd_rn(w.w, v[3]);
+  }
+  if ((flag & LAST) && P.out_cast)
+    store4(P.out, at, P.out_code, v[0], v[1], v[2], v[3]);
+  else
+    store4(ws + at, v[0], v[1], v[2], v[3]);
+}
+
+// sign * val, a thread's outputs of sub-tile (i0, j0), into a straight destination whose
+// sub-tile starts at (row0, col0) of rows ldo long: put(at, v) takes four elements of a row at
+// its offset.  Rows past bi and columns past bj belong to no output.
+template <int R, typename Put>
+__device__ __forceinline__ void write_straight(const Ops& P, const float (&val)[R][R], float sg,
+                                               long long row0, long long col0, long long ldo,
+                                               int i0, int j0, int tx, int ty, Put&& put) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int x = (i / 4) * 64 + ty * 4 + i % 4;
+    if (i0 + x >= P.bi) continue;
+#pragma unroll
+    for (int g = 0; g < R / 4; ++g) {
+      const int y = g * 64 + tx * 4;
+      if (j0 + y >= P.bj) continue;  // bj is a multiple of 8: all 4 columns are in
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(sg, val[i][4 * g + j]);
+      put((row0 + x) * ldo + col0 + y, v);
+    }
+  }
+}
+
 // One block's walk of every op at one position: output tile (iq, jq) of a leaf block,
 // TILE x TILE sub-tile (i0, j0) of it; in PAIR mode also at its mirror, tile (jq, iq),
 // sub-tile (j0, i0).  The three operand maps are the left side's, the right side's and, for a
 // tri right side, the mirrored read of the same stack (boxes TILE x KC where the stored box is
-// KC x TILE).  z is the block's slot of a batched launch: the outermost coordinate of every
-// box, and the slot's output, workspace and seed lie at z * slot_elems.  PAIRS: the
+// KC x TILE).  z is the block's slot: the outermost coordinate of every box, and the slot's
+// output, workspace and seed lie at z * slot_elems (0 here: batched launches take
+// leaf_products_batched_kernel).  PAIRS: the
 // pair-mode instantiation, whose ring slots hold GROUP terms a side
 // (a chunk of an op with more takes several slots in turn); elsewhere a slot holds tmax.  Acc:
 // the accumulator's type (float, __nv_bfloat16 or double).
@@ -551,22 +741,16 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
     }
   };
 
-  // Each thread sums the elements (kk, x) of the KC x TILE chunk with x = lane + 32 q and
-  // kk = (2 warp + h + lane / 2) % KC, h in {0, 1}: a warp's 32 lanes hit 32 banks where a
-  // chunk is read as it lies KC x TILE ([kk][x]), where it lies TILE x KC ([x][kk], kk skewed
-  // by lane / 2) and where the sum is written ([kk][x] in rows of TILE + 4).  Ownership is
-  // fixed for the whole kernel, so each element sums its terms in table order, and a chunk's
-  // later ring slot reads back what this thread left in the buffer.
-  int kk_of[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) kk_of[h] = (warp * 2 + h + (lane >> 1)) % KC;
+  // The elements (kk_of[h], lane + 32 q) of a chunk this thread sums (sum_rows).
+  int kk_of[KC / 8];
+  sum_rows<KC>(kk_of, warp, lane);
 
   // Returns whether the step was its chunk's last ring slot.
   auto sum_phase = [&](const Chunk& t, int slot, float* lsum, float* rsum) {
     const StepTerms& st = terms[slot];
     const Tl* lslot = lring + static_cast<size_t>(slot) * gw * CHUNK;
     const Tr* rslot = rring + static_cast<size_t>(slot) * gw * RC * CHUNK;
-    float l[2][XQ], r[2][XQ];
+    float l[KC / 8][XQ], r[KC / 8][XQ];
     if (!PAIRS || st.first) {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
@@ -581,18 +765,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
           r[h][q] = rsum[kk_of[h] * LDS + lane + 32 * q];
         }
     }
-    for (int p = 0; p < st.n_l; ++p) {
-      const float cl = st.lc[p];
-      const Tl* src = lslot + p * CHUNK;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int q = 0; q < XQ; ++q) {
-          const int x = lane + 32 * q;
-          const int at = P.left_trans ? kk_of[h] * TILE + x : x * KC + kk_of[h];
-          l[h][q] = __fadd_rn(l[h][q], __fmul_rn(cl, to_f32(src[at])));
-        }
-    }
+    sum_terms<TILE, KC>(l, lslot, st.lc, st.n_l, P.left_trans, kk_of, lane);
     if constexpr (TRI) {
       // Right element (kk, j): stored[kk][j] in the stored chunk, stored[j][kk] in the
       // mirrored one; a term reads one of them, or both on a diagonal tile, the same for all
@@ -630,77 +803,18 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
         }
       }
     } else {
-      for (int p = 0; p < st.n_r; ++p) {
-        const float cr = st.rc[p];
-        const Tr* src = rslot + p * CHUNK;
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int q = 0; q < XQ; ++q) {
-            const int x = lane + 32 * q;
-            const int at = P.right_jk ? x * KC + kk_of[h] : kk_of[h] * TILE + x;
-            r[h][q] = __fadd_rn(r[h][q], __fmul_rn(cr, to_f32(src[at])));
-          }
-      }
+      sum_terms<TILE, KC>(r, rslot, st.rc, st.n_r, !P.right_jk, kk_of, lane);
     }
-    // depth past the K block (the box's next K block, or zeros past the operand) sums to 0
-    const int k_lim = P.bc - t.c * KC;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int q = 0; q < XQ; ++q) {
-        const bool live = kk_of[h] < k_lim;
-        lsum[kk_of[h] * LDS + lane + 32 * q] = live ? l[h][q] : 0.f;
-        rsum[kk_of[h] * LDS + lane + 32 * q] = live ? r[h][q] : 0.f;
-      }
+    store_sums<TILE, KC>(l, r, lsum, rsum, kk_of, lane, P.bc - t.c * KC);
     return !PAIRS || st.last != 0;
   };
 
   // This thread's outputs: rows 64 a + 4 ty + i, columns 64 b + 4 tx + j of the sub-tile.
   float part[R][R], prod[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) part[i][j] = prod[i][j] = 0.f;
-
-  auto multiply = [&](const float* lsum, const float* rsum) {
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float a[R], b[R];
-#pragma unroll
-      for (int g = 0; g < R / 4; ++g) {
-        const float4 av = *reinterpret_cast<const float4*>(lsum + kk * LDS + g * 64 + ty * 4);
-        const float4 bv = *reinterpret_cast<const float4*>(rsum + kk * LDS + g * 64 + tx * 4);
-        a[4 * g] = av.x; a[4 * g + 1] = av.y; a[4 * g + 2] = av.z; a[4 * g + 3] = av.w;
-        b[4 * g] = bv.x; b[4 * g + 1] = bv.y; b[4 * g + 2] = bv.z; b[4 * g + 3] = bv.w;
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-    }
-  };
+  zero(part);
+  zero(prod);
 
   const long long ldo = P.out_tri ? P.bj : static_cast<long long>(P.blocks_j) * P.q_j * P.bj;
-  // The first output row and column of sub-tile (p0i, p0j) of position (pi, pj) of leaf
-  // destination ld; false where the output holds none (above the diagonal of a diagonal leaf
-  // block of a packed output).
-  auto origin = [&](int ld, int pi, int pj, int p0i, int p0j, long long& row0,
-                    long long& col0) {
-    if (P.out_tri) {  // tile (gi, gj) of the packed stack
-      int di, dj;
-      tri_decode(ld, di, dj);
-      if (di == dj && pi < pj) return false;
-      const long long gi = static_cast<long long>(di) * P.q_i + pi;
-      const long long gj = static_cast<long long>(dj) * P.q_j + pj;
-      row0 = (gi * (gi + 1) / 2 + gj) * P.bi + p0i;
-      col0 = p0j;
-    } else {
-      row0 = (static_cast<long long>(ld / P.blocks_j) * P.q_i + pi) * P.bi + p0i;
-      col0 = (static_cast<long long>(ld % P.blocks_j) * P.q_j + pj) * P.bj + p0j;
-    }
-    return true;
-  };
   // Output element `at` takes v (sign times the op's product, or under PER_K times one K
   // block's part): onto the seed where the slot is the first to feed it, else onto what it
   // holds, rounded in the accumulator's type; cast into the output where the slot is the last,
@@ -728,25 +842,12 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
         ws[at] = v;
     }
   };
-  auto put4 = [&](long long at, float v[4], int flag) {
+  auto put4 = [&](long long at, float (&v)[4], int flag) {
     if constexpr (PER_K) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) put1(at + j, v[j], flag);
     } else {
-      at += so;
-      float* const ws = static_cast<float*>(P.ws);
-      if (!(flag & FIRST) || P.seed != nullptr) {
-        const float4 w = flag & FIRST ? load4(P.seed, at, P.seed_code)
-                                      : *reinterpret_cast<const float4*>(ws + at);
-        v[0] = __fadd_rn(w.x, v[0]);
-        v[1] = __fadd_rn(w.y, v[1]);
-        v[2] = __fadd_rn(w.z, v[2]);
-        v[3] = __fadd_rn(w.w, v[3]);
-      }
-      if ((flag & LAST) && P.out_cast)
-        store4(P.out, at, P.out_code, v[0], v[1], v[2], v[3]);
-      else
-        store4(ws + at, v[0], v[1], v[2], v[3]);
+      put4_f32(P, at + so, v, flag);
     }
   };
   // Adds sign * val into each destination of item t's op, where `keep` holds of the slots'
@@ -774,9 +875,15 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
         // only pair mode has transposed slots (and the compiler drops their writes elsewhere)
         const bool trn = mode != SINGLE && P.dtrn[at_d] != 0;
         long long row0, col0;  // of W, or of the other sub-tile for a transposed slot
-        if (!(trn ? origin(P.dest[at_d], wj, wi, wj0, wi0, row0, col0)
-                  : origin(P.dest[at_d], wi, wj, wi0, wj0, row0, col0)))
+        if (!(trn ? dest_origin(P, P.dest[at_d], wj, wi, wj0, wi0, row0, col0)
+                  : dest_origin(P, P.dest[at_d], wi, wj, wi0, wj0, row0, col0)))
           continue;
+        if (mode != SELF && !trn) {
+          const int flag = (flags >> w_shift) & keep;
+          write_straight(P, val, sg, row0, col0, ldo, wi0, wj0, tx, ty,
+                         [&](long long at, float (&v)[4]) { put4(at, v, flag); });
+          continue;
+        }
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           const int x = (i / 4) * 64 + ty * 4 + i % 4;
@@ -788,10 +895,6 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
             float v[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(sg, val[i][4 * g + j]);
-            if (mode != SELF && !trn) {
-              put4((row0 + x) * ldo + col0 + y, v, (flags >> w_shift) & keep);
-              continue;
-            }
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               // element (x, y + j) of W goes straight there, transposed to (y + j, x)
@@ -818,25 +921,13 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
     if (t.c != n_kc - 1) return;
     if constexpr (PER_K) {
       write_dests(t, part, (t.k == 0 ? FIRST : 0) | (t.k == P.n_k - 1 ? LAST : 0));
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) part[i][j] = 0.f;
+      zero(part);
       return;
     }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        prod[i][j] = __fadd_rn(prod[i][j], part[i][j]);
-        part[i][j] = 0.f;
-      }
+    fold_part(prod, part);
     if (t.k != P.n_k - 1) return;
     write_dests(t, prod, FIRST | LAST);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) prod[i][j] = 0.f;
+    zero(prod);
   };
 
   float* const sums = sum_base;     // [buffer][side][KC][LDS]
@@ -888,7 +979,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
       const bool last = sum_phase(summed, 0, lsum(buf), rsum(buf));
       __syncthreads();
       if (last) {
-        multiply(lsum(buf), rsum(buf));
+        multiply_chunk<TILE, KC>(part, lsum(buf), rsum(buf), tx, ty);
         finish_step(summed);
         buf ^= 1;
         advance(summed);
@@ -920,7 +1011,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
       // one's FMAs issue while the other waits on shared memory
       bool last = false;
       if (live && sum_first) last = sum_phase(summed, s % STAGES, lsum(buf), rsum(buf));
-      if (done_chunk) multiply(lsum(buf ^ 1), rsum(buf ^ 1));
+      if (done_chunk) multiply_chunk<TILE, KC>(part, lsum(buf ^ 1), rsum(buf ^ 1), tx, ty);
       if (live && !sum_first) last = sum_phase(summed, s % STAGES, lsum(buf), rsum(buf));
       if (done_chunk) finish_step(done);
       done_chunk = last;
@@ -942,11 +1033,8 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
 // own instantiation (PAIRS), so the one-position walk keeps none of its code.  The arithmetic
 // of an output element depends neither on the tile nor on the mode.
 //
-// A batched launch (batch > 1: the port of jax.vmap over the TPU kernel, whose grid gains a
-// leading batch axis) folds the slots into the same order, slot innermost: walk item g (a
-// position, or in pair mode a pair) is item g / batch of slot g % batch.  So every slot's heavy
-// cells come before any slot's light ones, and the quarter split counts waves over the whole
-// batch: the launch has one ragged last wave, not one a slot.
+// The slot of a block is g % batch of walk item g, batch being 1 here: batched launches take
+// the persistent leaf_products_batched_kernel below, whose list of items keeps this order.
 template <typename Tl, typename Tr, typename Acc, bool TRI, int TILE, int STAGES, bool PAIRS>
 __device__ __forceinline__ void run(const Ops& P, const CUtensorMap& lmap,
                                     const CUtensorMap& rmap, const CUtensorMap& mmap,
@@ -995,6 +1083,370 @@ __device__ __forceinline__ void run(const Ops& P, const CUtensorMap& lmap,
     }
   }
   walk<Tl, Tr, Acc, TRI, TILE, STAGES, PAIRS>(P, lmap, rmap, mmap, iq, jq, i0, j0, mode, z);
+}
+
+// ---------------------------------------------------------------------------------------------
+// The batched launch (batch > 1: the port of jax.vmap over the TPU kernel, whose grid gains a
+// leading batch axis), for the gram kinds that read one operand as a dense right side (ata,
+// aat; the strassen gram: no transposed destination, no seed) with an fp32 accumulator.  Its
+// callers launch stacks of a few slots (Shampoo's statistics: up to 44 slots of 1024^2, or
+// 1-4 of 256^2; the Gram service's buckets of 4).  What bounds it is the one-position walk's:
+// the products on the fp32 CUDA cores.  Its design:
+//   * persistent: a grid of at most blocks-an-SM x SMs blocks (strassen_fused.batched_plan)
+//     walks the launch's items, (slot, position) pairs at its tile, in the one-position
+//     walk's order with the slot innermost (item g is position g / batch of slot g % batch,
+//     every slot's heavy cells before any slot's light ones) and only those that write
+//     something.  Block b walks item b, then takes the next from a counter, so the heaviest
+//     item left goes to the first block free, as the hardware hands out the blocks of a
+//     launch of one block a position (a static stride leaves the blocks that drew light
+//     items idle at the end);
+//   * warp-specialized: one warp of a producer warpgroup issues every copy, into a ring whose
+//     slots the consumers hand back through an mbarrier each, and runs on across items, so
+//     the boxes of the next item are in flight while this item's last chunks are multiplied
+//     and its destinations written; the two consumer warpgroups are walk()'s 256 threads,
+//     freed of the copies (whose warp would otherwise hold the step's barrier for all) and of
+//     their registers (setmaxnreg gives them 232 at TILE 128);
+//   * TILE 128 takes one block an SM and steps 16 deep, TILE 64 (4 x 4 outputs a thread) two
+//     and steps 32 deep (batched_kc); the host picks the tile whose busiest block takes least
+//     (strassen_fused.batched_plan): 64 for stacks whose 128-tile items leave SMs idle.
+// An item walks its position exactly as walk() does in SINGLE mode with an fp32 accumulator,
+// so every output element takes the same operations in the same order: each slot's bits are
+// those of a launch on that slot alone, at either tile.
+// ---------------------------------------------------------------------------------------------
+
+// A block's place in its walk: its j-th item, item g of the launch, live op o of the item's
+// position, K block k, chunk c of the K block; light: the position lies above the diagonal of
+// a leaf block of a packed output (it skips the ops that feed only diagonal blocks).
+// g >= n_items: walked out.
+struct Cursor {
+  int j, g, o, k, c;
+  bool light;
+};
+
+// Where item g lies: slot z, output tile (iq, jq) of a leaf block, sub-tile (i0, j0).
+struct Item {
+  int z, iq, jq, i0, j0;
+};
+
+// Packed lower-triangular index t -> (i, j), i >= j, for the cells of a leaf block (t below
+// 2^24): an fp32 root estimate and its integer correction, cell_of's decode without the fp64
+// registers of tri_decode.
+__device__ __forceinline__ void cell_decode(int t, int& i, int& j) {
+  int r = static_cast<int>((sqrtf(8.f * static_cast<float>(t) + 1.f) - 1.f) * 0.5f);
+  while ((r + 1) * (r + 2) / 2 <= t) ++r;
+  while (r * (r + 1) / 2 > t) --r;
+  i = r;
+  j = t - r * (r + 1) / 2;
+}
+
+template <int TILE>
+__device__ __forceinline__ Item item_of(const Ops& P, int g) {
+  const int n_sub_i = (P.bi + TILE - 1) / TILE, n_sub_j = (P.bj + TILE - 1) / TILE;
+  Item w;
+  w.z = g % P.batch;
+  int pos = g / P.batch;
+  w.j0 = (pos % n_sub_j) * TILE;
+  pos /= n_sub_j;
+  w.i0 = (pos % n_sub_i) * TILE;
+  pos /= n_sub_i;
+  // the cell, in cell_of's order
+  const int heavy = P.q_i * (P.q_i + 1) / 2;
+  if (!P.out_tri) {
+    w.iq = pos / P.q_j;
+    w.jq = pos % P.q_j;
+  } else if (pos < heavy) {
+    cell_decode(pos, w.iq, w.jq);
+  } else {
+    int i, j;
+    cell_decode(pos - heavy, i, j);
+    w.iq = j;
+    w.jq = i + 1;
+  }
+  return w;
+}
+
+// Items a block holds ahead: its j-th item's successor is fetched when its copies enter item j.
+constexpr int QUEUE = 8;
+// The batched kernel's threads: a producer warpgroup, whose first warp issues the copies, and
+// two consumer warpgroups, the 256 threads of walk()'s sums and products; and the named
+// barrier the consumers alone meet at (0 is __syncthreads').
+constexpr int BATCHED_THREADS = 384;
+constexpr int CONSUMERS = 1;
+
+// Registers a thread of the producer warpgroup keeps after entry and a consumer takes: at one
+// block an SM (TILE 128) 168 at entry for 384 threads, 40 and 232 after; at two (TILE 64) 80,
+// then 24 and 104.
+template <int TILE>
+constexpr int PRODUCER_REGS = TILE == 64 ? 24 : 40;
+template <int TILE>
+constexpr int CONSUMER_REGS = TILE == 64 ? 104 : 232;
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(CONSUMERS), "r"(THREADS) : "memory");
+}
+
+template <typename Tl, typename Tr, int TILE, int STAGES>
+__device__ __forceinline__ void walk_items(const Ops& P, const CUtensorMap& lmap,
+                                           const CUtensorMap& rmap, int n_items, int* next) {
+  using G = Geometry<TILE>;
+  constexpr int R = G::R, XQ = G::XQ, CHUNK = G::BCHUNK, BKC = G::BKC;
+  // the producer runs at most STAGES steps ahead, and every item has a step
+  static_assert(STAGES < QUEUE, "the item queue outruns the ring");
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int queue[QUEUE];  // the block's items, the j-th at j % QUEUE
+  // a ring slot's barrier for the consumers' release: one arrival a consumer warp once its
+  // sum phase has read the slot
+  __shared__ uint64_t empty[STAGES];
+  const int tmax = P.tmax;      // a ring slot holds every term of a side
+  Tl* lring = reinterpret_cast<Tl*>(smem);
+  const size_t lring_bytes = static_cast<size_t>(STAGES) * tmax * CHUNK * sizeof(Tl);
+  Tr* rring = reinterpret_cast<Tr*>(smem + lring_bytes);
+  float* sum_base = reinterpret_cast<float*>(
+      smem + lring_bytes + static_cast<size_t>(STAGES) * tmax * CHUNK * sizeof(Tr));
+  StepTerms* terms = reinterpret_cast<StepTerms*>(sum_base + 2 * 2 * G::BSUM);  // [STAGES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(terms + STAGES);                 // [STAGES]
+
+  // the producer warpgroup's threads 0-127; a consumer's place (tid) among the 256 consumers
+  const bool producer = threadIdx.x < BATCHED_THREADS - THREADS;
+  const int tid = static_cast<int>(threadIdx.x) - (BATCHED_THREADS - THREADS);
+  const int tx = tid % 16, ty = tid / 16;
+  const int lane = threadIdx.x % 32, warp = tid / 32;
+  const int n_kc = (P.bc + BKC - 1) / BKC;
+
+  // A block walks item blockIdx.x, then the items it takes from the launch's counter in turn
+  // (every block walks one at a time, so the heaviest left goes to the first block free); the
+  // host counts only items that write something, so each has a live op.  Each block takes one
+  // item more than it walks, so the launch's takes are numbered 0 .. n_items - 1 from a counter
+  // the launch alone owns, 0 at its start.  A take past them finds a counter that was not 0: it
+  // traps rather than let a position go unwritten.
+  auto take = [&]() {
+    const int v = atomicAdd(next, 1);
+    if (v >= n_items) __trap();
+    return static_cast<int>(gridDim.x) + v;
+  };
+  auto live_op = [&](int o, bool light) {
+    while (o < P.n_ops && light && P.odiag[o]) ++o;
+    return o;
+  };
+  // Cursor t enters its j-th item, the item queued for it.
+  auto enter = [&](Cursor& t, int j) {
+    t.j = j;
+    t.g = queue[j % QUEUE];
+    if (t.g >= n_items) return;
+    const Item w = item_of<TILE>(P, t.g);
+    t.light = P.out_tri && w.iq < w.jq;
+    t.o = live_op(0, t.light);
+  };
+  auto advance = [&](Cursor& t) {
+    if (++t.c < n_kc) return;
+    t.c = 0;
+    if (++t.k < P.n_k) return;
+    t.k = 0;
+    t.o = live_op(t.o + 1, t.light);
+    if (t.o == P.n_ops) enter(t, t.j + 1);
+  };
+
+  // The producer's warp starts the copies of a step into ring slot `slot`, lane p the left
+  // term p and lane MAX_TERMS + p the right one, as walk() does for a dense right side; it
+  // queues the block's next item where its cursor enters one.  The copy state, in registers:
+  // the item's slot and its offsets along each side's tiles (decoded once an item), and each
+  // lane's term (its coefficient and its tile's offsets along x and y, read once an op).
+  const bool right_side = lane >= MAX_TERMS;
+  const int p = lane % MAX_TERMS;
+  int at_j = -1, at_z = 0, at_l = 0, at_r = 0;
+  int term_op = -1, term_x = 0, term_y = 0;
+  float coef = 0.f;
+  const int l_pitch = sizeof(Tl) == 1 ? P.l_pitch : P.left_trans ? P.bi : P.bc;
+  const int r_pitch = sizeof(Tr) == 1 ? P.r_pitch : P.right_jk ? P.bc : P.bj;
+  auto start_copies = [&](const Cursor& t, int slot) {
+    if (t.j != at_j) {
+      if (lane == 0) queue[(t.j + 1) % QUEUE] = take();
+      __syncwarp();
+      const Item w = item_of<TILE>(P, t.g);
+      at_j = t.j;
+      at_z = w.z;
+      // the item's offset along a K x i side's columns (i x K: rows), and a K x j side's
+      // columns (j x K: rows)
+      at_l = w.iq * (P.left_trans ? l_pitch : P.bi) + w.i0;
+      at_r = w.jq * (P.right_jk ? P.bj : r_pitch) + w.j0;
+    }
+    if (t.o != term_op) {
+      term_op = t.o;
+      const int idx = t.o * tmax + p;
+      coef = lane < 2 * MAX_TERMS && p < tmax ? (right_side ? P.rsgn : P.lsgn)[idx] : 0.f;
+      if (coef != 0.f) {
+        const int row = (right_side ? P.rrow : P.lrow)[idx];
+        const int col = (right_side ? P.rcol : P.lcol)[idx];
+        // the term's tile: K x i rows (row n_k + k) bc.., cols (col q_i + iq) pitch + i0..;
+        // i x K rows (row q_i + iq) bi + i0.., cols (col n_k + k) pitch..; the right side
+        // likewise with q_j, bj
+        const bool kx = right_side ? !P.right_jk : P.left_trans;
+        const int q = right_side ? P.q_j : P.q_i, edge = right_side ? P.bj : P.bi;
+        const int pitch = right_side ? r_pitch : l_pitch;
+        term_x = kx ? col * q * pitch : col * P.n_k * pitch;
+        term_y = kx ? row * P.n_k * P.bc : row * q * edge;
+      }
+    }
+    const int kc = t.c * BKC;
+    // a side's live terms come first, so its count is its lanes with a coefficient
+    const unsigned live = __ballot_sync(0xffffffffu, coef != 0.f);
+    const unsigned bytes =
+        coef == 0.f ? 0u : CHUNK * static_cast<unsigned>(right_side ? sizeof(Tr) : sizeof(Tl));
+    const unsigned total = __reduce_add_sync(0xffffffffu, bytes);
+    StepTerms& st = terms[slot];
+    if (lane == 0) {
+      st.n_l = __popc(live & ((1u << MAX_TERMS) - 1));
+      st.n_r = __popc(live >> MAX_TERMS);
+    }
+    if (coef != 0.f) (right_side ? st.rc : st.lc)[p] = coef;
+    __syncwarp();
+    if (lane == 0) mbar_expect(&full[slot], total);
+    __syncwarp();
+    if (coef == 0.f) return;
+    const bool kx = right_side ? !P.right_jk : P.left_trans;
+    const int off = right_side ? at_r : at_l;
+    const int x = kx ? term_x + off : term_x + t.k * (right_side ? r_pitch : l_pitch) + kc;
+    const int y = kx ? term_y + t.k * P.bc + kc : term_y + off;
+    if (right_side)
+      tma_load(rring + (static_cast<size_t>(slot) * tmax + p) * CHUNK, &rmap, x, y, at_z,
+               &full[slot]);
+    else
+      tma_load(lring + (static_cast<size_t>(slot) * tmax + p) * CHUNK, &lmap, x, y, at_z,
+               &full[slot]);
+  };
+
+  // walk()'s sum phase, dense sides, over BKC-deep chunks (at BKC 16 each thread sums walk()'s
+  // elements).
+  int kk_of[BKC / 8];
+  sum_rows<BKC>(kk_of, warp, lane);
+  auto sum_phase = [&](const Cursor& t, int slot, float* lsum, float* rsum) {
+    const StepTerms& st = terms[slot];
+    float l[BKC / 8][XQ], r[BKC / 8][XQ];
+#pragma unroll
+    for (int h = 0; h < BKC / 8; ++h)
+#pragma unroll
+      for (int q = 0; q < XQ; ++q) l[h][q] = r[h][q] = 0.f;
+    sum_terms<TILE, BKC>(l, lring + static_cast<size_t>(slot) * tmax * CHUNK, st.lc, st.n_l,
+                         P.left_trans, kk_of, lane);
+    sum_terms<TILE, BKC>(r, rring + static_cast<size_t>(slot) * tmax * CHUNK, st.rc, st.n_r,
+                         !P.right_jk, kk_of, lane);
+    store_sums<TILE, BKC>(l, r, lsum, rsum, kk_of, lane, P.bc - t.c * BKC);
+  };
+
+  // This thread's outputs: rows 64 a + 4 ty + i, columns 64 b + 4 tx + j of the sub-tile.
+  float part[R][R], prod[R][R];
+  zero(part);
+  zero(prod);
+
+  const long long ldo = P.out_tri ? P.bj : static_cast<long long>(P.blocks_j) * P.q_j * P.bj;
+  // After the last chunk of op o at item g: sign * product into each destination of the op,
+  // as walk() writes a SINGLE position.
+  auto write_dests = [&](int g, int o) {
+    const Item w = item_of<TILE>(P, g);
+    const long long so = static_cast<long long>(w.z) * P.slot_elems;
+    for (int d = 0; d < P.max_dests; ++d) {
+      const int at_d = o * P.max_dests + d;
+      const float sg = P.dsgn[at_d];
+      if (sg == 0.f) break;  // an op's destinations come first
+      const int flags = P.dflag[at_d];
+      long long row0, col0;
+      if (!dest_origin(P, P.dest[at_d], w.iq, w.jq, w.i0, w.j0, row0, col0)) continue;
+      write_straight(P, prod, sg, row0, col0, ldo, w.i0, w.j0, tx, ty,
+                     [&](long long at, float (&v)[4]) { put4_f32(P, so + at, v, flags); });
+    }
+  };
+  // After a chunk that ends a K block (end 1) the K block's part goes into the op's product,
+  // and where it also ends op o of item g (end 2) sign * product into its destinations.
+  auto finish_step = [&](int end, int g, int o) {
+    if (end == 0) return;
+    fold_part(prod, part);
+    if (end == 1) return;
+    write_dests(g, o);
+    zero(prod);
+  };
+
+  float* const sums = sum_base;  // [buffer][side][BKC][LDS]
+  auto lsum = [&](int b) { return sums + b * 2 * G::BSUM; };
+  auto rsum = [&](int b) { return sums + b * 2 * G::BSUM + G::BSUM; };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i]);
+      mbar_init(&empty[i], THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    queue[0] = blockIdx.x;
+  }
+  __syncthreads();
+  Cursor first{0, 0, 0, 0, 0, false};
+  enter(first, 0);
+
+  // The producer: step s, the s-th chunk of the block's walk over its items, goes to ring slot
+  // s % STAGES once the consumers have summed step s - STAGES from it.  The terms it leaves
+  // with the slot, and the items it queues, reach the consumers through the slot's barrier.
+  // It keeps a few registers; the consumers take the rest.
+  if (producer) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS<TILE>));
+    if (threadIdx.x >= 32) return;
+    Cursor copy = first;
+    for (int s = 0; copy.g < n_items; ++s) {
+      mbar_wait(&empty[s % STAGES], ((s / STAGES) & 1) ^ 1);
+      start_copies(copy, s % STAGES);
+      advance(copy);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS<TILE>));
+
+  // The consumers: iteration s waits for step s, sums it into buffer buf (then releases its
+  // slot) and multiplies the chunk summed in the iteration before from buf ^ 1, between one
+  // pair of their barriers, as walk() does; warps 0-3 sum first, 4-7 multiply first.  A
+  // cursor reads the item queued for its next one where it leaves an item: queued when the
+  // copies entered the item it leaves.  What a summed chunk ends: 0 nothing, 1 its K block, 2
+  // its K block and its op.
+  auto ends = [&](const Cursor& t) { return t.c != n_kc - 1 ? 0 : t.k != P.n_k - 1 ? 1 : 2; };
+  auto release = [&](int slot) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  };
+  const bool sum_first = warp < 4;
+  Cursor summed = first;
+  int buf = 0;
+  // the chunk summed in the iteration before, in buffer buf ^ 1: what it ends (-1: none), its
+  // item and op
+  int done_end = -1, done_g = 0, done_o = 0;
+  for (int s = 0; summed.g < n_items || done_end >= 0; ++s) {
+    const bool live = summed.g < n_items;
+    if (live) mbar_wait(&full[s % STAGES], (s / STAGES) & 1);
+    consumers_sync();
+    if (live && sum_first) {
+      sum_phase(summed, s % STAGES, lsum(buf), rsum(buf));
+      release(s % STAGES);
+    }
+    if (done_end >= 0) multiply_chunk<TILE, BKC>(part, lsum(buf ^ 1), rsum(buf ^ 1), tx, ty);
+    if (live && !sum_first) {
+      sum_phase(summed, s % STAGES, lsum(buf), rsum(buf));
+      release(s % STAGES);
+    }
+    if (done_end >= 0) finish_step(done_end, done_g, done_o);
+    done_end = -1;
+    if (live) {
+      done_end = ends(summed);
+      done_g = summed.g;
+      done_o = summed.o;
+      buf ^= 1;
+      advance(summed);
+    }
+  }
+}
+
+// The batched launch's kernel: TILE 64 at two blocks an SM (4 x 4 outputs a thread and their
+// product, 32 accumulators), TILE 128 at one.
+template <typename Tl, typename Tr, int TILE, int STAGES>
+__global__ void __launch_bounds__(BATCHED_THREADS, TILE == 64 ? 2 : 1)
+    leaf_products_batched_kernel(const Ops P, const __grid_constant__ CUtensorMap lmap,
+                                 const __grid_constant__ CUtensorMap rmap, int n_items,
+                                 int* next) {
+  walk_items<Tl, Tr, TILE, STAGES>(P, lmap, rmap, n_items, next);
 }
 
 // The kernel with an fp32 accumulator.
@@ -1078,8 +1530,32 @@ KernelFn by_layout(bool tri, bool pair, int tile, int stages) {
   return nullptr;
 }
 
+// The batched launch's kernel (leaf_products_batched_kernel) for operand tiles of type `dtype`
+// on both sides, or null where the library has no such instantiation; each library defines it.
+using BatchedFn = void (*)(const Ops, const CUtensorMap, const CUtensorMap, int, int*);
+BatchedFn select_batched(int dtype, int tile, int stages);
+
+template <typename T, int TILE>
+BatchedFn batched_by_stages(int stages) {
+  switch (stages) {
+    case 1: return leaf_products_batched_kernel<T, T, TILE, 1>;
+    case 2: return leaf_products_batched_kernel<T, T, TILE, 2>;
+    case 3: return leaf_products_batched_kernel<T, T, TILE, 3>;
+    case 4: return leaf_products_batched_kernel<T, T, TILE, 4>;
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+BatchedFn batched_of(int tile, int stages) {
+  if (tile == 64) return batched_by_stages<T, 64>(stages);
+  if (tile == 128) return batched_by_stages<T, 128>(stages);
+  return nullptr;
+}
+
 // The kernel for a launch, its dynamic shared memory raised to what it needs.
-cudaError_t prepare(KernelFn kernel, size_t smem) {
+template <typename Fn>
+cudaError_t prepare(Fn kernel, size_t smem) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
@@ -1168,8 +1644,7 @@ int leaf_products_blocks_per_sm(int l_dtype, int r_dtype, int acc, int right_tri
 }
 
 // The positions a launch of n_pos positions walks whole (whole_positions); the other n_pos
-// minus that many are walked in quarters, four blocks each.  A batched launch's n_pos counts
-// the positions of all its slots.
+// minus that many are walked in quarters, four blocks each.
 long long leaf_products_whole_positions(int l_dtype, int r_dtype, int acc, int right_tri,
                                         int tmax, int tile, int stages, long long n_pos) {
   if (!operand_code(l_dtype) || !operand_code(r_dtype)) return -1;
@@ -1200,10 +1675,7 @@ const char* leaf_products_error_string(int err) {
 // that every box starts on 16 bytes; read for fp8 sides only.
 // tile: 64 or 128, a block's sub-tile edge.  stages: the requested ring depth
 // (leaf_products_ring_depth says which runs).  The operands' row strides and bases are 16-byte
-// aligned, their extents below 2^31.
-// batch: the slots of a batched launch (1 for one program run): `left`, `right`, `seed`, `ws`
-// and `out` then each hold `batch` of their kind one after the other, out_slot elements apart
-// for the last three, and every slot runs the same bound program on its own operands.
+// aligned, their extents below 2^31.  A batched launch is leaf_products_batched_launch.
 int leaf_products_launch(const void* left, const void* right, const void* seed, void* ws,
                          void* out, const void* lrow, const void* lcol, const void* lsgn,
                          const void* rrow, const void* rcol, const void* rsgn, const void* rtrn,
@@ -1213,8 +1685,7 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
                          int n_k, int q_i, int q_j, int blocks_j, int bi, int bj, int bc,
                          int left_trans, int right_layout, int diag_sym, int out_tri, int pair,
                          int l_dtype, int r_dtype, int seed_dtype, int out_dtype, int acc,
-                         int l_pitch, int r_pitch, int tile, int stages, int batch,
-                         long long out_slot, void* stream) {
+                         int l_pitch, int r_pitch, int tile, int stages, void* stream) {
   if (n_ops < 1 || tmax < 1 || tmax > MAX_TERMS || max_dests < 1 || n_k < 1 || q_i < 1 ||
       q_j < 1 || blocks_j < 1 || bi < 8 || bj < 8 || bc < 8 || right_layout < RIGHT_KJ ||
       right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
@@ -1227,7 +1698,7 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
       (elem_bytes(r_dtype) == 1 && right_layout != RIGHT_TRI &&
        (r_pitch % 16 || r_pitch < (right_layout == RIGHT_JK ? bc : bj))) ||
       l_rows >= (1LL << 31) || l_cols >= (1LL << 31) || r_rows >= (1LL << 31) ||
-      r_cols >= (1LL << 31) || batch < 1 || out_slot < 1)
+      r_cols >= (1LL << 31))
     return cudaErrorInvalidValue;
   const bool tri = right_layout == RIGHT_TRI;
   const KernelFn kernel = select(l_dtype, r_dtype, acc, tri, pair != 0, tile, stages);
@@ -1242,11 +1713,11 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
   for (int half = 0; half < 2; ++half) {
     const int w = tile >> half;
     CUtensorMap* m = maps[half];
-    if (!make_map(&m[0], left, l_dtype, l_rows, l_cols, l_cols, batch, left_trans ? KC : w,
+    if (!make_map(&m[0], left, l_dtype, l_rows, l_cols, l_cols, 1, left_trans ? KC : w,
                   left_trans ? w : KC) ||
-        !make_map(&m[1], right, r_dtype, r_rows, r_cols, r_cols, batch, r_kx ? KC : w,
+        !make_map(&m[1], right, r_dtype, r_rows, r_cols, r_cols, 1, r_kx ? KC : w,
                   r_kx ? w : KC) ||
-        (tri && !make_map(&m[2], right, r_dtype, r_rows, r_cols, r_cols, batch, w, KC)))
+        (tri && !make_map(&m[2], right, r_dtype, r_rows, r_cols, r_cols, 1, w, KC)))
       return cudaErrorInvalidValue;
     if (!tri) m[2] = m[1];  // unread
   }
@@ -1259,19 +1730,103 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
         static_cast<const int*>(dtrn), static_cast<const int*>(odiag),
         n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
         left_trans, right_layout == RIGHT_JK, diag_sym, out_tri != 0, slot_terms(tmax, pair),
-        seed_dtype, ws != out, 0, out_dtype, l_pitch, r_pitch, batch, out_slot};
-  // the positions of every slot: the quarter split counts waves over the whole launch
+        seed_dtype, ws != out, 0, out_dtype, l_pitch, r_pitch, 1, 0};
   const long long n_pos = static_cast<long long>(q_i) * q_j * ((bi + tile - 1) / tile) *
-                          ((bj + tile - 1) / tile) * batch;
-  // pair mode: one block a mirror pair of sub-tiles and one a sub-tile on the diagonal, a slot
+                          ((bj + tile - 1) / tile);
+  // pair mode: one block a mirror pair of sub-tiles and one a sub-tile on the diagonal
   const long long side = static_cast<long long>(q_i) * ((bi + tile - 1) / tile);
   const long long n_big =
-      pair ? side * (side + 1) / 2 * batch : whole_positions(kernel, smem, tile, n_pos);
+      pair ? side * (side + 1) / 2 : whole_positions(kernel, smem, tile, n_pos);
   const long long blocks = pair ? n_big : n_big + 4 * (n_pos - n_big);
   if (n_big < 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   P.n_big = static_cast<int>(n_big);
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       P, maps[0][0], maps[0][1], maps[0][2], maps[1][0], maps[1][1], maps[1][2]);
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory of one batched launch (leaf_products_batched_kernel).
+size_t leaf_products_batched_smem_bytes(int dtype, int tmax, int tile, int stages) {
+  return batched_smem_bytes(tmax, tile, elem_bytes(dtype), ring_depth(stages));
+}
+
+// Thread blocks of the batched launch (leaf_products_batched_kernel) an SM holds at once, or -1
+// for arguments no kernel of this library takes.
+int leaf_products_batched_blocks_per_sm(int dtype, int tmax, int tile, int stages) {
+  if (!operand_code(dtype) || tmax < 1 || tmax > MAX_TERMS) return -1;
+  const BatchedFn kernel = select_batched(dtype, tile, stages);
+  const size_t smem = batched_smem_bytes(tmax, tile, elem_bytes(dtype), ring_depth(stages));
+  if (prepare(kernel, smem) != cudaSuccess) return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, BATCHED_THREADS, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// One batched launch of a gram kind that reads one operand as a dense right side (ata: left
+// K x i, right K x j; aat: left i x K, right j x K) with an fp32 accumulator: `batch` slots,
+// each running the bound program on its own operand, a persistent grid of `grid` blocks over
+// the first `items` (slot, position) pairs at `tile`, those that write something
+// (strassen_fused.batched_plan).  `next` is an int on the device, 0 before the launch and
+// after it, the counter the blocks take items from: one for each stream.  The other arguments are
+// leaf_products_launch's for such a program: the same operands (one type, `dtype`), tables
+// and geometry, no seed; ws, out and each operand hold `batch` of their kind one after the
+// other, out_slot elements apart for the first two.
+int leaf_products_batched_launch(const void* left, const void* right, void* ws, void* out,
+                                 const void* lrow, const void* lcol, const void* lsgn,
+                                 const void* rrow, const void* rcol, const void* rsgn,
+                                 const void* rtrn, const void* dest, const void* dsgn,
+                                 const void* dflag, const void* dtrn, const void* odiag,
+                                 long long l_rows, long long l_cols, long long r_rows,
+                                 long long r_cols, int n_ops, int tmax, int max_dests, int n_k,
+                                 int q_i, int q_j, int blocks_j, int bi, int bj, int bc,
+                                 int left_trans, int right_jk, int out_tri, int dtype,
+                                 int out_dtype, int l_pitch, int r_pitch, int tile, int stages,
+                                 int batch, long long out_slot, long long items, int grid,
+                                 void* next, void* stream) {
+  const long long n_items = static_cast<long long>(q_i) * q_j * ((bi + tile - 1) / tile) *
+                            ((bj + tile - 1) / tile) * batch;
+  if (n_ops < 1 || tmax < 1 || tmax > MAX_TERMS || max_dests < 1 || n_k < 1 || q_i < 1 ||
+      q_j < 1 || blocks_j < 1 || bi < 8 || bj < 8 || bc < 8 || (tile != 64 && tile != 128) ||
+      !operand_code(dtype) || !value_code(out_dtype) || (ws == out && out_dtype != F32) ||
+      odiag == nullptr || (out_tri && (q_i != q_j || bi != bj)) ||
+      (elem_bytes(dtype) == 1 && (l_pitch % 16 || l_pitch < (left_trans ? bi : bc) ||
+                                  r_pitch % 16 || r_pitch < (right_jk ? bc : bj))) ||
+      l_rows >= (1LL << 31) || l_cols >= (1LL << 31) || r_rows >= (1LL << 31) ||
+      r_cols >= (1LL << 31) || batch < 1 || out_slot < 1 || items > n_items || items < 1 ||
+      n_items >= (1LL << 31) || grid < 1 || grid > items || next == nullptr)
+    return cudaErrorInvalidValue;
+  const BatchedFn kernel = select_batched(dtype, tile, stages);
+  const size_t smem = batched_smem_bytes(tmax, tile, elem_bytes(dtype), ring_depth(stages));
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // Boxes as each side lies: batched_kc(tile) deep along K, TILE wide along i or j.  Both sides
+  // of ata (and of aat) are one tensor read in one box shape: one map serves both.
+  CUtensorMap lmap, rmap;
+  const int depth = batched_kc(tile);
+  const int l_box_rows = left_trans ? depth : tile, l_box_cols = left_trans ? tile : depth;
+  const int r_box_rows = right_jk ? tile : depth, r_box_cols = right_jk ? depth : tile;
+  if (!make_map(&lmap, left, dtype, l_rows, l_cols, l_cols, batch, l_box_rows, l_box_cols))
+    return cudaErrorInvalidValue;
+  if (left == right && l_rows == r_rows && l_cols == r_cols && l_box_rows == r_box_rows &&
+      l_box_cols == r_box_cols)
+    rmap = lmap;
+  else if (!make_map(&rmap, right, dtype, r_rows, r_cols, r_cols, batch, r_box_rows,
+                     r_box_cols))
+    return cudaErrorInvalidValue;
+  const Ops P{ws, out, nullptr,
+              static_cast<const int*>(lrow), static_cast<const int*>(lcol),
+              static_cast<const float*>(lsgn), static_cast<const int*>(rrow),
+              static_cast<const int*>(rcol), static_cast<const float*>(rsgn),
+              static_cast<const int*>(rtrn), static_cast<const int*>(dest),
+              static_cast<const float*>(dsgn), static_cast<const int*>(dflag),
+              static_cast<const int*>(dtrn), static_cast<const int*>(odiag),
+              n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
+              left_trans, right_jk, 0, out_tri != 0, tmax, F32, ws != out, 0, out_dtype,
+              l_pitch, r_pitch, batch, out_slot};
+  kernel<<<static_cast<unsigned>(grid), BATCHED_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      P, lmap, rmap, static_cast<int>(items), static_cast<int*>(next));
   return cudaGetLastError();
 }
 

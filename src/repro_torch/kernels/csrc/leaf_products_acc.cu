@@ -34,6 +34,9 @@ KernelFn select(int l_dtype, int r_dtype, int acc, bool tri, bool pair, int tile
   return nullptr;
 }
 
+// The batched launch runs an fp32 accumulator only.
+BatchedFn select_batched(int, int, int) { return nullptr; }
+
 int ring_depth(int) { return STAGES; }
 
 }  // namespace

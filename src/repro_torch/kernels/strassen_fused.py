@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
 import warnings
 from dataclasses import dataclass
@@ -973,9 +974,16 @@ def _products_lib(name: str = "leaf_products") -> ctypes.CDLL:
     built at first use; all three share the C interface."""
     lib = _build.library(name)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 25 \
-        + [i64, ptr]
+    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 24 \
+        + [ptr]
     lib.leaf_products_launch.restype = i32
+    lib.leaf_products_batched_launch.argtypes = [ptr] * 16 + [i64] * 4 \
+        + [i32] * 20 + [i64, i64, i32, ptr, ptr]
+    lib.leaf_products_batched_launch.restype = i32
+    lib.leaf_products_batched_blocks_per_sm.argtypes = [i32] * 4
+    lib.leaf_products_batched_blocks_per_sm.restype = i32
+    lib.leaf_products_batched_smem_bytes.argtypes = [i32] * 4
+    lib.leaf_products_batched_smem_bytes.restype = ctypes.c_size_t
     lib.leaf_products_smem_bytes.argtypes = [i32] * 7
     lib.leaf_products_smem_bytes.restype = ctypes.c_size_t
     lib.leaf_products_blocks_per_sm.argtypes = [i32] * 8
@@ -1059,11 +1067,155 @@ def _pairs(spec: _Spec) -> bool:
     return bool(_spec_op_tables(spec)[10].any())
 
 
+def _positions(spec: _Spec, tile: int, batch: int = 1) -> int:
+    """Output positions of a launch at block tile ``tile``: a tile x tile
+    sub-tile of an output tile of a leaf block, of every slot."""
+    return spec.q_i * spec.q_j * -(-spec.bi // tile) * -(-spec.bj // tile) \
+        * batch
+
+
+def _live_positions(spec: _Spec, tile: int, batch: int = 1) -> int:
+    """The positions of a launch that write something, the first ones in
+    the kernel's order: all of them, unless every op feeds only diagonal
+    leaf blocks of a packed output (a program of levels 0), whose
+    positions above a leaf block's diagonal come last and write
+    nothing."""
+    if spec.out_tri and _spec_op_tables(spec)[-1].all():
+        q = spec.q_i
+        return q * (q + 1) // 2 * -(-spec.bi // tile) * -(-spec.bj // tile) \
+            * batch
+    return _positions(spec, tile, batch)
+
+
+# The batched kernel's chunk depth at each tile (csrc ``batched_kc``), and
+# the time of one block's step there relative to a tile-128 step:
+# chip_smoke.py phase 4m's times at both tiles over their makespans, 1.03-
+# 1.11 on an H100 (PERF.md)
+BATCHED_KC = {128: 16, 64: 32}
+BATCHED_STEP_COST = {128: 1.0, 64: 1.08}
+
+
+def _batched_makespan(spec: _Spec, batch: int, tile: int,
+                      blocks: int) -> int:
+    """Steps (chunks) of the busiest of ``blocks`` blocks that take a
+    launch's items at ``tile`` heaviest first, each block free the next
+    item: the heavy items (every op) first, then the light ones (above a
+    leaf block's diagonal: the ops that feed more than diagonal blocks)."""
+    odiag = _spec_op_tables(spec)[-1]
+    per_op = spec.n_k * -(-spec.bc // BATCHED_KC[tile])
+    heavy, light = len(odiag) * per_op, int((odiag == 0).sum()) * per_op
+    subs = -(-spec.bi // tile) * -(-spec.bj // tile) * batch
+    q = spec.q_i
+    n_heavy = q * (q + 1) // 2 * subs if spec.out_tri else _positions(
+        spec, tile, batch)
+    n_light = q * (q - 1) // 2 * subs if spec.out_tri and light else 0
+    loads = [heavy * (n_heavy // blocks + (b < n_heavy % blocks))
+             for b in range(blocks)]
+    heapq.heapify(loads)
+    for _ in range(n_light):
+        heapq.heapreplace(loads, loads[0] + light)
+    return max(loads)
+
+
+def batched_plan(spec: _Spec, batch: int, sms: int, blocks_per_sm,
+                 tile: int | None = None) -> dict:
+    """The persistent batched launch of ``spec`` over ``batch`` slots on a
+    card of ``sms`` SMs (``leaf_products_batched_kernel``): its block
+    tile, its items (the (slot, position) pairs at that tile that write
+    something, in the order :func:`batched_item` gives) and its grid.
+    Block b walks item b, then takes the next item not yet taken, so the
+    heaviest left goes to the first block free.  ``blocks_per_sm`` maps
+    each tile to the blocks of the batched kernel an SM holds at once (0
+    where it does not fit).  The tile is the one whose busiest block
+    (:func:`_batched_makespan`) takes the least time at
+    ``BATCHED_STEP_COST``, 128 only where it divides the output tiles;
+    ``tile`` forces one (neither changes a bit).  The grid is one wave of
+    blocks, or one block an item where there are fewer items.  A
+    position's K range is never split."""
+    def grid(t):
+        return min(_live_positions(spec, t, batch),
+                   sms * blocks_per_sm.get(t, 0))
+
+    if tile is None:
+        fits = [t for t in PRODUCT_TILES if blocks_per_sm.get(t, 0) > 0
+                and spec.bi % t == 0 and spec.bj % t == 0] or [64]
+        tile = min(fits, key=lambda t: BATCHED_STEP_COST[t]
+                   * _batched_makespan(spec, batch, t, max(grid(t), 1)))
+    elif tile not in PRODUCT_TILES:
+        raise ValueError(f"tile must be one of {PRODUCT_TILES}, got {tile}")
+    per_sm = blocks_per_sm.get(tile, 0)
+    if per_sm < 1:
+        raise ValueError(f"the batched kernel does not fit an SM at tile "
+                         f"{tile} (pipeline_depth={spec.pipeline_depth}, "
+                         f"{spec.tmax} operand terms)")
+    return {"tile": tile, "items": _live_positions(spec, tile, batch),
+            "grid": grid(tile), "blocks_per_sm": per_sm, "sms": sms}
+
+
+def _cell(spec: _Spec, c: int) -> tuple:
+    """Output tile (iq, jq) of a leaf block at cell ``c``, in the kernel's
+    order (``cell_of``): row-major, or for a packed output the q(q + 1)/2
+    cells with iq >= jq in packed order, then the others, (j, i + 1) for
+    the packed (i, j) of q - 1 rows."""
+    if not spec.out_tri:
+        return divmod(c, spec.q_j)
+    heavy = spec.q_i * (spec.q_i + 1) // 2
+    t = c if c < heavy else c - heavy
+    i = (math.isqrt(8 * t + 1) - 1) // 2
+    j = t - i * (i + 1) // 2
+    return (i, j) if c < heavy else (j, i + 1)
+
+
+def batched_item(spec: _Spec, batch: int, tile: int, g: int) -> tuple:
+    """Item ``g`` of a batched launch at ``tile``, as the kernel's
+    ``item_of`` decodes it: ``(slot, iq, jq, i0, j0)``, output tile (iq,
+    jq) of a leaf block and its sub-tile at (i0, j0).  The slot is the
+    innermost index, then the sub-tile, then the cell, so every slot's
+    heavy cells come first."""
+    n_sub_i, n_sub_j = -(-spec.bi // tile), -(-spec.bj // tile)
+    z, pos = g % batch, g // batch
+    j0 = pos % n_sub_j * tile
+    pos //= n_sub_j
+    i0 = pos % n_sub_i * tile
+    iq, jq = _cell(spec, pos // n_sub_i)
+    return z, iq, jq, i0, j0
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_blocks_per_sm(name: str, dtype, tmax: int, depth: int,
+                           device: str) -> dict:
+    """The batched kernel's occupancy on ``device`` by tile (0 where a
+    tile does not fit), asked of the library once a configuration."""
+    lib = _products_lib(name)
+    with torch.cuda.device(torch.device(device)):
+        return {tile: max(0, lib.leaf_products_batched_blocks_per_sm(
+            LEAF_DTYPE_CODES[dtype], tmax, tile, depth))
+            for tile in PRODUCT_TILES}
+
+
+@functools.lru_cache(maxsize=256)
+def _batched_launch_plan(spec: _Spec, dtype, right_dtype, batch: int, device,
+                         tile: int | None = None) -> dict:
+    """:func:`batched_plan` on ``device`` for the sides of ``spec`` stored
+    as ``dtype`` and ``right_dtype`` (raising for what the batched kernel
+    does not run), once a configuration: a launch takes it from the
+    cache."""
+    _check_batched(spec, dtype, right_dtype)
+    name = _products_library(spec.acc_dtype, dtype)
+    per_sm = _batched_blocks_per_sm(name, dtype, spec.tmax,
+                                    spec.pipeline_depth, str(device))
+    return batched_plan(spec, batch, _sms(device), per_sm, tile)
+
+
 def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
-                          tile: int | None = None, batch: int = 1) -> dict:
+                          tile: int | None = None,
+                          batch: int | None = None) -> dict:
     """How a ``leaf_products`` launch of ``spec`` on operands of these
-    types fills the current card (``batch`` slots of it: a batched
-    launch): the library that runs it, the types it
+    types fills the current card: the library that runs it, the types it
     stores them as, its ring depth, its block tile, output positions (a
     tile x tile sub-tile each, of every slot),
     the positions walked whole (the rest, the ragged last wave's, are
@@ -1071,28 +1223,44 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
     blocks (in pair mode one a mirror pair of positions and one a
     position that is its own mirror), blocks an SM holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared memory
-    a block."""
+    a block.  ``batch``: a batched launch of that many slots, the
+    persistent kernel's :func:`batched_plan` (``positions`` its items, the
+    positions that write something, all walked whole; ``blocks`` its grid;
+    the plan itself under ``"plan"``)."""
     lt, rt = _kernel_types(left_dtype, right_dtype, spec.acc_dtype)
     lb, rb = (torch.empty((), dtype=d).element_size() for d in (lt, rt))
-    tile = _products_tile(spec, lb, rb) if tile is None else tile
-    positions = spec.q_i * spec.q_j * -(-spec.bi // tile) \
-        * -(-spec.bj // tile) * batch
     name = _products_library(spec.acc_dtype, lt)
     lib = _products_lib(name)
+    depth = lib.leaf_products_ring_depth(spec.pipeline_depth)
+    if batch is not None:
+        plan = _batched_launch_plan(
+            spec, lt, rt, batch,
+            torch.device("cuda", torch.cuda.current_device()), tile)
+        return {"library": name, "types": (str(lt), str(rt)),
+                "ring_depth": depth, "tile": plan["tile"], "pair": False,
+                "positions": plan["items"],
+                "whole_positions": plan["items"], "blocks": plan["grid"],
+                "blocks_per_sm": plan["blocks_per_sm"],
+                "smem_bytes": lib.leaf_products_batched_smem_bytes(
+                    LEAF_DTYPE_CODES[lt], spec.tmax, plan["tile"],
+                    spec.pipeline_depth),
+                "plan": plan}
+    tile = _products_tile(spec, lb, rb) if tile is None else tile
+    positions = _positions(spec, tile)
     codes = (LEAF_DTYPE_CODES[lt], LEAF_DTYPE_CODES[rt],
              ACC_CODES[spec.acc_dtype], int(spec.right_tri), spec.tmax, tile,
              spec.pipeline_depth)
     pair = _pairs(spec)
     if pair:            # square: Q sub-tiles along a leaf block's edge
         side = spec.q_i * -(-spec.bi // tile)
-        whole, blocks = positions, side * (side + 1) // 2 * batch
+        whole, blocks = positions, side * (side + 1) // 2
     else:
         whole = lib.leaf_products_whole_positions(*codes, positions)
         blocks = whole + 4 * (positions - whole)
     return {"library": name, "types": (str(lt), str(rt)),
-            "ring_depth": lib.leaf_products_ring_depth(spec.pipeline_depth),
-            "tile": tile, "pair": pair, "positions": positions,
-            "whole_positions": whole, "blocks": blocks,
+            "ring_depth": depth, "tile": tile, "pair": pair,
+            "positions": positions, "whole_positions": whole,
+            "blocks": blocks,
             "blocks_per_sm": lib.leaf_products_blocks_per_sm(*codes,
                                                              int(pair)),
             "smem_bytes": _products_smem(spec, tile, lb, rb)}
@@ -1218,6 +1386,20 @@ def _tma_layout(x: torch.Tensor, edge: int | None):
     return raw.view(x.dtype).reshape(*lead, -1), pitch
 
 
+def _check_batched(spec: _Spec, left_dtype, right_dtype) -> None:
+    """What the batched kernel runs: the ata and aat kinds (one operand, a
+    dense right side, no seed) of a program with no transposed
+    destination, an fp32 accumulator, both sides stored in one type."""
+    if spec.kind not in ("ata", "aat") or _pairs(spec) \
+            or spec.acc_dtype != "float32" or left_dtype != right_dtype:
+        raise ValueError(
+            f"the batched launch runs the ata and aat kinds of a program "
+            f"with no transposed destination and an fp32 accumulator on "
+            f"one operand, got the {spec.kind} kind of the {spec.gram} "
+            f"gram, a {spec.acc_dtype} accumulator, {left_dtype} and "
+            f"{right_dtype} sides")
+
+
 def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                  out_dtype, seed: torch.Tensor | None = None,
                  out: torch.Tensor | None = None,
@@ -1233,12 +1415,17 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     output element is read before it is written).
 
     A batched launch (the port of ``jax.vmap`` over the TPU kernel): each
-    operand, the seed and ``out`` carry a leading slot axis ``K``, and one
-    launch runs the program on every slot (the result ``(K, ...)``); each
-    slot's output is bit-equal to a launch on its slot alone.  On the CPU
-    the plain version runs slot by slot.  ``tile`` is the block
+    operand and ``out`` carry a leading slot axis ``K``, and one launch
+    runs the program on every slot (the result ``(K, ...)``); each slot's
+    output is bit-equal to a launch on its slot alone.  On the card it
+    takes the persistent ``leaf_products_batched_kernel``, for the ata and
+    aat kinds of a program with no transposed destination and an fp32
+    accumulator (what ``BoundGram`` binds; others raise), its tile and grid
+    from :func:`batched_plan`.  On the CPU the plain version runs slot by
+    slot (a seed too).  ``tile`` is the block
     tile of ``csrc/leaf_products.cuh``, one of ``PRODUCT_TILES``; by
-    default the first that divides the output tiles and fits.  Neither
+    default the first that divides the output tiles and fits (a batched
+    launch: the plan's).  Neither
     it nor ``spec.pipeline_depth`` changes a bit of the result (a bf16 or
     fp64 accumulator runs one ring depth for every request:
     :func:`ring_depth`).
@@ -1285,17 +1472,25 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
     right, r_pitch = (left, l_pitch) if one else _tma_layout(
         right.to(rt), None if spec.right_tri
         else spec.bc if spec.right_trans else spec.bj)
-    if tile is None:
-        tile = _products_tile(spec, left.element_size(), right.element_size())
-    elif tile not in PRODUCT_TILES:
-        raise ValueError(f"tile must be one of {PRODUCT_TILES}, got {tile}")
-    smem = smem_bytes(spec, left.element_size(), right.element_size(), tile)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"pipeline_depth={spec.pipeline_depth} with {spec.tmax} operand "
-            f"terms needs {smem} bytes of shared memory, over the "
-            f"{SMEM_LIMIT_BYTES} a Hopper block can use; lower "
-            "pipeline_depth")
+    if batched:     # the plan raises where the kernel does not fit an SM
+        plan = _batched_launch_plan(spec, left.dtype, right.dtype, lead[0],
+                                    left.device, tile)
+        tile = plan["tile"]
+    else:
+        if tile is None:
+            tile = _products_tile(spec, left.element_size(),
+                                  right.element_size())
+        elif tile not in PRODUCT_TILES:
+            raise ValueError(f"tile must be one of {PRODUCT_TILES}, got "
+                             f"{tile}")
+        smem = smem_bytes(spec, left.element_size(), right.element_size(),
+                          tile)
+        if smem > SMEM_LIMIT_BYTES:
+            raise ValueError(
+                f"pipeline_depth={spec.pipeline_depth} with {spec.tmax} "
+                f"operand terms needs {smem} bytes of shared memory, over "
+                f"the {SMEM_LIMIT_BYTES} a Hopper block can use; lower "
+                "pipeline_depth")
     if out is None:
         out = torch.empty((*lead, *_out_shape(spec)), dtype=out_dtype,
                           device=left.device)
@@ -1308,22 +1503,36 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
         else _RIGHT_JK if spec.right_trans else _RIGHT_KJ
     name = _products_library(spec.acc_dtype, left.dtype)
     lib = _products_lib(name)
+    geometry = (spec.n_k, spec.q_i, spec.q_j, spec.blocks_j, spec.bi,
+                spec.bj, spec.bc, int(spec.left_trans))
     with torch.cuda.device(left.device):
-        err = lib.leaf_products_launch(
-            left.data_ptr(), right.data_ptr(),
-            None if seed is None else seed.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), *(t.data_ptr() for t in tables),
-            *left.shape[-2:], *right.shape[-2:], n_ops, spec.tmax, max_dests,
-            spec.n_k, spec.q_i,
-            spec.q_j, spec.blocks_j, spec.bi, spec.bj, spec.bc,
-            int(spec.left_trans), right_layout, int(spec.diag_sym),
-            int(spec.out_tri), int(_pairs(spec)),
-            LEAF_DTYPE_CODES[left.dtype], LEAF_DTYPE_CODES[right.dtype],
-            0 if seed is None else LEAF_DTYPE_CODES[seed.dtype],
-            LEAF_DTYPE_CODES[out.dtype], ACC_CODES[spec.acc_dtype], l_pitch,
-            r_pitch, tile, spec.pipeline_depth, lead[0] if batched else 1,
-            math.prod(_out_shape(spec)),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if batched:
+            # the counter its blocks take items from, zeroed on the stream
+            # by this launch alone (a captured launch gets its own, zeroed
+            # at each replay)
+            counter = torch.zeros(1, dtype=torch.int32, device=left.device)
+            err = lib.leaf_products_batched_launch(
+                left.data_ptr(), right.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), *(t.data_ptr() for t in tables),
+                *left.shape[-2:], *right.shape[-2:], n_ops, spec.tmax,
+                max_dests, *geometry, int(spec.right_trans),
+                int(spec.out_tri), LEAF_DTYPE_CODES[left.dtype],
+                LEAF_DTYPE_CODES[out.dtype], l_pitch, r_pitch, tile,
+                spec.pipeline_depth, lead[0], math.prod(_out_shape(spec)),
+                plan["items"], plan["grid"], counter.data_ptr(), stream)
+        else:
+            err = lib.leaf_products_launch(
+                left.data_ptr(), right.data_ptr(),
+                None if seed is None else seed.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), *(t.data_ptr() for t in tables),
+                *left.shape[-2:], *right.shape[-2:], n_ops, spec.tmax,
+                max_dests, *geometry, right_layout, int(spec.diag_sym),
+                int(spec.out_tri), int(_pairs(spec)),
+                LEAF_DTYPE_CODES[left.dtype], LEAF_DTYPE_CODES[right.dtype],
+                0 if seed is None else LEAF_DTYPE_CODES[seed.dtype],
+                LEAF_DTYPE_CODES[out.dtype], ACC_CODES[spec.acc_dtype],
+                l_pitch, r_pitch, tile, spec.pipeline_depth, stream)
     if err:
         raise RuntimeError(
             f"leaf_program launch failed: CUDA error {err} "
@@ -1848,6 +2057,25 @@ def fused_aat(
 # over the fused ata / aat (the JAX engine's slot batches, batched_gram).
 # ---------------------------------------------------------------------------
 
+# BoundGram's symmetric grams of an edge up to this are one gather of the
+# packed stack, through an int32 index of g^2 offsets kept with the program
+# (16 MiB at 2048); a larger gram is unpacked tile by tile
+# (unpack_tril_blocks), keeping no index.
+GATHER_MAX_EDGE = 2048
+
+
+def _mirror_index(g: int, b: int, device) -> torch.Tensor:
+    """The offset, within one slot's packed stack of (b, b) tiles, of
+    element (max(r, c), min(r, c)) of a g x g gram, for each (r, c) in
+    row-major order: tile (hi // b, lo // b) at (hi % b, lo % b).  int32
+    throughout, no int64 temporary."""
+    r = torch.arange(g, dtype=torch.int32, device=device)
+    hi = torch.maximum(r[:, None], r[None, :])
+    lo = torch.minimum(r[:, None], r[None, :])
+    ti, tj = hi // b, lo // b
+    return (((ti * (ti + 1) // 2 + tj) * b + hi % b) * b + lo % b).view(-1)
+
+
 class BoundGram:
     """The ata (``gram_of="cols"``) or aat (``"rows"``) program bound
     once to the shape of a ``(K, m, n)`` stack: the spec, the padded
@@ -1882,6 +2110,7 @@ class BoundGram:
         self.edge = N if self.kind == "ata" else M   # the padded gram edge
         self.tables = _spec_op_tables(self.spec, self.device)
         stored = _stored(torch.empty((), dtype=dtype), self.operand_dtype)
+        self._mirror = None     # the symmetric gather's index, at first use
         self.launch = products_launch_shape(
             self.spec, stored.dtype, stored.dtype, batch=batch) \
             if self.device.type == "cuda" else None
@@ -1906,11 +2135,20 @@ class BoundGram:
                  symmetrize: bool = False) -> torch.Tensor:
         """``(K, n, n)`` lower triangles ``tril(x.T @ x)`` of each slot x
         (``(K, m, m)``, ``tril(x @ x.T)``, for the row gram); the full
-        symmetric grams with ``symmetrize``."""
+        symmetric grams with ``symmetrize``: up to ``GATHER_MAX_EDGE`` one
+        gather of the packed stack (:func:`_mirror_index`, made once a
+        program) plus 0, the bits of ``unpack_tril_blocks``' mirror (-0
+        made +0 as its adds make it); past it ``unpack_tril_blocks``."""
         g = self.shape[1] if self.kind == "ata" else self.shape[0]
-        c = unpack_tril_blocks(self.packed(stack), self.edge, self.b_out,
-                               symmetrize=symmetrize)[:, :g, :g]
-        return c if symmetrize else torch.tril(c)
+        packed = self.packed(stack)
+        if not symmetrize or g > GATHER_MAX_EDGE:
+            c = unpack_tril_blocks(packed, self.edge, self.b_out,
+                                   symmetrize=symmetrize)[:, :g, :g]
+            return c if symmetrize else torch.tril(c)
+        if self._mirror is None:
+            self._mirror = _mirror_index(g, self.b_out, self.device)
+        return packed.view(self.batch, -1).index_select(
+            1, self._mirror).view(self.batch, g, g).add_(0)
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,17 @@ kernel leaves end to end, ``ata(a, base_syrk=ops.kernel_base_syrk(),
 base_matmul=ops.kernel_base_matmul())`` on fp32 A (``ata_leaves``) and
 fp16 A (``ata_leaves_f16``), 16 syrk and 22 matmul leaves each; the main
 path end to end, ``ata(a)`` (``ata_e2e``: the entry point's block
-defaults, the kernel, the unpack); and flash attention at the serving prefill, q (1, 16,
+defaults, the kernel, the unpack); flash attention at the serving prefill, q (1, 16,
 2048, 128) over k, v (1, 2, 2048, 128), causal, in bf16 and fp16
-(``flash_bf16``, ``flash_f16``).  ``--cases`` picks some of them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
+(``flash_bf16``, ``flash_f16``); and the batched launch
+(``leaf_program`` on a ``BoundGram``'s padded (K, m, n) stack, levels 1,
+tiles of 256, fp32, seed 0): ``batched_ata_8192`` and ``batched_ata_256``
+(4 slots of 8192^2 and 256^2), ``batched_aat_256``, and
+``batched_shampoo``, the 24 stacks of one statistics step of Shampoo on
+Qwen2.5-3B at 2 layers (blocks of 1024) launched in turn; and the same 24
+stacks through their ``BoundGram`` (bound before the timing) end to end,
+pad, launch and symmetric unpack (``batched_shampoo_sym``, what
+``batched_gram`` runs).  ``--cases`` picks some of them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
 summary gives each side's median over its processes and the change over
 the parent.  Each process also hashes each case's output (sha256 of its
 bytes), and the summary says whether every run of both sides gave the
@@ -57,8 +65,19 @@ LEAVES = ("ata_leaves", "ata_leaves_f16")
 E2E = ("ata_e2e",) + LEAVES
 # flash attention at the serving prefill
 FLASH = ("flash_bf16", "flash_f16")
+# the batched launch: (kind, stacks (K, m, n), launched in turn)
+SHAMPOO_STACKS = ([(8, 1024, 1024)] * 4 + [(44, 1024, 1024)] * 6
+                  + [(4, 256, 1024)] * 2 + [(4, 1024, 256)] * 2
+                  + [(2, 2, 1024)] * 3 + [(2, 1024, 2)] * 3
+                  + [(1, 2, 256)] * 2 + [(1, 256, 2)] * 2)
+BATCHED = {"batched_ata_8192": ("ata", [(4, 8192, 8192)]),
+           "batched_ata_256": ("ata", [(4, 256, 256)]),
+           "batched_aat_256": ("aat", [(4, 256, 256)]),
+           "batched_shampoo": ("ata", SHAMPOO_STACKS)}
+# the batched program end to end, its symmetric grams out
+SYM = ("batched_shampoo_sym",)
 CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps", "ata_bf16",
-         "ata_bf16_out") + SINGLE + E2E + FLASH
+         "ata_bf16_out") + SINGLE + E2E + FLASH + tuple(BATCHED) + SYM
 
 
 def _time_side(root: pathlib.Path, cases: tuple) -> dict:
@@ -100,11 +119,15 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
         return F.pad(x, (0, -x.shape[1] % block, 0, -x.shape[0] % block))
 
     def measured(fn):
-        """(ms, sha256 of the output's bytes)."""
-        out = fn()
+        """(ms, sha256 of the output's bytes; of each in turn where ``fn``
+        returns a list)."""
+        res = fn()
         torch.cuda.synchronize()
-        raw = out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
-        return {"ms": timed(fn), "hash": hashlib.sha256(raw).hexdigest()}
+        digest = hashlib.sha256()
+        for x in res if isinstance(res, list) else [res]:
+            digest.update(x.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+        return {"ms": timed(fn), "hash": digest.hexdigest()}
 
     out = {}
     for case in (c for c in cases if c in SINGLE):
@@ -140,7 +163,32 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
                                device=dev).to(dtype) for heads in (16, 2, 2))
         out[case] = measured(lambda: k_flash.flash_attention(q, k, v))
         del q, k, v
-    for case in (c for c in cases if c not in SINGLE + E2E + FLASH):
+    for case in (c for c in cases if c in BATCHED):
+        kind, stacks = BATCHED[case]
+        runs = []
+        for slots, rows_, cols_ in stacks:
+            x = torch.randn((slots, rows_, cols_), generator=gen, device=dev)
+            bound = sf.BoundGram(rows_, cols_, batch=slots,
+                                 gram_of="cols" if kind == "ata" else "rows",
+                                 levels=1, b_out=block, b_k=block,
+                                 out_dtype=f32, device=dev)
+            runs.append((bound.spec, sf._pad_stored(x, *bound.padded, None)))
+            del x
+        out[case] = measured(lambda: [sf.leaf_program(spec, sp, sp, f32)
+                                      for spec, sp in runs])
+        del runs
+    if "batched_shampoo_sym" in cases:
+        runs = []
+        for slots, rows_, cols_ in SHAMPOO_STACKS:
+            x = torch.randn((slots, rows_, cols_), generator=gen, device=dev)
+            runs.append((sf.BoundGram(rows_, cols_, batch=slots, levels=1,
+                                      b_out=block, b_k=block, out_dtype=f32,
+                                      device=dev), x))
+        out["batched_shampoo_sym"] = measured(
+            lambda: [bound(x, symmetrize=True) for bound, x in runs])
+        del runs
+    for case in (c for c in cases
+                 if c not in SINGLE + E2E + FLASH + tuple(BATCHED) + SYM):
         seed, out_dtype = None, f32
         gram = "dps" if case == "ata_dps" else "strassen"
         if case.startswith("ata"):
