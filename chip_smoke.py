@@ -284,7 +284,10 @@ failure exits non-zero):
    e4m3fn, e5m2 and fp16 tiles and the rank_k kind on an e4m3fn chunk
    (``leaf_products_lowp``), ata with a bf16 and an fp64 accumulator
    (``leaf_products_acc``), each bound counting the stored bytes at
-   their own element size and the kind's yardstick beside it.  16-bit
+   their own element size and the kind's yardstick beside it (the fp64
+   accumulator's in fp64 on the fp64 A; none computes the bf16
+   accumulator's function, so its ``library_ms`` is null, the fp32
+   call beside it as ``fp32_library_ms``).  16-bit
    operands in the single-purpose kernels: ``syrk`` and ``matmul`` in
    fp16 and in bf16 on the tensor cores at the padded 10240^2 and the
    2560^2 leaf (each at both tiles), combine on seven fp16 5120^2 and
@@ -597,18 +600,20 @@ def _replays_agree(fn, want) -> bool:
 def _ptxas_flash(report: str) -> list:
     """Registers and spills of each flash-attention instantiation from
     ``nvcc -Xptxas -v``: the tensor-core kernel by its type (bf16, fp16)
-    and head_dim, the fp32 CUDA-core body by its head_dim.  The
-    tensor-core kernel's count is its entry budget (384 threads);
-    setmaxnreg moves the producer warpgroup to 24 and the consumers to
-    240 after entry."""
+    and head_dim, the fp32 CUDA-core body by its head_dim and q rows a
+    block.  The tensor-core kernel's count is its entry budget (384
+    threads); setmaxnreg moves the producer warpgroup to 24 and the
+    consumers to 240 after entry."""
     stats, kind = {}, None
     for line in report.splitlines():
         found = re.search(r"(flash_tc_kernel|flash_kernel)ILi(\d+)E"
-                          r"(?:\d+(__nv_bfloat16|__half)E)?", line)
+                          r"(?:Li(\d+)E)?(?:\d+(__nv_bfloat16|__half)E)?",
+                          line)
         if found:
-            kind = (f"{_TYPE_NAMES[found.group(3)]} tensor cores, D "
+            kind = (f"{_TYPE_NAMES[found.group(4)]} tensor cores, D "
                     f"{found.group(2)}" if found.group(1) == "flash_tc_kernel"
-                    else f"fp32 CUDA cores, D {found.group(2)}")
+                    else f"fp32 CUDA cores, D {found.group(2)}, "
+                    f"{found.group(3)} q rows")
             stats[kind] = {"regs": None, "spill": 0}
         spill = re.search(r"(\d+) bytes spill stores", line)
         regs = re.search(r"Used (\d+) registers", line)
@@ -1968,9 +1973,9 @@ def main() -> int:
         read["sound"] = [max(a_, e_) for a_, e_ in zip(read["sound"], errs)]
         line = (f"  B {b} H {h} Hkv {hkv} Sq {sq} Skv {skv} D {d} {name} "
                 f"{kw or ''}: vs plain {errs[0]:.2e}, by row {errs[1]:.2e}")
-        if sq > k_flash.q_tile(dt):
+        if sq > k_flash.q_tile(dt, d):
             bad = got.clone()
-            bad[:, :, k_flash.q_tile(dt):] = 0
+            bad[:, :, k_flash.q_tile(dt, d):] = 0
             faults = (_rel(bad, want.double()), _row_rel(bad, want))
             read["fault"] = [min(a_, e_)
                              for a_, e_ in zip(read["fault"], faults)]
@@ -1996,6 +2001,10 @@ def main() -> int:
         for sq in (128, 1000, MAX_SEQ):
             worst = max(worst, flash_check(1, QWEN_HEADS, QWEN_KV_HEADS, sq,
                                            MAX_SEQ, QWEN_HEAD_DIM, dt))
+        # the fp32 body's 128-row blocks at head dims 64 and 80 (144 blocks
+        # fill the SMs; the smaller grids above take its 64-row ones)
+        flash_check(1, 16, 2, 1100, 1100, 64, dt)
+        flash_check(1, 16, 4, 1100, 1300, 80, dt, window=300, softcap=30.0)
         flash_check(1, 4, 2, 512, 512, 256, dt, window=100, softcap=50.0)
         flash_check(1, 4, 2, 256, 320, 256, dt, causal=False, softcap=30.0)
         # head_dim 80 (zamba2-2.7b's): the tensor-core kernel runs it as 128
@@ -2847,7 +2856,7 @@ def main() -> int:
 
     def rows_past_tile0_zeroed(q, k, v, **kw):
         out = flash_mha(q, k, v, **kw).clone()
-        out[:, k_flash.q_tile(q.dtype):] = 0
+        out[:, k_flash.q_tile(q.dtype, q.shape[-1]):] = 0
         return out
 
     def blind_to_kv_tile0(q, k, v, **kw):
@@ -2855,7 +2864,7 @@ def main() -> int:
         the first kv tile, as a wrong tile skip would."""
         b_, sq_, h_, d_ = q.shape
         skv_, hkv_ = k.shape[1], k.shape[2]
-        bq_, bk_ = k_flash.q_tile(q.dtype), k_flash.kv_tile(q.dtype, d_)
+        bq_, bk_ = k_flash.q_tile(q.dtype, d_), k_flash.kv_tile(q.dtype, d_)
         qg = q.float().reshape(b_, sq_, hkv_, h_ // hkv_, d_)
         sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d_ ** -0.5
         qp = torch.arange(sq_, device=dev)[:, None]
@@ -4167,6 +4176,22 @@ def main() -> int:
                               ata_ms),
            "float64": branch("ata kind (fp64 input), fp64 accumulator", fspec,
                              fap, ata_ms)}
+    # the accumulators' yardsticks: fp64's in its input type, torch.tril(
+    # a.T @ a) on the fp64 A in fp64; no PyTorch call computes the bf16
+    # accumulator's function (fp32 parts rounded into bf16 K block by K
+    # block), so its library_ms is null and the fp32 call stays beside it
+    a64 = a.double()
+    lib64_ms, lib64_runs = _time_ms(lambda: torch.tril(a64.T @ a64))
+    del a64
+    print(f"torch.tril(a64.T @ a64) fp64: {lib64_ms:.3f} ms (runs "
+          f"{lib64_runs})")
+    for name, library_ms in (("bfloat16", None), ("float64", lib64_ms)):
+        acc[name]["fp32_library_ms"] = acc[name]["library_ms"]
+        acc[name]["library_ms"] = library_ms
+    acc["bfloat16"]["library_note"] = (
+        "no PyTorch call computes a bf16-accumulated Gram; fp32_library_ms "
+        "is torch.tril(a.T @ a) in fp32")
+    acc["float64"]["library_note"] = "torch.tril(a64.T @ a64) in fp64"
     row = acc["bfloat16"]
     kernels.append(kernel_entry(
         "leaf_program", PRODUCTS_SOURCE,

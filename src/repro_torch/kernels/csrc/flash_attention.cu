@@ -66,11 +66,35 @@
 //   block or a cluster with multicast loads (each K and V tile is now read from L2 by each
 //   of them), and a TMA store of O.
 //
-// fp32: the CUDA-core body (flash_kernel below), no TF32.  One block of 256 threads per
-// (b * h, tile of 64 query rows); a loop over kv tiles of 64; Q, K and V staged in shared
-// memory; S = Q K^T and P V by fp32 FMA, each thread a 4 x 4 tile of S and 4 rows x D/16
-// columns of the accumulator; four threads per row for the softmax.
-//
+// fp32: the CUDA-core body (flash_kernel below), no TF32: the fp32 bar (1e-5 of max|out|)
+// rules it out.  At the serving prefill (q 16 x 2048 x 128, causal) the 17.2 GFLOP take
+// 0.257 ms at the fp32 FMA peak of 67 TFLOP/s, so the FMAs bound it; an SM's shared memory
+// delivers 128 bytes a clock against its 128 FMA lanes, so each FMA's operands must come from
+// registers and each loaded word feed several FMAs.  The design:
+//   * One block of 256 threads per (b * h, tile of BQ = 128 query rows), walking kv tiles of
+//     64; 64 rows (4 a thread) at head dim 256, and where 128-row blocks would not give every
+//     SM one (the prefill's first 512 or 1024 rows: 64 or 128 blocks on 132 SMs).  Head dims
+//     16, 32 and 80 run the 64 and 128 instantiations with zero columns (as the tensor-core
+//     kernel does).  Blocks run longest first.
+//   * Register-blocked thread tiles: a thread owns 8 q rows (4 rg + i % 4 + 64 (i / 4), rg its
+//     row group) by 4 S columns (cg + 16 j) and by 8 O columns (4 cg + 64 v + 0..3), so S is
+//     8 + 4 float4 loads a step of 4 along d for 128 FMAs, and P V 2 + 2 float4 loads a kv row
+//     for 64.  A warp holds two row groups and all 16 column groups: its Q and P^t loads are
+//     broadcasts of two float4s, its K and V loads 16 consecutive (or 132-float-strided)
+//     float4s, two wavefronts each.
+//   * S stays in registers: scale, softcap and mask (branches once a tile, the mask only on
+//     tiles that cross an edge), the row max by shuffles over the 16 lanes that share a row,
+//     p = exp(s - m) and a per-thread share of l, summed over the row's lanes once at the end.
+//     P goes to shared memory once, transposed (four rows of a column as one float4), for the
+//     P V product, whose threads need whole rows of P.
+//   * K and V land by 16-byte cp.async into one buffer each, zero-filled past Skv and past the
+//     head dim: a tile's K is fetched while the previous tile's softmax and P V run, its V
+//     while its S runs, so one block an SM (168 KB of shared memory at head dim 128: Q 66 KB,
+//     K 33, V 32, P^t 33) keeps its 8 warps on FMAs.
+//   * K and V are read once per 128 q rows of a head: per tile 64 KB against 2.1 M FMAs.
+// The q heads of a kv head in one block were not needed: a block's 128 rows reuse each K and V
+// tile as often as eight heads of 16 rows would.
+
 // Interface: plain C, loaded with ctypes.  The launcher returns cudaGetLastError() after the
 // launch.
 
@@ -97,94 +121,139 @@ constexpr int F32 = 0, BF16 = 1, F16 = 2;
 
 namespace cuda_core {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // kv columns per tile
-constexpr int THREADS = 256;
+constexpr int BK = 64;        // kv rows a tile
+constexpr int THREADS = 256;  // 16 row groups x 16 column groups, two row groups a warp
 
-// Copy `rows` valid rows of a (rows_total, D) row-major fp32 tile, starting at `src`, into
-// shared memory with row stride `stride`; rows past `rows` are zero.  16-byte loads.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const float* src, int rows) {
-  constexpr int CHUNKS = BQ * D / 4;
-  for (int c = threadIdx.x; c < CHUNKS; c += THREADS) {
-    const int e = c * 4, r = e / D, col = e % D;
-    const float4 x = r < rows ? *reinterpret_cast<const float4*>(
-                                    src + static_cast<long long>(r) * D + col)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * stride + col) = x;
+// The tiles of the instantiation for head dims up to DP (64, 128 or 256: a smaller head dim
+// runs the next one with zero columns) and Q_ROWS query rows a block: 128, or 64 (4 rows a
+// thread; at DP 256 always, whose 16 accumulator columns a thread would leave no registers for
+// 8 rows).  Row strides in floats: Q, K and P^t padded by 4 so that the two row groups of a
+// warp (Q, P^t) and its 16 column groups (K) land in other banks; V unpadded (a warp reads 16
+// consecutive float4s of a row).
+template <int DP, int Q_ROWS>
+struct Tiles {
+  static_assert(Q_ROWS == 64 || (Q_ROWS == 128 && DP <= 128), "no registers for 8 rows");
+  static constexpr int BQ = Q_ROWS;
+  static constexpr int RQ = BQ / 16;          // q rows a thread: 4 rg + i % 4 + 64 (i / 4)
+  static constexpr int NV = DP / 64;          // its float4 columns of O: 4 cg + 64 v
+  static constexpr int QS = DP + 4, KS = DP + 4, VS = DP, PS = BQ + 4;
+  static constexpr int BYTES = (BQ * QS + BK * KS + BK * VS + BK * PS) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copy of `rows` valid rows of a (rows_total, d) row-major fp32 operand, from
+// `src`, into ROWS rows of DP columns at stride `stride` in shared memory: 16-byte cp.async,
+// zeros past `rows` and past column d.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_async(float* dst, int stride, const float* src, int rows,
+                                           int d) {
+  constexpr int CH = DP / 4;
+  for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
+    const int r = c / CH, col = (c % CH) * 4;
+    const bool in = r < rows && col < d;
+    cp_async16(dst + r * stride + col, in ? src + static_cast<long long>(r) * d + col : src, in);
   }
 }
 
-template <int D>
-constexpr int smem_bytes() {
-  return (2 * BQ * (D + 4) + BK * D + BQ * (BK + 4) + BQ) * 4;
+// The larger q tile a head dim runs: 128 rows, 64 at DP 256.
+template <int DP>
+constexpr int max_q_rows() {
+  return DP == 256 ? 64 : 128;
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_kernel(const float* q, const float* k,
-                                                        const float* v, float* out, int heads,
-                                                        int kv_heads, int sq, int skv,
-                                                        float scale, float softcap, int causal,
-                                                        int window) {
-  constexpr int DS = D + 4;                     // padded row stride of Q and K
-  constexpr int SS = BK + 4;                    // padded row stride of S
-  constexpr int NC = D / 16;                    // accumulator columns per thread
+template <int DP, int Q_ROWS>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_kernel(const float* q, const float* k, const float* v, float* out, int heads,
+                 int kv_heads, int sq, int skv, int d, float scale, float softcap, int causal,
+                 int window) {
+  using T = Tiles<DP, Q_ROWS>;
+  constexpr int BQ = T::BQ, RQ = T::RQ, NV = T::NV;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * DS;
-  float* vs = ks + BK * DS;
-  float* ss = vs + BK * D;
-  float* corr_s = ss + BQ * SS;                 // per row: the rescale, then l
+  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][QS]
+  float* ks = qs + BQ * T::QS;                  // [BK][KS]
+  float* vs = ks + BK * T::KS;                  // [BK][VS]
+  float* ps = vs + BK * T::VS;                  // [BK][PS]: P transposed
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rg = 2 * (tid >> 5) + (lane >> 4), cg = lane & 15;
+  // longest first: blockIdx.x is the (batch, head), blockIdx.y counts q tiles from the last
+  const int bh = blockIdx.x, b = bh / heads, h = bh % heads;
   const int hkv = h / (heads / kv_heads);
-  const int q0 = blockIdx.x * BQ;
-  const long long q_off = (static_cast<long long>(b) * heads + h) * sq * D;
-  const long long kv_off = (static_cast<long long>(b) * kv_heads + hkv) * skv * D;
-
-  load_tile<D>(qs, DS, q + q_off + static_cast<long long>(q0) * D, min(BQ, sq - q0));
-
-  // the softmax's row and its quarter of the columns
-  const int srow = tid >> 2, spart = tid & 3;
-  float m_run = NEG_INF, l_run = 0.f;
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const float* qb = q + ((static_cast<long long>(b) * heads + h) * sq + q0) * d;
+  const float* kb = k + (static_cast<long long>(b) * kv_heads + hkv) * skv * d;
+  const float* vb = v + (static_cast<long long>(b) * kv_heads + hkv) * skv * d;
 
   const int q_last = min(q0 + BQ, sq) - 1;
   int n_tiles = (skv + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, q_last / BK + 1);
+  // below the window of the q tile's first row: no row of the tile needs them
+  int t = 0;
+  if (window > 0)
+    while (t < n_tiles && q0 - (t * BK + BK - 1) >= window) ++t;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    // below the window of the q tile's first row: no row of the tile needs it
-    if (window > 0 && q0 - (k0 + BK - 1) >= window) continue;
-    __syncthreads();                            // the last tile's K, V and P are spent
-    const int kv_rows = min(BK, skv - k0);
-    load_tile<D>(ks, DS, k + kv_off + static_cast<long long>(k0) * D, kv_rows);
-    load_tile<D>(vs, D, v + kv_off + static_cast<long long>(k0) * D, kv_rows);
+  // commit groups in order: Q, K of the first tile, V of the first tile; then each tile's K
+  // after its S, and V after its P V (empty past the last tile, so the count stays uniform)
+  load_async<DP, BQ>(qs, T::QS, qb, min(BQ, sq - q0), d);
+  cp_async_commit();
+  if (t < n_tiles) {
+    load_async<DP, BK>(ks, T::KS, kb + static_cast<long long>(t) * BK * d,
+                       min(BK, skv - t * BK), d);
+    cp_async_commit();
+    load_async<DP, BK>(vs, T::VS, vb + static_cast<long long>(t) * BK * d,
+                       min(BK, skv - t * BK), d);
+    cp_async_commit();
+  }
+
+  // This thread: q rows r(i) = 4 rg + i % 4 + 64 (i / 4), S columns cg + 16 j, O columns
+  // 4 cg + 64 v + (0..3).  A row's S lies in the 16 lanes of one half-warp.
+  float m_run[RQ], l_run[RQ], o[RQ][NV][4];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    m_run[i] = NEG_INF;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int w = 0; w < NV; ++w)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[i][w][u] = 0.f;
+  }
+  auto row_of = [](int i, int g) { return 4 * g + (i & 3) + 64 * (i >> 2); };
+
+  for (; t < n_tiles; ++t) {
+    const int k0 = t * BK, kv_rows = min(BK, skv - k0);
+    cp_async_wait<1>();  // Q and this tile's K (its V may still be in flight)
     __syncthreads();
 
-    // S = Q K^T: rows ty + 16 i, columns tx + 16 j
-    float s[4][4];
+    // S = Q K^T: 8 (4) float4s of Q and 4 of K a step of 4 along d, for 128 (64) FMAs
+    float s[RQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+#pragma unroll 2
+    for (int dd = 0; dd < DP; dd += 4) {
+      float4 qv[RQ], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * DS + d);
+      for (int i = 0; i < RQ; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + row_of(i, rg) * T::QS + dd);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * DS + d);
+        kv[j] = *reinterpret_cast<const float4*>(ks + (cg + 16 * j) * T::KS + dd);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
@@ -193,97 +262,163 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const float* q, const fl
           s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
         }
     }
-    // scale after the dot, softcap before the mask, as the TPU kernel
+    __syncthreads();  // every thread is done with K
+    if (t + 1 < n_tiles)
+      load_async<DP, BK>(ks, T::KS, kb + static_cast<long long>(k0 + BK) * d,
+                         min(BK, skv - k0 - BK), d);
+    cp_async_commit();
+
+    // scale after the dot, softcap before the mask, as the TPU kernel; each branch once a tile
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, qp = q0 + r;
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, kp = k0 + c;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool valid = c < kv_rows;
-        if (causal) valid = valid && qp >= kp;
-        if (window > 0) valid = valid && (qp - kp) < window;
-        ss[r * SS + c] = valid ? x : NEG_INF;
+      for (int j = 0; j < 4; ++j) s[i][j] *= scale;
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = softcap * tanhf(s[i][j] / softcap);
+    }
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && q_last - k0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const int qp = q0 + row_of(i, rg);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = cg + 16 * j, kp = k0 + c;
+          bool valid = c < kv_rows;
+          if (causal) valid = valid && qp >= kp;
+          if (window > 0) valid = valid && (qp - kp) < window;
+          if (!valid) s[i][j] = NEG_INF;
+        }
       }
     }
-    __syncthreads();
 
-    // online softmax: four threads per row, columns spart + 4 u
-    {
-      float* row = ss + srow * SS;
-      float m_cur = NEG_INF;
+    // the online softmax in registers: a row's max over its half-warp by shuffles; l summed
+    // per thread, over the half-warp once at the end
+    float corr[RQ];
 #pragma unroll
-      for (int u = 0; u < BK / 4; ++u) m_cur = fmaxf(m_cur, row[spart + 4 * u]);
-      m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 1));
-      m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, 2));
-      const float m_new = fmaxf(m_run, m_cur);
+    for (int i = 0; i < RQ; ++i) {
+      float m = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+      for (int x = 1; x < 16; x <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, x));
+      const float m_new = fmaxf(m_run[i], m);
       float sum = 0.f;
 #pragma unroll
-      for (int u = 0; u < BK / 4; ++u) {
-        const float p = expf(row[spart + 4 * u] - m_new);
-        sum += p;
-        row[spart + 4 * u] = p;
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float corr = expf(m_run - m_new);
-      l_run = l_run * corr + sum;
-      m_run = m_new;
-      if (spart == 0) corr_s[srow] = corr;
+      corr[i] = expf(m_run[i] - m_new);
+      l_run[i] = l_run[i] * corr[i] + sum;
+      m_run[i] = m_new;
     }
+    // P^t: four rows of a column as one float4 (the last P V read P^t before this tile's
+    // first barrier)
+#pragma unroll
+    for (int g = 0; g < RQ / 4; ++g)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(ps + (cg + 16 * j) * T::PS + 4 * rg + 64 * g) =
+            make_float4(s[4 * g][j], s[4 * g + 1][j], s[4 * g + 2][j], s[4 * g + 3][j]);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int w = 0; w < NV; ++w)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) o[i][w][u] *= corr[i];
+    cp_async_wait<1>();  // this tile's V (the next K may still be in flight)
     __syncthreads();
 
-    // acc = acc * corr + P V: rows ty + 16 i, columns tx + 16 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = corr_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= corr;
-    }
+    // O += P V: 2 (1) float4s of P^t and 2 (4, 1) of V a kv row, for 64 FMAs
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
-      float p[4], vv[NC];
+      float4 pv[RQ / 4], vv[NV];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(ty + 16 * i) * SS + c];
+      for (int g = 0; g < RQ / 4; ++g)
+        pv[g] = *reinterpret_cast<const float4*>(ps + c * T::PS + 4 * rg + 64 * g);
 #pragma unroll
-      for (int j = 0; j < NC; ++j) vv[j] = vs[c * D + tx + 16 * j];
+      for (int w = 0; w < NV; ++w)
+        vv[w] = *reinterpret_cast<const float4*>(vs + c * T::VS + 4 * cg + 64 * w);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int g = 0; g < RQ / 4; ++g) {
+        const float p4[4] = {pv[g].x, pv[g].y, pv[g].z, pv[g].w};
 #pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int w = 0; w < NV; ++w) {
+            const int i = 4 * g + ii;
+            o[i][w][0] = fmaf(p4[ii], vv[w].x, o[i][w][0]);
+            o[i][w][1] = fmaf(p4[ii], vv[w].y, o[i][w][1]);
+            o[i][w][2] = fmaf(p4[ii], vv[w].z, o[i][w][2]);
+            o[i][w][3] = fmaf(p4[ii], vv[w].w, o[i][w][3]);
+          }
+      }
     }
+    __syncthreads();  // every thread is done with V and P^t
+    if (t + 1 < n_tiles)
+      load_async<DP, BK>(vs, T::VS, vb + static_cast<long long>(k0 + BK) * d,
+                         min(BK, skv - k0 - BK), d);
+    cp_async_commit();
   }
+  cp_async_wait<0>();
 
-  __syncthreads();                              // corr_s is read above
-  if (spart == 0) corr_s[srow] = fmaxf(l_run, 1e-30f);
-  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
+  for (int i = 0; i < RQ; ++i) {
+    float l = l_run[i];
+#pragma unroll
+    for (int x = 1; x < 16; x <<= 1) l += __shfl_xor_sync(0xffffffffu, l, x);
+    const int r = row_of(i, rg);
     if (q0 + r >= sq) continue;
-    const float l = corr_s[r];
-    float* o = out + q_off + static_cast<long long>(q0 + r) * D;
+    l = fmaxf(l, 1e-30f);
+    float* orow = out + ((static_cast<long long>(b) * heads + h) * sq + q0 + r) * d;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) o[tx + 16 * j] = acc[i][j] / l;
+    for (int w = 0; w < NV; ++w) {
+      const int col = 4 * cg + 64 * w;
+      if (col < d)
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(o[i][w][0] / l, o[i][w][1] / l, o[i][w][2] / l, o[i][w][3] / l);
+    }
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
-                   int heads, int kv_heads, int sq, int skv, float scale, float softcap,
-                   int causal, int window, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+template <int DP, int Q_ROWS>
+cudaError_t launch_rows(const void* q, const void* k, const void* v, void* out, int batch,
+                        int heads, int kv_heads, int sq, int skv, int d, float scale,
+                        float softcap, int causal, int window, cudaStream_t stream) {
+  constexpr int bytes = Tiles<DP, Q_ROWS>::BYTES;
   // above 48 KB only after this attribute; set on every launch, so every card has it
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<DP, Q_ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + BQ - 1) / BQ, batch * heads);
-  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  const dim3 grid(batch * heads, (sq + Q_ROWS - 1) / Q_ROWS);
+  flash_kernel<DP, Q_ROWS><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), heads, kv_heads, sq, skv, scale, softcap, causal, window);
+      static_cast<float*>(out), heads, kv_heads, sq, skv, d, scale, softcap, causal, window);
   return cudaGetLastError();
+}
+
+// 128-row blocks where they fill every SM at least once; else 64-row ones, twice as many
+// (at the serving prefill's first 512 rows 64 blocks of 128 rows would leave half the SMs
+// idle).
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch,
+                   int heads, int kv_heads, int sq, int skv, int d, float scale, float softcap,
+                   int causal, int window, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long blocks128 = static_cast<long long>(batch) * heads * ((sq + 127) / 128);
+  if constexpr (max_q_rows<DP>() == 128)
+    if (blocks128 >= sms)
+      return launch_rows<DP, 128>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale,
+                                  softcap, causal, window, stream);
+  return launch_rows<DP, 64>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale, softcap,
+                             causal, window, stream);
 }
 
 }  // namespace cuda_core
@@ -651,30 +786,20 @@ bool supported(int d) {
   return d == 16 || d == 32 || d == 64 || d == 80 || d == 128 || d == 256;
 }
 
+// The fp32 CUDA-core body at head_dim d: the instantiation of the next larger of 64, 128, 256.
 cudaError_t launch_f32(int d, const void* q, const void* k, const void* v, void* out,
                        int batch, int heads, int kv_heads, int sq, int skv, float scale,
                        float softcap, int causal, int window, cudaStream_t s) {
-  switch (d) {
-    case 16:
-      return cuda_core::launch<16>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
-                                   softcap, causal, window, s);
-    case 32:
-      return cuda_core::launch<32>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
-                                   softcap, causal, window, s);
+  switch (tc::padded_dim(d)) {
     case 64:
-      return cuda_core::launch<64>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
-                                   softcap, causal, window, s);
-    case 80:
-      return cuda_core::launch<80>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+      return cuda_core::launch<64>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale,
                                    softcap, causal, window, s);
     case 128:
-      return cuda_core::launch<128>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
-                                    softcap, causal, window, s);
-    case 256:
-      return cuda_core::launch<256>(q, k, v, out, batch, heads, kv_heads, sq, skv, scale,
+      return cuda_core::launch<128>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale,
                                     softcap, causal, window, s);
     default:
-      return cudaErrorInvalidValue;
+      return cuda_core::launch<256>(q, k, v, out, batch, heads, kv_heads, sq, skv, d, scale,
+                                    softcap, causal, window, s);
   }
 }
 
@@ -705,7 +830,7 @@ const char* flash_attention_error_string(int err) {
 }
 
 // Shared memory a launch at head_dim d and dtype (0 fp32, 1 bf16, 2 fp16) takes, in bytes (0
-// for an unsupported d or dtype).
+// for an unsupported d or dtype; fp32: at its larger q tile).
 int flash_attention_smem_bytes(int d, int dtype) {
   if (!supported(d)) return 0;
   if (dtype == BF16 || dtype == F16) {
@@ -716,13 +841,10 @@ int flash_attention_smem_bytes(int d, int dtype) {
     }
   }
   if (dtype != F32) return 0;
-  switch (d) {
-    case 16: return cuda_core::smem_bytes<16>();
-    case 32: return cuda_core::smem_bytes<32>();
-    case 64: return cuda_core::smem_bytes<64>();
-    case 80: return cuda_core::smem_bytes<80>();
-    case 128: return cuda_core::smem_bytes<128>();
-    default: return cuda_core::smem_bytes<256>();
+  switch (tc::padded_dim(d)) {  // the larger q tile's
+    case 64: return cuda_core::Tiles<64, 128>::BYTES;
+    case 128: return cuda_core::Tiles<128, 128>::BYTES;
+    default: return cuda_core::Tiles<256, 64>::BYTES;
   }
 }
 

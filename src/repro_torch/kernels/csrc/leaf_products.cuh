@@ -112,6 +112,24 @@
 //              owns a sub-tile that is its own mirror walks its op twice (as a pair does), so
 //              that an element takes every K block of a straight slot before those of a
 //              transposed one whatever the tile.
+//              Where the running values live (PER_K): the first n_run slots of each op
+//              (Ops::n_run, the host's strassen_fused.run_dests: as many destinations as the
+//              shared memory left beside the ring holds at the tile, TILE^2 Acc values each)
+//              keep them in shared memory from the op's first K block to its last, one cell a
+//              (slot, element of the thread's R x R outputs), laid out [slot][element][thread]
+//              so that a warp's accesses are conflict-free.  The op's first K block reads the
+//              destination (the seed, the workspace, or nothing) and adds its term into the
+//              cell, each later one adds into the cell, and the last writes the sum (to the
+//              workspace, or cast into the output where the slot is the last to feed it): one
+//              read and one write of global memory an element and op, not one a K block.  A
+//              slot past n_run reads and writes the workspace every K block, four elements a
+//              vector where its elements are a row's.  The cell of an element belongs to the
+//              thread that computes its product, also for a transposed slot, whose element
+//              lies in another thread's part of the output: within one walked item each
+//              target element is fed by one (slot, element) of one thread, and items follow
+//              one another through the workspace across the walk's barriers.  So each element
+//              takes exactly the rounded sums it took when every K block went through global
+//              memory, in the same order: the bits do not change.
 // The seed is cast into the accumulator's type where it is read, and the output is cast from
 // the accumulator once, where the last slot feeding an element ends: fp64 goes through fp32 to
 // a narrower type, as torch's .to() does.
@@ -268,6 +286,8 @@ struct Ops {
   int batch;            // slots of a batched launch (1 for the one-position walk): every slot
                         //   runs this program
   long long slot_elems; // elements of one slot's output (and workspace)
+  int n_run;            // bf16, fp64 accumulators: an op's slots (its first n_run) whose running
+                        //   values stay in shared memory over its K blocks (0: none, and fp32)
 };
 
 // Packed lower-triangular index -> (i, j), i >= j, row-major; a root estimate with the
@@ -342,13 +362,21 @@ __device__ __forceinline__ TriTerm tri_term(const Ops& P, int rrow, int rcol, bo
 // Terms a side a ring slot holds.
 constexpr int slot_terms(int tmax, bool pair) { return pair && tmax > GROUP ? GROUP : tmax; }
 
+// Bytes of the running values one slot of an op keeps in shared memory (PER_K): TILE^2 values
+// of the accumulator; an fp32 accumulator keeps none there.
+size_t run_bytes(int acc, int tile) {
+  return static_cast<size_t>(tile) * tile * (acc == ACC_F64 ? 8 : acc == ACC_BF16 ? 2 : 0);
+}
+
+// n_run: the slots of an op whose running values stay on chip (Ops::n_run).
 size_t smem_bytes(bool right_tri, int tmax, int tile, int left_bytes, int right_bytes,
-                  int stages, bool pair) {
+                  int stages, bool pair, int acc, int n_run) {
   const size_t chunk = static_cast<size_t>(KC) * tile;
   return static_cast<size_t>(stages) * slot_terms(tmax, pair) * chunk *
              (left_bytes + right_chunks(right_tri) * right_bytes)  // raw rings
          + 2 * 2 * static_cast<size_t>(KC) * (tile + 4) * sizeof(float)  // summed, 2 buffers
-         + static_cast<size_t>(stages) * (sizeof(StepTerms) + sizeof(uint64_t));  // per slot
+         + static_cast<size_t>(stages) * (sizeof(StepTerms) + sizeof(uint64_t))  // per slot
+         + n_run * run_bytes(acc, tile);  // running values
 }
 
 // The batched kernel's: batched_kc-deep chunks, a dense right side, no pair mode.
@@ -544,6 +572,31 @@ __device__ __forceinline__ bool dest_origin(const Ops& P, int ld, int pi, int pj
   return true;
 }
 
+// Four accumulator values at a multiple of 4 elements, as one vector.
+__device__ __forceinline__ void load4(const double* p, double (&w)[4]) {
+  const double2 lo = reinterpret_cast<const double2*>(p)[0];
+  const double2 hi = reinterpret_cast<const double2*>(p)[1];
+  w[0] = lo.x; w[1] = lo.y; w[2] = hi.x; w[3] = hi.y;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, __nv_bfloat16 (&w)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  w[0] = lo.x; w[1] = lo.y; w[2] = hi.x; w[3] = hi.y;
+}
+__device__ __forceinline__ void store4(double* p, const double (&w)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(w[0], w[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(w[2], w[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const __nv_bfloat16 (&w)[4]) {
+  __nv_bfloat162 lo, hi;
+  lo.x = w[0]; lo.y = w[1]; hi.x = w[2]; hi.y = w[3];
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&lo);
+  raw.y = *reinterpret_cast<unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
 // Four fp32 values v into the elements at `at` (the slot's offset included) of an fp32
 // accumulator: onto the seed where the slot is the first to feed them, else onto what they hold,
 // each rounded; cast into the output where the slot is the last, unless the output is the
@@ -566,8 +619,9 @@ __device__ __forceinline__ void put4_f32(const Ops& P, long long at, float (&v)[
 }
 
 // sign * val, a thread's outputs of sub-tile (i0, j0), into a straight destination whose
-// sub-tile starts at (row0, col0) of rows ldo long: put(at, v) takes four elements of a row at
-// its offset.  Rows past bi and columns past bj belong to no output.
+// sub-tile starts at (row0, col0) of rows ldo long: put(e, at, v) takes four elements of a row,
+// val's i * R + 4 g + (0..3), at their offset.  Rows past bi and columns past bj belong to no
+// output.
 template <int R, typename Put>
 __device__ __forceinline__ void write_straight(const Ops& P, const float (&val)[R][R], float sg,
                                                long long row0, long long col0, long long ldo,
@@ -583,7 +637,7 @@ __device__ __forceinline__ void write_straight(const Ops& P, const float (&val)[
       float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(sg, val[i][4 * g + j]);
-      put((row0 + x) * ldo + col0 + y, v);
+      put(i * R + 4 * g, (row0 + x) * ldo + col0 + y, v);
     }
   }
 }
@@ -815,24 +869,38 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   zero(prod);
 
   const long long ldo = P.out_tri ? P.bj : static_cast<long long>(P.blocks_j) * P.q_j * P.bj;
-  // Output element `at` takes v (sign times the op's product, or under PER_K times one K
-  // block's part): onto the seed where the slot is the first to feed it, else onto what it
-  // holds, rounded in the accumulator's type; cast into the output where the slot is the last,
-  // unless the output is the workspace.  The seed is read by the thread that writes the
-  // element, before it writes: the seed may be the output.
-  auto put1 = [&](long long at, float v, int flag) {
+  // Under PER_K: whether the K block being written is its op's first and its last, and the
+  // running values of the op's first P.n_run slots, one cell a (slot d, element e of val) of
+  // this thread, [d][e][thread] after the ring's barriers.
+  bool k_first = true, k_last = true;
+  Acc* const cells = reinterpret_cast<Acc*>(full + STAGES);
+  auto cell = [&](int d, int e) -> Acc& {
+    return cells[(static_cast<size_t>(d) * R * R + e) * THREADS + tid];
+  };
+  // Output element `at` takes v, val's element e times the sign of slot d (sign times the op's
+  // product, or under PER_K times one K block's part): onto the seed where the slot is the
+  // first to feed it, else onto what it holds, rounded in the accumulator's type; cast into the
+  // output where the slot is the last, unless the output is the workspace.  The seed is read by
+  // the thread that writes the element, before it writes: the seed may be the output.  Under
+  // PER_K a kept slot (d < P.n_run) holds what it holds in its cell between its op's first K
+  // block and its last.
+  auto put1 = [&](int d, int e, long long at, float v, int flag) {
     at += so;
     Acc* const ws = static_cast<Acc*>(P.ws);
     if constexpr (PER_K) {
+      const bool kept = d < P.n_run;
       const Acc term = from_f32<Acc>(v);
-      const Acc d = !(flag & FIRST) ? acc_add(ws[at], term)
+      const Acc x = kept && !k_first ? acc_add(cell(d, e), term)
+                    : !(flag & FIRST) ? acc_add(ws[at], term)
                     : P.seed != nullptr
                         ? acc_add(load_seed<Acc>(P.seed, at, P.seed_code), term)
                         : term;
-      if ((flag & LAST) && P.out_cast)
-        store1(P.out, at, P.out_code, d);
+      if (kept && !k_last)
+        cell(d, e) = x;
+      else if ((flag & LAST) && P.out_cast)
+        store1(P.out, at, P.out_code, x);
       else
-        ws[at] = d;
+        ws[at] = x;
     } else {
       if (!(flag & FIRST) || P.seed != nullptr)
         v = __fadd_rn(flag & FIRST ? load_seed<float>(P.seed, at, P.seed_code) : ws[at], v);
@@ -842,10 +910,38 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
         ws[at] = v;
     }
   };
-  auto put4 = [&](long long at, float (&v)[4], int flag) {
+  // put1 over the four elements e.. of a row at `at`.., the workspace read and written as one
+  // vector.
+  auto put4 = [&](int d, int e, long long at, float (&v)[4], int flag) {
     if constexpr (PER_K) {
+      at += so;
+      Acc* const ws = static_cast<Acc*>(P.ws);
+      const bool kept = d < P.n_run;
+      Acc x[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) put1(at + j, v[j], flag);
+      for (int j = 0; j < 4; ++j) x[j] = from_f32<Acc>(v[j]);
+      if (kept && !k_first) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] = acc_add(cell(d, e + j), x[j]);
+      } else if (!(flag & FIRST)) {
+        Acc w[4];
+        load4(ws + at, w);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] = acc_add(w[j], x[j]);
+      } else if (P.seed != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          x[j] = acc_add(load_seed<Acc>(P.seed, at + j, P.seed_code), x[j]);
+      }
+      if (kept && !k_last) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cell(d, e + j) = x[j];
+      } else if ((flag & LAST) && P.out_cast) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) store1(P.out, at + j, P.out_code, x[j]);
+      } else {
+        store4(ws + at, x);
+      }
     } else {
       put4_f32(P, at + so, v, flag);
     }
@@ -856,8 +952,9 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   // its half (below the diagonal unless it is the mirror), and the other sub-tile of the pair
   // the transposed ones, in the order of the other half.  A SELF sub-tile takes in a first
   // pass what comes first for each element and, after a barrier, the rest; under PER_K its op
-  // is walked twice, the first walk making the first pass and the mirror walk the second.
-  auto write_dests = [&](const Chunk& t, const float (&val)[R][R], int keep) {
+  // is walked twice, the first walk making the first pass and the mirror walk the second.  The
+  // slots before d0 took val in their cells (finish_step).
+  auto write_dests = [&](const Chunk& t, const float (&val)[R][R], int keep, int d0) {
     const int o = t.u >> 1;
     const bool mirror = t.u & 1;
     const int wi = mirror ? jq : iq, wj = mirror ? iq : jq;
@@ -867,7 +964,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
     for (int run = 0; run < (mode == SELF && !PER_K ? 2 : 1); ++run) {
       const int pass = PER_K ? static_cast<int>(mirror) : run;
       if (run) __syncthreads();  // the first pass's writes, seen by the second's readers
-      for (int d = 0; d < P.max_dests; ++d) {
+      for (int d = d0; d < P.max_dests; ++d) {
         const int at_d = o * P.max_dests + d;
         const float sg = P.dsgn[at_d];
         if (sg == 0.f) break;  // an op's destinations come first
@@ -881,7 +978,7 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
         if (mode != SELF && !trn) {
           const int flag = (flags >> w_shift) & keep;
           write_straight(P, val, sg, row0, col0, ldo, wi0, wj0, tx, ty,
-                         [&](long long at, float (&v)[4]) { put4(at, v, flag); });
+                         [&](int e, long long at, float (&v)[4]) { put4(d, e, at, v, flag); });
           continue;
         }
 #pragma unroll
@@ -900,14 +997,15 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
               // element (x, y + j) of W goes straight there, transposed to (y + j, x)
               const long long at =
                   trn ? (row0 + y + j) * ldo + col0 + x : (row0 + x) * ldo + col0 + y + j;
+              const int e = i * R + 4 * g + j;
               if (mode != SELF) {
-                put1(at, v[j], (flags >> (UPPER - w_shift)) & keep);
+                put1(d, e, at, v[j], (flags >> (UPPER - w_shift)) & keep);
                 continue;
               }
               // the target lies on or below the diagonal: straight first, else transposed
               const bool lower = trn ? y + j >= x : x >= y + j;
               if ((lower == trn) == (pass == 1))
-                put1(at, v[j], (flags >> (lower ? 0 : UPPER)) & keep);
+                put1(d, e, at, v[j], (flags >> (lower ? 0 : UPPER)) & keep);
             }
           }
         }
@@ -916,17 +1014,36 @@ __device__ __forceinline__ void walk(const Ops& P, const CUtensorMap& lmap,
   };
   // After step t, the last ring slot of its chunk.  An fp32 accumulator adds the part of a K
   // block that ends into the item's product, and at the end of the item sign * product into
-  // each destination of its op; under PER_K each K block's sign * part goes into them.
+  // each destination of its op; under PER_K each K block's sign * part goes into them.  Between
+  // an op's first K block and its last, a kept slot's part goes into its cells alone, every
+  // element at once, with no output address computed (what a cell that no output element reads
+  // takes is never stored).
   auto finish_step = [&](const Chunk& t) {
     if (t.c != n_kc - 1) return;
     if constexpr (PER_K) {
-      write_dests(t, part, (t.k == 0 ? FIRST : 0) | (t.k == P.n_k - 1 ? LAST : 0));
+      k_first = t.k == 0;
+      k_last = t.k == P.n_k - 1;
+      int d0 = 0;
+      if (!k_first && !k_last) {
+        const int o = t.u >> 1;
+        for (; d0 < P.n_run; ++d0) {
+          const float sg = P.dsgn[o * P.max_dests + d0];
+          if (sg == 0.f) break;
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+              cell(d0, i * R + j) =
+                  acc_add(cell(d0, i * R + j), from_f32<Acc>(__fmul_rn(sg, part[i][j])));
+        }
+      }
+      write_dests(t, part, (k_first ? FIRST : 0) | (k_last ? LAST : 0), d0);
       zero(part);
       return;
     }
     fold_part(prod, part);
     if (t.k != P.n_k - 1) return;
-    write_dests(t, prod, FIRST | LAST);
+    write_dests(t, prod, FIRST | LAST, 0);
     zero(prod);
   };
 
@@ -1352,7 +1469,9 @@ __device__ __forceinline__ void walk_items(const Ops& P, const CUtensorMap& lmap
       long long row0, col0;
       if (!dest_origin(P, P.dest[at_d], w.iq, w.jq, w.i0, w.j0, row0, col0)) continue;
       write_straight(P, prod, sg, row0, col0, ldo, w.i0, w.j0, tx, ty,
-                     [&](long long at, float (&v)[4]) { put4_f32(P, so + at, v, flags); });
+                     [&](int, long long at, float (&v)[4]) {
+                       put4_f32(P, so + at, v, flags);
+                     });
     }
   };
   // After a chunk that ends a K block (end 1) the K block's part goes into the op's product,
@@ -1620,21 +1739,22 @@ int leaf_products_ring_depth(int stages) { return ring_depth(stages); }
 
 // Dynamic shared memory one launch needs (the wrapper refuses > 227 KB).  right_tri: the
 // right side is a packed tri stack; left_bytes / right_bytes: operand element sizes; pair:
-// the launch runs in pair mode.
+// the launch runs in pair mode; acc (AccCode) and n_run: the accumulator, and the slots of an
+// op whose running values a bf16 or fp64 one keeps on chip (0 for an fp32 one).
 size_t leaf_products_smem_bytes(int right_tri, int tmax, int tile, int left_bytes,
-                                int right_bytes, int stages, int pair) {
+                                int right_bytes, int stages, int pair, int acc, int n_run) {
   return smem_bytes(right_tri != 0, tmax, tile, left_bytes, right_bytes, ring_depth(stages),
-                    pair != 0);
+                    pair != 0, acc, n_run);
 }
 
 // Thread blocks of one launch an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // or -1 for arguments no kernel of this library takes.  pair: the launch runs in pair mode.
 int leaf_products_blocks_per_sm(int l_dtype, int r_dtype, int acc, int right_tri, int tmax,
-                                int tile, int stages, int pair) {
+                                int tile, int stages, int pair, int n_run) {
   if (!operand_code(l_dtype) || !operand_code(r_dtype)) return -1;
   const KernelFn kernel = select(l_dtype, r_dtype, acc, right_tri != 0, pair != 0, tile, stages);
   const size_t smem = smem_bytes(right_tri != 0, tmax, tile, elem_bytes(l_dtype),
-                                 elem_bytes(r_dtype), ring_depth(stages), pair != 0);
+                                 elem_bytes(r_dtype), ring_depth(stages), pair != 0, acc, n_run);
   if (prepare(kernel, smem) != cudaSuccess) return -1;
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem) !=
@@ -1646,10 +1766,11 @@ int leaf_products_blocks_per_sm(int l_dtype, int r_dtype, int acc, int right_tri
 // The positions a launch of n_pos positions walks whole (whole_positions); the other n_pos
 // minus that many are walked in quarters, four blocks each.
 long long leaf_products_whole_positions(int l_dtype, int r_dtype, int acc, int right_tri,
-                                        int tmax, int tile, int stages, long long n_pos) {
+                                        int tmax, int tile, int stages, int n_run,
+                                        long long n_pos) {
   if (!operand_code(l_dtype) || !operand_code(r_dtype)) return -1;
   const size_t smem = smem_bytes(right_tri != 0, tmax, tile, elem_bytes(l_dtype),
-                                 elem_bytes(r_dtype), ring_depth(stages), false);
+                                 elem_bytes(r_dtype), ring_depth(stages), false, acc, n_run);
   return whole_positions(select(l_dtype, r_dtype, acc, right_tri != 0, false, tile, stages),
                          smem, tile, n_pos);
 }
@@ -1674,8 +1795,11 @@ const char* leaf_products_error_string(int err) {
 // width, bi or bc on the left and bj or bc on the right, rounded up to 16, zeros past it), so
 // that every box starts on 16 bytes; read for fp8 sides only.
 // tile: 64 or 128, a block's sub-tile edge.  stages: the requested ring depth
-// (leaf_products_ring_depth says which runs).  The operands' row strides and bases are 16-byte
-// aligned, their extents below 2^31.  A batched launch is leaf_products_batched_launch.
+// (leaf_products_ring_depth says which runs).  n_run: with a bf16 or fp64 accumulator, the
+// slots of each op whose running values stay in shared memory over its K blocks, 0 to
+// max_dests (strassen_fused.run_dests; 0 for an fp32 accumulator).  The operands' row strides
+// and bases are 16-byte aligned, their extents below 2^31.  A batched launch is
+// leaf_products_batched_launch.
 int leaf_products_launch(const void* left, const void* right, const void* seed, void* ws,
                          void* out, const void* lrow, const void* lcol, const void* lsgn,
                          const void* rrow, const void* rcol, const void* rsgn, const void* rtrn,
@@ -1685,8 +1809,10 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
                          int n_k, int q_i, int q_j, int blocks_j, int bi, int bj, int bc,
                          int left_trans, int right_layout, int diag_sym, int out_tri, int pair,
                          int l_dtype, int r_dtype, int seed_dtype, int out_dtype, int acc,
-                         int l_pitch, int r_pitch, int tile, int stages, void* stream) {
+                         int l_pitch, int r_pitch, int tile, int stages, int n_run,
+                         void* stream) {
   if (n_ops < 1 || tmax < 1 || tmax > MAX_TERMS || max_dests < 1 || n_k < 1 || q_i < 1 ||
+      n_run < 0 || n_run > max_dests || (acc == ACC_F32 && n_run != 0) ||
       q_j < 1 || blocks_j < 1 || bi < 8 || bj < 8 || bc < 8 || right_layout < RIGHT_KJ ||
       right_layout > RIGHT_TRI || (right_layout == RIGHT_TRI && (bc != bj || rtrn == nullptr)) ||
       !operand_code(l_dtype) || !operand_code(r_dtype) || !value_code(out_dtype) ||
@@ -1703,7 +1829,7 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
   const bool tri = right_layout == RIGHT_TRI;
   const KernelFn kernel = select(l_dtype, r_dtype, acc, tri, pair != 0, tile, stages);
   const size_t smem = smem_bytes(tri, tmax, tile, elem_bytes(l_dtype), elem_bytes(r_dtype),
-                                 ring_depth(stages), pair != 0);
+                                 ring_depth(stages), pair != 0, acc, n_run);
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   // Boxes as each side lies: KC deep along K, TILE wide along i or j; the half maps read the
@@ -1730,7 +1856,7 @@ int leaf_products_launch(const void* left, const void* right, const void* seed, 
         static_cast<const int*>(dtrn), static_cast<const int*>(odiag),
         n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
         left_trans, right_layout == RIGHT_JK, diag_sym, out_tri != 0, slot_terms(tmax, pair),
-        seed_dtype, ws != out, 0, out_dtype, l_pitch, r_pitch, 1, 0};
+        seed_dtype, ws != out, 0, out_dtype, l_pitch, r_pitch, 1, 0, n_run};
   const long long n_pos = static_cast<long long>(q_i) * q_j * ((bi + tile - 1) / tile) *
                           ((bj + tile - 1) / tile);
   // pair mode: one block a mirror pair of sub-tiles and one a sub-tile on the diagonal
@@ -1824,7 +1950,7 @@ int leaf_products_batched_launch(const void* left, const void* right, void* ws, 
               static_cast<const int*>(dtrn), static_cast<const int*>(odiag),
               n_ops, tmax, max_dests, n_k, q_i, q_j, blocks_j, bi, bj, bc,
               left_trans, right_jk, 0, out_tri != 0, tmax, F32, ws != out, 0, out_dtype,
-              l_pitch, r_pitch, batch, out_slot};
+              l_pitch, r_pitch, batch, out_slot, 0};
   kernel<<<static_cast<unsigned>(grid), BATCHED_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       P, lmap, rmap, static_cast<int>(items), static_cast<int*>(next));
   return cudaGetLastError();

@@ -4,8 +4,11 @@
 // rounded to it).  Both sides of one type, fp32, bf16, fp16, fp8 e4m3fn or e5m2.  The ring
 // depth changes no bit, so one depth (STAGES) serves every request: 60 instantiations, two
 // accumulators x five types x two right-side layouts x tiles 64 and 128, and pair mode.  Each
-// K block's part is rounded into the accumulator at the K block's end, so these launches read
-// and write each destination once a K block; an fp64 value exists only at that write.
+// K block's part is rounded into the accumulator at the K block's end; an op's first n_run
+// slots keep their running sums in shared memory over its K blocks (leaf_products.cuh, PER_K),
+// so that a kept destination is read and written once an op, the others once a K block.  At
+// this depth the strassen gram's ring and sums (99.6 KB at tile 128) leave room for one fp64
+// slot (128 KB) or every bf16 one (32 KB each).
 #include "leaf_products.cuh"
 
 namespace {

@@ -36,10 +36,12 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
 
-def q_tile(dtype: torch.dtype) -> int:
+def q_tile(dtype: torch.dtype, d: int) -> int:
     """The kernel's q tile: 128 rows in bf16 and fp16 (two warpgroups of
-    64), 64 in fp32."""
-    return 128 if dtype in TENSOR_CORE_DTYPES else 64
+    64); in fp32 128 (16 row groups of 8), or 64 at head_dim 256.  The
+    fp32 body halves it where 128-row blocks would not give every SM one
+    (it changes no result: each row's arithmetic is its own)."""
+    return 64 if dtype not in TENSOR_CORE_DTYPES and d > 128 else 128
 
 
 def kv_tile(dtype: torch.dtype, d: int) -> int:

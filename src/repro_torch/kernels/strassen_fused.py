@@ -105,9 +105,10 @@ SMEM_LIMIT_BYTES = 232_448
 _SUPPORTED_OPERAND_DTYPES = ("float8_e4m3fn", "float8_e5m2", "bfloat16",
                              "float16", "float32", "float64")
 
-# Accumulators, by name
+# Accumulators, by name, and the bytes of one value of each
 _ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "float64": torch.float64}
+_ACC_BYTES = {"float32": 4, "bfloat16": 2, "float64": 8}
 
 # What jnp.astype stores for a NaN, by type: the quiet NaN with the
 # input's sign (torch keeps other payloads)
@@ -974,7 +975,7 @@ def _products_lib(name: str = "leaf_products") -> ctypes.CDLL:
     built at first use; all three share the C interface."""
     lib = _build.library(name)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 24 \
+    lib.leaf_products_launch.argtypes = [ptr] * 17 + [i64] * 4 + [i32] * 25 \
         + [ptr]
     lib.leaf_products_launch.restype = i32
     lib.leaf_products_batched_launch.argtypes = [ptr] * 16 + [i64] * 4 \
@@ -984,11 +985,11 @@ def _products_lib(name: str = "leaf_products") -> ctypes.CDLL:
     lib.leaf_products_batched_blocks_per_sm.restype = i32
     lib.leaf_products_batched_smem_bytes.argtypes = [i32] * 4
     lib.leaf_products_batched_smem_bytes.restype = ctypes.c_size_t
-    lib.leaf_products_smem_bytes.argtypes = [i32] * 7
+    lib.leaf_products_smem_bytes.argtypes = [i32] * 9
     lib.leaf_products_smem_bytes.restype = ctypes.c_size_t
-    lib.leaf_products_blocks_per_sm.argtypes = [i32] * 8
+    lib.leaf_products_blocks_per_sm.argtypes = [i32] * 9
     lib.leaf_products_blocks_per_sm.restype = i32
-    lib.leaf_products_whole_positions.argtypes = [i32] * 7 + [i64]
+    lib.leaf_products_whole_positions.argtypes = [i32] * 8 + [i64]
     lib.leaf_products_whole_positions.restype = i64
     lib.leaf_products_ring_depth.argtypes = [i32]
     lib.leaf_products_ring_depth.restype = i32
@@ -1032,12 +1033,54 @@ def ring_depth(spec: _Spec) -> int:
     return _products_lib(lib).leaf_products_ring_depth(spec.pipeline_depth)
 
 
-def _products_smem(spec: _Spec, tile: int, left_bytes: int,
-                   right_bytes: int) -> int:
+def run_dests(spec: _Spec, tile: int, base_smem: int) -> int:
+    """How many slots of each op a launch of ``spec`` at ``tile`` keeps
+    its running sums of on chip, ``Ops::n_run`` of ``csrc/leaf_products.cuh``:
+    under a bf16 or fp64 accumulator (each K block's part rounded into the
+    destination) an op's first ``run_dests`` slots hold their
+    destinations' running values in shared memory from the op's first K
+    block to its last, ``tile**2`` values each, and the others read and
+    write the workspace every K block.  As many as fit in the shared
+    memory a block can use beside the ``base_smem`` bytes of its ring and
+    sums, at most the widest op's; 0 for an fp32 accumulator, which adds
+    each op's product once.  Where they live changes no bit."""
+    if spec.acc_dtype == "float32":
+        return 0
+    per = tile * tile * _ACC_BYTES[spec.acc_dtype]
+    max_dests = _spec_op_tables(spec)[7].shape[1]
+    return max(0, min(max_dests, (SMEM_LIMIT_BYTES - base_smem) // per))
+
+
+def kept_slots(spec: _Spec, n_run: int) -> np.ndarray:
+    """``[n_ops, max_dests]``: the slots (op, destination) whose running
+    values a launch at ``n_run`` (:func:`run_dests`) keeps on chip, an
+    op's first ``n_run`` live ones; the other live slots go through the
+    workspace every K block."""
+    dsgn = _spec_op_tables(spec)[8]
+    return (dsgn != 0) & (np.arange(dsgn.shape[1]) < n_run)
+
+
+def _products_base_smem(spec: _Spec, tile: int, left_bytes: int,
+                        right_bytes: int) -> int:
+    """A launch's shared memory without running values: ring, sums and
+    the per-slot terms."""
     lib = _products_library(spec.acc_dtype, torch.float32)
     return _products_lib(lib).leaf_products_smem_bytes(
         int(spec.right_tri), spec.tmax, tile, left_bytes, right_bytes,
-        spec.pipeline_depth, int(_pairs(spec)))
+        spec.pipeline_depth, int(_pairs(spec)), ACC_CODES[spec.acc_dtype], 0)
+
+
+def _products_run_dests(spec: _Spec, tile: int, left_bytes: int,
+                        right_bytes: int) -> int:
+    return run_dests(spec, tile, _products_base_smem(spec, tile, left_bytes,
+                                                     right_bytes))
+
+
+def _products_smem(spec: _Spec, tile: int, left_bytes: int,
+                   right_bytes: int) -> int:
+    base = _products_base_smem(spec, tile, left_bytes, right_bytes)
+    return base + run_dests(spec, tile, base) * tile * tile \
+        * _ACC_BYTES[spec.acc_dtype]
 
 
 def _products_tile(spec: _Spec, left_bytes: int, right_bytes: int) -> int:
@@ -1222,8 +1265,10 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
     walked in quarters, four blocks each; in pair mode none), thread
     blocks (in pair mode one a mirror pair of positions and one a
     position that is its own mirror), blocks an SM holds at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared memory
-    a block.  ``batch``: a batched launch of that many slots, the
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared memory
+    a block, and under a bf16 or fp64 accumulator the slots of an op kept
+    on chip (:func:`run_dests`) and the (op, slot) pairs kept and not
+    (:func:`kept_slots`).  ``batch``: a batched launch of that many slots, the
     persistent kernel's :func:`batched_plan` (``positions`` its items, the
     positions that write something, all walked whole; ``blocks`` its grid;
     the plan itself under ``"plan"``)."""
@@ -1251,19 +1296,24 @@ def products_launch_shape(spec: _Spec, left_dtype, right_dtype,
              ACC_CODES[spec.acc_dtype], int(spec.right_tri), spec.tmax, tile,
              spec.pipeline_depth)
     pair = _pairs(spec)
+    n_run = _products_run_dests(spec, tile, lb, rb)
     if pair:            # square: Q sub-tiles along a leaf block's edge
         side = spec.q_i * -(-spec.bi // tile)
         whole, blocks = positions, side * (side + 1) // 2
     else:
-        whole = lib.leaf_products_whole_positions(*codes, positions)
+        whole = lib.leaf_products_whole_positions(*codes, n_run, positions)
         blocks = whole + 4 * (positions - whole)
+    kept = kept_slots(spec, n_run)
     return {"library": name, "types": (str(lt), str(rt)),
             "ring_depth": depth, "tile": tile, "pair": pair,
             "positions": positions, "whole_positions": whole,
             "blocks": blocks,
-            "blocks_per_sm": lib.leaf_products_blocks_per_sm(*codes,
-                                                             int(pair)),
-            "smem_bytes": _products_smem(spec, tile, lb, rb)}
+            "blocks_per_sm": lib.leaf_products_blocks_per_sm(
+                *codes, int(pair), n_run),
+            "smem_bytes": _products_smem(spec, tile, lb, rb),
+            "run_dests": n_run, "kept_slots": int(kept.sum()),
+            "per_k_slots": int((_spec_op_tables(spec)[8] != 0).sum()
+                               - kept.sum())}
 
 
 def product_flops(spec: _Spec) -> int:
@@ -1532,7 +1582,9 @@ def leaf_program(spec: _Spec, left: torch.Tensor, right: torch.Tensor,
                 LEAF_DTYPE_CODES[left.dtype], LEAF_DTYPE_CODES[right.dtype],
                 0 if seed is None else LEAF_DTYPE_CODES[seed.dtype],
                 LEAF_DTYPE_CODES[out.dtype], ACC_CODES[spec.acc_dtype],
-                l_pitch, r_pitch, tile, spec.pipeline_depth, stream)
+                l_pitch, r_pitch, tile, spec.pipeline_depth,
+                _products_run_dests(spec, tile, left.element_size(),
+                                    right.element_size()), stream)
     if err:
         raise RuntimeError(
             f"leaf_program launch failed: CUDA error {err} "

@@ -123,8 +123,8 @@ def test_flash_mha_window_softcap_head_dim_256():
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_mha_head_dim_80_matches_jax(b, sq, skv, h, hkv, kw, dtype):
-    """head_dim 80 (zamba2-2.7b's), which the bf16 kernel runs as 128 with
-    zero columns past 80 and the fp32 kernel as itself."""
+    """head_dim 80 (zamba2-2.7b's), which both kernels run as 128 with
+    zero columns past 80."""
     got, want = _both(_mk(b, sq, skv, h, hkv, 80, seed=11), dtype,
                       causal=True, block_q=32, block_kv=32, **kw)
     _close(got, want, dtype)
@@ -154,12 +154,14 @@ def test_plain_version_at_each_kernel_tile_matches_ref(d, dtype):
 def test_kernel_tiles():
     """The kernel's tiles, which the plain version and the planted faults
     of the card's checks follow: bf16 q tiles of 128 rows and kv tiles of
-    128 (64 at head_dim 256), fp32 tiles of 64."""
+    128 (64 at head_dim 256); fp32 q tiles of 128 rows (64 at head_dim
+    256) and kv tiles of 64."""
     assert [p_fa.kv_tile(torch.bfloat16, d) for d in p_fa.HEAD_DIMS] == \
         [128, 128, 128, 128, 128, 64]
     assert {p_fa.kv_tile(torch.float32, d) for d in p_fa.HEAD_DIMS} == {64}
-    assert (p_fa.q_tile(torch.bfloat16), p_fa.q_tile(torch.float32)) == \
-        (128, 64)
+    assert {p_fa.q_tile(torch.bfloat16, d) for d in p_fa.HEAD_DIMS} == {128}
+    assert [p_fa.q_tile(torch.float32, d) for d in p_fa.HEAD_DIMS] == \
+        [128, 128, 128, 128, 128, 64]
 
 
 @pytest.mark.parametrize("causal,window,softcap",

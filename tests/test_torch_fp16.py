@@ -160,13 +160,15 @@ def test_flash_fp16_matches_jax(b, sq, skv, h, hkv, d, kw):
 
 def test_flash_fp16_runs_the_tensor_core_tiles():
     """fp16 takes bf16's tiles (the tensor-core kernel's), which the plain
-    version's online softmax follows; fp32 keeps 64."""
+    version's online softmax follows; fp32 keeps kv tiles of 64 (its q
+    tile is 128 rows)."""
     for d in p_fa.HEAD_DIMS:
         assert p_fa.kv_tile(torch.float16, d) == \
             p_fa.kv_tile(torch.bfloat16, d)
-    assert p_fa.q_tile(torch.float16) == p_fa.q_tile(torch.bfloat16) == 128
-    assert p_fa.kv_tile(torch.float32, 128) == p_fa.q_tile(torch.float32) \
-        == 64
+        assert p_fa.q_tile(torch.float16, d) == \
+            p_fa.q_tile(torch.bfloat16, d) == 128
+    assert p_fa.kv_tile(torch.float32, 128) == 64
+    assert p_fa.q_tile(torch.float32, 128) == 128
     # mixed dtypes stay refused: the kernel takes q, k and v of one dtype
     q = torch.zeros(1, 2, 32, 32, dtype=torch.float16)
     with pytest.raises(TypeError, match="one dtype"):

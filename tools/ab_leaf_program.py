@@ -27,9 +27,17 @@ kernel leaves end to end, ``ata(a, base_syrk=ops.kernel_base_syrk(),
 base_matmul=ops.kernel_base_matmul())`` on fp32 A (``ata_leaves``) and
 fp16 A (``ata_leaves_f16``), 16 syrk and 22 matmul leaves each; the main
 path end to end, ``ata(a)`` (``ata_e2e``: the entry point's block
-defaults, the kernel, the unpack); flash attention at the serving prefill, q (1, 16,
-2048, 128) over k, v (1, 2, 2048, 128), causal, in bf16 and fp16
-(``flash_bf16``, ``flash_f16``); and the batched launch
+defaults, the kernel, the unpack); the accumulator library
+(``leaf_products_acc``, an fp32 output): ata with a bf16 accumulator on
+A and with an fp64 one on A in fp64 (``ata_acc_bf16``, ``ata_acc_f64``),
+the same of the dps gram in pair mode (``ata_dps_acc_bf16``,
+``ata_dps_acc_f64``) and the rank_k chunk (``rank_k_acc_bf16``,
+``rank_k_acc_f64``, an fp64 stack for the latter); flash attention at the
+serving prefill, q (1, 16, 2048, 128) over k, v (1, 2, 2048, 128),
+causal, in bf16, fp16 and fp32 (``flash_bf16``, ``flash_f16``,
+``flash_f32``: the CUDA-core body), and the fp32 one at the prefill's
+first 512 and 1024 rows over the same cache (``flash_f32_s512``,
+``flash_f32_s1024``); and the batched launch
 (``leaf_program`` on a ``BoundGram``'s padded (K, m, n) stack, levels 1,
 tiles of 256, fp32, seed 0): ``batched_ata_8192`` and ``batched_ata_256``
 (4 slots of 8192^2 and 256^2), ``batched_aat_256``, and
@@ -39,9 +47,12 @@ stacks through their ``BoundGram`` (bound before the timing) end to end,
 pad, launch and symmetric unpack (``batched_shampoo_sym``, what
 ``batched_gram`` runs).  ``--cases`` picks some of them.  A time is the median of 5 CUDA-event timings after 2 warm-ups; the
 summary gives each side's median over its processes and the change over
-the parent.  Each process also hashes each case's output (sha256 of its
-bytes), and the summary says whether every run of both sides gave the
-same bits.  It prints the card's name and power limit.
+the parent.  Flash cases also give their device time (``device_ms``: 20
+calls captured in one CUDA graph, replayed between two events), which
+leaves out the host's time to launch, the larger part of an event pair
+around one 0.1 ms call.  Each process also hashes each case's output
+(sha256 of its bytes), and the summary says whether every run of both
+sides gave the same bits.  It prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -64,7 +75,15 @@ LEAVES = ("ata_leaves", "ata_leaves_f16")
 # the entry points end to end
 E2E = ("ata_e2e",) + LEAVES
 # flash attention at the serving prefill
-FLASH = ("flash_bf16", "flash_f16")
+FLASH = {"flash_bf16": ("bfloat16", 2048), "flash_f16": ("float16", 2048),
+         "flash_f32": ("float32", 2048), "flash_f32_s512": ("float32", 512),
+         "flash_f32_s1024": ("float32", 1024)}
+# the accumulator library: (kind, gram, accumulator)
+ACC = {f"{kind}{'_dps' if gram == 'dps' else ''}_acc_{short}":
+       (kind, gram, acc)
+       for kind, gram in (("ata", "strassen"), ("ata", "dps"),
+                          ("rank_k", "strassen"))
+       for short, acc in (("bf16", "bfloat16"), ("f64", "float64"))}
 # the batched launch: (kind, stacks (K, m, n), launched in turn)
 SHAMPOO_STACKS = ([(8, 1024, 1024)] * 4 + [(44, 1024, 1024)] * 6
                   + [(4, 256, 1024)] * 2 + [(4, 1024, 256)] * 2
@@ -77,7 +96,8 @@ BATCHED = {"batched_ata_8192": ("ata", [(4, 8192, 8192)]),
 # the batched program end to end, its symmetric grams out
 SYM = ("batched_shampoo_sym",)
 CASES = ("ata", "aat", "rank_k", "symm", "matmul", "ata_dps", "ata_bf16",
-         "ata_bf16_out") + SINGLE + E2E + FLASH + tuple(BATCHED) + SYM
+         "ata_bf16_out") + tuple(ACC) + SINGLE + E2E + tuple(FLASH) \
+    + tuple(BATCHED) + SYM
 
 
 def _time_side(root: pathlib.Path, cases: tuple) -> dict:
@@ -118,16 +138,30 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
     def padded(x):
         return F.pad(x, (0, -x.shape[1] % block, 0, -x.shape[0] % block))
 
-    def measured(fn):
+    def device_ms(fn, calls=20):
+        """One call's device time: ``calls`` calls in one CUDA graph."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        return timed(graph.replay) / calls
+
+    def measured(fn, device=False):
         """(ms, sha256 of the output's bytes; of each in turn where ``fn``
-        returns a list)."""
+        returns a list) and, where asked, the device time."""
         res = fn()
         torch.cuda.synchronize()
         digest = hashlib.sha256()
         for x in res if isinstance(res, list) else [res]:
             digest.update(x.contiguous().view(torch.uint8).cpu().numpy()
                           .tobytes())
-        return {"ms": timed(fn), "hash": digest.hexdigest()}
+        return {"ms": timed(fn), "hash": digest.hexdigest(),
+                **({"device_ms": device_ms(fn)} if device else {})}
 
     out = {}
     for case in (c for c in cases if c in SINGLE):
@@ -157,11 +191,33 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
         del a16
     if "ata_e2e" in cases:
         out["ata_e2e"] = measured(lambda: ata(a))
+    for case in (c for c in cases if c in ACC):
+        kind, gram, acc = ACC[case]
+        x = a.double() if acc == "float64" else a
+        seed = None
+        if kind == "ata":
+            spec, left = sf._prepare_ata(x, levels, "strassen", gram, block,
+                                         block, pipeline_depth=depth,
+                                         acc_dtype=acc)
+        else:
+            T = -(-n // block)
+            seed = pack_tril_blocks(torch.tril(torch.randn(
+                T * block, T * block, generator=gen, device=dev)),
+                block).to(x.dtype)
+            spec, left = sf._prepare_rank_k(seed, x[:rows], levels,
+                                            "strassen", gram, block,
+                                            pipeline_depth=depth,
+                                            acc_dtype=acc)
+        out[case] = measured(lambda: sf.leaf_program(spec, left, left, f32,
+                                                     seed=seed))
+        del x, left, seed
     for case in (c for c in cases if c in FLASH):
-        dtype = torch.float16 if case == "flash_f16" else torch.bfloat16
+        dtype, sq = getattr(torch, FLASH[case][0]), FLASH[case][1]
         q, k, v = (torch.randn(1, heads, 2048, 128, generator=gen,
                                device=dev).to(dtype) for heads in (16, 2, 2))
-        out[case] = measured(lambda: k_flash.flash_attention(q, k, v))
+        q = q[:, :, :sq].contiguous()
+        out[case] = measured(lambda: k_flash.flash_attention(q, k, v),
+                             device=True)
         del q, k, v
     for case in (c for c in cases if c in BATCHED):
         kind, stacks = BATCHED[case]
@@ -187,8 +243,8 @@ def _time_side(root: pathlib.Path, cases: tuple) -> dict:
         out["batched_shampoo_sym"] = measured(
             lambda: [bound(x, symmetrize=True) for bound, x in runs])
         del runs
-    for case in (c for c in cases
-                 if c not in SINGLE + E2E + FLASH + tuple(BATCHED) + SYM):
+    for case in (c for c in cases if c not in SINGLE + E2E + tuple(FLASH)
+                 + tuple(ACC) + tuple(BATCHED) + SYM):
         seed, out_dtype = None, f32
         gram = "dps" if case == "ata_dps" else "strassen"
         if case.startswith("ata"):
@@ -255,10 +311,14 @@ def main() -> int:
     if args.build is not None:
         sys.path.insert(0, str(args.build.resolve() / "src"))
         from repro_torch.kernels import _build
-        # the libraries the cases run: the leaf program's for a fused case,
-        # syrk and matmul for the others
+        # the libraries the cases run: the leaf program's for a fused case
+        # (the accumulator library's for its own), syrk and matmul for the
+        # others
         names = (("leaf_products", "leaf_program")
-                 if set(cases) - set(SINGLE + LEAVES + FLASH) else ()) + \
+                 if set(cases) - set(SINGLE + LEAVES + tuple(FLASH)
+                                     + tuple(ACC))
+                 else ()) + \
+            (("leaf_products_acc",) if set(cases) & set(ACC) else ()) + \
             (("syrk", "matmul") if set(cases) & set(SINGLE + LEAVES)
              else ()) + \
             (("flash_attention",) if set(cases) & set(FLASH) else ())
@@ -299,10 +359,17 @@ def main() -> int:
                          med["change"] / med["parent"],
                          "same_bits": len(hashes) == 1,
                          "hash": sorted(hashes)}
-        print(f"{case}: parent {med['parent']:.3f} ms, change "
-              f"{med['change']:.3f} ms, change / parent "
-              f"{med['change'] / med['parent']:.4f}; every run's output "
-              f"bits equal: {len(hashes) == 1}")
+        line = (f"{case}: parent {med['parent']:.3f} ms, change "
+                f"{med['change']:.3f} ms, change / parent "
+                f"{med['change'] / med['parent']:.4f}")
+        if "device_ms" in runs["parent"][0][case]:
+            dev = {side: statistics.median(t[case]["device_ms"]
+                                           for t in runs[side])
+                   for side in sides}
+            summary[case]["device_ms"] = dev
+            line += (f"; device {dev['parent']:.4f} -> {dev['change']:.4f} "
+                     f"ms, {dev['change'] / dev['parent']:.4f}")
+        print(f"{line}; every run's output bits equal: {len(hashes) == 1}")
     print(json.dumps(summary))
     return 0
 
