@@ -256,6 +256,38 @@ failure exits non-zero):
        (c) AdamW through ``make_train_step(cfg, make_optimizer(tc))`` at
        full width and depth (36 layers), ``remat="full"``, seq 4096: 3
        steps, each loss finite, step ms, tokens/s, peak memory;
+   4o. the moe family at full width (a function of its own, ``phase_4o``;
+       ``--only 4o`` runs it alone after building ``flash_attention``
+       only): (a) the flash kernel at Arctic's prefill, q (1, 56, 2048,
+       128) over k/v (1, 8, 2048, 128), causal, bf16 (7 q heads a kv
+       head), against its plain version within phase 3j's bf16 bars,
+       timed by events and as device time beside SDPA, with its bound;
+       (b) Arctic (``arctic-480b``) at full width cut to
+       ``ARCTIC_LAYERS`` layers, bf16, ``attn_impl="flash"``, weights from
+       a ``torch.Generator`` on the card seeded with ``--seed``, served by
+       ``ServingEngine`` after a short warm-up: phase 4g's eight prompts
+       and schedule (slots 4, max_seq 2048, 16 new tokens, greedy), the
+       flash kernel's launches asserted (layers x prefills, nothing
+       else), time to first token, prefill and decode tokens/s, peak
+       memory; each prefill's last-position logits against the same
+       model's train-mode forward with plain attention on the same
+       bucket-padded tokens (so the same MoE capacity), and request 0's
+       15 decode steps (slot 0 of four) against the request decoded
+       alone, each <= 0.1 of max|logits| wherever the two runs' MoE
+       assignments agree (a bf16 rounding can move a token's top-k, and
+       then its kept place and those of the tokens behind it: every MoE
+       dispatch's expert ids are recorded through ``layers.moe_route``
+       and the tokens that differ counted); one 2032-token prefill and
+       one decode tick of four slots under ``torch.profiler`` (busy
+       share); ``loss_fn`` over 512 tokens; then Arctic at 1 layer in
+       fp32, the flash kernel in the model against plain attention at
+       each prompt, <= 1e-4; (c) DeepSeek-V3 (``deepseek-v3-671b``) at
+       full width with its 3 dense layers, ``DEEPSEEK_MOE_LAYERS`` MoE
+       layer and the MTP head, bf16, ``attn_impl="xla"`` (MLA has no
+       flash branch), served likewise with no kernel launch, each prefill
+       (the absorbed MLA branch below the 2048 bucket) against the
+       expanded branch with no cache, the same decode check, profile and
+       ``loss_fn`` with its ``mtp_ce``; each model freed before the next;
 5. times with CUDA events (median of 5 after 2 warm-ups): each kind at
    its main-path shape (depths 2 and 1), its library yardstick (timed
    only, never called by the port), the end-to-end calls, the plain
@@ -278,8 +310,9 @@ failure exits non-zero):
    128), causal, bf16, beside ``F.scaled_dot_product_attention`` (timed
    only), by events and as device time (20 calls in a CUDA graph,
    replayed), and at that prefill's first 512 and 1024 rows over the
-   same cache; its bound is 4 D flops for each unmasked (q, k) pair at the
-   bf16 tensor-core peak against q, k, v and o once at HBM rate.  The
+   same cache (and, from phase 4o, at Arctic's prefill); its bound is
+   4 D flops for each unmasked (q, k) pair at the bf16 tensor-core peak
+   against q, k, v and o once at HBM rate.  The
    precision axes' libraries at their main-path shapes: the ata kind on
    e4m3fn, e5m2 and fp16 tiles and the rank_k kind on an e4m3fn chunk
    (``leaf_products_lowp``), ata with a bf16 and an fp64 accumulator
@@ -404,6 +437,13 @@ CHUNK_BARS = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -6, 2.0 ** -5)}
 # Phase 4n's Shampoo run: Qwen2.5-3B at full width cut to this many layers
 # (its statistics are 1218 MiB a layer in fp32; PERF.md §4)
 SHAMPOO_LAYERS = 2
+# Phase 4o, the moe family at full width: Arctic cut to this many of its 35
+# layers (54.5 GB of bf16 weights, the most that fits beside the cache and
+# the phase's comparisons), DeepSeek-V3 to its 3 dense layers and this many
+# MoE layers (31 GB with the MTP head); PERF.md §4.  Arctic's attention: 56
+# query heads over 8 kv heads (7 a kv head), head_dim 128
+ARCTIC_LAYERS, DEEPSEEK_MOE_LAYERS = 2, 1
+ARCTIC_HEADS, ARCTIC_KV_HEADS = 56, 8
 # Phase 4m's batched launches, (kind, K, m, n) at levels 1 (0 where the
 # shape allows no more) and tiles of 256: the Gram service's (4, 8192^2) and
 # (4, 256^2) for both kinds, then the stacks of Shampoo's statistics for
@@ -1346,15 +1386,476 @@ def phase_4n(seed, dev, smi, reset_counts, read_counts) -> dict:
     return out
 
 
+def _routes_signature(calls, moe_cfg, kept_too=True):
+    """Each token's expert assignments in a run: from ``_RouteRecorder``'s
+    calls (one a MoE layer, each (G, T, k) expert ids), an int (layers,
+    G, T, k) tensor of each token's sorted expert ids, or with
+    ``kept_too`` of its sorted (expert id, kept) codes, kept as
+    ``layers._moe_dispatch_compute`` decides: sorted stably by expert id
+    within a group, an expert's first ``moe_capacity(T)`` in token
+    order."""
+    import torch
+    from repro_torch.models.layers import moe_capacity
+    out = []
+    for top in calls:
+        if not kept_too:
+            out.append(top.sort(-1).values)
+            continue
+        g, t, k = top.shape
+        flat = top.reshape(g, t * k)
+        order = torch.argsort(flat, dim=-1, stable=True)
+        counts = torch.zeros((g, moe_cfg.num_experts), dtype=torch.long,
+                             device=top.device)
+        counts.scatter_add_(-1, flat, torch.ones_like(flat))
+        offsets = torch.cumsum(counts, -1) - counts
+        sorted_e = torch.gather(flat, -1, order)
+        place = torch.empty_like(flat)
+        place.scatter_(-1, order, torch.arange(t * k, device=top.device)
+                       - torch.gather(offsets, -1, sorted_e))
+        kept = (place < moe_capacity(t, moe_cfg)).reshape(g, t, k)
+        out.append((top * 2 + kept.long()).sort(-1).values)
+    return torch.stack(out)
+
+
+class _RouteRecorder:
+    """While entered, records the expert ids of every MoE dispatch (a
+    wrapper on ``layers.moe_route``, which ``_moe_dispatch_compute`` looks
+    up by name) in ``calls``, one (G, T, k) tensor a call."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.calls = layers, []
+
+    def __enter__(self):
+        self.route = route = self.layers.moe_route
+
+        def recording(p, xt, cfg):
+            out = route(p, xt, cfg)
+            self.calls.append(out[1])
+            return out
+        self.layers.moe_route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self.route
+
+
+def _recording_engine(engine):
+    """A subclass of ``engine`` (the port's ``ServingEngine``) that keeps
+    the logits each request's tokens were sampled from: the prefill's
+    last position, then request 0's decode rows."""
+
+    class Recorder(engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.first_logits, self.decode_logits = [], []
+
+        def _sample(self, logits):
+            if logits.shape[0] == 1:                      # admission
+                self.first_logits.append(logits[0].float())
+            else:
+                for slot, r in self.active.items():
+                    if r is not None and r.uid == 0:
+                        self.decode_logits.append(logits[slot].float())
+            return super()._sample(logits)
+    return Recorder
+
+
+def _profiled(label, step):
+    """Wall time of ``step`` (ending in a sync), the device's kernel time
+    inside it, the busy share, the flash kernel's time and the top
+    kernels, under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in kern
+                   if "flash_tc_kernel" in e.key
+                   or "flash_kernel" in e.key) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"  {label}: wall {wall_ms:.3f} ms, device kernels "
+          f"{dev_ms:.3f} ms, busy {dev_ms / wall_ms:.1%}; the flash "
+          f"kernel {flash_ms:.3f} ms, {flash_ms / max(dev_ms, 1e-9):.1%} of "
+          f"the device time; top: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
+                      f" ms x {e.count}" for e in top))
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "flash_ms": flash_ms,
+            "busy": dev_ms / wall_ms,
+            "top": [[e.key, e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def phase_4o(seed, dev, smi, reset_counts, read_counts) -> dict:
+    """Phase 4o, the moe family served at full width through the port's
+    ``ServingEngine``, one model at a time, random weights from ``seed``:
+    (a) the flash kernel at Arctic's prefill shape (group 7) against its
+    plain version, timed against its bound and SDPA; (b) Arctic at
+    ``ARCTIC_LAYERS`` layers, bf16, ``attn_impl="flash"``, served and
+    held against plain attention, and at 1 layer in fp32; (c) DeepSeek-V3
+    at its dense layers, one MoE layer and the MTP head, bf16, "xla"
+    (MLA has no flash branch), served and held against the expanded
+    branch with no cache; each model's ``loss_fn`` at full width.
+    Returns what the summary and the kernels line report."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import decode_step, forward, init_cache, \
+        init_params, loss_fn
+    from repro_torch.models.model import param_count
+    from repro_torch.runtime import ServingEngine
+    from repro_torch.runtime.serving import _bucket
+    k_flash = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_phase = time.perf_counter()
+    print("== 4o. the moe family at full width: the flash kernel at "
+          "Arctic's prefill, Arctic and DeepSeek-V3 served")
+    out = {"card": smi}
+    torch.cuda.empty_cache()
+    held_bytes = torch.cuda.memory_allocated()
+    print(f"  held by the earlier phases: {held_bytes} B")
+
+    # (a) the flash kernel at Arctic's prefill: q (1, 56, 2048, 128) over
+    # k/v (1, 8, 2048, 128), causal, bf16: 7 q heads a kv head
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fq = torch.randn(1, ARCTIC_HEADS, MAX_SEQ, QWEN_HEAD_DIM, generator=gen,
+                     device=dev, dtype=bf16)
+    fk, fv = (torch.randn(1, ARCTIC_KV_HEADS, MAX_SEQ, QWEN_HEAD_DIM,
+                          generator=gen, device=dev, dtype=bf16)
+              for _ in range(2))
+    opts = dict(causal=True, window=0, softcap=0.0,
+                scale=QWEN_HEAD_DIM ** -0.5)
+    got = k_flash.flash_attention(fq, fk, fv)
+    want = k_flash._flash_attention_plain(fq, fk, fv, **opts)
+    err = float((got.float() - want.float()).abs().max())
+    errs = (_rel(got, want.double()), _row_rel(got, want))
+    print(f"  flash_attention q {tuple(fq.shape)}, k/v {tuple(fk.shape)}, "
+          f"bf16, causal: kernel vs plain max|d| {err:.3e}, of max|out| "
+          f"{errs[0]:.3e}, by row {errs[1]:.3e} (<= "
+          f"{FLASH_BARS['bfloat16'][0]:.0e}, "
+          f"{FLASH_BARS['bfloat16'][1]:.3e})")
+    assert all(e_ <= b_ for e_, b_ in zip(errs, FLASH_BARS["bfloat16"]))
+    del got, want
+
+    def sdpa():
+        return F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
+                                              enable_gqa=True)
+    ms, _ = _time_ms(lambda: k_flash.flash_attention(fq, fk, fv))
+    plain_ms, _ = _time_ms(lambda: k_flash._flash_attention_plain(
+        fq, fk, fv, **opts), reps=1, warmup=0)
+    lib_ms, _ = _time_ms(sdpa)
+    dev_ms = _device_ms(lambda: k_flash.flash_attention(fq, fk, fv))
+    lib_dev_ms = _device_ms(sdpa)
+    pairs = MAX_SEQ * (MAX_SEQ + 1) // 2
+    flops = ARCTIC_HEADS * pairs * 4 * QWEN_HEAD_DIM
+    io_bytes = (2 * fq.numel() + 2 * fk.numel()) * fq.element_size()
+    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, \
+        io_bytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"  flash at Arctic's prefill: {ms:.4f} ms (events), device "
+          f"{dev_ms:.4f} ms; plain version once {plain_ms:.3f} ms; SDPA "
+          f"{lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops:.4e} flops at "
+          f"{PEAK_BF16_FLOPS:.3g}, {io_bytes:.4e} B at {PEAK_HBM_BYTES:.3g})"
+          f"; device time {bound_ms / dev_ms:.1%} of the bound")
+    flash_row = {"shape": [list(fq.shape), list(fk.shape)],
+                 "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "device_ms": dev_ms,
+                 "library_device_ms": lib_dev_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "max_abs_err": err, "card": smi}
+    del fq, fk, fv
+    torch.cuda.empty_cache()
+
+    # phase 4g's prompt lengths: 100-1500 from the seed, and 2032 (the 2048
+    # bucket fills the cache)
+    lens = np.random.default_rng(seed).integers(100, 1501, size=7).tolist() \
+        + [MAX_SEQ - 16]
+
+    Recorder = _recording_engine(ServingEngine)
+
+    def padded(prompt):
+        """The prompt as the engine prefills it: right-padded with 0 to
+        its bucket (the same tokens, so the same MoE capacity)."""
+        toks = torch.zeros((1, _bucket(len(prompt))), dtype=torch.long,
+                           device=dev)
+        toks[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+        return toks
+
+    def held(label, pairs_, bar):
+        """Errors of max|logits| of (got, want, flipped) pairs: those of
+        positions whose MoE assignments (expert ids and whether each kept
+        its place) agree in every layer are held at ``bar``; the others,
+        where a rounding moved a routing choice, are counted."""
+        errs_ = [_rel(g_, w_.double()) for g_, w_, _ in pairs_]
+        flips = [bool(f_) for _, _, f_ in pairs_]
+        kept_ = [e_ for e_, f_ in zip(errs_, flips) if not f_]
+        print(f"  {label}: " + ", ".join(
+            f"{e_:.3e}{' (routing moved)' if f_ else ''}"
+            for e_, f_ in zip(errs_, flips))
+            + f"; {sum(flips)} of {len(flips)} with a moved routing, the "
+            f"rest <= {bar:.0e}")
+        assert kept_ and max(kept_) <= bar, (label, errs_, flips)
+        return {"errs": errs_, "routing_moved": flips}
+
+    def serve_model(cfg, params, label):
+        """Serves the eight prompts; returns the engine, its stats and
+        each prefill's and decode tick's MoE records."""
+        rng_p = np.random.default_rng(seed + 1)
+        prompts = [rng_p.integers(0, cfg.vocab_size, size=n_).tolist()
+                   for n_ in lens]
+        # a warm-up (the shapes' first cuBLAS calls and the library load),
+        # not timed and not counted: two short requests, four new tokens
+        warm = ServingEngine(cfg, params, slots=4, max_seq=MAX_SEQ)
+        for p_ in prompts[5:7]:
+            warm.add_request(p_, max_new_tokens=4)
+        warm.run_to_completion()
+        del warm
+        eng = Recorder(cfg, params, slots=4, max_seq=MAX_SEQ)
+        for p_ in prompts:
+            eng.add_request(p_, max_new_tokens=16)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with _RouteRecorder() as rec:
+            t0 = time.perf_counter()
+            finished = eng.run_to_completion()
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+        launches = read_counts(f"serving {label}")
+        peak_bytes = torch.cuda.max_memory_allocated() - base
+        assert len(finished) == len(prompts)
+        assert all(r.status == "ok" and len(r.generated) == 16
+                   and all(0 <= t_ < cfg.vocab_size for t_ in r.generated)
+                   for r in finished)
+        st = eng.stats
+        ttft = {r.uid: r.t_first - r.t_submit for r in finished}
+        res = {"arch": cfg.name, "layers": cfg.num_layers,
+               "dtype": cfg.dtype, "attn_impl": cfg.attn_impl,
+               "params": param_count(params), "prompt_lengths": lens,
+               "serve_s": serve_s, "ttft_s": ttft,
+               "prefill_tokens_per_s": st["prefill_tokens"]
+               / st["prefill_s"],
+               "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
+               "peak_bytes": peak_bytes, "weight_bytes": base - held_bytes,
+               "launches": {k_: v_ for k_, v_ in launches.items() if v_},
+               "card": smi}
+        print(f"  {label}: {res['params']} parameters, {len(finished)} "
+              f"requests in {serve_s:.3f} s; time to first token, s: "
+              + ", ".join(f"{u}: {t_:.4f}" for u, t_ in sorted(ttft.items()))
+              + f"; prefill {st['prefill_tokens']} tokens, "
+              f"{res['prefill_tokens_per_s']:.1f} tokens/s; decode "
+              f"{st['decode_tokens']} tokens in {st['ticks']} ticks, "
+              f"{res['decode_tokens_per_s']:.1f} tokens/s; peak memory "
+              f"{peak_bytes} B beside {base - held_bytes} B of weights and "
+              f"cache")
+        # the engine's MoE records: one (1, bucket, k) a layer a prefill in
+        # admission order (FIFO: prompt order), one (4, 1, k) a layer a
+        # decode tick
+        pre = [c_ for c_ in rec.calls if c_.shape[1] > 1]
+        dec = [c_ for c_ in rec.calls if c_.shape[1] == 1]
+        n_moe = len(pre) // len(prompts)
+        assert len(pre) == n_moe * len(prompts) and n_moe > 0
+        res["n_moe_layers"] = n_moe
+        return eng, prompts, res, \
+            [pre[i * n_moe:(i + 1) * n_moe] for i in range(len(prompts))], \
+            [dec[i * n_moe:(i + 1) * n_moe]
+             for i in range(len(dec) // n_moe)]
+
+    def moved(a_calls, b_calls, moe_cfg, kept_too=True):
+        """(G * T,) bool: tokens whose expert ids (and, with ``kept_too``,
+        whether each kept its place) differ in some layer."""
+        a_ = _routes_signature(a_calls, moe_cfg, kept_too)
+        b_ = _routes_signature(b_calls, moe_cfg, kept_too)
+        return (a_ != b_).any(-1).any(0).reshape(-1)
+
+    def check_against(cfg, ref_cfg, params, eng, prompts, pre, dec, label,
+                      bar=SERVE_BF16_BAR):
+        """Each prefill's last-position logits against ``ref_cfg``'s
+        train-mode forward on the same padded tokens; request 0's 15
+        decode steps against the same request decoded alone (B = 1, its
+        own cache, the engine's prefill), so that only the batch of four
+        rows differs.  Each held where the routing agrees; the tokens
+        whose expert choice moved, and those whose kept place moved,
+        counted."""
+        pairs_, n_topk, n_kept = [], 0, 0
+        with torch.no_grad():
+            for i, p_ in enumerate(prompts):
+                with _RouteRecorder() as rec:
+                    ref = forward(ref_cfg, params, padded(p_),
+                                  mode="train")[0][0, len(p_) - 1]
+                mv = moved(pre[i], rec.calls, cfg.moe)[:len(p_)]
+                n_topk += int(moved(pre[i], rec.calls, cfg.moe,
+                                    False)[:len(p_)].sum())
+                n_kept += int(mv.sum())
+                pairs_.append((eng.first_logits[i], ref, mv[-1]))
+                del ref
+            prefill = held(f"{label} prefill logits vs {ref_cfg.attn_impl} "
+                           f"no cache", pairs_, bar)
+            prefill.update(tokens=sum(map(len, prompts)),
+                           tokens_topk_moved=n_topk,
+                           tokens_routing_moved=n_kept)
+            print(f"    of {prefill['tokens']} prompt tokens, {n_topk} differ "
+                  f"in their top-k and {n_kept} in their top-k or in a kept "
+                  f"place")
+            r0 = next(r for r in eng.finished if r.uid == 0)
+            cache = init_cache(cfg, 1, MAX_SEQ)
+            _, cache = forward(cfg, params, padded(prompts[0]), cache=cache,
+                               mode="prefill")
+            cache["index"] = torch.tensor(len(prompts[0]), device=dev)
+            pairs_ = []
+            for i, tok in enumerate(r0.generated[:-1]):
+                with _RouteRecorder() as rec:
+                    step, cache = decode_step(
+                        cfg, params, torch.tensor([[tok]], device=dev), cache)
+                mv = moved([c_[:1] for c_ in dec[i]], rec.calls, cfg.moe)
+                pairs_.append((eng.decode_logits[i], step[0], mv[0]))
+            decode = held(f"{label} request 0's 15 decode steps (slot 0 of "
+                          f"4) vs decoded alone", pairs_, bar)
+            del cache
+        return {"prefill": prefill, "decode": decode}
+
+    # (b) Arctic at ARCTIC_LAYERS layers, bf16, flash
+    cfg = dataclasses.replace(get_arch("arctic-480b"),
+                              num_layers=ARCTIC_LAYERS, attn_impl="flash")
+    print(f"  Arctic: {cfg.num_layers} of 35 layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, dense "
+          f"residual {cfg.moe.dense_d_ff}, {cfg.dtype}, attn_impl='flash'")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    print(f"  Arctic's weights drawn in {time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() - held_bytes} B")
+    eng, prompts, arctic, pre, dec = serve_model(cfg, params, "Arctic")
+    want = dict.fromkeys(arctic["launches"], 0)
+    want["flash_attention"] = cfg.num_layers * len(prompts)
+    assert arctic["launches"] == want, arctic["launches"]
+    flash_row["launches"] = arctic["launches"]["flash_attention"]
+    arctic["vs_plain"] = check_against(
+        cfg, dataclasses.replace(cfg, attn_impl="xla"), params, eng,
+        prompts, pre, dec, "Arctic bf16, flash")
+    del eng
+    one = ServingEngine(cfg, params, slots=1, max_seq=MAX_SEQ)
+    one.add_request(prompts[-1], max_new_tokens=1)
+    arctic["profile_prefill_2032"] = _profiled(
+        "Arctic, prefill of 2032 tokens", one.step)
+    four = ServingEngine(cfg, params, slots=4, max_seq=MAX_SEQ)
+    for p_ in prompts[:4]:
+        four.add_request(p_, max_new_tokens=3)
+    four.step()
+    arctic["profile_decode_tick"] = _profiled(
+        "Arctic, decode tick of 4 live slots", four.step)
+    with torch.no_grad():
+        toks = torch.tensor([prompts[0][:513]], device=dev)
+        _, met = loss_fn(cfg, params, {"inputs": toks[:, :-1],
+                                       "labels": toks[:, 1:]})
+    arctic["loss_512"] = {k_: float(v_) for k_, v_ in met.items()}
+    print(f"  Arctic loss_fn over 512 tokens: {arctic['loss_512']}")
+    assert all(np.isfinite(v_) for v_ in arctic["loss_512"].values()) \
+        and arctic["loss_512"]["moe_aux"] > 0
+    del one, four, params, met
+    torch.cuda.empty_cache()
+
+    # Arctic at 1 layer in fp32: the flash kernel in the model against plain
+    # attention at each prompt, sums in another order all that differs
+    cfg32 = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(seed))
+    pairs32, n_moved = [], 0
+    with torch.no_grad():
+        for p_ in prompts:
+            with _RouteRecorder() as rec_f:
+                got32 = forward(cfg32, params, padded(p_),
+                                mode="train")[0][0, len(p_) - 1]
+            with _RouteRecorder() as rec_p:
+                ref32 = forward(dataclasses.replace(cfg32, attn_impl="xla"),
+                                params, padded(p_),
+                                mode="train")[0][0, len(p_) - 1]
+            mv = moved(rec_f.calls, rec_p.calls, cfg32.moe)[:len(p_)]
+            n_moved += int(mv.sum())
+            pairs32.append((got32, ref32, mv[-1]))
+    arctic["fp32_1_layer_flash_vs_plain"] = held(
+        "Arctic fp32, 1 layer, flash vs plain attention", pairs32,
+        SERVE_F32_BAR)
+    arctic["fp32_1_layer_flash_vs_plain"]["tokens_routing_moved"] = n_moved
+    del params, pairs32, got32, ref32
+    torch.cuda.empty_cache()
+    out["arctic"] = arctic
+
+    # (c) DeepSeek-V3: its dense layers, one MoE layer, the MTP head; bf16,
+    # "xla" (MLA takes no flash)
+    full = get_arch("deepseek-v3-671b")
+    cfg = dataclasses.replace(
+        full, num_layers=full.moe.first_dense_layers + DEEPSEEK_MOE_LAYERS)
+    print(f"  DeepSeek-V3: {cfg.moe.first_dense_layers} dense + "
+          f"{DEEPSEEK_MOE_LAYERS} MoE of 61 layers and the MTP head, d "
+          f"{cfg.d_model}, {cfg.num_heads} MLA heads, {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.top_k} + {cfg.moe.num_shared} shared, "
+          f"{cfg.dtype}, attn_impl='xla'")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    print(f"  DeepSeek-V3's weights drawn in {time.perf_counter() - t0:.1f} "
+          f"s: {torch.cuda.memory_allocated() - held_bytes} B")
+    eng, prompts, deepseek, pre, dec = serve_model(cfg, params, "DeepSeek-V3")
+    assert not deepseek["launches"], deepseek["launches"]
+    deepseek["vs_expanded"] = check_against(
+        cfg, cfg, params, eng, prompts, pre, dec,
+        "DeepSeek-V3 bf16, absorbed MLA")
+    del eng
+    one = ServingEngine(cfg, params, slots=1, max_seq=MAX_SEQ)
+    one.add_request(prompts[-1], max_new_tokens=1)
+    deepseek["profile_prefill_2032"] = _profiled(
+        "DeepSeek-V3, prefill of 2032 tokens", one.step)
+    four = ServingEngine(cfg, params, slots=4, max_seq=MAX_SEQ)
+    for p_ in prompts[:4]:
+        four.add_request(p_, max_new_tokens=3)
+    four.step()
+    deepseek["profile_decode_tick"] = _profiled(
+        "DeepSeek-V3, decode tick of 4 live slots", four.step)
+    with torch.no_grad():
+        toks = torch.tensor([prompts[0][:513]], device=dev)
+        _, met = loss_fn(cfg, params, {"inputs": toks[:, :-1],
+                                       "labels": toks[:, 1:]})
+    deepseek["loss_512"] = {k_: float(v_) for k_, v_ in met.items()}
+    print(f"  DeepSeek-V3 loss_fn over 512 tokens (with MTP): "
+          f"{deepseek['loss_512']}")
+    assert set(deepseek["loss_512"]) == {"ce", "moe_aux", "mtp_ce", "loss"}
+    assert all(np.isfinite(v_) for v_ in deepseek["loss_512"].values())
+    del one, four, params, met
+    torch.cuda.empty_cache()
+    out["deepseek"] = deepseek
+    out["flash_row"] = flash_row
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+#: ``--only``'s phases: the function and the libraries it builds
+ONLY = {"4m": (phase_4m, ("leaf_products", "leaf_products_lowp")),
+        "4n": (phase_4n, ("leaf_products", "leaf_products_lowp")),
+        "4o": (phase_4o, ("flash_attention",))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=10000,
                     help="main-path size (A is n x n; the paper's 10000)")
-    ap.add_argument("--only", choices=("4m", "4n"), default=None,
-                    help="run phases 1, 2 (leaf_products and _lowp alone) "
-                         "and this phase, then stop (no kernels line, no ok "
-                         "line)")
+    ap.add_argument("--only", choices=sorted(ONLY), default=None,
+                    help="run phases 1, 2 (the phase's libraries alone: "
+                         "leaf_products and _lowp for 4m and 4n, "
+                         "flash_attention for 4o) and this phase, then stop "
+                         "(no kernels line, no ok line)")
     args = ap.parse_args()
 
     import torch
@@ -1432,8 +1933,7 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     print("== 2. build")
     t0 = time.perf_counter()
-    libraries = ("leaf_products", "leaf_products_lowp") if args.only \
-        else LIBRARIES
+    libraries = ONLY[args.only][1] if args.only else LIBRARIES
 
     def timed_build(name):
         start = time.perf_counter()
@@ -1461,10 +1961,10 @@ def main() -> int:
             assert max(v["regs"]) <= (168 if tile == 128 else 85), \
                 (name, dtype, v)
     if args.only:
-        # one phase alone (it runs leaf_products.cu and _lowp only): a
-        # shake-out, with no kernels line and no ok line
-        phase = phase_4m if args.only == "4m" else phase_4n
-        res = phase(args.seed, dev, smi, reset_counts, read_counts)
+        # one phase alone (it runs its own libraries only): a shake-out,
+        # with no kernels line and no ok line
+        res = ONLY[args.only][0](args.seed, dev, smi, reset_counts,
+                                 read_counts)
         print(f"  phase {args.only}: {res['phase_s']:.1f} s; chip_smoke.py "
               f"took {time.perf_counter() - t_start:.1f} s in all")
         print(json.dumps({args.only: res}))
@@ -2778,22 +3278,7 @@ def main() -> int:
     print(f"  {n_params} parameters; prompt lengths {lens}, 16 new tokens "
           f"each, slots 4, max_seq {MAX_SEQ}, greedy")
 
-    class Recorder(ServingEngine):
-        """Keeps the logits each request's tokens were sampled from: the
-        prefill's last position, then request 0's decode rows."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.first_logits, self.decode_logits = [], []
-
-        def _sample(self, logits):
-            if logits.shape[0] == 1:                      # admission
-                self.first_logits.append(logits[0].float())
-            else:
-                for slot, r in self.active.items():
-                    if r is not None and r.uid == 0:
-                        self.decode_logits.append(logits[slot].float())
-            return super()._sample(logits)
+    Recorder = _recording_engine(ServingEngine)
 
     eng = Recorder(cfg, params, slots=4, max_seq=MAX_SEQ)
     for p_ in prompts:
@@ -2940,43 +3425,14 @@ def main() -> int:
     # -- 4h. where the serving time goes -------------------------------------
     print("== 4h. where the serving time goes: one 2032-token prefill and "
           "one decode tick of 4 slots under torch.profiler (warm)")
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled(label, step):
-        """Wall time of ``step`` (ending in a sync), the device's kernel
-        time inside it, the busy share and the top kernels."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        flash_ms = sum(e.self_device_time_total for e in kern
-                       if "flash_tc_kernel" in e.key
-                       or "flash_kernel" in e.key) / 1e3
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-        print(f"  {label}: wall {wall_ms:.3f} ms, device kernels "
-              f"{dev_ms:.3f} ms, busy {dev_ms / wall_ms:.1%}; the flash "
-              f"kernel {flash_ms:.3f} ms, {flash_ms / dev_ms:.1%} of the "
-              f"device time; top: "
-              + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
-                          f" ms x {e.count}" for e in top))
-        return {"wall_ms": wall_ms, "device_ms": dev_ms, "flash_ms": flash_ms,
-                "top": [[e.key, e.self_device_time_total / 1e3, e.count]
-                        for e in top]}
-
     one = ServingEngine(cfg, params, slots=1, max_seq=MAX_SEQ)
     one.add_request(prompts[-1], max_new_tokens=1)
-    prof_prefill = profiled("prefill of 2032 tokens", one.step)
+    prof_prefill = _profiled("prefill of 2032 tokens", one.step)
     four = ServingEngine(cfg, params, slots=4, max_seq=MAX_SEQ)
     for p_ in prompts[:4]:
         four.add_request(p_, max_new_tokens=3)
     four.step()                          # the four prefills, one tick
-    prof_decode = profiled("decode tick, 4 live slots", four.step)
+    prof_decode = _profiled("decode tick, 4 live slots", four.step)
     del one, four, params
 
     # -- 4i. the precision axes ----------------------------------------------
@@ -3468,6 +3924,10 @@ def main() -> int:
     # -- 4n. training on the card ----------------------------------------------
     train = phase_4n(args.seed, dev, smi, reset_counts, read_counts)
     print(f"  phase 4n: {train['phase_s']:.1f} s")
+
+    # -- 4o. the moe family served at full width ------------------------------
+    moe = phase_4o(args.seed, dev, smi, reset_counts, read_counts)
+    print(f"  phase 4o: {moe['phase_s']:.1f} s")
 
     # -- 5. times -------------------------------------------------------------
     print("== 5. times (CUDA events, median of 5 after 2 warm-ups)")
@@ -4118,6 +4578,8 @@ def main() -> int:
                       ("combine", combine16), ("flash_attention", flash16)):
         by_name[name]["fp16"] = row
     by_name["flash_attention"]["fp32"] = flash32
+    # Arctic's serving prefill (phase 4o): 56 q heads over 8 kv heads, bf16
+    by_name["flash_attention"]["arctic_prefill"] = moe["flash_row"]
     for name in ("syrk", "matmul"):
         by_name[name]["bf16"] = rows16[bf16][name]
     del fq, fk, fv, got, want, fq16, fk16, fv16, fq32, fk32, fv32
@@ -4237,7 +4699,9 @@ def main() -> int:
     print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"distributed": distributed, "autotune": autotune,
                       "service": {k_: v for k_, v in service.items()
-                                  if k_ != "batched"}, "training": train}))
+                                  if k_ != "batched"}, "training": train,
+                      "moe": {k_: v for k_, v in moe.items()
+                              if k_ != "flash_row"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
 The port's copy of ``repro/configs/registry.py`` without the per-cell
-``input_specs`` (those wait for the training slice).  It registers the
-archs whose family the port runs: dense and vlm.  The JAX package's
-other archs are known by name, and asking for one raises
-``NotImplementedError`` naming the ROADMAP item that ports its family.
+``input_specs`` (those come with the cells, ROADMAP Queue 1 #11 step 6).
+It registers the archs whose family the port runs: dense, vlm and moe
+(Arctic, DeepSeek-V3).  The JAX package's other archs are known by
+name, and asking for one raises ``NotImplementedError`` naming the
+ROADMAP item that ports its family.
 """
 from __future__ import annotations
 
@@ -12,12 +13,12 @@ from typing import Dict
 
 from .base import ModelConfig, reduced
 from . import (command_r_plus_104b, yi_9b, qwen2_5_3b, gemma2_9b,
-               chameleon_34b)
+               chameleon_34b, arctic_480b, deepseek_v3_671b)
 
 __all__ = ["ARCHS", "get_arch", "reduced_arch"]
 
 #: the families ``repro_torch.models`` runs
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe")
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [
@@ -26,6 +27,8 @@ ARCHS: Dict[str, ModelConfig] = {
         qwen2_5_3b.CONFIG,
         gemma2_9b.CONFIG,
         chameleon_34b.CONFIG,
+        arctic_480b.CONFIG,
+        deepseek_v3_671b.CONFIG,
     ]
 }
 
@@ -33,8 +36,6 @@ ARCHS: Dict[str, ModelConfig] = {
 NOT_PORTED = {
     "zamba2-2.7b": "hybrid",
     "mamba2-2.7b": "ssm",
-    "deepseek-v3-671b": "moe",
-    "arctic-480b": "moe",
     "whisper-small": "audio",
 }
 

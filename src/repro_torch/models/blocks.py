@@ -9,8 +9,16 @@ The port of the attention block of ``repro/models/blocks.py``:
 kv_len) so train, prefill and decode share one code path.  Where the JAX
 package returns a new cache, the port writes the new keys and values
 into the cache's tensors in place and returns them (a decode step would
-otherwise copy the whole cache).  The MLA, MoE and SSM blocks come with
-their families (ROADMAP.md Queue 1 #11).
+otherwise copy the whole cache).  The moe family's two blocks,
+
+    moe_block / mla_block(params, x, cfg, *, layer_idx, pos, cache=None,
+                          rows_apart=False) -> (x, new_cache, aux)
+
+return the MoE layer's load-balance term as well (0 for DeepSeek-V3's
+dense layers); ``rows_apart`` routes each row's tokens on their own (the
+batched decode, where the JAX serving engine vmaps over its slots).  The
+SSM blocks and cross-attention come with their families (ROADMAP.md
+Queue 1 #11).
 """
 from __future__ import annotations
 
@@ -61,23 +69,45 @@ def init_attn_block(cfg: ModelConfig, mk, *, d_ff: Optional[int] = None):
     return p
 
 
+def _write_rows(buf, x, q_pos):
+    """Write x (B, S, ...) into the cache tensor buf (B, max_seq, ...) in
+    place: a prompt as long as the cache fills it; shorter ones (a
+    prefill bucket, a decode token) go in at each row's first query
+    position, clamped so that they fit, as ``lax.dynamic_update_slice``
+    clamps."""
+    b, s = x.shape[:2]
+    if s == buf.shape[1]:                       # prefill fills the cache
+        return buf.copy_(x)
+    start = q_pos[..., 0].reshape(-1).long().clamp(0, buf.shape[1] - s)
+    rows = torch.arange(b, device=buf.device)[:, None]
+    cols = start.expand(b)[:, None] + torch.arange(s, device=buf.device)
+    buf[rows, cols] = x.to(buf.dtype)
+    return buf
+
+
 def _write_cache(cache, k, v, q_pos):
-    """Write k, v (B, S, Hkv, D) into the cache in place: a prompt as long
-    as the cache fills it; shorter ones (a prefill bucket, a decode token)
-    go in at each row's first query position, clamped so that they fit,
-    as ``lax.dynamic_update_slice`` clamps."""
-    ck, cv = cache["k"], cache["v"]
-    b, s = k.shape[:2]
-    if s == ck.shape[1]:                        # prefill fills the cache
-        ck.copy_(k)
-        cv.copy_(v)
-        return ck, cv
-    start = q_pos[..., 0].reshape(-1).long().clamp(0, ck.shape[1] - s)
-    rows = torch.arange(b, device=ck.device)[:, None]
-    cols = start.expand(b)[:, None] + torch.arange(s, device=ck.device)
-    ck[rows, cols] = k.to(ck.dtype)
-    cv[rows, cols] = v.to(cv.dtype)
-    return ck, cv
+    """Write k, v (B, S, Hkv, D) into the cache's "k" and "v" in place
+    (:func:`_write_rows`)."""
+    return (_write_rows(cache["k"], k, q_pos),
+            _write_rows(cache["v"], v, q_pos))
+
+
+def _self_attention(p, h, cfg: ModelConfig, *, layer_idx: int,
+                    pos: PosInfo, cache, causal=True, softcap=None):
+    """GQA self-attention of the normed h, its keys and values written
+    into the cache in place: (the output projection, the new cache)."""
+    q, k, v = L.attention_qkv(p, h, cfg, positions=pos.positions)
+    new_cache = None
+    if cache is not None:
+        k, v = _write_cache(cache, k, v, pos.q_pos)
+        new_cache = {"k": k, "v": v}
+    o = L.attention(q, k, v, q_pos=pos.q_pos, kv_pos=pos.kv_pos,
+                    causal=causal, window=_window_for_layer(cfg, layer_idx),
+                    kv_len=pos.kv_len, attn_softcap=softcap,
+                    chunk_q=cfg.attn_chunk_q if h.shape[1] > cfg.attn_chunk_q
+                    else 0,
+                    chunk_kv=cfg.attn_chunk_kv, impl=cfg.attn_impl)
+    return L.attention_out(p, o, cfg), new_cache
 
 
 def attn_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
@@ -89,21 +119,10 @@ def attn_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
         raise NotImplementedError(
             "cross-attention (the audio family) is not ported: ROADMAP.md "
             "Queue 1 #11")
-    window = _window_for_layer(cfg, layer_idx)
-
     h = L.apply_norm(p["ln_attn"], x, cfg)
-    q, k, v = L.attention_qkv(p["attn"], h, cfg, positions=pos.positions)
-    new_cache = None
-    if cache is not None:
-        k, v = _write_cache(cache, k, v, pos.q_pos)
-        new_cache = {"k": k, "v": v}
-    o = L.attention(q, k, v, q_pos=pos.q_pos, kv_pos=pos.kv_pos,
-                    causal=causal, window=window, kv_len=pos.kv_len,
-                    attn_softcap=cfg.attn_logit_softcap,
-                    chunk_q=cfg.attn_chunk_q if x.shape[1] > cfg.attn_chunk_q
-                    else 0,
-                    chunk_kv=cfg.attn_chunk_kv, impl=cfg.attn_impl)
-    o = L.attention_out(p["attn"], o, cfg)
+    o, new_cache = _self_attention(p["attn"], h, cfg, layer_idx=layer_idx,
+                                   pos=pos, cache=cache, causal=causal,
+                                   softcap=cfg.attn_logit_softcap)
     if cfg.post_norms:
         o = L.apply_norm(p["post_attn"], o, cfg)
     x = x + o
@@ -114,3 +133,93 @@ def attn_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
         o = L.apply_norm(p["post_mlp"], o, cfg)
     x = x + o
     return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA block (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla_block(cfg: ModelConfig, mk, *, moe: bool):
+    p = {
+        "ln_attn": L.init_norm(cfg, cfg.d_model, mk),
+        "attn": L.init_mla(cfg, mk),
+        "ln_mlp": L.init_norm(cfg, cfg.d_model, mk),
+    }
+    if moe:
+        p["moe"] = L.init_moe(cfg, mk)
+    else:
+        p["mlp"] = L.init_mlp(cfg, mk, d_ff=cfg.moe.dense_d_ff or cfg.d_ff)
+    return p
+
+
+def mla_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
+              cache=None, rows_apart: bool = False):
+    """MLA + (MoE or dense MLP) block.  cache: {"ckv" (B, max_seq,
+    kv_lora_rank), "krope" (B, max_seq, qk_rope_dim)}, updated in place,
+    or None.  A prompt as long as the cache takes the expanded branch; a
+    shorter one (a prefill bucket, a decode token) is written at
+    ``q_pos[0]`` and takes the absorbed branch over the whole cache, as
+    in the JAX package."""
+    del layer_idx
+    h = L.apply_norm(p["ln_attn"], x, cfg)
+    c_kv = k_rope = None
+    new_cache = None
+    absorbed = False
+    if cache is not None:
+        c_new, kr_new = L.mla_compress(p["attn"], h, cfg, pos.positions)
+        absorbed = x.shape[1] != cache["ckv"].shape[1]
+        new_cache = {"ckv": _write_rows(cache["ckv"], c_new, pos.q_pos),
+                     "krope": _write_rows(cache["krope"], kr_new, pos.q_pos)}
+        c_kv, k_rope = (new_cache["ckv"], new_cache["krope"]) if absorbed \
+            else (c_new, kr_new)
+    o, _ = L.mla_attention(p["attn"], h, cfg, positions=pos.positions,
+                           q_pos=pos.q_pos, kv_pos=pos.kv_pos,
+                           c_kv=c_kv, k_rope=k_rope, kv_len=pos.kv_len,
+                           absorbed=absorbed,
+                           chunk_q=cfg.attn_chunk_q
+                           if x.shape[1] > cfg.attn_chunk_q else 0,
+                           chunk_kv=cfg.attn_chunk_kv, impl=cfg.attn_impl)
+    x = x + o
+
+    h = L.apply_norm(p["ln_mlp"], x, cfg)
+    if "moe" in p:
+        o, aux = L.apply_moe(p["moe"], h, cfg, rows_apart=rows_apart)
+    else:
+        o = L.apply_mlp(p["mlp"], h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + o, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# MoE attention block (Arctic: GQA attn + 128e top-2 MoE + dense residual)
+# ---------------------------------------------------------------------------
+
+def init_moe_block(cfg: ModelConfig, mk):
+    p = {
+        "ln_attn": L.init_norm(cfg, cfg.d_model, mk),
+        "attn": L.init_attention(cfg, mk),
+        "ln_mlp": L.init_norm(cfg, cfg.d_model, mk),
+        "moe": L.init_moe(cfg, mk),
+    }
+    if cfg.moe.dense_residual:
+        p["ln_dense"] = L.init_norm(cfg, cfg.d_model, mk)
+        p["dense"] = L.init_mlp(cfg, mk, d_ff=cfg.moe.dense_d_ff)
+    return p
+
+
+def moe_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
+              cache=None, rows_apart: bool = False):
+    """GQA attention + MoE block, with Arctic's dense FFN residual in
+    parallel with the MoE where the config has one.  cache: {"k", "v"},
+    updated in place, or None."""
+    h = L.apply_norm(p["ln_attn"], x, cfg)
+    o, new_cache = _self_attention(p["attn"], h, cfg, layer_idx=layer_idx,
+                                   pos=pos, cache=cache)
+    x = x + o
+
+    h = L.apply_norm(p["ln_mlp"], x, cfg)
+    o, aux = L.apply_moe(p["moe"], h, cfg, rows_apart=rows_apart)
+    if "dense" in p:   # Arctic: dense FFN residual in parallel with MoE
+        o = o + L.apply_mlp(p["dense"], L.apply_norm(p["ln_dense"], x, cfg),
+                            cfg)
+    return x + o, new_cache, aux

@@ -2,10 +2,13 @@
 
 ``params_from_jax(cfg, tree)`` takes the JAX parameter tree with numpy
 arrays at its leaves (``jax.tree.map(np.asarray, params)``) and returns
-the port's parameters: the same dicts, with the layer stack (each leaf
-of ``tree["blocks"]`` stacked on a leading L axis) split into a list of
-per-layer dicts.  Both then compute the same thing, which is how the
-tests hold the port to the reference.  Every leaf of the tree is mapped
+the port's parameters: the same dicts, with each layer stack (each leaf
+of ``tree["blocks"]``, and of DeepSeek-V3's ``mla_dense`` and
+``mla_moe``, stacked on a leading L axis) split into a list of per-layer
+dicts; a MoE layer's expert weights stay one (E, d, f) tensor, and the
+``mtp`` head, one block with no layer axis, comes over as it is.  Both
+then compute the same thing, which is how the tests hold the port to
+the reference.  Every leaf of the tree is mapped
 and none is left over: a missing leaf, an extra one or a shape that
 differs raises ``ValueError``.  bf16 arrays (numpy's ``bfloat16`` from
 ml_dtypes) are carried bit for bit.
@@ -56,26 +59,28 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], *,
     flat = dict(_leaves(tree))
     used = set()
 
-    def build(spec, path, layer=None):
-        """``spec``'s subtree from the leaves under ``path``; ``layer``
-        picks one layer of the stacked ``blocks``."""
+    def build(spec, path, layer=None, layers=None):
+        """``spec``'s subtree from the leaves under ``path``: a list is a
+        layer stack, whose JAX leaves carry a leading axis of its
+        ``layers``, and ``layer`` picks one of them."""
+        if isinstance(spec, list):
+            return [build(sub, path, li, len(spec))
+                    for li, sub in enumerate(spec)]
         if isinstance(spec, dict):
-            return {k: build(v, path + (k,), layer) for k, v in spec.items()}
+            return {k: build(v, path + (k,), layer, layers)
+                    for k, v in spec.items()}
         name = "/".join(path)
         if path not in flat:
             raise ValueError(f"the JAX tree has no leaf {name}")
         used.add(path)
         arr = flat[path]
-        shape = tuple(spec) if layer is None else (cfg.num_layers, *spec)
+        shape = tuple(spec) if layer is None else (layers, *spec)
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(arr.shape)}, the port "
                              f"expects {shape}")
         return _tensor(arr if layer is None else arr[layer], dev)
 
-    spec = param_spec(cfg)
-    out = {k: build(v, (k,)) for k, v in spec.items() if k != "blocks"}
-    out["blocks"] = [build(layer, ("blocks",), li)
-                     for li, layer in enumerate(spec["blocks"])]
+    out = build(param_spec(cfg), ())
     left = sorted("/".join(p) for p in set(flat) - used)
     if left:
         raise ValueError(f"leaves of the JAX tree the port does not map: "

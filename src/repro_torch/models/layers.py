@@ -17,7 +17,17 @@ and prefill).  Otherwise sequences longer than ``cfg.attn_chunk_q`` take
 the chunked branch (an online softmax over kv chunks, each step
 rematerialized in the backward), as in the JAX package, and shorter ones
 and decode the one-shot branch, plain torch where the JAX package leaves
-both to XLA.  MLA, MoE and the Mamba2 SSD layer come with their families.
+both to XLA.
+
+MLA (DeepSeek-V3's multi-head latent attention) runs its two branches as
+the JAX package: the absorbed one (decode, and a prefill shorter than
+the cache) in the compressed space, the expanded one through
+``attention``, in "xla" only: the flash kernel takes one head_dim for q,
+k and v, and MLA's v is narrower than its q (ROADMAP.md Queue 3).  The
+MoE layer is the JAX package's sort-based capacity dispatch with every
+expert on the one card; its expert-parallel ``shard_map`` branch waits
+for the mesh policies (ROADMAP.md Queue 1 #11 step 7).  The Mamba2 SSD
+layer comes with its family.
 """
 from __future__ import annotations
 
@@ -28,7 +38,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import ModelConfig
+from ..configs.base import MLAConfig, ModelConfig, MoEConfig
 from ..core.strassen import ieee_fp32
 
 # A large-but-finite mask value: big enough to zero softmax weight, small
@@ -46,29 +56,46 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 class Init:
     """Random weights: normal * scale drawn in fp32 from ``generator``
-    and cast to ``dtype``, ones and zeros, on ``device``."""
+    and cast to ``dtype`` (or the leaf's own ``dtype``, as the router's
+    fp32), ones and zeros, on ``device``.
+
+    A leaf of more than ``SLICE_ELEMENTS`` elements is drawn one slice of
+    its leading axis at a time, so the fp32 draw never holds the whole
+    leaf (Arctic's 128 x 7168 x 4864 expert stack would take 17.8 GB);
+    every smaller leaf is drawn whole, as before."""
+
+    SLICE_ELEMENTS = 1 << 30
 
     def __init__(self, generator: torch.Generator, device, dtype):
         self.generator, self.device, self.dtype = generator, device, dtype
 
-    def normal(self, shape, scale: float) -> torch.Tensor:
-        x = torch.randn(shape, generator=self.generator, device=self.device)
-        return (x * scale).to(self.dtype)
+    def normal(self, shape, scale: float, dtype=None) -> torch.Tensor:
+        dtype = dtype or self.dtype
+        if math.prod(shape) <= self.SLICE_ELEMENTS:
+            x = torch.randn(shape, generator=self.generator,
+                            device=self.device)
+            return (x * scale).to(dtype)
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        for i in range(shape[0]):
+            out[i] = self.normal(shape[1:], scale, dtype)
+        return out
 
-    def ones(self, shape) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
+    def ones(self, shape, dtype=None) -> torch.Tensor:
+        return torch.ones(shape, dtype=dtype or self.dtype,
+                          device=self.device)
 
-    def zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+    def zeros(self, shape, dtype=None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype or self.dtype,
+                           device=self.device)
 
 
 class Spec:
     """Shapes alone: the parameter tree's layout, allocating nothing."""
 
-    def normal(self, shape, scale: float):
+    def normal(self, shape, scale: float, dtype=None):
         return tuple(shape)
 
-    def ones(self, shape):
+    def ones(self, shape, dtype=None):
         return tuple(shape)
 
     zeros = ones
@@ -340,6 +367,110 @@ def attention_out(p, o, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, mk):
+    m: MLAConfig = cfg.mla
+    d, hq = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_dim + m.qk_rope_dim
+    sc = 0.02
+    return {
+        "w_dq": mk.normal((d, m.q_lora_rank), sc),
+        "q_norm": mk.ones((m.q_lora_rank,)),
+        "w_uq": mk.normal((m.q_lora_rank, hq * qk_head), sc),
+        "w_dkv": mk.normal((d, m.kv_lora_rank + m.qk_rope_dim), sc),
+        "kv_norm": mk.ones((m.kv_lora_rank,)),
+        "w_uk": mk.normal((m.kv_lora_rank, hq * m.qk_nope_dim), sc),
+        "w_uv": mk.normal((m.kv_lora_rank, hq * m.v_head_dim), sc),
+        "wo": mk.normal((hq * m.v_head_dim, d),
+                        sc / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def mla_compress(p, x, cfg: ModelConfig, positions):
+    """x -> (c_kv normed, k_rope roped): the MLA cache content."""
+    m: MLAConfig = cfg.mla
+    ckv_kr = x @ p["w_dkv"]
+    c_kv = rms_head_norm(ckv_kr[..., :m.kv_lora_rank], p["kv_norm"],
+                         cfg.norm_eps)
+    k_rope = ckv_kr[..., m.kv_lora_rank:]               # (B, S, rope_dim)
+    cos, sin = rope_table(positions, m.qk_rope_dim, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_queries(p, x, cfg: ModelConfig, positions):
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    qk_head = m.qk_nope_dim + m.qk_rope_dim
+    cq = rms_head_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, cfg.num_heads, qk_head)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    cos, sin = rope_table(positions, m.qk_rope_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def mla_attention(p, x, cfg: ModelConfig, *, positions, q_pos, kv_pos,
+                  c_kv=None, k_rope=None, kv_len=None, absorbed=False,
+                  chunk_q=0, chunk_kv=0, impl: str = "xla"):
+    """Full MLA attention.  If (c_kv, k_rope) are given they are the
+    (cached) compressed KV; else they are computed from x.
+    ``absorbed=True`` runs attention in the compressed space, never
+    expanding K or V per position; otherwise K and V are expanded and go
+    through :func:`attention`.  Products of 16-bit operands accumulate in
+    fp32, as the JAX package's ``preferred_element_type``.
+
+    ``impl="flash"`` raises ``ValueError``: q's head_dim (qk_nope +
+    qk_rope) is not v's, which neither the TPU kernel nor its port takes
+    (the JAX package's flash branch returns q's width there and its
+    reshape fails: ROADMAP.md Queue 3, the MLA note)."""
+    if impl == "flash":
+        raise ValueError(
+            "MLA takes attn_impl='xla': its v head_dim differs from q's, "
+            "which the flash kernel does not take (ROADMAP.md Queue 3, "
+            "the MLA note)")
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    hq = cfg.num_heads
+    if c_kv is None:
+        c_kv, k_rope = mla_compress(p, x, cfg, positions)
+    skv = c_kv.shape[1]
+    q_nope, q_rope = mla_queries(p, x, cfg, positions)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+
+    if absorbed:
+        # absorb W_uk into q: scores = (q W_uk^T) c_kv + q_rope k_rope
+        w_uk = p["w_uk"].reshape(m.kv_lora_rank, hq, m.qk_nope_dim)
+        w_uv = p["w_uv"].reshape(m.kv_lora_rank, hq, m.v_head_dim)
+        bias = _mask_bias(q_pos, kv_pos, causal=True, window=None,
+                          kv_len=kv_len)
+        with ieee_fp32():
+            q_lat = torch.einsum("bshd,rhd->bshr", q_nope.float(),
+                                 w_uk.float()).to(x.dtype)
+            s_lat = torch.einsum("bshr,bkr->bhsk", q_lat.float(),
+                                 c_kv.float())
+            s_rope = torch.einsum("bshd,bkd->bhsk", q_rope.float(),
+                                  k_rope.float())
+            w = torch.softmax((s_lat + s_rope) * scale + bias[:, None], -1)
+            o_lat = torch.einsum("bhsk,bkr->bshr", w.to(x.dtype).float(),
+                                 c_kv.float()).to(x.dtype)
+            o = torch.einsum("bshr,rhv->bshv", o_lat.float(),
+                             w_uv.float()).to(x.dtype)
+    else:
+        k_nope = (c_kv @ p["w_uk"]).reshape(b, skv, hq, m.qk_nope_dim)
+        v = (c_kv @ p["w_uv"]).reshape(b, skv, hq, m.v_head_dim)
+        k_rope_h = k_rope[:, :, None, :].expand(b, skv, hq, m.qk_rope_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope_h], dim=-1)
+        o = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=True,
+                      kv_len=kv_len, scale=scale, chunk_q=chunk_q,
+                      chunk_kv=chunk_kv, impl=impl)
+    y = o.reshape(b, s, hq * m.v_head_dim) @ p["wo"]
+    return y, (c_kv, k_rope)
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
@@ -367,3 +498,123 @@ def apply_mlp(p, x, cfg: ModelConfig):
         return h @ p["w_out"] + p["b_out"]
     h = _act(cfg, x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, sort + capacity scatter, batched expert products)
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, mk):
+    mo: MoEConfig = cfg.moe
+    d, f, e = cfg.d_model, mo.d_expert, mo.num_experts
+    sc = 0.02
+    p = {
+        "router": mk.normal((d, e), sc, dtype=torch.float32),
+        "w_gate": mk.normal((e, d, f), sc),
+        "w_up": mk.normal((e, d, f), sc),
+        "w_down": mk.normal((e, f, d), sc / math.sqrt(2 * cfg.num_layers)),
+    }
+    if mo.router_aux_free_bias:
+        p["router_bias"] = mk.zeros((e,), dtype=torch.float32)
+    if mo.num_shared:
+        p["shared"] = init_mlp(cfg, mk, d_ff=mo.d_expert * mo.num_shared)
+    return p
+
+
+def moe_capacity(tokens: int, moe: MoEConfig) -> int:
+    cf = moe.capacity_factor or 1.25
+    cap = int(math.ceil(tokens * moe.top_k / moe.num_experts * cf))
+    return max(min(cap, tokens), 1)
+
+
+def moe_route(p, xt, cfg: ModelConfig):
+    """The router over tokens xt (..., T, d), in fp32: (probs (..., T, E),
+    top_idx (..., T, k), gates (..., T, k)).  The aux-free bias moves
+    which experts are selected and not the gates."""
+    mo: MoEConfig = cfg.moe
+    with ieee_fp32():
+        logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    sel = probs + p["router_bias"] if mo.router_aux_free_bias else probs
+    top_idx = torch.topk(sel, mo.top_k, dim=-1).indices
+    gates = torch.gather(probs, -1, top_idx)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, top_idx, gates
+
+
+def _moe_dispatch_compute(p, xt, cfg: ModelConfig):
+    """Sort-based capacity dispatch of G groups of T tokens, xt (G, T, d),
+    each group routed on its own (its own capacity), every expert's
+    tokens of every group in one batched product: the JAX package's
+    ``_moe_dispatch_compute`` with all experts local, for each group.
+
+    Within a group the assignments are sorted by expert id, stably, so an
+    expert's first ``moe_capacity(T)`` assignments in token order keep
+    their place and the rest are dropped (they go to one extra row of the
+    buffer, which is discarded).  Returns (out (G, T, d), aux over all
+    tokens)."""
+    mo: MoEConfig = cfg.moe
+    g, t, d = xt.shape
+    e, k = mo.num_experts, mo.top_k
+    probs, top_idx, gates = moe_route(p, xt, cfg)
+
+    flat_e = top_idx.reshape(g, t * k)
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
+    e_sorted = torch.gather(flat_e, -1, sort_idx)
+    tok_sorted = sort_idx // k
+    counts = torch.zeros((g, e), dtype=torch.long, device=xt.device)
+    counts.scatter_add_(-1, flat_e, torch.ones_like(flat_e))
+    offsets = torch.cumsum(counts, -1) - counts
+    pos_in_e = torch.arange(t * k, device=xt.device) \
+        - torch.gather(offsets, -1, e_sorted)
+    cap = moe_capacity(t, mo)
+    valid = pos_in_e < cap
+    # buffer rows (expert, group, place); the dropped ones to the extra row
+    group = torch.arange(g, device=xt.device)[:, None]
+    slot = torch.where(valid, (e_sorted * g + group) * cap + pos_in_e,
+                       e * g * cap)
+
+    rows = xt[group, tok_sorted]                      # (G, T*k, d)
+    buf = xt.new_zeros((e * g * cap + 1, d))
+    buf = buf.index_put((slot.reshape(-1),),
+                        torch.where(valid[..., None], rows, 0).reshape(-1, d))
+    buf = buf[:e * g * cap].reshape(e, g * cap, d)
+
+    h = _act(cfg, torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    y = torch.bmm(h, p["w_down"])
+
+    y_flat = torch.cat([y.reshape(e * g * cap, d), y.new_zeros((1, d))])
+    y_sorted = y_flat[slot]                           # dropped -> 0
+    inv = torch.argsort(sort_idx, dim=-1)
+    y_k = y_sorted[group, inv].reshape(g, t, k, d)
+    out = (y_k * gates[..., None].to(y_k.dtype)).sum(dim=2)
+    aux = moe_load_aux(probs.reshape(g * t, e), top_idx.reshape(g * t, k), e)
+    return out, aux
+
+
+def apply_moe(p, x, cfg: ModelConfig, *, rows_apart: bool = False):
+    """x: (B, S, D) -> ((B, S, D), aux).  All B * S tokens are routed
+    together (one capacity), as the JAX package routes them; with
+    ``rows_apart`` each row is routed on its own, with its own capacity,
+    as the JAX serving engine routes each slot of its vmapped decode.
+
+    The JAX package's expert-parallel branch (dispatch inside
+    ``shard_map`` under a mesh policy) waits for the mesh policies
+    (ROADMAP.md Queue 1 #11 step 7); here every expert is on the card."""
+    mo: MoEConfig = cfg.moe
+    b, s, d = x.shape
+    xt = x.reshape(b, s, d) if rows_apart else x.reshape(1, b * s, d)
+    out, aux = _moe_dispatch_compute(p, xt, cfg)
+    out = out.reshape(b * s, d)
+    if mo.num_shared:
+        out = out + apply_mlp(p["shared"], x.reshape(b * s, d), cfg)
+    return out.reshape(b, s, d), aux
+
+
+def moe_load_aux(probs, top_idx, e):
+    """Switch-style load-balance aux loss: E * sum_e f_e * p_e."""
+    t, k = top_idx.shape
+    hits = torch.bincount(top_idx.reshape(-1), minlength=e).float()
+    f = hits / (t * k)
+    pbar = probs.mean(dim=0)
+    return e * (f * pbar).sum()

@@ -1,5 +1,5 @@
-"""Model assembly of the port: init / forward / cache for the dense and
-vlm families.
+"""Model assembly of the port: init / forward / cache / loss for the
+dense, vlm and moe families.
 
 The port of ``repro/models/model.py``.  One ``forward`` serves train,
 prefill and decode (mode-switched), as in the JAX package.  Where the
@@ -13,13 +13,23 @@ with grad enabled, as ``_maybe_remat`` does in the JAX package:
 ``"full"`` under ``torch.utils.checkpoint``, ``"dots"`` under selective
 checkpointing that keeps the projections' matmul outputs, ``"none"`` not
 at all; it changes memory, never numbers.  ``loss_fn`` is next-token
-cross-entropy with z-loss.  The other families raise
-``NotImplementedError`` naming their ROADMAP item, and so do the moe
-auxiliary loss and multi-token prediction in ``loss_fn``.
+cross-entropy with z-loss, plus the MoE load-balance term and DeepSeek-V3's
+depth-1 multi-token prediction where the config has them.  The other
+families raise ``NotImplementedError`` naming their ROADMAP item.
+
+The moe family: Arctic's layers are one stack, ``blocks`` (GQA attention
+and a MoE with a dense residual); DeepSeek-V3's are two, ``mla_dense``
+(its leading dense layers) and ``mla_moe``, with an MLA cache (``ckv``,
+``krope``) and the ``mtp`` head that only ``loss_fn`` runs.  The MoE
+term is summed over the layers.
 
 Decode takes ``cache["index"]`` as a scalar, as the JAX package, or one
 index per row (B,), so that requests at different positions decode in one
-batch (the serving engine's slots, where the JAX engine vmaps).
+batch (the serving engine's slots, where the JAX engine vmaps).  For the
+same reason decode routes each row's token through the MoE on its own:
+under the JAX engine's vmap each slot's dispatch sees one token, so its
+capacity is 1 and nothing is dropped, where rows routed together would
+compete for capacity.
 """
 from __future__ import annotations
 
@@ -57,8 +67,39 @@ def _tree(cfg: ModelConfig, mk) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = mk.normal((cfg.d_model, cfg.vocab_size), 0.02)
-    p["blocks"] = [B.init_attn_block(cfg, mk) for _ in range(cfg.num_layers)]
+    if cfg.family in ("dense", "vlm"):
+        p["blocks"] = [B.init_attn_block(cfg, mk)
+                       for _ in range(cfg.num_layers)]
+    elif cfg.mla is not None:                           # DeepSeek-V3
+        nd = cfg.moe.first_dense_layers
+        if nd:
+            p["mla_dense"] = [B.init_mla_block(cfg, mk, moe=False)
+                              for _ in range(nd)]
+        p["mla_moe"] = [B.init_mla_block(cfg, mk, moe=True)
+                        for _ in range(cfg.num_layers - nd)]
+        if cfg.mtp:
+            p["mtp"] = {
+                "proj": mk.normal((2 * cfg.d_model, cfg.d_model), 0.02),
+                "block": B.init_mla_block(cfg, mk, moe=False),
+                "ln": L.init_norm(cfg, cfg.d_model, mk),
+            }
+    else:                                               # Arctic
+        p["blocks"] = [B.init_moe_block(cfg, mk)
+                       for _ in range(cfg.num_layers)]
     return p
+
+
+def _stacks(cfg: ModelConfig):
+    """(parameter and cache key, block, index of its first layer) of each
+    layer stack, in the order the forward runs them.  The moe family's
+    blocks route tokens and return the MoE term too."""
+    if cfg.mla is not None:
+        nd = cfg.moe.first_dense_layers
+        return ([("mla_dense", B.mla_block, 0)] if nd else []) \
+            + [("mla_moe", B.mla_block, nd)]
+    if cfg.family == "moe":
+        return [("blocks", B.moe_block, 0)]
+    return [("blocks", B.attn_block, 0)]
 
 
 def init_params(cfg: ModelConfig, key: Union[int, torch.Generator] = 0, *,
@@ -100,10 +141,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     _check_family(cfg)
     dev = resolve_device(device)
     dt = L.dtype_of(cfg)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    cache: Dict[str, Any] = {"index": torch.zeros((), dtype=torch.int64,
+                                                  device=dev)}
+    if cfg.mla is not None:
+        m = cfg.mla
+        nd = cfg.moe.first_dense_layers
+        for key, layers in (("mla_dense", nd),
+                            ("mla_moe", cfg.num_layers - nd)):
+            if layers:
+                cache[key] = {
+                    "ckv": zeros(layers, batch, max_seq, m.kv_lora_rank),
+                    "krope": zeros(layers, batch, max_seq, m.qk_rope_dim)}
+        return cache
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim_)
-    return {"index": torch.zeros((), dtype=torch.int64, device=dev),
-            "blocks": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    cache["blocks"] = {"k": zeros(*shape), "v": zeros(*shape)}
+    return cache
+
+
+def _cache_seq(cfg: ModelConfig, cache) -> int:
+    if cfg.mla is not None:
+        return cache["mla_moe"]["ckv"].shape[2]
+    return cache["blocks"]["k"].shape[2]
 
 
 # ---------------------------------------------------------------------------
@@ -190,19 +251,26 @@ def forward(cfg: ModelConfig, params, tokens, *,
     index = None
     if use_cache:
         index = cache["index"] if decode else None
-        max_seq = cache["blocks"]["k"].shape[2]
+        max_seq = _cache_seq(cfg, cache)
     pos = _pos_info(b, seq, max_seq, index, device)
 
     x = _embed(cfg, params, tokens)
-    block = B.attn_block
-    if mode == "train" and not use_cache and torch.is_grad_enabled():
-        block = _maybe_remat(B.attn_block, cfg)
-    for li, lp in enumerate(params["blocks"]):
-        cache_l = None
-        if use_cache:
-            cache_l = {"k": cache["blocks"]["k"][li],
-                       "v": cache["blocks"]["v"][li]}
-        x, _ = block(lp, x, cfg, layer_idx=li, pos=pos, cache=cache_l)
+    aux = torch.zeros((), device=device)
+    remat = mode == "train" and not use_cache and torch.is_grad_enabled()
+    routes = cfg.family == "moe"
+    # decode routes each row on its own (the JAX engine's vmap)
+    extra = {"rows_apart": decode} if routes else {}
+    for key, block, idx0 in _stacks(cfg):
+        fn = _maybe_remat(block, cfg) if remat else block
+        for i, lp in enumerate(params[key]):
+            cache_l = None
+            if use_cache:
+                cache_l = {name: t[i] for name, t in cache[key].items()}
+            out = fn(lp, x, cfg, layer_idx=idx0 + i, pos=pos, cache=cache_l,
+                     **extra)
+            x = out[0]
+            if routes:
+                aux = aux + out[2]
 
     x = L.apply_norm(params["ln_f"], x, cfg)
     logits = _unembed(cfg, params, x)
@@ -211,9 +279,9 @@ def forward(cfg: ModelConfig, params, tokens, *,
         new_cache = dict(cache)
         new_cache["index"] = (cache["index"] + seq) if decode else \
             torch.tensor(seq, dtype=torch.int64, device=device)
-        return (logits, new_cache, torch.zeros((), device=device)) \
-            if mode == "train" else (logits, new_cache)
-    return logits, torch.zeros((), device=device), x
+        return (logits, new_cache, aux) if mode == "train" \
+            else (logits, new_cache)
+    return logits, aux, x
 
 
 # ---------------------------------------------------------------------------
@@ -234,18 +302,34 @@ def cross_entropy(logits, labels, *, z_loss: float = 1e-4):
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], *,
             aux_weight: float = 1e-2, mtp_weight: float = 0.3):
-    """Next-token CE.  batch: inputs, labels (B, S) int (numpy or
-    tensors).  Returns (loss, {"ce", "moe_aux", "loss"}), as the JAX
-    package; its moe auxiliary term (``aux_weight``) and multi-token
-    prediction (``mtp_weight``) come with their families."""
-    if cfg.moe is not None:
-        raise not_ported("moe")
-    if cfg.mtp:
-        raise not_ported("moe (multi-token prediction)")
-    logits, aux, _ = forward(cfg, params, batch["inputs"],
+    """Next-token CE (+ MoE aux + optional MTP).  batch: inputs, labels
+    (B, S) int (numpy or tensors).  Returns (loss, {"ce", "moe_aux",
+    ["mtp_ce",] "loss"}), as the JAX package: ``aux_weight`` times the
+    MoE term where the config has a MoE, and ``mtp_weight`` times the
+    depth-1 multi-token prediction's CE where it has an ``mtp`` head (h_t
+    with the embedding of x_{t+1}, through one dense MLA block, predicts
+    label_{t+1})."""
+    logits, aux, h = forward(cfg, params, batch["inputs"],
                              enc_inputs=batch.get("enc_inputs"), mode="train")
-    loss = cross_entropy(logits, batch["labels"])
-    return loss, {"ce": loss, "moe_aux": aux, "loss": loss}
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    loss = cross_entropy(logits, labels)
+    metrics = {"ce": loss, "moe_aux": aux}
+    if cfg.moe is not None:
+        loss = loss + aux_weight * aux
+    if cfg.mtp and "mtp" in params:
+        mtp = params["mtp"]
+        inputs = torch.as_tensor(batch["inputs"], device=h.device).long()
+        emb_next = _embed(cfg, params, inputs[:, 1:])
+        hcat = torch.cat([h[:, :-1], emb_next], dim=-1)
+        hm = L.apply_norm(mtp["ln"], hcat @ mtp["proj"], cfg)
+        pos = _pos_info(hm.shape[0], hm.shape[1], hm.shape[1],
+                        device=h.device)
+        hm, _, _ = B.mla_block(mtp["block"], hm, cfg, layer_idx=0, pos=pos)
+        mtp_loss = cross_entropy(_unembed(cfg, params, hm), labels[:, 1:])
+        metrics["mtp_ce"] = mtp_loss
+        loss = loss + mtp_weight * mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache):

@@ -15,7 +15,10 @@ row at its own position.  Prefill writes a request's keys and values
 into its slot's rows in place.  A decode tick also writes into the rows
 of free slots; those rows are zeroed and refilled when a request is
 admitted, and only live slots advance their index, so nothing of it is
-ever read.
+ever read.  Under the JAX engine's vmap each slot's MoE dispatch sees its
+one token (capacity 1, nothing dropped); the port's batched decode routes
+each row on its own likewise (``models.forward`` in decode mode), so the
+slots never compete for an expert's capacity.
 
 Greedy decoding is exact.  Temperature sampling draws from a
 ``torch.Generator`` seeded from ``seed``: the same distribution as
@@ -126,10 +129,12 @@ class ServingEngine:
         self.waiting = keep
 
     def _slot_cache(self, slot: int):
-        """A B = 1 view of ``slot``'s rows of the cache."""
-        blocks = self.cache["blocks"]
-        return {"index": self.cache["index"][slot],
-                "blocks": {k: v[:, slot:slot + 1] for k, v in blocks.items()}}
+        """A B = 1 view of ``slot``'s rows of every entry of the cache
+        (the layer stacks' (L, B, max_seq, ...) tensors)."""
+        view = {key: {k: v[:, slot:slot + 1] for k, v in entry.items()}
+                for key, entry in self.cache.items() if key != "index"}
+        view["index"] = self.cache["index"][slot]
+        return view
 
     def _admit(self):
         self._expire_waiting()
@@ -151,8 +156,10 @@ class ServingEngine:
             toks = np.full((1, plen), 0, np.int64)
             toks[0, :len(r.prompt)] = r.prompt
             cache1 = self._slot_cache(slot)
-            for x in cache1["blocks"].values():
-                x.zero_()
+            for key, entry in cache1.items():
+                if key != "index":
+                    for x in entry.values():
+                        x.zero_()
             logits, _ = forward(self.cfg, self.params,
                                 torch.from_numpy(toks).to(self.device),
                                 cache=cache1, mode="prefill")

@@ -269,7 +269,34 @@ def test_remat_rejects_an_unknown_mode():
 
 
 def test_loss_fn_refuses_moe_and_mtp():
-    _, _, cfg, tp = _tiny()
-    for over in ({"mtp": True}, {"moe": object()}):
-        with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-            tm.loss_fn(dataclasses.replace(cfg, **over), tp, _batch(16))
+    """What loss_fn once refused, the MoE term and DeepSeek-V3's
+    multi-token prediction, now against the JAX package: reduced Arctic
+    and DeepSeek-V3 at 2 layers (test_torch_moe_models.models), their
+    metrics (``ce``, ``moe_aux``, ``mtp_ce``, ``loss``) and the gradient
+    of every parameter against ``jax.grad``; the router bias, which only
+    selects, has none in either."""
+    from test_torch_moe_models import ARCHS, models
+    for arch in ARCHS:
+        jcfg, jp, cfg, tp = models(arch)
+        batch = _batch(40, vocab=cfg.vocab_size, seed=2)
+        (_, jmet), jg = jax.jit(jax.value_and_grad(
+            lambda p: jm.loss_fn(jcfg, p, {k: jnp.asarray(v) for k, v in
+                                           batch.items()}),
+            has_aux=True))(jp)
+        flat = [t.requires_grad_(True) for t in jax.tree.leaves(tp)]
+        loss, met = tm.loss_fn(cfg, tp, batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        met = {k: v.detach() for k, v in met.items()}
+        want = {"ce", "moe_aux", "loss"} | ({"mtp_ce"} if cfg.mtp else set())
+        assert set(met) == set(jmet) == want
+        assert float(met["moe_aux"]) > 0
+        for key in met:
+            assert abs(float(met[key]) - float(jmet[key])) <= \
+                1e-5 * max(abs(float(jmet[key])), 1.0), (arch, key)
+        jconv = params_from_jax(cfg, jax.tree.map(np.asarray, jg),
+                                device="cpu")
+        for g, w in zip(grads, jax.tree.leaves(jconv)):
+            if not torch.any(w):
+                assert g is None or not torch.any(g)
+            else:
+                assert _rel(g.numpy(), w.numpy()) <= GRAD_BAR, arch
