@@ -16,6 +16,7 @@ input that requires grad is refused.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -25,12 +26,18 @@ from ..core.strassen import ieee_fp32
 from . import _launch
 from ._launch import INT, PTR
 
-__all__ = ["flash_attention", "HEAD_DIMS", "NEG_INF", "q_tile", "kv_tile"]
+__all__ = ["flash_attention", "HEAD_DIMS", "NEG_INF", "q_tile", "kv_tile",
+           "LAUNCH_SHAPES"]
 
 NEG_INF = -1e30
 #: head dims the kernel takes (bf16 runs 16 and 32 as 64, and 80 as 128)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
+
+#: Launches of the kernel by shape, (B, H, Hkv, Sq, Skv, D, causal,
+#: dtype name), bumped where ``_launch.KERNEL_LAUNCHES["flash_attention"]``
+#: is, so its counts sum to that count when both are zeroed together.
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 #: the dtypes the tensor-core kernel runs
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
@@ -146,4 +153,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    v.data_ptr(), out.data_ptr(), b, h, hkv, sq, skv, d,
                    scale, softcap, int(bool(causal)), window,
                    _launch.DTYPE_CODES[q.dtype], device=device)
+    LAUNCH_SHAPES[(b, h, hkv, sq, skv, d, bool(causal),
+                   str(q.dtype).removeprefix("torch."))] += 1
     return out

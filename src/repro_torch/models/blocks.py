@@ -1,15 +1,18 @@
-"""Transformer blocks of the port: norms and residuals around the layers.
+"""Blocks of the port: norms and residuals around the layers.
 
-The port of the attention block of ``repro/models/blocks.py``:
+The port of ``repro/models/blocks.py``.  The attention block,
 
-    attn_block(params, x, cfg, *, layer_idx, pos, cache=None)
-      -> (x, new_cache)
+    attn_block(params, x, cfg, *, layer_idx, pos, cache=None,
+               enc_out=None, causal=True) -> (x, new_cache)
 
-``cache`` is a dict or None; ``pos`` carries (positions, q_pos, kv_pos,
-kv_len) so train, prefill and decode share one code path.  Where the JAX
-package returns a new cache, the port writes the new keys and values
-into the cache's tensors in place and returns them (a decode step would
-otherwise copy the whole cache).  The moe family's two blocks,
+serves the dense families, Zamba2's shared block and both of Whisper's
+stacks (its decoder's blocks carry a cross-attention over the encoder's
+output).  ``cache`` is a dict or None; ``pos`` carries (positions,
+q_pos, kv_pos, kv_len) so train, prefill and decode share one code path.
+Where the JAX package returns a new cache, the port writes the new keys
+and values (and the SSM's states) into the cache's tensors in place and
+returns them (a decode step would otherwise copy the whole cache).  The
+moe family's two blocks,
 
     moe_block / mla_block(params, x, cfg, *, layer_idx, pos, cache=None,
                           rows_apart=False) -> (x, new_cache, aux)
@@ -17,8 +20,12 @@ otherwise copy the whole cache).  The moe family's two blocks,
 return the MoE layer's load-balance term as well (0 for DeepSeek-V3's
 dense layers); ``rows_apart`` routes each row's tokens on their own (the
 batched decode, where the JAX serving engine vmaps over its slots).  The
-SSM blocks and cross-attention come with their families (ROADMAP.md
-Queue 1 #11).
+Mamba2 block,
+
+    ssm_block(params, x, cfg, *, layer_idx, cache=None, decode=False)
+      -> (x, new_cache)
+
+keeps no positions: its cache is the conv window and the SSM state.
 """
 from __future__ import annotations
 
@@ -53,10 +60,11 @@ def _window_for_layer(cfg: ModelConfig, layer_idx: int) -> Optional[int]:
 
 
 # ---------------------------------------------------------------------------
-# Attention (+MLP) block — dense families, gemma2, chameleon, qwen
+# Attention (+MLP) block — dense families, gemma2, chameleon, qwen, whisper
 # ---------------------------------------------------------------------------
 
-def init_attn_block(cfg: ModelConfig, mk, *, d_ff: Optional[int] = None):
+def init_attn_block(cfg: ModelConfig, mk, *, cross: bool = False,
+                    d_ff: Optional[int] = None):
     p = {
         "ln_attn": L.init_norm(cfg, cfg.d_model, mk),
         "attn": L.init_attention(cfg, mk),
@@ -66,6 +74,9 @@ def init_attn_block(cfg: ModelConfig, mk, *, d_ff: Optional[int] = None):
     if cfg.post_norms:
         p["post_attn"] = L.init_norm(cfg, cfg.d_model, mk)
         p["post_mlp"] = L.init_norm(cfg, cfg.d_model, mk)
+    if cross:
+        p["ln_cross"] = L.init_norm(cfg, cfg.d_model, mk)
+        p["cross"] = L.init_attention(cfg, mk)
     return p
 
 
@@ -112,13 +123,16 @@ def _self_attention(p, h, cfg: ModelConfig, *, layer_idx: int,
 
 def attn_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
                cache=None, enc_out=None, causal=True):
-    """Pre-norm attention + MLP block (optional gemma2 post-norms).
-    cache: {"k", "v"} of (B, max_seq, Hkv, D), updated in place, or
-    None."""
-    if "cross" in p or enc_out is not None:
-        raise NotImplementedError(
-            "cross-attention (the audio family) is not ported: ROADMAP.md "
-            "Queue 1 #11")
+    """Pre-norm attention + MLP block (optional gemma2 post-norms, optional
+    whisper cross-attention).  cache: {"k", "v"} of (B, max_seq, Hkv, D)
+    [+ the cross keys and values {"ck", "cv"} of (B, encoder_seq, Hkv,
+    D)], updated in place, or None.
+
+    The cross-attention's q has no rope (whisper's positions are
+    learned); its keys and values come from ``enc_out`` where it is
+    given (train, prefill: then written into the cache) and from the
+    cache in decode.  It is non-causal and always takes the "xla"
+    branch, as in the JAX package."""
     h = L.apply_norm(p["ln_attn"], x, cfg)
     o, new_cache = _self_attention(p["attn"], h, cfg, layer_idx=layer_idx,
                                    pos=pos, cache=cache, causal=causal,
@@ -126,6 +140,22 @@ def attn_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
     if cfg.post_norms:
         o = L.apply_norm(p["post_attn"], o, cfg)
     x = x + o
+
+    if "cross" in p:
+        h = L.apply_norm(p["ln_cross"], x, cfg)
+        if enc_out is None:                         # decode: cached cross K/V
+            qc = L.attention_q(p["cross"], h, cfg)
+            kc, vc = cache["ck"], cache["cv"]
+        else:
+            qc, kc, vc = L.attention_qkv(p["cross"], h, cfg, kv_src=enc_out)
+            if cache is not None:                   # prefill: cache them
+                kc, vc = cache["ck"].copy_(kc), cache["cv"].copy_(vc)
+        if new_cache is not None:
+            new_cache.update(ck=kc, cv=vc)
+        enc_pos = torch.arange(kc.shape[1], device=x.device)
+        oc = L.attention(qc, kc, vc, q_pos=pos.q_pos, kv_pos=enc_pos,
+                         causal=False)
+        x = x + L.attention_out(p["cross"], oc, cfg)
 
     h = L.apply_norm(p["ln_mlp"], x, cfg)
     o = L.apply_mlp(p["mlp"], h, cfg)
@@ -223,3 +253,36 @@ def moe_block(p, x, cfg: ModelConfig, *, layer_idx: int, pos: PosInfo,
         o = o + L.apply_mlp(p["dense"], L.apply_norm(p["ln_dense"], x, cfg),
                             cfg)
     return x + o, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# SSM block (Mamba2) — norm + SSD + residual (no MLP when d_ff == 0)
+# ---------------------------------------------------------------------------
+
+def init_ssm_block(cfg: ModelConfig, mk):
+    p = {"ln": L.init_norm(cfg, cfg.d_model, mk), "ssm": L.init_ssm(cfg, mk)}
+    if cfg.d_ff:
+        p["ln_mlp"] = L.init_norm(cfg, cfg.d_model, mk)
+        p["mlp"] = L.init_mlp(cfg, mk)
+    return p
+
+
+def ssm_block(p, x, cfg: ModelConfig, *, layer_idx: int, cache=None,
+              decode: bool = False):
+    """Norm + Mamba2 layer + residual (+ an MLP where ``cfg.d_ff``).
+    cache: {"conv" (B, W-1, conv_dim), "ssm" (B, H, P, N) fp32}, updated
+    in place, or None.  A prefill starts its SSM from the cache's state
+    and its conv from zeros, as in the JAX package."""
+    del layer_idx
+    h = L.apply_norm(p["ln"], x, cfg)
+    o, (conv, ssm) = L.apply_ssm(
+        p["ssm"], h, cfg, conv_state=None if cache is None else cache["conv"],
+        ssm_state=None if cache is None else cache["ssm"], decode=decode)
+    x = x + o
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": cache["conv"].copy_(conv),
+                     "ssm": cache["ssm"].copy_(ssm)}
+    if "mlp" in p:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln_mlp"], x, cfg), cfg)
+    return x, new_cache

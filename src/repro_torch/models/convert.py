@@ -3,10 +3,13 @@
 ``params_from_jax(cfg, tree)`` takes the JAX parameter tree with numpy
 arrays at its leaves (``jax.tree.map(np.asarray, params)``) and returns
 the port's parameters: the same dicts, with each layer stack (each leaf
-of ``tree["blocks"]``, and of DeepSeek-V3's ``mla_dense`` and
-``mla_moe``, stacked on a leading L axis) split into a list of per-layer
-dicts; a MoE layer's expert weights stay one (E, d, f) tensor, and the
-``mtp`` head, one block with no layer axis, comes over as it is.  Both
+of ``tree["blocks"]``, of DeepSeek-V3's ``mla_dense`` and ``mla_moe``
+and of Whisper's ``enc_blocks``, stacked on a leading L axis) split into
+a list of per-layer dicts; a MoE layer's expert weights stay one (E, d,
+f) tensor, and a block with no layer axis (the ``mtp`` head, Zamba2's
+``shared_attn``) comes over as it is.  Each leaf keeps its dtype: the
+SSD's fp32 ``a_log``, ``d_skip`` and ``dt_bias`` stay fp32 in a bf16
+model, as there.  Both
 then compute the same thing, which is how the tests hold the port to
 the reference.  Every leaf of the tree is mapped
 and none is left over: a missing leaf, an extra one or a shape that

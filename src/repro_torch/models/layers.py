@@ -1,6 +1,7 @@
-"""Layer library of the port: norms, rope, GQA attention, MLPs.
+"""Layer library of the port: norms, rope, attention (GQA/MLA), MLPs,
+MoE, Mamba2-SSD.
 
-The port of the dense part of ``repro/models/layers.py``.  Functional
+The port of ``repro/models/layers.py``.  Functional
 layers over parameter dicts, as in the JAX package:
 
 - activations (B, S, D); attention heads (B, S, H, Dh);
@@ -17,7 +18,11 @@ and prefill).  Otherwise sequences longer than ``cfg.attn_chunk_q`` take
 the chunked branch (an online softmax over kv chunks, each step
 rematerialized in the backward), as in the JAX package, and shorter ones
 and decode the one-shot branch, plain torch where the JAX package leaves
-both to XLA.
+both to XLA.  Non-causal attention (Whisper's encoder) hands the kernel
+its keys unpadded, whatever their length: the kernel masks its ragged
+edges itself.  The JAX package pads the keys to blocks of 512 and so
+refuses a non-causal length that is not a multiple of 512 (1500 frames
+at full width; ROADMAP.md Queue 3); wherever it runs, the two agree.
 
 MLA (DeepSeek-V3's multi-head latent attention) runs its two branches as
 the JAX package: the absorbed one (decode, and a prefill shorter than
@@ -26,8 +31,12 @@ the cache) in the compressed space, the expanded one through
 k and v, and MLA's v is narrower than its q (ROADMAP.md Queue 3).  The
 MoE layer is the JAX package's sort-based capacity dispatch with every
 expert on the one card; its expert-parallel ``shard_map`` branch waits
-for the mesh policies (ROADMAP.md Queue 1 #11 step 7).  The Mamba2 SSD
-layer comes with its family.
+for the mesh policies (ROADMAP.md Queue 1 #11 step 7).
+
+The Mamba2 SSD layer (``init_ssm``, ``apply_ssm``) is the JAX package's
+chunked dual form: einsums in fp32 (TF32 off) and, where the JAX package
+scans its chunk states, a loop over the chunks.  It has no Pallas
+kernel, so it is plain torch here too.
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..configs.base import MLAConfig, ModelConfig, MoEConfig
+from ..configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from ..core.strassen import ieee_fp32
 
 # A large-but-finite mask value: big enough to zero softmax weight, small
@@ -88,6 +97,12 @@ class Init:
         return torch.zeros(shape, dtype=dtype or self.dtype,
                            device=self.device)
 
+    def log_range(self, n: int, dtype=None) -> torch.Tensor:
+        """log(1), ..., log(n) (Mamba2's ``a_log``)."""
+        return torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                      device=self.device)).to(
+            dtype or self.dtype)
+
 
 class Spec:
     """Shapes alone: the parameter tree's layout, allocating nothing."""
@@ -99,6 +114,9 @@ class Spec:
         return tuple(shape)
 
     zeros = ones
+
+    def log_range(self, n: int, dtype=None):
+        return (n,)
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +228,10 @@ def attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None,
             "its dry-run; not ported (ROADMAP.md Queue 1 #11)")
     if impl == "flash" and sq > 1 and kv_len is None:
         from ..kernels import ops as _kops
+        # non-causal: one kv block as long as the keys, so none is padded
         return _kops.flash_mha(q, k, v, causal=causal, window=window or 0,
                                softcap=float(attn_softcap or 0.0),
+                               block_kv=512 if causal else skv,
                                device=q.device)
     if chunk_q and sq > chunk_q and skv > max(chunk_kv, 1):
         return _chunked_attention(
@@ -332,22 +352,34 @@ def init_attention(cfg: ModelConfig, mk):
     return p
 
 
+def attention_q(p, x, cfg: ModelConfig):
+    """The query projection (+bias, qk-norm) with no rope: what the
+    cross-attention reads of the decoder."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim_)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(1, 1, cfg.num_heads, cfg.head_dim_)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
 def attention_qkv(p, x, cfg: ModelConfig, *, kv_src=None, positions=None,
                   kv_positions=None):
-    """Project to q, k, v (+bias, qk-norm, rope). Returns (q, k, v)."""
-    b, s, _ = x.shape
+    """Project to q, k, v (+bias, qk-norm, rope). Returns (q, k, v).
+    ``kv_src`` (the encoder's output, for cross-attention) gives k and v
+    in place of x."""
+    b, _, _ = x.shape
     hd = cfg.head_dim_
     kv_src = x if kv_src is None else kv_src
     skv = kv_src.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
+    q = attention_q(p, x, cfg)
     k = (kv_src @ p["wk"]).reshape(b, skv, cfg.num_kv_heads, hd)
     v = (kv_src @ p["wv"]).reshape(b, skv, cfg.num_kv_heads, hd)
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(1, 1, cfg.num_heads, hd)
         k = k + p["bk"].reshape(1, 1, cfg.num_kv_heads, hd)
         v = v + p["bv"].reshape(1, 1, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_head_norm(k, p["k_norm"], cfg.norm_eps)
     if cfg.pos_emb == "rope" and positions is not None:
         cos_q, sin_q = rope_table(positions, hd, cfg.rope_theta)
@@ -618,3 +650,173 @@ def moe_load_aux(probs, top_idx, e):
     f = hits / (t * k)
     pbar = probs.mean(dim=0)
     return e * (f * pbar).sum()
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD, chunked) — the SSD dual form of arXiv:2405.21060
+# ---------------------------------------------------------------------------
+
+def init_ssm(cfg: ModelConfig, mk):
+    s: SSMConfig = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    h = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.state_dim
+    sc = 0.02
+    f32 = torch.float32
+    # in_proj emits [z, x, B, C, dt]
+    zxbcdt = 2 * d_in + 2 * s.n_groups * s.state_dim + h
+    return {
+        "w_in": mk.normal((d, zxbcdt), sc),
+        "conv_w": mk.normal((s.conv_width, conv_dim), sc),
+        "conv_b": mk.zeros((conv_dim,)),
+        "a_log": mk.log_range(h, dtype=f32),
+        "d_skip": mk.ones((h,), dtype=f32),
+        "dt_bias": mk.zeros((h,), dtype=f32),
+        "norm": mk.ones((d_in,)),
+        "w_out": mk.normal((d_in, d), sc / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _segsum(x):
+    """x: (..., Q) -> (..., Q, Q) lower-tri cumulative sums over segments,
+    -inf above the diagonal."""
+    q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, -math.inf)
+
+
+def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int, init_state=None):
+    """SSD scan, in fp32.  xh: (B, S, H, P); dt: (B, S, H) fp32; a: (H,)
+    fp32 (negative); bmat/cmat: (B, S, G, N).  Returns (y (B, S, H, P),
+    final_state (B, H, P, N)), both fp32.
+
+    Head h reads group h // (H / G) (``jnp.repeat``'s order), so the
+    heads are laid out as (G, H / G) and each group's B and C are read
+    without repeating them; C Bᵀ, the same for every head of a group, is
+    computed once a group.  A sequence that is not a multiple of the
+    chunk is zero-padded: a padded dt of 0 leaves the state as it is, so
+    ``final_state`` is the one after the last true position."""
+    b, s_len, h, p_dim = xh.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    r = h // g
+    q = min(chunk, s_len)
+    nc = -(-s_len // q)
+    pad = nc * q - s_len
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, 0, 0, pad))
+    with ieee_fp32():
+        # chunked views: (B, NC, Q, G, R, ...)
+        xc = xh.reshape(b, nc, q, g, r, p_dim).float()
+        dtc = dt.reshape(b, nc, q, g, r).float()
+        bc = bmat.reshape(b, nc, q, g, n).float()
+        cc = cmat.reshape(b, nc, q, g, n).float()
+
+        da = dtc * a.float().reshape(g, r)           # (B,NC,Q,G,R) negative
+        da_cum = torch.cumsum(da, dim=2)             # within-chunk cumsum
+        da_total = da_cum[:, :, -1]                  # (B,NC,G,R)
+        dx = dtc[..., None] * xc                     # dt x
+
+        # 1) intra-chunk (dual quadratic form): Y_d = (C Bᵀ . L) (dt x)
+        l_mat = torch.exp(_segsum(da.permute(0, 1, 3, 4, 2)))  # (B,NC,G,R,Q,Q)
+        cb = torch.einsum("bcqgn,bckgn->bcgqk", cc, bc)
+        att = cb[:, :, :, None] * l_mat
+        y_diag = torch.einsum("bcgrqk,bckgrp->bcqgrp", att, dx)
+
+        # 2) chunk states: S_c = sum_k exp(da_total - da_cum_k) dt_k B_k x_k
+        decay = torch.exp(da_total[:, :, None] - da_cum)         # (B,NC,Q,G,R)
+        states = torch.einsum("bcqgn,bcqgrp->bcgrpn", bc,
+                              decay[..., None] * dx)             # (B,NC,G,R,P,N)
+
+        # 3) inter-chunk recurrence over the chunk states
+        carry = (torch.zeros((b, g, r, p_dim, n), device=xh.device)
+                 if init_state is None
+                 else init_state.float().reshape(b, g, r, p_dim, n))
+        prev = []
+        for c in range(nc):
+            prev.append(carry)                        # state BEFORE chunk c
+            carry = states[:, c] \
+                + carry * torch.exp(da_total[:, c])[..., None, None]
+        prev_states = torch.stack(prev, 1)           # (B,NC,G,R,P,N)
+
+        # 4) inter-chunk output: Y_off = C . exp(da_cum) . prev_state
+        y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", cc, prev_states) \
+            * torch.exp(da_cum)[..., None]
+
+    y = (y_diag + y_off).reshape(b, nc * q, h, p_dim)[:, :s_len]
+    return y, carry.reshape(b, h, p_dim, n)
+
+
+def apply_ssm(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
+              decode=False):
+    """Mamba-2 layer.  Train/prefill: the whole sequence (chunked SSD,
+    from ``ssm_state`` where given).  Decode: one token's recurrent update
+    from (conv_state (B, W-1, conv_dim), ssm_state (B, H, P, N)).
+    Returns (out (B, S, D), (new conv_state in x's dtype, new ssm_state
+    in fp32))."""
+    s: SSMConfig = cfg.ssm
+    b, seq, _ = x.shape
+    d_in = s.expand * cfg.d_model
+    h = d_in // s.head_dim
+    g, n = s.n_groups, s.state_dim
+    conv_dim = d_in + 2 * g * n
+
+    zxbcdt = x @ p["w_in"]
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:d_in + conv_dim]
+    dt_raw = zxbcdt[..., d_in + conv_dim:]            # (B,S,H)
+
+    # causal depthwise conv over xbc, in x's dtype
+    w = p["conv_w"]                                    # (W, conv_dim)
+    cw = s.conv_width
+    if decode:
+        window = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)  # (B,W,C)
+        new_conv_state = window[:, 1:]
+        with ieee_fp32():
+            conv = torch.einsum("bwc,wc->bc", window.float(), w.float())
+        xbc = conv.to(x.dtype)[:, None] + p["conv_b"]
+    else:
+        xp = F.pad(xbc, (0, 0, cw - 1, 0))
+        new_conv_state = xp[:, xp.shape[1] - (cw - 1):]
+        # the JAX package's sum(xp[:, i:i+seq] * w[i]), term by term
+        conv = xp[:, 0:seq] * w[0]
+        for i in range(1, cw):
+            conv = conv + xp[:, i:i + seq] * w[i]
+        xbc = conv + p["conv_b"]
+    xbc = F.silu(xbc)
+
+    xin = xbc[..., :d_in].reshape(b, -1, h, s.head_dim)
+    bmat = xbc[..., d_in:d_in + g * n].reshape(b, -1, g, n)
+    cmat = xbc[..., d_in + g * n:].reshape(b, -1, g, n)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])                         # (H,) negative
+
+    if decode:
+        # recurrent: state' = exp(dt a) state + dt B x ; y = C state' + D x
+        # head h reads group h // (H / G): jnp.repeat's order, by a view
+        bh, ch = (m[:, 0, :, None].expand(b, g, h // g, n).reshape(b, h, n)
+                  .float() for m in (bmat, cmat))             # (B,H,N)
+        xf = xin[:, 0].float()                         # (B,H,P)
+        dt0 = dt[:, 0]                                 # (B,H)
+        decay = torch.exp(dt0 * a[None, :])[:, :, None, None]
+        upd = (dt0[:, :, None] * xf)[..., None] * bh[:, :, None, :]
+        new_state = ssm_state.float() * decay + upd
+        with ieee_fp32():
+            y = torch.einsum("bhpn,bhn->bhp", new_state, ch)
+        y = y + p["d_skip"][None, :, None] * xf
+        y = y.reshape(b, 1, d_in)
+    else:
+        yh, new_state = _ssd_chunked(xin, dt, a, bmat, cmat, s.chunk,
+                                     init_state=ssm_state)
+        yh = yh + p["d_skip"][None, None, :, None] * xin.float()
+        y = yh.reshape(b, seq, d_in)
+
+    y = (y * F.silu(z.float())).to(x.dtype)
+    y = rms_head_norm(y, p["norm"], cfg.norm_eps)
+    out = y @ p["w_out"]
+    return out, (new_conv_state.to(x.dtype), new_state)

@@ -1,9 +1,10 @@
 """Batched KV-cache serving engine (slot-based continuous batching).
 
-The port of ``repro/runtime/serving.py``, unchanged in behaviour: fixed
-``slots`` request slots; prefill runs per request at bucketed prompt
-lengths; decode runs one step over all slots per tick, requests at
-different positions together; greedy or temperature sampling;
+The port of ``repro/runtime/serving.py``, its behaviour unchanged but
+for the recurrent families' prefill (below): fixed ``slots`` request
+slots; prefill runs per request at bucketed prompt lengths; decode runs
+one step over all slots per tick, requests at different positions
+together; greedy or temperature sampling;
 admission pops the waiting list in (priority, deadline, FIFO) order and a
 request past its deadline while still waiting is failed fast
 (``status="deadline"``) instead of occupying a slot.
@@ -19,6 +20,17 @@ ever read.  Under the JAX engine's vmap each slot's MoE dispatch sees its
 one token (capacity 1, nothing dropped); the port's batched decode routes
 each row on its own likewise (``models.forward`` in decode mode), so the
 slots never compete for an expert's capacity.
+
+Where the cache holds recurrent state (the ssm and hybrid families:
+Mamba2's conv window and SSM state), a request is prefilled at its
+prompt's true length, not at its bucket: the JAX engine's right padding
+would run the pad tokens through the recurrence, so that decode would
+start from a state the prompt never reached (ROADMAP.md Queue 3).  The
+attention families keep the bucket, whose padded keys decode overwrites.
+The audio family (Whisper) is refused: its prefill needs the encoder's
+``enc_inputs``, which no request carries (the JAX engine cannot serve it
+either); it runs through ``models.prefill(enc_inputs=)`` and
+``decode_step``.
 
 Greedy decoding is exact.  Temperature sampling draws from a
 ``torch.Generator`` seeded from ``seed``: the same distribution as
@@ -60,6 +72,10 @@ class Request:
     t_first: Optional[float] = None   # host clock at the first token
 
 
+#: the families whose cache holds recurrent state, prefilled unpadded
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+
+
 def _bucket(n: int) -> int:
     return 1 << max(4, math.ceil(math.log2(max(n, 1))))
 
@@ -68,6 +84,11 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_seq: int = 256, temperature: float = 0.0, seed: int = 0,
                  device=None):
+        if cfg.family == "audio":
+            raise ValueError(
+                f"the serving engine takes no encoder inputs, so it cannot "
+                f"serve {cfg.name} (family audio): run prefill(enc_inputs=) "
+                f"and decode_step")
         on = params["embed"].device
         if on.type != resolve_device(device).type:
             raise ValueError(f"the parameters lie on {on}, the engine runs "
@@ -77,6 +98,8 @@ class ServingEngine:
         self.slots, self.max_seq = slots, max_seq
         self.temperature = temperature
         self.generator = torch.Generator(device=on).manual_seed(seed)
+        # prefill at the prompt's true length where the cache is recurrent
+        self.true_length = cfg.family in RECURRENT_FAMILIES
         self._uid = itertools.count()
         # one cache, the slots as its batch, one index per slot
         self.cache = init_cache(cfg, slots, max_seq, device=on)
@@ -152,7 +175,8 @@ class ServingEngine:
                 continue
             r = self.waiting.pop(0)
             t0 = time.perf_counter()
-            plen = _bucket(len(r.prompt))
+            plen = len(r.prompt) if self.true_length \
+                else _bucket(len(r.prompt))
             toks = np.full((1, plen), 0, np.int64)
             toks[0, :len(r.prompt)] = r.prompt
             cache1 = self._slot_cache(slot)
@@ -163,9 +187,10 @@ class ServingEngine:
             logits, _ = forward(self.cfg, self.params,
                                 torch.from_numpy(toks).to(self.device),
                                 cache=cache1, mode="prefill")
-            # bucket-padded on the RIGHT: the true last position is
-            # len(prompt)-1; rewind index to the true length so decode
-            # writes the next token at position len(prompt).
+            # bucket-padded on the RIGHT (the attention families): the true
+            # last position is len(prompt)-1; rewind index to the true
+            # length so decode writes the next token at position
+            # len(prompt).
             self.cache["index"][slot] = len(r.prompt)
             # first generated token comes from the prefill logits
             first = int(self._sample(logits[0, len(r.prompt) - 1][None])[0])

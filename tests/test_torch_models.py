@@ -245,14 +245,21 @@ def test_decode_with_one_index_per_row():
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_every_ported_arch_matches_jax(arch):
-    """The dense and vlm archs at their reduced configs (GQA, QKV bias,
-    qk-norm, gemma2's softcaps, post-norms and alternating window),
-    train mode over 96 tokens: the "xla" attention takes the chunked
-    branch (chunks of 64)."""
+    """Every arch at its reduced config (GQA, QKV bias, qk-norm, gemma2's
+    softcaps, post-norms and alternating window, the moe family, Mamba2's
+    SSD, Zamba2's shared block, Whisper's encoder-decoder over 16 frames
+    of numpy embeddings), train mode over 96 tokens: the "xla" attention
+    takes the chunked branch (chunks of 64)."""
     jcfg, jp, cfg, tp = _models(arch)
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 96))
-    jl, _, _ = jm.forward(jcfg, jp, jnp.asarray(toks), mode="train")
-    tl, _, _ = tm.forward(cfg, tp, torch.from_numpy(toks), mode="train")
+    enc = {}
+    if cfg.family == "audio":
+        enc = {"enc_inputs": np.random.default_rng(4).standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
+    jl, _, _ = jm.forward(jcfg, jp, jnp.asarray(toks), mode="train",
+                          **{k: jnp.asarray(v) for k, v in enc.items()})
+    tl, _, _ = tm.forward(cfg, tp, torch.from_numpy(toks), mode="train",
+                          **{k: torch.from_numpy(v) for k, v in enc.items()})
     assert _rel(tl.numpy(), jl) <= F32_BAR
 
 
@@ -312,12 +319,33 @@ def test_init_params_is_seeded_and_shaped():
 
 
 def test_unported_families_raise():
-    for name in ("mamba2-2.7b", "zamba2-2.7b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-            get_arch(name)
-    cfg = dataclasses.replace(reduced_arch("qwen2.5-3b"), family="ssm")
-    with pytest.raises(NotImplementedError, match="ssm"):
+    """Every family of the JAX package is ported; one it does not know
+    raises ``ValueError("unknown family ...")`` in ``init_params`` as the
+    JAX package's does, and in ``init_cache`` and ``forward`` too."""
+    jcfg = dataclasses.replace(jax_reduced_arch("qwen2.5-3b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        jm.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(reduced_arch("qwen2.5-3b"), family="rnn")
+    with pytest.raises(ValueError, match="unknown family rnn"):
         tm.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        tm.init_cache(cfg, 1, 8, device="cpu")
+    tp = tm.init_params(reduced_arch("qwen2.5-3b"), 0, device="cpu")
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        tm.forward(cfg, tp, torch.zeros((1, 4), dtype=torch.long))
+
+
+def test_registry_matches_jax():
+    """The JAX registry's ten archs, all six families, are the port's
+    ``ARCHS`` with every field equal, and their reduced configs too."""
+    from repro.configs.registry import ARCHS as JAX_ARCHS
+    from repro_torch.configs.registry import PORTED_FAMILIES
+    assert sorted(ARCHS) == sorted(JAX_ARCHS) and len(ARCHS) == 10
+    assert {c.family for c in ARCHS.values()} == set(PORTED_FAMILIES)
+    for name, jcfg in JAX_ARCHS.items():
+        assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(jcfg)
+        assert dataclasses.asdict(reduced_arch(name)) == \
+            dataclasses.asdict(jax_reduced_arch(name))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
